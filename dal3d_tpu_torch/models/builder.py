@@ -1,0 +1,126 @@
+"""Config-driven model construction (port of
+``dal3d_tpu/models/builder.py::build_detector``): config dict -> model on a
+device, task anchors, box coder and test config."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, List
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core.anchors import TaskAnchors, generate_task_anchors
+from ..core.box_coders import GroundBox3dCoder, build_box_coder
+from ..device import resolve_device
+from .backbones.scn import BANDED_CAPS_DEFAULT, BRICK_WIDTHS_DEFAULT
+from .detectors.voxelnet import FPNVoxelNet
+from .heads.mg_head import TestConfig
+from .layers import BatchNorm2d, MaskedBatchNorm, SparseConvDown, SubMConv
+from .necks.rpn import ConvBN
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass
+class DetectorBundle:
+    """Everything the predict step needs, built once from a config."""
+
+    model: Any  # FPNVoxelNet on ``device``
+    task_anchors: List[TaskAnchors]
+    box_coder: GroundBox3dCoder
+    test_cfg: TestConfig
+    device: torch.device
+
+
+def grid_size(voxel_generator) -> tuple:
+    """(Nx, Ny, Nz) = round((range_max - range_min) / voxel_size)."""
+    r = np.asarray(voxel_generator["range"], np.float64)
+    vs = np.asarray(voxel_generator["voxel_size"], np.float64)
+    g = np.round((r[3:] - r[:3]) / vs).astype(np.int64)
+    return int(g[0]), int(g[1]), int(g[2])
+
+
+def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random weights that keep activations O(1) through the stack:
+    convs ~ N(0, 2/fan_in), biases ~ 0.05 N(0, 1), BN affine and running
+    statistics near the identity with 10-20 % spread. Draws on the CPU from
+    ``generator``, so one seed gives the same weights on every device."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (SubMConv, SparseConvDown)):  # [K, Cin, Cout]
+                fan_in = m.weight.shape[0] * m.weight.shape[1]
+            elif isinstance(m, ConvBN):  # [Cin, Cout, k, k] if transpose
+                fan_in = (m.weight.shape[0] if m.transpose
+                          else int(np.prod(m.weight.shape[1:])))
+            elif isinstance(m, nn.Conv2d):  # head 1x1
+                fan_in = m.weight.shape[1]
+            else:
+                fan_in = 0
+            if fan_in:
+                m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                               * float(np.sqrt(2.0 / fan_in)))
+            if isinstance(m, (MaskedBatchNorm, BatchNorm2d)):
+                C = m.weight.shape[0]
+                m.weight.copy_(1 + 0.2 * torch.randn(C, generator=generator))
+                m.bias.copy_(0.1 * torch.randn(C, generator=generator))
+                m.running_mean.copy_(0.1 * torch.randn(C, generator=generator))
+                m.running_var.copy_(1 + 0.1 * torch.rand(C, generator=generator))
+            elif isinstance(m, nn.Conv2d) and m.bias is not None:
+                m.bias.copy_(0.05 * torch.randn(m.bias.shape, generator=generator))
+    return model
+
+
+def build_detector(cfg, device=None, seed: int = 0) -> DetectorBundle:
+    """cfg: experiment Config (model / tasks / voxel_generator / box_coder /
+    target_assigner / test_cfg). The model gets seeded random weights
+    (``init_random_``); load trained ones with ``model.load_state_dict``.
+    ``device=None`` means the CUDA card and raises when there is none."""
+    dev = resolve_device(device)
+    model_cfg = dict(cfg["model"])
+    if model_cfg.get("type") not in ("FPNVoxelNet", "VoxelNet"):
+        raise KeyError(f"unknown detector: {model_cfg.get('type')}")
+    backbone_cfg = dict(model_cfg.get("backbone", {}))
+    if backbone_cfg.get("impl", "gather") != "banded":
+        raise ValueError(f"the port runs the banded backbone, config asks for "
+                         f"impl={backbone_cfg.get('impl')!r}")
+    nx, ny, nz = grid_size(cfg["voxel_generator"])
+    sparse_shape = (nz + 1, ny, nx)
+
+    tasks = [dict(t) for t in cfg["tasks"]]
+    num_classes = tuple(int(t["num_class"]) for t in tasks)
+    box_coder = build_box_coder(dict(cfg["box_coder"]))
+    ds_factor = int(backbone_cfg.get("ds_factor", 8))
+    task_anchors = generate_task_anchors(
+        [dict(g) for g in cfg["target_assigner"]["anchor_generators"]], tasks,
+        [1, ny // ds_factor, nx // ds_factor])
+
+    tcfg = dict(cfg.get("test_cfg", {}) or {})
+    nms = dict(tcfg.get("nms", {}))
+    test_cfg = TestConfig(
+        nms_pre_max_size=int(nms.get("nms_pre_max_size", 1000)),
+        nms_post_max_size=int(nms.get("nms_post_max_size", 83)),
+        nms_iou_threshold=float(nms.get("nms_iou_threshold", 0.2)),
+        score_threshold=float(tcfg.get("score_threshold", 0.1)),
+        post_center_limit_range=tuple(
+            tcfg.get("post_center_limit_range", (-61.2, -61.2, -10.0, 61.2, 61.2, 10.0))),
+    )
+
+    neck_cfg = dict(model_cfg.get("neck", {}) or {})
+    reader_cfg = dict(model_cfg.get("reader", {}) or {})
+    model = FPNVoxelNet(
+        sparse_shape, num_classes=num_classes, code_size=box_coder.code_size,
+        num_input_features=int(reader_cfg.get("num_input_features", 5)),
+        rpn_layer_nums=tuple(neck_cfg.get("layer_nums", (5, 5))),
+        rpn_ds_strides=tuple(neck_cfg.get("ds_layer_strides", (1, 2))),
+        rpn_ds_filters=tuple(neck_cfg.get("ds_num_filters", (128, 256))),
+        rpn_us_strides=tuple(neck_cfg.get("us_layer_strides", (1, 2))),
+        rpn_us_filters=tuple(neck_cfg.get("us_num_filters", (256, 256))),
+        backbone_dtype=_DTYPES[str(backbone_cfg.get("dtype", "float32"))],
+        brick_widths=tuple(backbone_cfg.get("brick_widths", BRICK_WIDTHS_DEFAULT)),
+        banded_caps=tuple(backbone_cfg.get("banded_caps", BANDED_CAPS_DEFAULT)),
+    )
+    init_random_(model, torch.Generator().manual_seed(seed))
+    return DetectorBundle(
+        model=model.to(dev).eval(), task_anchors=task_anchors, box_coder=box_coder,
+        test_cfg=test_cfg, device=dev)

@@ -1,0 +1,101 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Imports torch and the port only (no JAX), so it runs on a GPU machine:
+    python -m pytest tests/test_torch_kernels_cuda.py -q --noconftest
+Every test takes the ``cuda`` fixture and skips on a box without a GPU. The
+plain versions are held to the JAX package by the other tests/test_torch_*
+files on the CPU; here the kernels are held to the plain versions."""
+import numpy as np
+import pytest
+import torch
+
+from dal3d_tpu_torch.models.builder import build_detector
+from dal3d_tpu_torch.ops import banded as tbd
+from dal3d_tpu_torch.ops import iou_matrix as tiou
+from dal3d_tpu_torch.runtime.steps import make_predict_step
+from torch_port_utils import cuda, mk_rulebook, small_cfg, small_voxels, t  # noqa: F401
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_banded_kernel_matches_plain(cuda, dtype):  # noqa: F811
+    """bf16: both sum the same bf16 products in f32 and round once, so they
+    agree to one bf16 ulp (2**-7 relative); f32: summation order only."""
+    rng = np.random.RandomState(5)
+    B, Q, M, Mb, R, Rout = 2, 9, 1000, 900, 288, 256
+    idx, hit = mk_rulebook(rng, B, Q, M, Mb, spread=200, miss_p=0.5)
+    idx = t(np.where(hit, idx, -1)).to(cuda)
+    idx[:, :, 640:704] = -1  # one 64-row block with no hit at all
+    table = t(rng.randn(B, Mb, R).astype(np.float32)).to(cuda, dtype)
+    w = t((rng.randn(Q, R, Rout) * 0.05).astype(np.float32)).to(cuda, dtype)
+    before = tbd.banded_conv.launches
+    got = tbd.banded_conv(table, idx, w)
+    torch.cuda.synchronize()
+    assert tbd.banded_conv.launches == before + 1
+    ref = tbd.banded_conv_plain(table, idx, w)
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
+    np.testing.assert_allclose(got.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               rtol=tol, atol=tol)
+
+
+def test_banded_kernel_pads_unaligned_widths(cuda):  # noqa: F811
+    """R 90 and Rout 306 are padded to the kernel's multiple of 8 and cut
+    back; M != Mb."""
+    rng = np.random.RandomState(3)
+    B, Q, M, Mb, R, Rout = 2, 3, 96, 80, 90, 306
+    idx, hit = mk_rulebook(rng, B, Q, M, Mb, spread=10)
+    idx = t(np.where(hit, idx, -1)).to(cuda)
+    table = t(rng.randn(B, Mb, R).astype(np.float32)).to(cuda)
+    w = t(rng.randn(Q, R, Rout).astype(np.float32)).to(cuda)
+    got = tbd.banded_conv(table, idx, w)
+    assert got.shape == (B, M, Rout)
+    np.testing.assert_allclose(got.cpu().numpy(), tbd.banded_conv_plain(table, idx, w).cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_iou_kernel_matches_plain(cuda):  # noqa: F811
+    """Same arithmetic, no FMA contraction on either side: atol 1e-5."""
+    rng = np.random.RandomState(0)
+    G, N = 3, 300
+    b = np.zeros((G, N, 5), np.float32)
+    b[..., 0:2] = rng.uniform(-40, 40, (G, N, 2))
+    b[..., 2:4] = rng.uniform(0.5, 6.0, (G, N, 2))
+    b[..., 4] = rng.uniform(-np.pi, np.pi, (G, N))
+    b[:, N // 2:] = b[:, :N - N // 2]  # exact duplicates
+    b[:, -1] = 0.0  # a zero (padding) box
+    rows = tiou._pack_rowdat(t(b).to(cuda))
+    before = tiou.iou_matrix.launches
+    got = tiou.iou_matrix(rows, rows)
+    torch.cuda.synchronize()
+    assert tiou.iou_matrix.launches == before + 1
+    ref = tiou.iou_matrix_plain(rows, rows)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=1e-5)
+    assert float(got[:, -1].abs().max()) == 0.0
+
+
+def test_predict_on_card_matches_cpu(cuda):  # noqa: F811
+    """The whole predict step in f32: kernels on the card vs the plain
+    versions on the CPU, same seeded weights and voxels. Detections agree as
+    sets (summation order only)."""
+    cfg = small_cfg()
+    vf, vc, vv = small_voxels(3)
+    batch = {"voxel_features": vf, "voxel_coords": vc, "voxel_valid": vv}
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        bundle = build_detector(cfg, device=dev, seed=0)
+        outs[dev] = {k: v.float().cpu() if v.is_floating_point() else v.cpu()
+                     for k, v in make_predict_step(bundle)(batch).items()}
+    a, b = outs["cpu"], outs["cuda"]
+    np.testing.assert_allclose(b["embedding"].numpy(), a["embedding"].numpy(),
+                               rtol=1e-4, atol=1e-4)
+    for i in range(vf.shape[0]):
+        va, vb = a["det_valid"][i], b["det_valid"][i]
+        assert int(va.sum()) == int(vb.sum()) > 0
+        sa, sb = a["scores"][i][va], b["scores"][i][vb]
+        oa, ob = torch.argsort(sa, descending=True), torch.argsort(sb, descending=True)
+        np.testing.assert_allclose(sb[ob].numpy(), sa[oa].numpy(), atol=1e-4)
+        np.testing.assert_allclose(b["box3d_lidar"][i][vb][ob].numpy(),
+                                   a["box3d_lidar"][i][va][oa].numpy(), atol=1e-3)
+        np.testing.assert_array_equal(b["label_preds"][i][vb][ob].numpy(),
+                                      a["label_preds"][i][va][oa].numpy())

@@ -1,0 +1,86 @@
+"""Rules of the PyTorch port.
+
+- Nothing under dal3d_tpu_torch/, nor chip_smoke.py, imports jax, flax,
+  optax or the JAX package.
+- An entry point called with no device needs a GPU: on a box without one it
+  raises instead of running on the CPU.
+- Both kernel wrappers expose launch counters, and on CPU tensors they run
+  their plain versions (and count nothing)."""
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from dal3d_tpu_torch.models.builder import build_detector
+from dal3d_tpu_torch.ops import banded as tbd
+from dal3d_tpu_torch.ops import iou_matrix as tiou
+from torch_port_utils import mk_rulebook, small_cfg, t
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dal3d_tpu")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "dal3d_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_port_imports_nothing_of_jax():
+    files = _port_files()
+    assert len(files) > 20
+    bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imported_roots(f)
+           if m in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_scan_catches_a_forbidden_import(tmp_path):
+    p = tmp_path / "mod.py"
+    p.write_text("import os\nfrom dal3d_tpu.ops import banded\n")
+    assert "dal3d_tpu" in set(_imported_roots(str(p)))
+
+
+def test_entry_point_without_device_needs_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_detector(small_cfg())
+    assert build_detector(small_cfg(), device="cpu").device.type == "cpu"
+
+
+def test_kernel_wrappers_count_and_take_plain_on_cpu():
+    rng = np.random.RandomState(0)
+    idx, hit = mk_rulebook(rng, 2, 3, 64, 64, spread=8)
+    idx = t(np.where(hit, idx, -1))
+    table = t(rng.randn(2, 64, 16).astype(np.float32))
+    w = t(rng.randn(3, 16, 24).astype(np.float32))
+    rows = tiou._pack_rowdat(t(rng.uniform(1, 4, (2, 10, 5)).astype(np.float32)))
+    n1, n2 = tbd.banded_conv.launches, tiou.iou_matrix.launches
+    assert isinstance(n1, int) and isinstance(n2, int)
+    assert torch.equal(tbd.banded_conv(table, idx, w), tbd.banded_conv_plain(table, idx, w))
+    assert torch.equal(tiou.iou_matrix(rows, rows), tiou.iou_matrix_plain(rows, rows))
+    assert (tbd.banded_conv.launches, tiou.iou_matrix.launches) == (n1, n2)
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    meta = torch.zeros(2, 8, 8, device="meta")
+    with pytest.raises(ValueError):
+        tbd.banded_conv(meta, torch.zeros(2, 1, 8, dtype=torch.int32, device="meta"),
+                        torch.zeros(1, 8, 8, device="meta"))
+    with pytest.raises(ValueError):
+        tiou.iou_matrix(torch.zeros(1, 4, 32, device="meta"), torch.zeros(1, 4, 32, device="meta"))
