@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, CBGS FPNVoxelNet predict
-(configs/cbgs_spatial_temporal.py: banded bf16 backbone, RPN, 6-group head,
-top-k + decode + rotated-IoU NMS) at full width on B=2 lidar-like clouds of
-250k points voxelized on the host (mean features, <= 60000 voxels, bf16),
-with seeded random weights. Phases, each fatal on failure:
+Drives the port's main paths at full width with seeded random weights: the
+CBGS FPNVoxelNet predict (configs/cbgs_spatial_temporal.py: banded bf16
+backbone, RPN, 6-group head, top-k + decode + rotated-IoU NMS) on B=2
+lidar-like clouds of 250k points voxelized on the host (mean features,
+<= 60000 voxels, bf16), and one active-learning selection round through the
+selection CLI (pool dataset and loader -> predict every frame -> pool scoring
+-> selector -> budgeted greedy k-center -> buffer JSON + subset infos).
+Phases, each fatal on failure:
 
   1. versions of torch / CUDA / nvcc and the card (nvidia-smi);
   2. builds every kernel from the sources in this checkout (one nvcc per
@@ -21,7 +24,22 @@ with seeded random weights. Phases, each fatal on failure:
   5. the main path: launch counters set to 0, a warm-up and 10 timed
      predicts, counters read; outputs checked (shapes, finite); the BEV map,
      embedding and head maps held against the same forward with every kernel
-     swapped for its plain version; per-stage split and peak memory.
+     swapped for its plain version; per-stage split and peak memory;
+  6. the pairwise L1 / L2 distance kernels against their plain versions at
+     the selection's shapes ([4096 | 1 | 600, 512] x [28130, 512] and an
+     awkward small one), with times for kernel, plain version, torch.cdist
+     and the bound;
+  7. one selection round at full width: a synthetic pool of 32 frames in the
+     nuScenes infos schema (250k-point clouds over keyframe + 9 sweep files)
+     goes through ``dal3d_tpu_torch.tools.active_select.main`` with a
+     FeatureSelector (l2_ref and l2, matrix and streaming) and the
+     SpatialTemporalSelector; buffer, subset and pool scores are checked,
+     launch counters of all four kernels held to their expected counts, and
+     the pool-scoring rate is split into loader / device / fetch;
+  8. selection at nuScenes-train size: 28130 seeded embeddings, budget 4800
+     on top of a prior round of 600 frames, matrix and streaming k-center for
+     both metrics, each selection held to the greedy property under its plain
+     distances.
 
 Prints a ``kernels`` JSON line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result, when no
@@ -31,8 +49,11 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
+import random
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -85,38 +106,13 @@ def lidar_cloud(rng, n_points=POINTS) -> np.ndarray:
     return p[keep]
 
 
-def voxelize(points: np.ndarray, voxel_size, pc_range, max_points: int, max_voxels: int):
-    """Mean-feature voxelization: voxels in first-appearance order, at most
-    ``max_voxels`` of them, the first ``max_points`` points of each averaged.
-    Returns features [V, F] f32, coords [V, 3] int32 (z, y, x)."""
-    vs, r0 = np.asarray(voxel_size, np.float32), np.asarray(pc_range[:3], np.float32)
-    grid = np.round((np.asarray(pc_range[3:]) - np.asarray(pc_range[:3])) / vs).astype(np.int64)
-    c = np.floor((points[:, :3] - r0) / vs).astype(np.int64)
-    ok = np.all((c >= 0) & (c < grid), axis=1)
-    points, c = points[ok], c[ok]
-    lin = (c[:, 2] * grid[1] + c[:, 1]) * grid[0] + c[:, 0]
-    _, first, inv = np.unique(lin, return_index=True, return_inverse=True)
-    rank = np.empty(len(first), np.int64)
-    rank[np.argsort(first, kind="stable")] = np.arange(len(first))
-    vid = rank[inv]  # voxel id in first-appearance order
-    order = np.argsort(vid, kind="stable")
-    starts = np.searchsorted(vid[order], np.arange(len(first)))
-    slot = np.empty(len(vid), np.int64)
-    slot[order] = np.arange(len(vid)) - starts[vid[order]]
-    take = (slot < max_points) & (vid < max_voxels)
-    nv = min(len(first), max_voxels)
-    feats = np.zeros((nv, points.shape[1]), np.float64)
-    np.add.at(feats, vid[take], points[take])
-    cnt = np.bincount(vid[take], minlength=nv)[:nv]
-    coords = c[np.sort(first)[:nv]][:, ::-1].astype(np.int32)  # voxel v's first point
-    return (feats / np.maximum(cnt, 1)[:, None]).astype(np.float32), coords
-
-
 def make_batch(seed: int, cfg):
     """B clouds -> host voxels [B, 60000, ...]. Points stay in generation
     order (ground, walls, objects), as the JAX package's bench.py feeds them,
     so the first 60000 voxels are mostly ground: 41k L0 bricks, inside the
     48000 cap (a shuffled cloud overflows it)."""
+    from dal3d_tpu_torch.core.voxel_generator import points_to_voxel_mean as voxelize
+
     vg = cfg["voxel_generator"]
     rng = np.random.RandomState(seed)
     vf = np.zeros((B, MAX_VOXELS, 5), np.float32)
@@ -127,8 +123,8 @@ def make_batch(seed: int, cfg):
         p = lidar_cloud(rng)
         pts = np.concatenate([p, rng.uniform(0, 255, (len(p), 1)).astype(np.float32),
                               np.zeros((len(p), 1), np.float32)], 1)
-        f, c = voxelize(pts, vg["voxel_size"], vg["range"], vg["max_points_in_voxel"],
-                        MAX_VOXELS)
+        f, c, _ = voxelize(pts, vg["voxel_size"], vg["range"], vg["max_points_in_voxel"],
+                           MAX_VOXELS)
         vf[b, :len(f)], vc[b, :len(f)], vv[b, :len(f)] = f, c, True
         n_vox.append(len(f))
     return vf, vc, vv, n_vox
@@ -373,7 +369,17 @@ def main() -> None:
     stage_split(bundle, batch, multi_group_predict, greedy_nms_from_iou, tiou)
     device_profile(predict, batch, ms_med)
 
-    # 6. kernels line, card line, result --------------------------------------
+    # 6. distance kernels against their plain versions ---------------------------
+    dist = distance_kernels_check(dev)
+
+    # 7. one selection round at full width, through the CLI ------------------------
+    with tempfile.TemporaryDirectory(prefix="dal3d_smoke_") as tmp:
+        round_launches = selection_round(tmp, dev)
+
+        # 8. selection at nuScenes-train size ---------------------------------------
+        train_launches = train_size_selection(tmp, dev)
+
+    # 9. kernels line, card line, result --------------------------------------
     kernels = [
         dict(name="banded_conv", route="cuda", source="dal3d_tpu_torch/ops/csrc/banded_conv.cu",
              replaces="dal3d_tpu/ops/banded.py:282", launches=k1_launches,
@@ -386,6 +392,15 @@ def main() -> None:
              max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound,
              bound_by=k2_by, library_ms=None),
     ]
+    kernels[0]["launches_selection_round"] = round_launches["banded_conv"]
+    kernels[1]["launches_selection_round"] = round_launches["iou_matrix"]
+    for name, line in (("pairwise_l1", 25), ("pairwise_l2", 68)):
+        kernels.append(dict(
+            name=name, route="cuda", source="dal3d_tpu_torch/ops/csrc/pairwise_distance.cu",
+            replaces=f"dal3d_tpu/ops/pallas_distance.py:{line}",
+            launches=round_launches[name], **dist[name],
+            launches_selection_round=round_launches[name],
+            launches_train_size_selection=train_launches[name]))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -397,6 +412,8 @@ def small_f32_parity(Config, build_detector, make_predict_step) -> str:
     """f32 predict on a 12.8 m grid (sparse shape (41, 64, 64)), production
     widths: the card's kernels vs the CPU's plain versions must give the same
     detections (sets) and embeddings within 1e-4."""
+    from dal3d_tpu_torch.core.voxel_generator import points_to_voxel_mean as voxelize
+
     cfg = Config.fromfile(os.path.join(ROOT, "configs", "cbgs_spatial_temporal.py"))
     cfg["voxel_generator"].update(range=[-6.4, -6.4, -5.0, 6.4, 6.4, 3.0],
                                   voxel_size=[0.2, 0.2, 0.2])
@@ -408,8 +425,8 @@ def small_f32_parity(Config, build_detector, make_predict_step) -> str:
     cfg["test_cfg"]["nms"].update(nms_pre_max_size=64, nms_post_max_size=16)
     rng = np.random.RandomState(2)
     pts = rng.uniform([-6.4, -6.4, -3.0, 0, 0], [6.4, 6.4, 1.0, 255, 0], (20000, 5)).astype(np.float32)
-    f, c = voxelize(pts, cfg["voxel_generator"]["voxel_size"], cfg["voxel_generator"]["range"],
-                    10, 1500)
+    f, c, _ = voxelize(pts, cfg["voxel_generator"]["voxel_size"],
+                       cfg["voxel_generator"]["range"], 10, 1500)
     batch = {"voxel_features": f[None], "voxel_coords": c[None],
              "voxel_valid": np.ones((1, len(f)), bool)}
     outs = {}
@@ -587,6 +604,463 @@ def device_profile(predict, batch, predict_ms: float) -> None:
           f"{max(0.0, 1 - busy / predict_ms):.3f}; {len(dev) // 3} device activities per predict; top:")
     for name, (tot, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"  {tot / 1e3 / 3:8.3f} ms/predict  x{n // 3:<4d} {name[:100]}")
+
+# ---------------------------------------------------------------------------
+# selection: distance kernels, one round through the CLI, train-size k-center
+# ---------------------------------------------------------------------------
+N_TRAIN, EMB_C = 28130, 512  # nuScenes train frames, pooled neck embedding width
+POOL_FRAMES, POOL_LOGS, POOL_BUDGET = 32, 4, 12
+L1_OPS, L2_OPS = 3, 2  # f32 operations per element step: subtract, abs, add / one FMA
+
+
+def embeddings(rng, n: int, scenes: int) -> np.ndarray:
+    """Seeded [n, 512] f32 shaped like pooled neck embeddings: non-negative
+    (after ReLU and pooling), frames of one scene close to each other."""
+    centers = rng.randn(scenes, EMB_C).astype(np.float32)
+    scene = np.sort(rng.randint(0, scenes, n))
+    return np.maximum(centers[scene] + 0.35 * rng.randn(n, EMB_C).astype(np.float32), 0.0)
+
+
+def distance_bound_ms(N: int, M: int, C: int, ops_per_step: int) -> tuple:
+    t_bytes = (N * C + M * C + N * M) * 4 / PEAK_BYTES * 1e3
+    t_ops = float(N) * M * C * ops_per_step / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def distance_error(metric: str, fn, plain, x, y, tag: str) -> tuple:
+    """One kernel call against its plain version on the same inputs, fatal
+    beyond the tolerance. Returns (max abs error, its tolerance): of the
+    distances for L1, of the squared distances for L2."""
+    got = fn(x, y)
+    torch.cuda.synchronize()
+    ref = plain(x, y)
+    if metric == "pairwise_l1":
+        err, tol = float((got - ref).abs().max()), 1e-5 * float(ref.abs().max())
+        ok = err <= tol
+    else:
+        scale = (x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
+        got2, ref2 = fn(x, y, squared=True), plain(x, y, squared=True)
+        far = ref > 0.1 * scale.sqrt()
+        rel = float(((got - ref).abs() / ref.clamp(min=1e-30))[far].max()) if bool(far.any()) else 0.0
+        ok = (float(((got2 - ref2).abs() / scale).max()) <= 2e-6 and rel <= 1e-4
+              and bool(torch.isfinite(got).all()))
+        err, tol = float((got2 - ref2).abs().max()), 2e-6 * float(scale.max())
+    if not ok:
+        fail(f"{metric} {tag} {tuple(x.shape)} x {tuple(y.shape)}: error {err:.3e} (tol {tol:.3e})")
+    return err, tol
+
+
+def distance_kernels_check(dev) -> dict:
+    """K6 / K7 against their plain versions at the selection's shapes. L1:
+    C non-negative terms summed in another order, |err| <= 1e-5 x max|plain|.
+    L2: squared distances within 2e-6 of the scale |x|^2 + |y|^2 (the Gram
+    expression cancels), and distances within 1e-4 relative wherever the
+    plain distance exceeds 0.1 x sqrt(scale), i.e. away from the diagonal
+    (an error of 2e-6 x scale in d^2 is 1e-4 relative in d at that distance).
+    torch.cdist (TF32 off) is the library yardstick. Returns the kernels-line
+    numbers of each metric at the [4096, 512] x [28130, 512] band."""
+    from dal3d_tpu_torch.ops import distance as td
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(6)
+    pool = torch.from_numpy(embeddings(rng, N_TRAIN, 850)).to(dev)
+    small = torch.from_numpy(np.abs(rng.randn(1031, 16)).astype(np.float32)).to(dev)
+    shapes = [("band", pool[:4096], pool), ("row", pool[777:778], pool),
+              ("init", pool[::46][:600].contiguous(), pool), ("awkward", small[:257], small)]
+    out = {}
+    print("pairwise distance kernels vs plain (l1: |err| <= 1e-5 x max|plain|; l2: squared "
+          "distances within 2e-6 x (|x|^2+|y|^2), err and tol printed at the largest scale, "
+          "distances 1e-4 relative away from the diagonal):")
+    for metric, fn, plain, p, ops in (("pairwise_l1", td.pairwise_l1, td.pairwise_l1_plain, 1.0, L1_OPS),
+                                      ("pairwise_l2", td.pairwise_l2, td.pairwise_l2_plain, 2.0, L2_OPS)):
+        worst = 0.0
+        for tag, x, y in shapes:
+            N, M, C = x.shape[0], y.shape[0], x.shape[1]
+            err, tol = distance_error(metric, fn, plain, x, y, tag)
+            iters = 3 if N >= 600 else 50
+            ms = cuda_time_ms(lambda: fn(x, y), iters)
+            pms = cuda_time_ms(lambda: plain(x, y), 1)
+            lms = cuda_time_ms(lambda: torch.cdist(x, y, p=p), 1 if N >= 600 else 5)
+            bms, by = distance_bound_ms(N, M, C, ops)
+            worst = max(worst, err)
+            print(f"  {metric} {tag:8s} [{N},{C}]x[{M},{C}]: err {err:.2e} (tol {tol:.2e}) kernel "
+                  f"{ms:.4f} ms plain {pms:.3f} ms cdist {lms:.4f} ms bound {bms:.4f} ms ({by})")
+            if tag == "band":
+                out[metric] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                                   library_ms=lms, shape=f"[{N},{C}]x[{M},{C}]")
+        out[metric]["max_abs_err"] = worst
+    return out
+
+
+def write_pool(root: str, n_frames: int, n_logs: int, seed: int) -> tuple:
+    """A synthetic pool in the nuScenes infos schema: per frame a lidar-like
+    cloud of ~250k points split over the keyframe file and 9 sweep files
+    (sweep k holds every 10th point, as ten sparser scans of one scene),
+    several logfiles, ego poses along a line, 0-60 boxes. Returns (infos
+    path, logs json path)."""
+    rng = np.random.RandomState(seed)
+    lidar_dir = os.path.join(root, "samples", "LIDAR_TOP")
+    sweep_dir = os.path.join(root, "sweeps", "LIDAR_TOP")
+    os.makedirs(lidar_dir)
+    os.makedirs(sweep_dir)
+    logs = [f"n008-2018-0{i + 1}-01-00-00-00-0400" for i in range(n_logs)]
+    names = ["car", "truck", "bus", "pedestrian", "barrier", "traffic_cone"]
+    infos = []
+    for fi in range(n_frames):
+        p = lidar_cloud(rng)
+        pts = np.concatenate([p, rng.uniform(0, 255, (len(p), 1)).astype(np.float32),
+                              np.zeros((len(p), 1), np.float32)], 1)
+        token = f"smoketoken{fi:06d}"
+        paths = []
+        for k in range(10):
+            path = os.path.join(lidar_dir if k == 0 else sweep_dir, f"{token}_{k}.pcd.bin")
+            pts[k::10].tofile(path)
+            paths.append(path)
+        n_box = int(rng.randint(0, 61))
+        boxes = np.zeros((n_box, 9), np.float32)
+        boxes[:, :2] = rng.uniform(-45, 45, (n_box, 2))
+        boxes[:, 3:6] = [1.97, 4.63, 1.74]
+        car_from_global = np.eye(4)
+        car_from_global[:3, 3] = [-fi * 10.0, -(fi % n_logs) * 100.0, 0.0]
+        log = logs[fi * n_logs // n_frames]
+        infos.append({
+            "lidar_path": paths[0],
+            "cam_front_path": os.path.join(root, "samples", "CAM_FRONT",
+                                           f"{log}__CAM_FRONT__{1531883530412470 + fi}.jpg"),
+            "token": token,
+            "sweeps": [{"lidar_path": paths[k], "sample_data_token": f"{token}_sweep{k}",
+                        "transform_matrix": np.eye(4), "time_lag": 0.05 * k}
+                       for k in range(1, 10)],
+            "ref_from_car": np.eye(4), "car_from_global": car_from_global,
+            "timestamp": 1531883530.412470 + fi * 0.5,
+            "gt_boxes": boxes, "gt_boxes_velocity": np.zeros((n_box, 3), np.float32),
+            "gt_names": np.asarray([names[i % len(names)] for i in range(n_box)]),
+            "gt_boxes_token": np.asarray([f"{token}_gt{b}" for b in range(n_box)]),
+        })
+    info_path = os.path.join(root, "infos_train_10sweeps_withvelo.pkl")
+    with open(info_path, "wb") as f:
+        pickle.dump(infos, f)
+    logs_path = os.path.join(root, "log.json")
+    with open(logs_path, "w") as f:
+        json.dump([{"logfile": lf, "location": "singapore-onenorth"} for lf in logs], f)
+    return info_path, logs_path
+
+
+def write_config(path: str, selector: dict) -> None:
+    """An experiment config on the production base, with this selector."""
+    with open(path, "w") as f:
+        f.write(f"import sys\nsys.path.insert(0, {os.path.join(ROOT, 'configs')!r})\n"
+                f"from _cbgs_base import *  # noqa: F401,F403\nselector = {selector!r}\n")
+
+
+def check_round(tag: str, buffer_file: str, info_path: str, infos, budget_key: str,
+                prior=()) -> list:
+    """The file contract of one round: the buffer has the cumulative-budget
+    key, no duplicates, the prior round carried over, total cost within the
+    budget, and the subset pkl holds exactly the chosen infos."""
+    with open(buffer_file) as f:
+        buffer = json.load(f)
+    if budget_key not in buffer:
+        fail(f"{tag}: buffer has no key {budget_key}: {list(buffer)}")
+    chosen = buffer[budget_key]
+    cost = sum(0.12 + 0.04 * len(infos[i]["gt_names"]) for i in chosen)
+    new = [i for i in chosen if i not in set(prior)]
+    if (len(chosen) != len(set(chosen)) or not new or not set(prior) <= set(chosen)
+            or cost > float(budget_key) + 1e-6):
+        fail(f"{tag}: bad selection: {len(chosen)} frames, {len(set(chosen))} distinct, "
+             f"{len(new)} new, cost {cost:.2f} against budget {budget_key}")
+    stem, ext = os.path.splitext(info_path)
+    with open(f"{stem}_{budget_key}{ext}", "rb") as f:
+        subset = pickle.load(f)
+    if [s["token"] for s in subset] != [infos[i]["token"] for i in chosen]:
+        fail(f"{tag}: subset infos do not match the buffer")
+    return new
+
+
+def selection_round(tmp: str, dev) -> dict:
+    """Phase 7. Returns the launches of each kernel over the CLI runs."""
+    from dal3d_tpu_torch.models.builder import build_detector
+    from dal3d_tpu_torch.ops import banded as bd
+    from dal3d_tpu_torch.ops import distance as td
+    from dal3d_tpu_torch.ops import iou_matrix as tiou
+    from dal3d_tpu_torch.ops import sparse_brick as spb
+    from dal3d_tpu_torch.runtime.checkpoint import save_checkpoint
+    from dal3d_tpu_torch.selectors import build_selector
+    from dal3d_tpu_torch.selectors.base_selector import _finish_fetch, _start_fetch
+    from dal3d_tpu_torch.tools import active_select
+    from dal3d_tpu_torch.utils.config import Config
+
+    t0 = time.perf_counter()
+    info_path, logs_path = write_pool(os.path.join(tmp, "nusc"), POOL_FRAMES, POOL_LOGS, seed=10)
+    with open(info_path, "rb") as f:
+        infos = pickle.load(f)
+    base = Config.fromfile(os.path.join(ROOT, "configs", "cbgs_feature.py"))
+    work_dir = os.path.join(tmp, "work")
+    model = build_detector(base, seed=0).model
+    save_checkpoint(work_dir, model, epoch=1)
+    backbone = model.backbone  # its static knobs, for the capacity report
+    del model
+    print(f"pool: {POOL_FRAMES} frames x 10 lidar files in {POOL_LOGS} logs, checkpoint saved "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    buffer_file = os.path.join(tmp, "buffer.json")
+    pred_file = os.path.join(tmp, "pool_pred.npz")
+    common = dict(budget=POOL_BUDGET, buffer_file=buffer_file, infos_origin=info_path)
+    feature = dict(type="FeatureSelector", pred_store_file=pred_file, **common)
+    runs = [("feature l2_ref matrix", dict(feature, distance_type="l2_ref", streaming=False)),
+            ("feature l2_ref streaming", dict(feature, distance_type="l2_ref", streaming=True)),
+            ("feature l2 matrix", dict(feature, distance_type="l2", streaming=False)),
+            ("feature l2 streaming", dict(feature, distance_type="l2", streaming=True)),
+            ("spatial_temporal", dict(type="SpatialTemporalSelector", k=8, logs_file=logs_path,
+                                      normalize="exp", lambda_t=1, aggregate="sum",
+                                      distance_store_file=os.path.join(tmp, "dijkstra.npy"),
+                                      **common))]
+    wrappers = {"banded_conv": bd.banded_conv, "iou_matrix": tiou.iou_matrix,
+                "pairwise_l1": td.pairwise_l1, "pairwise_l2": td.pairwise_l2}
+    for w in wrappers.values():
+        w.launches = 0
+    picks, seconds = {}, {}
+    cfg_path = os.path.join(tmp, "round.py")
+    for tag, selector in runs:
+        write_config(cfg_path, selector)
+        with open(buffer_file, "w") as f:
+            json.dump({"0": []}, f)
+        t0 = time.perf_counter()
+        active_select.main([cfg_path, "--checkpoint", work_dir, "--seed", "3407"])
+        torch.cuda.synchronize()
+        seconds[tag] = time.perf_counter() - t0
+        picks[tag] = check_round(tag, buffer_file, info_path, infos, str(POOL_BUDGET))
+    launches = {k: w.launches for k, w in wrappers.items()}
+    n_batches = (POOL_FRAMES + B - 1) // B
+    # the first run scores the pool (the others find its cache); a matrix run
+    # launches one distance kernel (feature_map), a streaming run from an
+    # empty buffer one per greedy step: each kept pick after the first and
+    # the one that crosses the budget
+    expect = {"banded_conv": K1_PER_PREDICT * n_batches, "iou_matrix": K2_PER_PREDICT * n_batches,
+              "pairwise_l1": 1 + len(picks["feature l2_ref streaming"]),
+              "pairwise_l2": 1 + len(picks["feature l2 streaming"])}
+    if launches != expect:
+        fail(f"selection round launched {launches}, expected {expect}")
+    for metric in ("l2_ref", "l2"):
+        a, b = picks[f"feature {metric} matrix"], picks[f"feature {metric} streaming"]
+        if a != b:
+            fail(f"streaming and matrix selections differ for {metric}: {a} vs {b}")
+    print(f"selection round through the CLI (budget {POOL_BUDGET}): "
+          + "; ".join(f"{t} {len(p)} picks in {seconds[t]:.2f} s" for t, p in picks.items()))
+    print(f"  launches over the 5 runs: {launches} (as expected); streaming == matrix for both "
+          f"metrics (l2_ref {picks['feature l2_ref matrix']}, l2 {picks['feature l2 matrix']})")
+
+    # the pool scores against a direct predict of the same batches, and the split
+    scores = dict(np.load(pred_file))
+    pe = torch.from_numpy(scores["embedding"]).to(dev)
+    for metric, fn, plain in (("pairwise_l1", td.pairwise_l1, td.pairwise_l1_plain),
+                              ("pairwise_l2", td.pairwise_l2, td.pairwise_l2_plain)):
+        for tag, x in (("pool map", pe), ("pool row", pe[5:6])):
+            err, tol = distance_error(metric, fn, plain, x, pe, tag)
+            print(f"  {metric} {tag} {tuple(x.shape)} x {tuple(pe.shape)} on the pool's embeddings: "
+                  f"err {err:.2e} (tol {tol:.2e})")
+    write_config(cfg_path, runs[0][1])
+    cfg = Config.fromfile(cfg_path)
+    score_fn, loader = active_select.build_pool_scoring(cfg, dict(cfg["selector"]), dev, work_dir)
+    keys = ("embedding", "score_entropy", "scores", "label_preds", "det_valid")
+    host_s = []
+    for i in range(4):  # file reads + sweep transforms + host voxelization, one thread
+        t0 = time.perf_counter()
+        loader.dataset[i]
+        host_s.append(time.perf_counter() - t0)
+    np.random.seed(3407)  # the CLI's seed: the loader draws the same sweep order
+    direct = {k: [] for k in keys}
+    dev_s, fetch_s, dropped, n_vox = [], [], 0, 0
+    for batch in loader:
+        t_a = time.perf_counter()
+        out = score_fn(batch)
+        torch.cuda.synchronize()
+        t_b = time.perf_counter()
+        _finish_fetch(_start_fetch(out, keys), direct)
+        dev_s.append(t_b - t_a)
+        fetch_s.append(time.perf_counter() - t_b)
+        vc = torch.from_numpy(batch["voxel_coords"]).to(dev)
+        vv = torch.from_numpy(batch["voxel_valid"]).to(dev)
+        _, row = spb.pack_plan_arrays(vc, vv, backbone.sparse_shape, backbone.widths[0],
+                                      backbone.caps[0])
+        dropped += int((vv & (row < 0)).sum())
+        n_vox += int(vv.sum())
+    direct = {k: np.concatenate(v)[:POOL_FRAMES] for k, v in direct.items()}
+    for k in ("embedding", "score_entropy"):
+        if scores[k].shape != direct[k].shape or not np.all(np.isfinite(scores[k])):
+            fail(f"pool scores: {k} has shape {scores[k].shape} or is not finite")
+        scale = max(float(np.abs(direct[k]).max()), 1e-30)
+        err = float(np.abs(scores[k] - direct[k]).max()) / scale
+        if err > 1e-3:
+            fail(f"pool scores: {k} differs from a direct predict by {err:.2e} of its scale")
+    if scores["embedding"].shape != (POOL_FRAMES, EMB_C):
+        fail(f"pool scores: embedding shape {scores['embedding'].shape}")
+    # the pipelined pass as the selector runs it (no cache)
+    selector = build_selector(dict(runs[0][1], pred_store_file=None),
+                              default_args=dict(detector=score_fn, dataloader=loader, device=dev))
+    np.random.seed(3407)
+    t0 = time.perf_counter()
+    again = selector.run_pool_scoring()
+    t_pool = time.perf_counter() - t0
+    drift = float(np.abs(again["embedding"] - scores["embedding"]).max()
+                  / np.abs(scores["embedding"]).max())
+    if again["embedding"].shape != scores["embedding"].shape or drift > 1e-3:
+        fail(f"a second pool scoring pass differs from the first by {drift:.2e} of scale")
+    print(f"pool scoring: {POOL_FRAMES} frames in {t_pool:.2f} s -> {POOL_FRAMES / t_pool:.2f} "
+          f"frames/s (pipeline depth 2, one loader thread); split: host prep (file reads, sweep "
+          f"transforms, numpy voxelization) {np.median(host_s) * 1e3:.1f} ms per frame on one "
+          f"thread, device predict {np.median(dev_s) * 1e3:.1f} ms per batch of {B} "
+          f"(synchronized), fetch {np.median(fetch_s) * 1e3:.2f} ms per batch; scores equal to a direct predict of the same "
+          f"batches (1e-3 of scale); {n_vox // POOL_FRAMES} voxels per frame, {dropped} of "
+          f"{n_vox} voxels dropped at the L0 brick cap")
+    return launches
+
+
+def greedy_property(feats, new, prior, costs, remaining, plain, rel_tol: float) -> tuple:
+    """Holds a selection to the greedy farthest-point property under the
+    plain distances: every pick after the first has, at its step, an fps
+    value within ``rel_tol`` x the step's maximum of that maximum; no pick is
+    repeated or in the prior set; the cost stays within the budget. Returns
+    (worst shortfall relative to the step's maximum, total cost)."""
+    dev = feats.device
+    if len(set(new)) != len(new) or set(new) & set(prior):
+        fail("selection repeats a frame or re-picks a labeled one")
+    idx = torch.as_tensor(new, device=dev)
+    fps = torch.full((feats.shape[0],), float("inf"), device=dev)
+    for i in range(0, len(prior), 64):
+        p = torch.as_tensor(prior[i:i + 64], device=dev)
+        fps = torch.minimum(fps, plain(feats[p], feats).min(0).values)
+    fps[torch.as_tensor(prior, device=dev, dtype=torch.long)] = float("-inf")
+    short = torch.zeros(len(new), device=dev)
+    for t, i in enumerate(new):
+        if t > 0 or prior:
+            best = fps.max()
+            short[t] = (best - fps[i]) / best
+        fps = torch.minimum(fps, plain(feats[i:i + 1], feats)[0])
+        fps[i] = float("-inf")
+    worst = float(short.max())
+    cost = float(np.float32(costs[new].astype(np.float32).sum()))
+    if worst > rel_tol or cost > remaining + 1e-3:
+        fail(f"greedy property: worst shortfall {worst:.2e} (tol {rel_tol:.0e}), cost {cost:.2f} "
+             f"against {remaining:.2f}")
+    return worst, cost
+
+
+def kcenter_loop_ms(feats, costs, prior, remaining, wrapper) -> tuple:
+    """The greedy loop alone at train size, inputs already on the card:
+    (ms per pick over the materialized map, ms per pick streaming, picks)."""
+    from dal3d_tpu_torch.ops.kcenter import kcenter_features, kcenter_matrix
+
+    dev, n = feats.device, feats.shape[0]
+    already = torch.zeros(n, dtype=torch.bool, device=dev)
+    already[torch.as_tensor(prior, device=dev)] = True
+    init = wrapper(feats[already], feats).min(0).values
+    first = int(torch.where(already, float("-inf"), init).argmax())
+    c32 = torch.from_numpy(costs.astype(np.float32)).to(dev)
+    args = (c32, np.float32(remaining), init, first, already, n - len(prior))
+    dist = wrapper(feats, feats)
+    out = []
+    for run in (lambda: kcenter_matrix(dist, *args),
+                lambda: kcenter_features(feats, *args,
+                                         metric="l1" if wrapper.__name__ == "pairwise_l1" else "l2")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, count, _ = run()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / count * 1e3)
+    return out[0], out[1], count
+
+
+def train_size_selection(tmp: str, dev) -> dict:
+    """Phase 8. N = 28130 seeded embeddings and frame costs (0.12 + 0.04 x
+    boxes, boxes 0-60), budget 4800 on top of a prior round of 600 frames,
+    through FeatureSelector: the materialized map (kcenter_on_map) and the
+    streaming loop (kcenter_on_features), for l2_ref (L1) and l2."""
+    from dal3d_tpu_torch.ops import distance as td
+    from dal3d_tpu_torch.selectors import build_selector
+
+    rng = np.random.RandomState(8)
+    emb = embeddings(rng, N_TRAIN, 850)
+    boxes = rng.randint(0, 61, N_TRAIN)
+    infos = [{"token": f"t{i}", "gt_names": ["car"] * int(b)} for i, b in enumerate(boxes)]
+    info_path = os.path.join(tmp, "train_infos.pkl")
+    with open(info_path, "wb") as f:
+        pickle.dump(infos, f)
+    pred_file = os.path.join(tmp, "train_pred.npz")
+    np.savez(pred_file, embedding=emb, score_entropy=rng.rand(N_TRAIN).astype(np.float32),
+             scores=np.zeros((N_TRAIN, 1), np.float32), label_preds=np.zeros((N_TRAIN, 1), np.int64),
+             det_valid=np.zeros((N_TRAIN, 1), bool))
+    costs = 0.12 + 0.04 * boxes
+    prior = sorted(rng.choice(N_TRAIN, 600, replace=False).tolist())
+    prior_key = str(int(np.ceil(costs[prior].sum())))
+    budget = 4800
+    remaining = float(int(prior_key) + budget) - float(costs[prior].sum())
+    buffer_file = os.path.join(tmp, "train_buffer.json")
+    feats = torch.from_numpy(emb).to(dev)
+    launches = {}
+    print(f"selection at nuScenes-train size: N = {N_TRAIN}, C = {EMB_C}, prior round of 600 "
+          f"frames (key {prior_key}), budget {budget}, remaining {remaining:.1f}")
+    for metric, wrapper, plain in (("l2_ref", td.pairwise_l1, td.pairwise_l1_plain),
+                                   ("l2", td.pairwise_l2, td.pairwise_l2_plain)):
+        mat_ms = cuda_time_ms(lambda: wrapper(feats, feats), 2)
+        bms, by = distance_bound_ms(N_TRAIN, N_TRAIN, EMB_C, L1_OPS if metric == "l2_ref" else L2_OPS)
+        # the whole map against the plain version, 4096 rows of it at a time
+        full = wrapper(feats, feats)
+        full2 = wrapper(feats, feats, squared=True) if metric == "l2" else None
+        full_err = 0.0
+        for i in range(0, N_TRAIN, 4096):
+            x = feats[i:i + 4096]
+            if metric == "l2_ref":
+                ref = plain(x, feats)
+                err, tol = float((full[i:i + 4096] - ref).abs().max()), 1e-5 * float(ref.abs().max())
+            else:
+                scale = (x * x).sum(1)[:, None] + (feats * feats).sum(1)[None, :]
+                err = float(((full2[i:i + 4096] - plain(x, feats, squared=True)).abs() / scale).max())
+                tol = 2e-6
+            if not err <= tol:
+                fail(f"{wrapper.__name__} full map, rows {i}..: error {err:.3e} > {tol:.3e}")
+            full_err = max(full_err, err / tol)
+        del full, full2
+        wrapper.launches = 0
+        for streaming in (False, True):
+            with open(buffer_file, "w") as f:
+                json.dump({"0": [], prior_key: prior}, f)
+            random.seed(1)
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() / 1e9  # by earlier phases and feats
+            before = wrapper.launches
+            selector = build_selector(dict(
+                type="FeatureSelector", distance_type=metric, streaming=streaming,
+                pred_store_file=pred_file, budget=budget, buffer_file=buffer_file,
+                infos_origin=info_path, device=dev))
+            t0 = time.perf_counter()
+            selector.select_samples()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            selector.dump_file()
+            tag = f"train-size {metric} {'streaming' if streaming else 'matrix'}"
+            new = check_round(tag, buffer_file, info_path, infos, selector.current_budget, prior)
+            used = wrapper.launches - before
+            # matrix: feature_map alone; streaming: the prior round's init_fps
+            # and one row per greedy step (the kept picks after the first,
+            # which init_fps gives, and the pick that crosses the budget)
+            want = 1 if not streaming else 1 + len(new)
+            if used != want:
+                fail(f"{tag}: {used} launches of {wrapper.__name__}, expected {want}")
+            worst, cost = greedy_property(feats, new, prior, costs, remaining, plain, 1e-4)
+            print(f"  {tag}: {len(new)} picks, select_samples {sec:.2f} s ({sec / len(new) * 1e3:.3f} "
+                  f"ms per pick, with loading the score cache"
+                  f"{'' if streaming else ' and the map through host memory'}), cost {cost:.1f} <= "
+                  f"{remaining:.1f}, greedy shortfall {worst:.1e} of the step maximum (tol 1e-04), "
+                  f"{used} launches, peak memory {peak - held:.2f} GB above the {held:.2f} GB held")
+        launches[wrapper.__name__] = wrapper.launches  # of the two selector runs
+        loop = kcenter_loop_ms(feats, costs, prior, remaining, wrapper)
+        print(f"  {wrapper.__name__} [{N_TRAIN},{EMB_C}]x[{N_TRAIN},{EMB_C}] matrix launch: "
+              f"{mat_ms:.2f} ms, bound {bms:.2f} ms ({by}), whole map within {full_err:.2f} of its "
+              f"tolerance of the plain version; k-center loop alone: matrix {loop[0]:.3f} ms per "
+              f"pick, streaming {loop[1]:.3f} ms per pick ({loop[2]} picks)")
+    return launches
 
 
 if __name__ == "__main__":

@@ -124,3 +124,19 @@ def build_detector(cfg, device=None, seed: int = 0) -> DetectorBundle:
     return DetectorBundle(
         model=model.to(dev).eval(), task_anchors=task_anchors, box_coder=box_coder,
         test_cfg=test_cfg, device=dev)
+
+
+def host_voxelize_cfg(cfg):
+    """``voxelize_host`` dict for the data pipeline (the voxel_generator
+    knobs: range, voxel_size, max_points_in_voxel, max_voxel_num, bf16), or
+    None when the config turns host voxelization off. No brick-plan sub-dict:
+    the backbone builds its plans on the GPU."""
+    if not cfg.get("voxelize_host", True):
+        return None
+    return dict(cfg["voxel_generator"])
+
+
+def loader_voxelize_cfg(cfg):
+    """``voxelize_host`` for loader-fed passes (pool scoring, eval). With no
+    host plans to decide on, this is ``host_voxelize_cfg``."""
+    return host_voxelize_cfg(cfg)

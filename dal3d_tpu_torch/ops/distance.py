@@ -1,0 +1,110 @@
+"""Pairwise L1 / L2 distances between frame embeddings (port of
+``dal3d_tpu/ops/distance.py``; the kernels replace
+``dal3d_tpu/ops/pallas_distance.py``).
+
+The frame-distance matrix is the selectors' hot loop: ``feature_map`` needs
+[N, N], a prior selection's ``init_fps`` [S, N], and every pick of the
+streaming k-center one [1, N] row. On a CUDA tensor ``pairwise_l1`` /
+``pairwise_l2`` launch the hand-written kernels of
+``csrc/pairwise_distance.cu``; on a CPU tensor they run the plain PyTorch
+versions below, which repeat the kernels' arithmetic (L1 by row-blocked
+broadcasting, L2 by the Gram expression |x|^2 + |y|^2 - 2 x.y).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+# the plain L1 keeps its [rows, M, C] intermediate under this many floats
+_PLAIN_L1_FLOATS = 1 << 26
+
+
+def pairwise_l1_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x [N, C], y [M, C] -> [N, M] L1 distances, row-blocked so that the
+    broadcast intermediate stays small (the block is sized from M * C)."""
+    N, M, C = x.shape[0], y.shape[0], x.shape[1]
+    block = max(1, _PLAIN_L1_FLOATS // max(M * C, 1))
+    out = torch.empty(N, M, dtype=x.dtype, device=x.device)
+    for i in range(0, N, block):
+        out[i:i + block] = (x[i:i + block, None, :] - y[None, :, :]).abs().sum(-1)
+    return out
+
+
+def pairwise_l2_plain(x: torch.Tensor, y: torch.Tensor, squared: bool = False) -> torch.Tensor:
+    """x [N, C], y [M, C] -> [N, M] Euclidean distances by the Gram
+    expression (d(x, x) is the square root of rounding noise, not 0)."""
+    xx = (x * x).sum(1)[:, None]
+    yy = (y * y).sum(1)[None, :]
+    d2 = torch.clamp(xx + yy - 2.0 * (x @ y.T), min=0.0)
+    return d2 if squared else torch.sqrt(d2)
+
+
+def _launch(name: str, fn: str, x: torch.Tensor, y: torch.Tensor, extra=()) -> torch.Tensor:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if (x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]
+            or x.dtype != torch.float32 or y.dtype != torch.float32):
+        raise ValueError(f"{name}: needs f32 x [N, C] and y [M, C], got "
+                         f"{tuple(x.shape)} {x.dtype} / {tuple(y.shape)} {y.dtype}")
+    if y.device != x.device:
+        raise ValueError(f"{name}: inputs must be on one device")
+    x, y = x.contiguous(), y.contiguous()
+    # the kernels read float4 where C % 4 == 0: a view at an odd offset is copied
+    x = x.clone() if x.data_ptr() % 16 else x
+    y = y.clone() if y.data_ptr() % 16 else y
+    N, C = x.shape
+    M = y.shape[0]
+    out = torch.empty(N, M, dtype=torch.float32, device=x.device)
+    lib = _build.load("pairwise_distance")
+    launch = getattr(lib, fn)
+    launch.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (3 + len(extra))
+                       + [ctypes.c_void_p])
+    launch.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        err = launch(x.data_ptr(), y.data_ptr(), out.data_ptr(), N, M, C, *extra,
+                     torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, name)
+    return out
+
+
+def pairwise_l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x [N, C], y [M, C] f32 -> [N, M] L1 distances.
+
+    CPU tensors take the plain version; CUDA tensors launch the L1 kernel of
+    ``csrc/pairwise_distance.cu`` or raise. ``pairwise_l1.launches`` counts
+    launches."""
+    if x.device.type == "cpu":
+        return pairwise_l1_plain(x, y)
+    out = _launch("pairwise_l1", "pairwise_l1_f32", x, y)
+    pairwise_l1.launches += 1
+    return out
+
+
+pairwise_l1.launches = 0
+
+
+def pairwise_l2(x: torch.Tensor, y: torch.Tensor, squared: bool = False) -> torch.Tensor:
+    """x [N, C], y [M, C] f32 -> [N, M] Euclidean (or squared) distances.
+
+    CPU tensors take the plain version; CUDA tensors launch the L2 kernel of
+    ``csrc/pairwise_distance.cu`` (the product x.y is computed in the kernel)
+    or raise. ``pairwise_l2.launches`` counts launches."""
+    if x.device.type == "cpu":
+        return pairwise_l2_plain(x, y, squared)
+    out = _launch("pairwise_l2", "pairwise_l2_f32", x, y, (int(bool(squared)),))
+    pairwise_l2.launches += 1
+    return out
+
+
+pairwise_l2.launches = 0
+
+
+def pairwise(x: torch.Tensor, y: torch.Tensor, metric: str = "l2") -> torch.Tensor:
+    if metric in ("l2", "euclidean"):
+        return pairwise_l2(x, y)
+    if metric == "l1":
+        return pairwise_l1(x, y)
+    raise ValueError(f"unknown metric {metric}")

@@ -11,7 +11,9 @@ import torch
 
 from dal3d_tpu_torch.models.builder import build_detector
 from dal3d_tpu_torch.ops import banded as tbd
+from dal3d_tpu_torch.ops import distance as tdist
 from dal3d_tpu_torch.ops import iou_matrix as tiou
+from dal3d_tpu_torch.ops import kcenter as tk
 from dal3d_tpu_torch.runtime.steps import make_predict_step
 from torch_port_utils import cuda, mk_rulebook, small_cfg, small_voxels, t  # noqa: F401
 
@@ -99,3 +101,79 @@ def test_predict_on_card_matches_cpu(cuda):  # noqa: F811
                                    a["box3d_lidar"][i][va][oa].numpy(), atol=1e-3)
         np.testing.assert_array_equal(b["label_preds"][i][vb][ob].numpy(),
                                       a["label_preds"][i][va][oa].numpy())
+
+
+# (N, M, C): tile kernel with ragged edges, C off the float4 path, the row
+# kernel (N <= 8), and the embedding width
+DIST_SHAPES = [(257, 1031, 16), (130, 70, 19), (1, 1031, 512), (8, 333, 30), (600, 2000, 512)]
+
+
+def _embeddings(N, M, C, seed, cuda):  # noqa: F811
+    rng = np.random.RandomState(seed)
+    return (t(np.abs(rng.randn(N, C)).astype(np.float32)).to(cuda),
+            t(np.abs(rng.randn(M, C)).astype(np.float32)).to(cuda))
+
+
+@pytest.mark.parametrize("N,M,C", DIST_SHAPES)
+def test_l1_kernel_matches_plain(cuda, N, M, C):  # noqa: F811
+    """Sums of C non-negative terms in another order: rtol 1e-5."""
+    x, y = _embeddings(N, M, C, 0, cuda)
+    before = tdist.pairwise_l1.launches
+    got = tdist.pairwise_l1(x, y)
+    torch.cuda.synchronize()
+    assert tdist.pairwise_l1.launches == before + 1 and got.shape == (N, M)
+    np.testing.assert_allclose(got.cpu().numpy(), tdist.pairwise_l1_plain(x, y).cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("N,M,C", DIST_SHAPES)
+def test_l2_kernel_matches_plain(cuda, N, M, C):  # noqa: F811
+    """Squared distances within 2e-6 of the scale |x|^2 + |y|^2 (the Gram
+    expression cancels; the error is that of the three sums). Distances agree
+    away from the diagonal, and d(x, x) is small against |x|."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, y = _embeddings(N, M, C, 1, cuda)
+    before = tdist.pairwise_l2.launches
+    got2 = tdist.pairwise_l2(x, y, squared=True)
+    got = tdist.pairwise_l2(x, y)
+    torch.cuda.synchronize()
+    assert tdist.pairwise_l2.launches == before + 2
+    scale = (x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
+    ref2 = tdist.pairwise_l2_plain(x, y, squared=True)
+    assert float(((got2 - ref2).abs() / scale).max()) <= 2e-6
+    np.testing.assert_allclose(got.cpu().numpy(), got2.sqrt().cpu().numpy(), rtol=1e-6)
+    np.testing.assert_allclose(got.cpu().numpy(), ref2.sqrt().cpu().numpy(), rtol=1e-4)
+    d = tdist.pairwise_l2(x, x)
+    assert bool(torch.isfinite(d).all()) and float(d.min()) >= 0
+    assert float(d.diagonal().max()) <= 1e-2 * float(x.norm(dim=1).min())
+
+
+def test_distance_kernel_takes_an_unaligned_view(cuda):  # noqa: F811
+    base = t(np.random.RandomState(2).rand(1 + 40 * 16).astype(np.float32)).to(cuda)
+    x = base[1:].view(40, 16)  # contiguous, 4 bytes off a 16-byte boundary
+    got = tdist.pairwise_l1(x[:1], x)
+    np.testing.assert_allclose(got.cpu().numpy(), tdist.pairwise_l1_plain(x[:1], x).cpu().numpy(),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("metric", ["l1", "l2"])
+def test_streaming_kcenter_on_card_matches_cpu(cuda, metric):  # noqa: F811
+    """Each pick of the streaming k-center launches one distance kernel; on
+    well-separated random embeddings the card picks what the CPU picks."""
+    rng = np.random.RandomState(4)
+    n = 300
+    f = np.abs(rng.randn(n, 64)).astype(np.float32)
+    costs = (0.12 + 0.04 * rng.randint(0, 30, n)).astype(np.float32)
+    init = np.full(n, np.inf, np.float32)
+    already = np.zeros(n, bool)
+    fn = tdist.pairwise_l1 if metric == "l1" else tdist.pairwise_l2
+    before = fn.launches
+    sel, count, cost = tk.kcenter_features(t(f).to(cuda), t(costs).to(cuda), np.float32(20.0),
+                                           t(init).to(cuda), 5, t(already).to(cuda),
+                                           max_select=n, metric=metric)
+    # one row per kept pick, and one for the pick that crossed the budget
+    assert fn.launches - before == count
+    ref, rcount, rcost = tk.kcenter_features(t(f), t(costs), np.float32(20.0), t(init), 5,
+                                             t(already), max_select=n, metric=metric)
+    assert count == rcount > 10 and sel.cpu().tolist() == ref.tolist()
+    assert float(cost) == float(rcost)

@@ -4,8 +4,8 @@
   optax or the JAX package.
 - An entry point called with no device needs a GPU: on a box without one it
   raises instead of running on the CPU.
-- Both kernel wrappers expose launch counters, and on CPU tensors they run
-  their plain versions (and count nothing)."""
+- Every kernel wrapper exposes a launch counter, and on CPU tensors it runs
+  its plain version (and counts nothing); any other device raises."""
 import ast
 import os
 
@@ -15,7 +15,12 @@ import torch
 
 from dal3d_tpu_torch.models.builder import build_detector
 from dal3d_tpu_torch.ops import banded as tbd
+from dal3d_tpu_torch.ops import distance as tdist
 from dal3d_tpu_torch.ops import iou_matrix as tiou
+from dal3d_tpu_torch.selectors import BaseSelector
+from dal3d_tpu_torch.selectors.maps import feature_map
+from dal3d_tpu_torch.tools import active_select
+from dal3d_tpu_torch.utils.fileio import dump
 from torch_port_utils import mk_rulebook, small_cfg, t
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,7 +49,8 @@ def _imported_roots(path):
 
 def test_port_imports_nothing_of_jax():
     files = _port_files()
-    assert len(files) > 20
+    assert len(files) > 40
+    assert any(f.endswith(os.path.join("tools", "active_select.py")) for f in files)
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imported_roots(f)
            if m in FORBIDDEN]
     assert not bad, bad
@@ -84,3 +90,44 @@ def test_kernel_wrappers_refuse_other_devices():
                         torch.zeros(1, 8, 8, device="meta"))
     with pytest.raises(ValueError):
         tiou.iou_matrix(torch.zeros(1, 4, 32, device="meta"), torch.zeros(1, 4, 32, device="meta"))
+
+
+def test_distance_wrappers_count_and_take_plain_on_cpu():
+    rng = np.random.RandomState(1)
+    x, y = t(rng.rand(5, 16).astype(np.float32)), t(rng.rand(7, 16).astype(np.float32))
+    n1, n2 = tdist.pairwise_l1.launches, tdist.pairwise_l2.launches
+    assert isinstance(n1, int) and isinstance(n2, int)
+    assert torch.equal(tdist.pairwise_l1(x, y), tdist.pairwise_l1_plain(x, y))
+    assert torch.equal(tdist.pairwise_l2(x, y), tdist.pairwise_l2_plain(x, y))
+    assert torch.equal(tdist.pairwise_l2(x, y, squared=True),
+                       tdist.pairwise_l2_plain(x, y, squared=True))
+    assert (tdist.pairwise_l1.launches, tdist.pairwise_l2.launches) == (n1, n2)
+
+
+@pytest.mark.parametrize("fn", [tdist.pairwise_l1, tdist.pairwise_l2])
+def test_distance_wrappers_refuse_other_devices(fn):
+    with pytest.raises(ValueError):
+        fn(torch.zeros(4, 8, device="meta"), torch.zeros(3, 8, device="meta"))
+
+
+def test_selection_entry_points_without_device_need_a_gpu(monkeypatch, tmp_path):
+    """BaseSelector(device=None), feature_map(device=None) and the CLI
+    without --cpu raise on a box without a GPU, before doing any work."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    buffer_file, infos = str(tmp_path / "buffer.json"), str(tmp_path / "infos.pkl")
+    dump({"0": []}, buffer_file)
+    dump([{"gt_names": []}] * 3, infos)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BaseSelector(budget=1, buffer_file=buffer_file, infos_origin=infos)
+    assert BaseSelector(budget=1, buffer_file=buffer_file, infos_origin=infos,
+                        device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        feature_map(np.zeros((3, 4), np.float32))
+    cfg = tmp_path / "cfg.py"
+    cfg.write_text(f"selector = dict(type='RandomSelector', budget=1, "
+                   f"buffer_file={str(tmp_path / 'missing.json')!r}, infos_origin={infos!r})\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        active_select.main([str(cfg)])
+    assert not os.path.exists(tmp_path / "missing.json")
+    active_select.main([str(cfg), "--cpu"])  # first round: writes the empty buffer
+    assert os.path.exists(tmp_path / "missing.json")
