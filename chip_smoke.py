@@ -7,9 +7,12 @@ Drives the port's main paths at full width with seeded random weights: the
 CBGS FPNVoxelNet predict (configs/cbgs_spatial_temporal.py: banded bf16
 backbone, RPN, 6-group head, top-k + decode + rotated-IoU NMS) on B=2
 lidar-like clouds of 250k points voxelized on the host (mean features,
-<= 60000 voxels, bf16), and one active-learning selection round through the
+<= 60000 voxels, bf16), one active-learning selection round through the
 selection CLI (pool dataset and loader -> predict every frame -> pool scoring
--> selector -> budgeted greedy k-center -> buffer JSON + subset infos).
+-> selector -> budgeted greedy k-center -> buffer JSON + subset infos), and
+the CBGS trainer through the training CLI (train-mode loader -> train step:
+forward, target assignment, loss, banded backward, clip, AdamW -> checkpoint
+-> resume -> the selection CLI reads it).
 Phases, each fatal on failure:
 
   1. versions of torch / CUDA / nvcc and the card (nvidia-smi);
@@ -39,7 +42,23 @@ Phases, each fatal on failure:
   8. selection at nuScenes-train size: 28130 seeded embeddings, budget 4800
      on top of a prior round of 600 frames, matrix and streaming k-center for
      both metrics, each selection held to the greedy property under its plain
-     distances.
+     distances;
+  9. the weight-gradient kernel: every launch of one full-width train step
+     against its plain version, with times, bound and an index_select +
+     batched-matmul yardstick; three shapes of the path (an L0 subm conv, the
+     ds1 strided conv, a deep level) again in f32; the forward kernel as the
+     input gradient of a symmetric rulebook, and the index_add_ route of the
+     strided conv, against autograd through the plain forward;
+ 10. one f32 train step on a small grid, on the card (kernels) and on the CPU
+     (plain versions): logs, gradients, batch statistics; and on the CPU
+     again with the inputs moved by one ulp, to show how far rounding alone
+     moves this step's gradient;
+ 11. the training CLI at full width, B=2, on a labeled synthetic set: an
+     epoch through ``dal3d_tpu_torch.tools.train.main``, launch counters held
+     to the counts per step, checkpoint, resume, the selection CLI reads the
+     result; the loss on a repeated batch falls; step time and its split,
+     peak memory, device idle share; the same warm step fed by the loader
+     with and without its thread.
 
 Prints a ``kernels`` JSON line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result, when no
@@ -55,6 +74,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -72,6 +92,13 @@ PEAK_BYTES = 3.35e12
 IOU_OPS_PER_PAIR = 2 * 4 * (4 * 12 + 18) + 8
 K1_PER_PREDICT = 42  # L0: 5 subm x (pad + conv) + ds1 x 2; stages 1-3: 4 x 2 + 2 each
 K2_PER_PREDICT = 1
+# a train step: the 42 forward launches and one dual gather for every call with
+# a symmetric rulebook whose table has a gradient (all but the stem's two, and
+# not the four strided convs); one weight gradient per conv whose weight trains
+K1_PER_TRAIN_STEP = 42 + 36
+K3_PER_TRAIN_STEP = 21
+SCATTER_PER_TRAIN_STEP = 4
+TRAIN_FRAMES = 8
 TIMED_ITERS = 10
 B, POINTS, MAX_VOXELS = 2, 250_000, 60000
 
@@ -367,7 +394,7 @@ def main() -> None:
     e2e = plain_reference_check(bd, tiou, bundle, predict, batch, out)
     print(f"main path vs the same path on plain versions: {e2e}")
     stage_split(bundle, batch, multi_group_predict, greedy_nms_from_iou, tiou)
-    device_profile(predict, batch, ms_med)
+    device_profile(lambda: predict(batch), "predict", ms_med)
 
     # 6. distance kernels against their plain versions ---------------------------
     dist = distance_kernels_check(dev)
@@ -379,7 +406,16 @@ def main() -> None:
         # 8. selection at nuScenes-train size ---------------------------------------
         train_launches = train_size_selection(tmp, dev)
 
-    # 9. kernels line, card line, result --------------------------------------
+        # 9. the weight-gradient kernel and the banded backward ----------------------
+        k3 = weight_gradient_check(cfg, vf, vc, vv, dev)
+
+        # 10. small f32 train step: card (kernels) vs CPU (plain versions) -----------
+        print(f"small f32 train step, card vs CPU: {small_f32_train_parity(Config)}")
+
+        # 11. the training CLI at full width -----------------------------------------
+        cli = training_run(tmp, dev)
+
+    # 12. kernels line, card line, result --------------------------------------
     kernels = [
         dict(name="banded_conv", route="cuda", source="dal3d_tpu_torch/ops/csrc/banded_conv.cu",
              replaces="dal3d_tpu/ops/banded.py:282", launches=k1_launches,
@@ -394,6 +430,11 @@ def main() -> None:
     ]
     kernels[0]["launches_selection_round"] = round_launches["banded_conv"]
     kernels[1]["launches_selection_round"] = round_launches["iou_matrix"]
+    kernels[0]["launches_training_run"] = cli["banded_conv"]
+    kernels[1]["launches_training_run"] = cli["iou_matrix"]
+    kernels.insert(2, dict(
+        name="banded_dw", route="cuda", source="dal3d_tpu_torch/ops/csrc/banded_dw.cu",
+        replaces="dal3d_tpu/ops/banded.py:341", launches=cli["banded_dw"], **k3))
     for name, line in (("pairwise_l1", 25), ("pairwise_l2", 68)):
         kernels.append(dict(
             name=name, route="cuda", source="dal3d_tpu_torch/ops/csrc/pairwise_distance.cu",
@@ -569,24 +610,26 @@ def stage_split(bundle, batch, multi_group_predict, greedy_nms_from_iou, tiou) -
           f"of the last: greedy NMS fixpoint loop {np.median(nms_ms):.2f} ms")
 
 
-def device_profile(predict, batch, predict_ms: float) -> None:
-    """torch.profiler over 3 predicts: the union of the device's kernel and
-    copy intervals per predict against the unprofiled predict time (the idle
-    share), and the device work that takes the most time. Diagnostics only:
-    a profiler that records no device activity is reported, not fatal."""
+def device_profile(run, what: str, run_ms: float) -> dict:
+    """torch.profiler over 3 calls of ``run`` (a predict, a train step): the
+    union of the device's kernel and copy intervals per call against the
+    unprofiled time of one call (the idle share), and the device work that
+    takes the most time. Returns {activity name: (ms per call, count per
+    call)}. Diagnostics only: a profiler that records no device activity is
+    reported, not fatal."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    predict(batch)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
-            predict(batch)
+            run()
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
-        print("device profile: the profiler recorded no device activity")
-        return
+        print(f"device profile ({what}): the profiler recorded no device activity")
+        return {}
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s0, e0 in spans[1:]:
@@ -599,11 +642,12 @@ def device_profile(predict, batch, predict_ms: float) -> None:
     for e in dev:
         tot, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + e.time_range.end - e.time_range.start, n + 1)
-    print(f"device profile (3 predicts): device busy {busy:.2f} ms/predict (union of kernel and "
-          f"copy intervals) against the {predict_ms:.2f} ms median predict -> idle share "
-          f"{max(0.0, 1 - busy / predict_ms):.3f}; {len(dev) // 3} device activities per predict; top:")
+    print(f"device profile (3 x {what}): device busy {busy:.2f} ms/{what} (union of kernel and "
+          f"copy intervals) against the {run_ms:.2f} ms median {what} -> idle share "
+          f"{max(0.0, 1 - busy / run_ms):.3f}; {len(dev) // 3} device activities per {what}; top:")
     for name, (tot, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        print(f"  {tot / 1e3 / 3:8.3f} ms/predict  x{n // 3:<4d} {name[:100]}")
+        print(f"  {tot / 1e3 / 3:8.3f} ms/{what}  x{n // 3:<4d} {name[:100]}")
+    return {name: (tot / 1e3 / 3, n / 3) for name, (tot, n) in by_name.items()}
 
 # ---------------------------------------------------------------------------
 # selection: distance kernels, one round through the CLI, train-size k-center
@@ -746,11 +790,12 @@ def write_pool(root: str, n_frames: int, n_logs: int, seed: int) -> tuple:
     return info_path, logs_path
 
 
-def write_config(path: str, selector: dict) -> None:
-    """An experiment config on the production base, with this selector."""
+def write_config(path: str, selector: dict, extra: str = "") -> None:
+    """An experiment config on the production base, with this selector and
+    any further lines."""
     with open(path, "w") as f:
         f.write(f"import sys\nsys.path.insert(0, {os.path.join(ROOT, 'configs')!r})\n"
-                f"from _cbgs_base import *  # noqa: F401,F403\nselector = {selector!r}\n")
+                f"from _cbgs_base import *  # noqa: F401,F403\nselector = {selector!r}\n{extra}")
 
 
 def check_round(tag: str, buffer_file: str, info_path: str, infos, budget_key: str,
@@ -1061,6 +1106,528 @@ def train_size_selection(tmp: str, dev) -> dict:
               f"tolerance of the plain version; k-center loop alone: matrix {loop[0]:.3f} ms per "
               f"pick, streaming {loop[1]:.3f} ms per pick ({loop[2]} picks)")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# training: the weight-gradient kernel, a small f32 step, the training CLI
+# ---------------------------------------------------------------------------
+
+
+def random_gt(cfg, rng, batch: int, per_task: int, extent: float, max_gt: int = 128):
+    """Padded per-task GT boxes near each class's anchor size and height:
+    lists per task of [B, max_gt, 9] f32 and [B, max_gt] int32 (task-local
+    1-based class ids, 0 = pad)."""
+    gens = cfg["target_assigner"]["anchor_generators"]
+    gt_boxes, gt_classes, flag = [], [], 0
+    for task in cfg["tasks"]:
+        nc = task["num_class"]
+        tb = np.zeros((batch, max_gt, 9), np.float32)
+        tb[..., 3:6] = 1.0
+        tc = np.zeros((batch, max_gt), np.int32)
+        for b in range(batch):
+            for k in range(per_task):
+                c = rng.randint(nc)
+                g = gens[flag + c]
+                size = np.asarray(g["sizes"], np.float32) * rng.uniform(0.9, 1.1, 3)
+                tb[b, k] = [rng.uniform(-extent, extent), rng.uniform(-extent, extent),
+                            g["anchor_ranges"][2], *size, rng.uniform(-1, 1), rng.uniform(-1, 1),
+                            rng.uniform(-3.1, 3.1)]
+                tc[b, k] = c + 1
+        gt_boxes.append(tb)
+        gt_classes.append(tc)
+        flag += nc
+    return gt_boxes, gt_classes
+
+
+def library_dw(table, idx, g):
+    """Yardstick the port never calls: one index_select of every (tap, row),
+    then one batched cuBLAS matmul [Q, R, B*M] x [B*M, Rout]."""
+    Bt, Mb, R = table.shape
+    Q, M = idx.shape[1], idx.shape[2]
+    flat = torch.cat([table.reshape(Bt * Mb, R), table.new_zeros(1, R)])
+    base = (torch.arange(Bt, device=idx.device) * Mb)[:, None, None]
+    sel = torch.where(idx >= 0, idx.long() + base, Bt * Mb).permute(1, 0, 2).reshape(-1)
+    gf = g.reshape(1, Bt * M, -1).expand(Q, Bt * M, g.shape[-1])
+
+    def run():
+        gat = flat.index_select(0, sel).view(Q, Bt * M, R)
+        return torch.bmm(gat.transpose(1, 2), gf)
+
+    return run
+
+
+def dw_bound_ms(table, idx, g) -> tuple:
+    """(bound ms, "bytes" | "operations") of one weight-gradient launch: table,
+    idx and g read once, dw [Q, R, Rout] f32 written once; 2 * hits * R * Rout
+    operations."""
+    Bt, Mb, R = table.shape
+    Q = idx.shape[1]
+    Rout = g.shape[-1]
+    es = table.element_size()
+    nbytes = table.numel() * es + idx.numel() * 4 + g.numel() * es + Q * R * Rout * 4
+    hits = int((idx >= 0).sum())
+    peak = PEAK_BF16 if es == 2 else PEAK_F32
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 2.0 * hits * R * Rout / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def plain_input_gradient(table, idx, w, g):
+    """d(sum(out * g)) / d(table) by autograd through banded_conv_plain, in
+    f32 on f32 copies of the inputs."""
+    from dal3d_tpu_torch.ops import banded as bd
+
+    tf = table.float().requires_grad_(True)
+    out = bd.banded_conv_plain(tf, idx, w.float())
+    out.backward(g.float())
+    return tf.grad
+
+
+def weight_gradient_check(cfg, vf, vc, vv, dev) -> dict:
+    """Phase 9. One full-width bf16 train step with every weight-gradient
+    launch captured; each is held against banded_dw_plain (both sum the same
+    exact bf16 products in f32, in another order: |err| <= 1e-3 x max|plain|)
+    and timed with its plain version, its yardstick and its bound. Returns the
+    kernels-line numbers, summed over the launches of the step."""
+    from dal3d_tpu_torch.models.builder import build_detector
+    from dal3d_tpu_torch.ops import banded as bd
+    from dal3d_tpu_torch.runtime.steps import make_train_step
+    from dal3d_tpu_torch.solver.optim import OneCycleSchedule, build_optimizer
+
+    bundle = build_detector(cfg, seed=0)
+    opt = build_optimizer(OneCycleSchedule(total_steps=100)).init(bundle.model.named_parameters())
+    step = make_train_step(bundle, opt)
+    gt_boxes, gt_classes = random_gt(cfg, np.random.RandomState(9), B, 20, 45.0)
+    batch = {"voxel_features": torch.from_numpy(vf).to(torch.bfloat16), "voxel_coords": vc,
+             "voxel_valid": vv, "gt_boxes": gt_boxes, "gt_classes": gt_classes}
+    bd.banded_conv.launches = 0
+    with Capture(bd, "banded_dw") as k3:
+        logs = {k: float(v) for k, v in step(batch).items()}
+        torch.cuda.synchronize()
+    if len(k3.calls) != K3_PER_TRAIN_STEP or bd.banded_conv.launches != K1_PER_TRAIN_STEP:
+        fail(f"a train step launched banded_dw {len(k3.calls)}x and banded_conv "
+             f"{bd.banded_conv.launches}x; expected {K3_PER_TRAIN_STEP} and {K1_PER_TRAIN_STEP}")
+    if not all(np.isfinite(v) for v in logs.values()) or logs["num_pos"] <= 0:
+        fail(f"full-width train step: logs {logs}")
+    print(f"full-width train step (bf16, B={B}): {logs}")
+    del bundle, opt, step
+
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, t_bytes=0.0, t_ops=0.0)
+    worst_abs, worst_rel = 0.0, 0.0
+    print("banded_dw launches of one train step, in backward order (kernel vs plain, bf16; "
+          "tol = 1e-3 x max|plain|):")
+    for n, (table, idx, g) in enumerate(k3.calls):
+        got = bd.banded_dw(table, idx, g)
+        ref = bd.banded_dw_plain(table, idx, g)
+        scale = max(float(ref.abs().max()), 1e-30)
+        err = float((got - ref).abs().max())
+        if not err <= 1e-3 * scale or not bool(torch.isfinite(got).all()):
+            fail(f"banded_dw launch {n} table {tuple(table.shape)} idx {tuple(idx.shape)} "
+                 f"g {tuple(g.shape)}: max_abs_err {err:.3e} > {1e-3 * scale:.3e}")
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, err / scale)
+        ms = cuda_time_ms(lambda: bd.banded_dw(table, idx, g), 5)
+        pms = cuda_time_ms(lambda: bd.banded_dw_plain(table, idx, g), 2)
+        lms = cuda_time_ms(library_dw(table, idx, g), 2)
+        bms, by = dw_bound_ms(table, idx, g)
+        for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("bound_ms", bms),
+                     ("t_" + ("bytes" if by == "bytes" else "ops"), bms)):
+            tot[k] += v
+        print(f"  #{n:2d} table {tuple(table.shape)} idx {tuple(idx.shape)} g {tuple(g.shape)} "
+              f"hits {int((idx >= 0).sum())}: err {err:.2e} (tol {1e-3 * scale:.2e}) kernel "
+              f"{ms:.4f} ms plain {pms:.3f} ms library {lms:.4f} ms bound {bms:.4f} ms ({by})")
+    print(f"banded_dw per train step: kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
+          f"library {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms; max_abs_err "
+          f"{worst_abs:.3e} (max relative to the result's scale {worst_rel:.2e})")
+
+    # three shapes of the path, again in f32: the last L0 subm conv, the ds1
+    # strided conv (M != Mb), the deepest subm conv
+    def pick(mb, m):
+        return next(c for c in k3.calls if c[0].shape[1] == mb and c[1].shape[2] == m
+                    and (mb != m or c[1].shape[1] == 9))
+
+    caps = cfg["model"]["backbone"].get("banded_caps", (48000, 17024, 9984, 6016, 6016))
+    shapes = [("L0 subm conv", pick(caps[0], caps[0])), ("ds1 strided conv", pick(caps[0], caps[1])),
+              ("deep subm conv", pick(caps[3], caps[3]))]
+    for tag, (table, idx, g) in shapes:
+        tf, gf = table.float(), g.float()
+        got, ref = bd.banded_dw(tf, idx, gf), bd.banded_dw_plain(tf, idx, gf)
+        scale = max(float(ref.abs().max()), 1e-30)
+        err = float((got - ref).abs().max())
+        if not err <= 1e-3 * scale:
+            fail(f"banded_dw f32 {tag}: max_abs_err {err:.3e} > {1e-3 * scale:.3e}")
+        bms, by = dw_bound_ms(tf, idx, gf)
+        print(f"  f32 {tag} table {tuple(tf.shape)} idx {tuple(idx.shape)} g {tuple(gf.shape)}: "
+              f"err {err:.2e} (tol {1e-3 * scale:.2e}) kernel "
+              f"{cuda_time_ms(lambda: bd.banded_dw(tf, idx, gf), 3):.4f} ms plain "
+              f"{cuda_time_ms(lambda: bd.banded_dw_plain(tf, idx, gf), 2):.3f} ms library "
+              f"{cuda_time_ms(library_dw(tf, idx, gf), 2):.4f} ms bound {bms:.4f} ms ({by})")
+
+    # the input gradient: K1 on the gradient with reversed taps and transposed
+    # weights (symmetric rulebooks), matmul + index_add_ (the strided conv),
+    # against autograd through the plain forward in f32. The dual gather
+    # rounds its f32 sums to bf16 once: one bf16 ulp at the result's scale.
+    # The index_add_ route rounds each tap's product to bf16 before the f32
+    # scatter-add, as JAX does: up to 8 such roundings meet in a row, 2^-5
+    rng = np.random.RandomState(10)
+    for tag, (table, idx, g), symmetric in ((shapes[0][0], shapes[0][1], True),
+                                            (shapes[2][0], shapes[2][1], True),
+                                            (shapes[1][0], shapes[1][1], False)):
+        Q, R, Rout = idx.shape[1], table.shape[2], g.shape[2]
+        w = torch.from_numpy((rng.randn(Q, R, Rout) * 0.05).astype(np.float32)).to(dev, table.dtype)
+        ref = plain_input_gradient(table, idx, w, g)
+        if symmetric:
+            def run():
+                return bd.banded_conv(g, idx, w.flip(0).transpose(1, 2).contiguous())
+        else:
+            def run():
+                return bd.banded_dtable_scatter(g, idx, w, table.shape[1])
+        got = run().float()
+        scale = max(float(ref.abs().max()), 1e-30)
+        err = float((got - ref).abs().max())
+        tol = (2.0 ** -7 if symmetric else 2.0 ** -5) * scale
+        if got.shape != ref.shape or not err <= tol:
+            fail(f"input gradient of the {tag} ({'K1 dual' if symmetric else 'index_add_'}): "
+                 f"max_abs_err {err:.3e} > {tol:.3e}")
+        print(f"  input gradient of the {tag} by "
+              f"{'banded_conv on the gradient (reversed taps, transposed weights)' if symmetric else 'matmul + index_add_'}"
+              f": err {err:.2e} (tol {tol:.2e}) against autograd through the plain "
+              f"forward; {cuda_time_ms(run, 3):.4f} ms")
+    return dict(max_abs_err=worst_abs, ms=tot["ms"], plain_ms=tot["plain_ms"],
+                bound_ms=tot["bound_ms"],
+                bound_by="bytes" if tot["t_bytes"] >= tot["t_ops"] else "operations",
+                library_ms=tot["library_ms"], launches_per_train_step=len(k3.calls))
+
+
+def gradient_gap(ref: dict, got: dict):
+    """Two gradients of one model, by parameter name: the norm of their
+    difference over the norm of ``ref``; the worst parameter's largest
+    difference over that parameter's largest entry, with its name; and how
+    many parameters are beyond 1e-3 by that measure. The conv biases in front
+    of a batch norm are left out of the per-parameter figures: no gradient
+    flows through the norm to them, what they hold is rounding noise."""
+    num = den = worst = 0.0
+    worst_name, n_off = "", 0
+    for k, g in ref.items():
+        d = got[k] - g
+        num, den = num + float((d.double() ** 2).sum()), den + float((g.double() ** 2).sum())
+        if k.endswith(("conv1.bias", "conv2.bias")):
+            continue
+        e = float(d.abs().max()) / max(float(g.abs().max()), 1e-30)
+        n_off += e > 1e-3
+        if e > worst:
+            worst, worst_name = e, k
+    return (num / max(den, 1e-300)) ** 0.5, worst, worst_name, n_off
+
+
+def small_f32_train_parity(Config, devices=("cpu", "cuda"), nudge=1e-7) -> str:
+    """Phase 10. One f32 train step on a 12.8 m grid (sparse shape
+    (41, 64, 64)), production widths, same seeded weights, voxels and boxes:
+    the card's kernels against the CPU's plain versions. Loss terms within
+    1e-4 relative, updated batch statistics within 1e-4, the gradient as a
+    whole within 2e-2 of its norm and its norm within 1e-2.
+
+    Parameter by parameter the two devices do not agree within 1e-3, and the
+    step itself is why: its gradient is discontinuous in its inputs at this
+    size (units of the 4 x 4 neck maps within rounding of a ReLU's kink move
+    single parameters by 1e-1 of their scale). To show it, the step runs a
+    third time on the first device alone, each voxel feature scaled by
+    1 + ``nudge`` x a normal draw (1e-7: about one f32 ulp); the gap that
+    opens there, with no kernel involved, is printed beside the gap between
+    the devices. The kernels themselves are held tightly in phase 9."""
+    from dal3d_tpu_torch.core.voxel_generator import points_to_voxel_mean as voxelize
+    from dal3d_tpu_torch.models.builder import build_detector
+    from dal3d_tpu_torch.runtime.steps import make_train_step
+    from dal3d_tpu_torch.solver.optim import OneCycleSchedule, build_optimizer
+
+    cfg = Config.fromfile(os.path.join(ROOT, "configs", "cbgs_spatial_temporal.py"))
+    cfg["voxel_generator"].update(range=[-6.4, -6.4, -5.0, 6.4, 6.4, 3.0],
+                                  voxel_size=[0.2, 0.2, 0.2])
+    for g in cfg["target_assigner"]["anchor_generators"]:
+        z = g["anchor_ranges"][2]
+        g["anchor_ranges"] = [-6.4, -6.4, z, 6.4, 6.4, z]
+    cfg["model"]["backbone"].update(dtype="float32", brick_widths=(8, 8, 8, 4, 4),
+                                    banded_caps=(1536, 1536, 768, 384, 384))
+    rng = np.random.RandomState(12)
+    vfs, vcs = [], []
+    for _ in range(2):
+        pts = rng.uniform([-6.4, -6.4, -3.0, 0, 0], [6.4, 6.4, 1.0, 255, 0],
+                          (20000, 5)).astype(np.float32)
+        f, c, _ = voxelize(pts, cfg["voxel_generator"]["voxel_size"],
+                           cfg["voxel_generator"]["range"], 10, 1500)
+        vfs.append(f[:1500])
+        vcs.append(c[:1500])
+    n = min(len(f) for f in vfs)
+    gt_boxes, gt_classes = random_gt(cfg, rng, 2, 1, 5.0, max_gt=8)
+    batch = {"voxel_features": np.stack([f[:n] for f in vfs]),
+             "voxel_coords": np.stack([c[:n] for c in vcs]),
+             "voxel_valid": np.ones((2, n), bool), "gt_boxes": gt_boxes, "gt_classes": gt_classes}
+    noise = 1.0 + nudge * rng.standard_normal(batch["voxel_features"].shape)
+    nudged = dict(batch, voxel_features=(batch["voxel_features"] * noise).astype(np.float32))
+    ref_dev, dev = devices
+    logs, grads, stats, sides = {}, {}, {}, {}
+    relu = torch.relu
+
+    def recording_relu(x):
+        side.append((x > 0).cpu())
+        return relu(x)
+
+    for tag, d, data in ((ref_dev, ref_dev, batch), ("card", dev, batch),
+                         ("nudged", ref_dev, nudged)):
+        bundle = build_detector(cfg, device=d, seed=1)
+        opt = build_optimizer(OneCycleSchedule(total_steps=10)).init(
+            bundle.model.named_parameters())
+        side = sides[tag] = []
+        with mock.patch.object(torch, "relu", recording_relu):
+            out = make_train_step(bundle, opt)(data)
+        logs[tag] = {k: float(v) for k, v in out.items()}
+        grads[tag] = {k: p.grad.float().cpu() for k, p in bundle.model.named_parameters()}
+        stats[tag] = {k: v.float().cpu() for k, v in bundle.model.state_dict().items()
+                      if "running" in k}
+    ref = logs[ref_dev]
+    if ref["num_pos"] != logs["card"]["num_pos"] or ref["num_pos"] <= 0:
+        fail(f"small f32 train step: num_pos {ref['num_pos']} vs {logs['card']['num_pos']}")
+    rel = {k: abs(logs["card"][k] - v) / max(abs(v), 1e-30) for k, v in ref.items()}
+    fwd_err = max(rel[k] for k in ("loss", "loc_loss", "cls_loss"))
+    l2, g_err, g_worst, n_off = gradient_gap(grads[ref_dev], grads["card"])
+    nl2, n_err, n_worst, n_n_off = gradient_gap(grads[ref_dev], grads["nudged"])
+    s_err = max(float((stats["card"][k] - v).abs().max()) for k, v in stats[ref_dev].items())
+    flips = {tag: [(i, tuple(a.shape), int((a != b).sum()))
+                   for i, (a, b) in enumerate(zip(sides[ref_dev], sides[tag])) if bool((a != b).any())]
+             for tag in ("card", "nudged")}
+    tol_l2 = 2e-2
+    if fwd_err > 1e-4 or rel["grad_norm"] > 1e-2 or l2 > tol_l2 or s_err > 1e-4:
+        fail(f"small f32 train step, {dev} vs {ref_dev}: loss terms differ by {fwd_err:.2e} "
+             f"relative, grad_norm by {rel['grad_norm']:.2e} ({logs}), the whole gradient by "
+             f"{l2:.2e} of its norm (tol {tol_l2:.2e}; worst parameter {g_worst}: {g_err:.2e} of "
+             f"its scale), batch statistics by {s_err:.2e}")
+    return (f"{n} voxels x 2, num_pos {logs['card']['num_pos']:.0f}, loss {logs['card']['loss']:.4f} "
+            f"({ref_dev} {ref['loss']:.4f}), grad_norm {logs['card']['grad_norm']:.2f} ({ref_dev} "
+            f"{ref['grad_norm']:.2f}); loss terms within {fwd_err:.1e} relative (tol 1e-04), "
+            f"the whole gradient within {l2:.1e} of its norm (tol {tol_l2:.1e}), {len(stats[ref_dev])} "
+            f"batch statistics within {s_err:.1e} (tol 1e-04); parameter by parameter the worst is "
+            f"{g_err:.1e} of its scale ({g_worst}), {n_off} of {len(grads[ref_dev])} beyond 1e-3; "
+            f"ReLU units on the other side of zero than on {ref_dev} (call, shape, units): "
+            f"{flips['card']}. "
+            f"The same step on {ref_dev} alone with each voxel feature x (1 + {nudge:.0e} x normal): the "
+            f"whole gradient moves by {nl2:.1e} of its norm, the worst parameter by {n_err:.1e} of its "
+            f"scale ({n_worst}), {n_n_off} beyond 1e-3; ReLU units that change side: "
+            f"{flips['nudged']} of {len(sides[ref_dev])} calls")
+
+
+def training_run(tmp: str, dev) -> dict:
+    """Phase 11. Returns the launches of each kernel over the first CLI run."""
+    from dal3d_tpu_torch.ops import banded as bd
+    from dal3d_tpu_torch.ops import iou_matrix as tiou
+    from dal3d_tpu_torch.solver.optim import OneCycleSchedule, build_optimizer
+    from dal3d_tpu_torch.runtime.steps import make_train_step
+    from dal3d_tpu_torch.tools import active_select, train
+    from dal3d_tpu_torch.utils.config import Config
+
+    t0 = time.perf_counter()
+    info_path, _ = write_pool(os.path.join(tmp, "nusc_train"), TRAIN_FRAMES, 2, seed=11)
+    work_dir = os.path.join(tmp, "work_train")
+    buffer_file = os.path.join(tmp, "train_round_buffer.json")
+    pred_file = os.path.join(tmp, "train_round_pred.npz")
+    cfg_path = os.path.join(tmp, "train.py")
+    write_config(cfg_path, dict(type="FeatureSelector", budget=2, buffer_file=buffer_file,
+                                infos_origin=info_path, pred_store_file=pred_file,
+                                distance_type="l2_ref", streaming=False),
+                 extra=f"data['train']['info_path'] = {info_path!r}\n"
+                       f"data['train']['root_path'] = ''\ndata['val']['root_path'] = ''\n")
+    print(f"labeled set: {TRAIN_FRAMES} frames x 10 lidar files with 0-60 boxes "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    wrappers = {"banded_conv": bd.banded_conv, "banded_dw": bd.banded_dw,
+                "iou_matrix": tiou.iou_matrix}
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = train.main([cfg_path, "--work_dir", work_dir, "--epochs", "1", "--no_validate",
+                          "--seed", "0"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    steps = trainer.step
+    expect = {"banded_conv": K1_PER_TRAIN_STEP * steps, "banded_dw": K3_PER_TRAIN_STEP * steps,
+              "iou_matrix": 0}
+    if steps < 2 or launches != expect:
+        fail(f"training run of {steps} steps launched {launches}, expected {expect}")
+    cli_peak = torch.cuda.max_memory_allocated() / 1e9
+    ckpt_path = os.path.join(work_dir, "checkpoints", "epoch_1.pth")
+    if not os.path.isfile(ckpt_path) or trainer.optimizer.count != steps:
+        fail(f"training run: no checkpoint at {ckpt_path} or optimizer count "
+             f"{trainer.optimizer.count} != {steps}")
+    interval = 5  # log_config.interval of the production config
+    vals = logged_intervals(work_dir, 1, steps, interval)
+    print(f"training CLI, epoch 1: {steps} steps in {cli_s:.1f} s (model build, CBGS resampling "
+          f"and checkpoint included); logged every {interval} steps: loss {vals[0, 3]:.3f} -> "
+          f"{vals[-1, 3]:.3f}, grad_norm {vals[:, 6].min():.1f}-{vals[:, 6].max():.1f}, num_pos "
+          f"{vals[:, 7].min():.0f}-{vals[:, 7].max():.0f}; launches {launches} ({K1_PER_TRAIN_STEP} "
+          f"and {K3_PER_TRAIN_STEP} per step expected: {launches['banded_conv'] // steps} and "
+          f"{launches['banded_dw'] // steps} counted); peak memory {cli_peak:.2f} GB")
+
+    # resume: the second epoch continues the step count and the schedule
+    before = {k: v.clone() for k, v in trainer.bundle.model.state_dict().items()}
+    del trainer
+    resumed = train.main([cfg_path, "--work_dir", work_dir, "--epochs", "2", "--no_validate",
+                          "--seed", "0", "--resume_from", work_dir])
+    torch.cuda.synchronize()
+    if (resumed.epoch != 2 or resumed.step != 2 * steps or resumed.optimizer.count != 2 * steps
+            or not os.path.isfile(os.path.join(work_dir, "checkpoints", "epoch_2.pth"))):
+        fail(f"resume: epoch {resumed.epoch}, step {resumed.step}, optimizer count "
+             f"{resumed.optimizer.count} after a second epoch of {steps} steps")
+    after = resumed.bundle.model.state_dict()
+    moved = max(float((after[k].float() - v.float()).abs().max()) for k, v in before.items())
+    if not moved > 0 or not all(bool(torch.isfinite(v.float()).all()) for v in after.values()):
+        fail("resume: the weights did not move, or are not finite")
+    print(f"resume from epoch 1: epoch 2 ends at step {resumed.step}, optimizer count "
+          f"{resumed.optimizer.count}, weights finite")
+    # iteration time as the CLI logs it: every interval of both epochs but the
+    # first, which holds the warm-up (cuDNN's choice of algorithms, the
+    # allocator's growth, the kernels' load)
+    warm = np.concatenate([vals[1:], logged_intervals(work_dir, 2, steps, interval)])
+    print(f"training CLI, iteration as logged ({interval}-step averages; the first interval left "
+          f"out, {len(warm)} left): {', '.join(f'{v:.0f}' for v in warm[:, 1] * 1e3)} ms, median "
+          f"{np.median(warm[:, 1]) * 1e3:.0f} ms, of which data wait "
+          f"{', '.join(f'{v:.0f}' for v in warm[:, 2] * 1e3)} ms, median "
+          f"{np.median(warm[:, 2]) * 1e3:.0f} ms")
+
+    # the selection CLI reads the trained checkpoint
+    with open(buffer_file, "w") as f:
+        json.dump({"0": []}, f)
+    active_select.main([cfg_path, "--checkpoint", work_dir, "--seed", "3407"])
+    torch.cuda.synchronize()
+    with open(info_path, "rb") as f:
+        infos = pickle.load(f)
+    picks = check_round("selection on the trained checkpoint", buffer_file, info_path, infos, "2")
+    emb = np.load(pred_file)["embedding"]
+    if emb.shape != (TRAIN_FRAMES, EMB_C) or not np.all(np.isfinite(emb)):
+        fail(f"selection on the trained checkpoint: embedding {emb.shape} or not finite")
+    print(f"selection CLI on <work_dir>/checkpoints/epoch_2.pth: {len(picks)} picks, pool scores "
+          f"finite")
+
+    # a repeated batch: the loss falls; step time and its split
+    cfg = Config.fromfile(cfg_path)
+    bundle = resumed.bundle
+    del resumed
+    np.random.seed(5)
+    from dal3d_tpu_torch.data import DataLoader, NuScenesDataset
+    from dal3d_tpu_torch.models.builder import init_random_, loader_voxelize_cfg
+
+    train_data = dict(cfg["data"]["train"])
+    dataset = NuScenesDataset(
+        info_path=info_path, root_path="", nsweeps=train_data.get("nsweeps", 10),
+        class_names=train_data.get("class_names"),
+        pipeline=[dict(s) for s in train_data.get("pipeline", [])],
+        tasks=[dict(t) for t in cfg["tasks"]], max_points=cfg.get("max_points", 300000),
+        voxelize_host=loader_voxelize_cfg(cfg))
+    batch = next(iter(DataLoader(dataset, B, shuffle=False, prefetch=0)))
+    batch = {k: v for k, v in batch.items() if k != "metadata"}
+    init_random_(bundle.model, torch.Generator().manual_seed(0))
+    opt = build_optimizer(OneCycleSchedule(total_steps=200)).init(bundle.model.named_parameters())
+    step = make_train_step(bundle, opt)
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not np.all(np.isfinite(losses)) or not min(losses[-3:]) < losses[0]:
+        fail(f"repeated batch: the loss does not fall: {losses}")
+    ms_med = float(np.median(step_ms[2:]))
+    split = train_step_split(bundle, opt, batch)
+    print(f"train step on a repeated batch (B={B}, bf16, {int(batch['voxel_valid'].sum())} voxels): "
+          f"loss {losses[0]:.3f} -> {losses[-1]:.3f} over {len(losses)} steps; median step "
+          f"{ms_med:.2f} ms ({B / ms_med * 1e3:.2f} scans/s); split (synchronized, median of 5): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+          + f"; peak memory {peak:.2f} GB")
+    by_name = device_profile(lambda: step(batch), "train step", ms_med)
+    for kname in ("banded_conv", "banded_dw"):
+        hit = [(name, ms, n) for name, (ms, n) in by_name.items() if kname + "_" in name]
+        if hit:
+            print(f"  {kname} kernels in the profiled train step: {sum(h[1] for h in hit):.3f} ms "
+                  f"over {sum(h[2] for h in hit if 'reduce' not in h[0]):.0f} launches per step")
+
+    # does the loader thread slow the step? The same shuffled epoch through
+    # the same warm step, batches made in line (prefetch=0: the wait is the
+    # whole preparation, nothing runs beside the step) and by the loader
+    # thread the CLI uses (prefetch=2), in the order 0, 2, 2, 0
+    for prefetch in (0, 2, 2, 0):
+        np.random.seed(5)
+        rec, t_data = [], time.perf_counter()
+        for b in DataLoader(dataset, B, shuffle=True, seed=0, prefetch=prefetch):
+            t_step = time.perf_counter()
+            out = step({k: v for k, v in b.items() if k != "metadata"})
+            if not np.isfinite(float(out["loss"])):  # also waits for the device
+                fail(f"loader-fed step (prefetch={prefetch}): loss {float(out['loss'])}")
+            t_end = time.perf_counter()
+            rec.append(((t_step - t_data) * 1e3, (t_end - t_step) * 1e3))
+            t_data = t_end
+        wait, ms = np.median(np.array(rec[2:]), axis=0)
+        print(f"  loader-fed steps, {'loader thread (prefetch=2)' if prefetch else 'batches made in line (prefetch=0)'}"
+              f": median over {len(rec) - 2} iterations (2 left out): data wait {wait:.0f} ms + step "
+              f"{ms:.0f} ms = {wait + ms:.0f} ms an iteration")
+    return launches
+
+
+def logged_intervals(work_dir: str, epoch: int, steps: int, interval: int) -> np.ndarray:
+    """The trainer's log lines of one epoch as rows (lr, time, data wait,
+    loss, loc, cls, grad_norm, num_pos); fails unless there is one line every
+    ``interval`` steps, all values finite and positives in each."""
+    import re
+
+    with open(os.path.join(work_dir, "train.log")) as f:
+        log = f.read()
+    lines = re.findall(rf"Epoch \[{epoch}\]\[(\d+)\] lr: ([0-9.]+), time: ([0-9.]+) \(([0-9.]+) data\), "
+                       r"loss: ([0-9.naninf]+) \(loc ([0-9.naninf]+) / cls ([0-9.naninf]+)\), "
+                       r"grad_norm: ([0-9.naninf]+), num_pos: (\d+)", log)
+    if [int(x[0]) for x in lines] != list(range(interval, steps + 1, interval)):
+        fail(f"training run: epoch {epoch} logged at steps {[x[0] for x in lines]} for {steps} steps")
+    vals = np.array([[float(v) for v in x[1:]] for x in lines])
+    if not np.all(np.isfinite(vals)) or vals[:, 7].min() <= 0:
+        fail(f"training run: logged values not finite or no positives: {lines}")
+    return vals
+
+
+def train_step_split(bundle, opt, batch) -> dict:
+    """Host-clock split of a train step with a synchronize after each part
+    (median of 5): host-to-device copies, forward (with target assignment and
+    loss), backward, optimizer (clip + AdamW)."""
+    from dal3d_tpu_torch.models.heads.mg_head import multi_group_loss
+    from dal3d_tpu_torch.runtime.steps import _to_device
+
+    model, dev = bundle.model, bundle.device
+    names = ["h2d", "forward+assign+loss", "backward", "optimizer"]
+    rec = {n: [] for n in names}
+    model.train()
+    for _ in range(6):
+        marks = [time.perf_counter()]
+        vf = _to_device(batch["voxel_features"], dev)
+        vc = _to_device(batch["voxel_coords"], dev, torch.int32)
+        vv = _to_device(batch["voxel_valid"], dev, torch.bool)
+        gt_boxes = [_to_device(b, dev, torch.float32) for b in batch["gt_boxes"]]
+        gt_classes = [_to_device(c, dev, torch.int32) for c in batch["gt_classes"]]
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        opt.zero_grad()
+        out = model(vf, vc, vv)
+        labels, targets, _ = bundle.assigner.assign_all(gt_boxes, gt_classes)
+        logs = multi_group_loss(out["preds"], labels, targets, bundle.num_classes, bundle.loss_cfg)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        logs["loss"].backward()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        opt.step()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        for n, a, b in zip(names, marks[:-1], marks[1:]):
+            rec[n].append((b - a) * 1e3)
+    return {n: float(np.median(v[1:])) for n, v in rec.items()}
 
 
 if __name__ == "__main__":

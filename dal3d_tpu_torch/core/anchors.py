@@ -50,10 +50,17 @@ def create_anchors_3d_range(feature_size, anchor_range, sizes=(1.6, 3.9, 1.56),
 
 @dataclass
 class TaskAnchors:
-    """Static per-task anchor bundle consumed by the head's predict path."""
+    """Static per-task anchor bundle consumed by the head's loss and predict
+    paths."""
 
     class_names: List[str]
     anchors: np.ndarray  # [A, ndim] in (D, H, W, class*rot) order
+    # per-class stacked [C, A_c, ndim], A_c = D*H*W*num_rot (assignment view)
+    anchors_by_class: np.ndarray
+    matched_thresholds: np.ndarray  # [C]
+    unmatched_thresholds: np.ndarray  # [C]
+    feature_map_size: tuple  # (D, H, W)
+    num_rot: int = 2
 
     @property
     def num_classes(self) -> int:
@@ -71,7 +78,7 @@ def generate_task_anchors(anchor_generator_cfgs: Sequence[dict],
         n = task["num_class"]
         gens = anchor_generator_cfgs[flag:flag + n]
         flag += n
-        per_class = []
+        per_class = []  # each [D, H, W, num_rot, ndim]
         for g in gens:
             if g.get("type", "anchor_generator_range") not in (
                     "anchor_generator_range", "AnchorGeneratorRange"):
@@ -81,8 +88,16 @@ def generate_task_anchors(anchor_generator_cfgs: Sequence[dict],
                 g.get("rotations", (0.0, np.pi / 2)), g.get("velocities"))
             per_class.append(a.reshape([*a.shape[:3], -1, a.shape[-1]]))
         interleaved = np.concatenate(per_class, axis=-2)  # [D, H, W, C*rot, ndim]
+        by_class = np.stack([a.reshape(-1, a.shape[-1]) for a in per_class])
         out.append(TaskAnchors(
             class_names=list(task["class_names"]),
             anchors=interleaved.reshape(-1, interleaved.shape[-1]).astype(np.float32),
+            anchors_by_class=by_class.astype(np.float32),
+            matched_thresholds=np.asarray(
+                [g.get("matched_threshold", -1.0) for g in gens], np.float32),
+            unmatched_thresholds=np.asarray(
+                [g.get("unmatched_threshold", -1.0) for g in gens], np.float32),
+            feature_map_size=tuple(feature_map_size),
+            num_rot=len(gens[0].get("rotations", (0.0, np.pi / 2))),
         ))
     return out

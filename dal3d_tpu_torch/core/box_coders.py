@@ -1,5 +1,4 @@
-"""Residual ground-box coder, decode half (port of
-``dal3d_tpu/core/box_coders.py``). ``GroundBox3dCoder(n_dim=9,
+"""Residual ground-box coder (port of ``dal3d_tpu/core/box_coders.py``). ``GroundBox3dCoder(n_dim=9,
 vec_encode=True)`` gives the CBGS code size 10."""
 from __future__ import annotations
 
@@ -16,6 +15,11 @@ class GroundBox3dCoder:
     @property
     def code_size(self) -> int:
         return self.n_dim + 1 if self.vec_encode else self.n_dim
+
+    def encode(self, boxes, anchors):
+        return box_ops.second_box_encode(
+            boxes, anchors, encode_angle_to_vector=self.vec_encode,
+            smooth_dim=self.linear_dim)
 
     def decode(self, encodings, anchors):
         return box_ops.second_box_decode(

@@ -1,15 +1,18 @@
-"""nuScenes dataset (infos-pkl driven), test mode (port of
-``dal3d_tpu/data/datasets/nuscenes.py``).
+"""nuScenes dataset (infos-pkl driven) with CBGS class-balanced resampling
+(port of ``dal3d_tpu/data/datasets/nuscenes.py``).
 
-The pool-scoring and evaluation side: the infos are taken as they are, and
-``get_sensor_data`` runs the pipeline over the info dict. Train mode (CBGS
-class-balanced resampling, ``reset``) and ``evaluation`` belong to later
-slices of the port.
+In test mode the infos are taken as they are; in train mode ``_set_infos``
+resamples the frames per class with ratio (1 / num_classes) / class frequency
+(CBGS), drawing from numpy's global generator as the JAX package does.
+``get_sensor_data`` runs the pipeline over the info dict. ``evaluation``
+is not ported yet.
 """
 from __future__ import annotations
 
 import pickle
 from typing import Any, Dict, List, Optional
+
+import numpy as np
 
 from ..pipelines.loading import LoadPointCloudAnnotations, LoadPointCloudFromFile
 from ..pipelines.preprocess import Preprocess, ReformatFixedShape
@@ -72,9 +75,6 @@ class NuScenesDataset:
         voxelize_host=None,
         **kwargs,
     ):
-        if not test_mode:
-            raise NotImplementedError("only test_mode=True is ported (train-mode CBGS "
-                                      "resampling comes with the training slice)")
         self._info_path = info_path
         self._root_path = root_path
         self.nsweeps = nsweeps
@@ -91,14 +91,40 @@ class NuScenesDataset:
         )
 
     def load_infos(self, info_path: str):
+        """Load infos; in train mode apply CBGS class-balanced resampling:
+        every frame is listed once per distinct class it contains, and each
+        class's frame list is resampled so that all classes contribute an
+        equal share (1 / num_classes) of the epoch."""
         with open(info_path, "rb") as f:
             all_infos = pickle.load(f)
-        self._nusc_infos_all = all_infos
-        # eval infos may be stored as a dict of splits
-        self._nusc_infos = (
-            [i for v in all_infos.values() for i in v]
-            if isinstance(all_infos, dict) else list(all_infos)
-        )
+        self._set_infos(all_infos)
+
+    def _set_infos(self, all_infos):
+        """Install ``all_infos`` as the epoch pool: flatten at test time,
+        CBGS-resample at train time."""
+        if self.test_mode:
+            # eval infos may be stored as a dict of splits
+            self._nusc_infos = (
+                [i for v in all_infos.values() for i in v]
+                if isinstance(all_infos, dict) else list(all_infos)
+            )
+            return
+        per_class = {name: [] for name in self._class_names}
+        for info in all_infos:
+            for name in set(info["gt_names"]) & set(self._class_names):
+                per_class[name].append(info)
+        total = sum(len(v) for v in per_class.values())
+        if total == 0:  # no labels at all (e.g. unlabeled pool): keep as-is
+            self._nusc_infos = list(all_infos)
+            return
+        target_share = 1.0 / len(self._class_names)
+        resampled = []
+        for frames in per_class.values():
+            share = len(frames) / total
+            if share > 0:
+                take = int(len(frames) * target_share / share)
+                resampled += np.random.choice(frames, take).tolist()
+        self._nusc_infos = resampled
 
     @property
     def infos(self) -> List[dict]:
@@ -123,7 +149,7 @@ class NuScenesDataset:
                 "num_point_features": self.NumPointFeatures,
                 "token": info["token"],
             },
-            "mode": "val",
+            "mode": "val" if self.test_mode else "train",
         }
         for stage in self.pipeline:
             res, info = stage(res, info)

@@ -1,6 +1,6 @@
 """Config-driven model construction (port of
 ``dal3d_tpu/models/builder.py::build_detector``): config dict -> model on a
-device, task anchors, box coder and test config."""
+device, task anchors, box coder, target assigner, loss and test config."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -12,10 +12,11 @@ from torch import nn
 
 from ..core.anchors import TaskAnchors, generate_task_anchors
 from ..core.box_coders import GroundBox3dCoder, build_box_coder
+from ..core.target_assigner import DeviceTargetAssigner
 from ..device import resolve_device
 from .backbones.scn import BANDED_CAPS_DEFAULT, BRICK_WIDTHS_DEFAULT
 from .detectors.voxelnet import FPNVoxelNet
-from .heads.mg_head import TestConfig
+from .heads.mg_head import LossConfig, TestConfig
 from .layers import BatchNorm2d, MaskedBatchNorm, SparseConvDown, SubMConv
 from .necks.rpn import ConvBN
 
@@ -24,12 +25,16 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclass
 class DetectorBundle:
-    """Everything the predict step needs, built once from a config."""
+    """Everything the train and predict steps need, built once from a
+    config."""
 
     model: Any  # FPNVoxelNet on ``device``
     task_anchors: List[TaskAnchors]
     box_coder: GroundBox3dCoder
+    assigner: DeviceTargetAssigner
+    loss_cfg: LossConfig
     test_cfg: TestConfig
+    num_classes: tuple
     device: torch.device
 
 
@@ -95,6 +100,32 @@ def build_detector(cfg, device=None, seed: int = 0) -> DetectorBundle:
         [dict(g) for g in cfg["target_assigner"]["anchor_generators"]], tasks,
         [1, ny // ds_factor, nx // ds_factor])
 
+    assigner = DeviceTargetAssigner(task_anchors, box_coder)
+
+    head_cfg = model_cfg.get("bbox_head", {}) or {}
+    loss_cls = head_cfg.get("loss_cls", {}) or {}
+    loss_bbox = head_cfg.get("loss_bbox", {}) or {}
+    loss_norm = head_cfg.get("loss_norm", {}) or {}
+    # reference LossNormType names -> models/losses/losses.py ids
+    norm_map = {
+        "NormByNumPositives": "norm_by_num_positives",
+        "NormByNumExamples": "norm_by_num_examples",
+        "NormByNumPosNeg": "norm_by_num_pos_neg",
+        "DontNorm": "dont_norm",
+    }
+    loss_cfg = LossConfig(
+        pos_cls_weight=float(loss_norm.get("pos_cls_weight", 1.0)),
+        neg_cls_weight=float(loss_norm.get("neg_cls_weight", 1.0)),
+        loss_norm_type=norm_map[loss_norm.get("type", "NormByNumPositives")],
+        focal_gamma=float(loss_cls.get("gamma", 2.0)),
+        focal_alpha=float(loss_cls.get("alpha", 0.25)),
+        cls_loss_weight=float(loss_cls.get("loss_weight", 1.0)),
+        loc_loss_weight=float(loss_bbox.get("loss_weight", 1.0)),
+        smooth_l1_sigma=float(loss_bbox.get("sigma", 3.0)),
+        code_weights=tuple(loss_bbox.get("code_weights", (1.0,) * box_coder.code_size)),
+        encode_rad_error_by_sin=bool(head_cfg.get("encode_rad_error_by_sin", False)),
+    )
+
     tcfg = dict(cfg.get("test_cfg", {}) or {})
     nms = dict(tcfg.get("nms", {}))
     test_cfg = TestConfig(
@@ -123,7 +154,8 @@ def build_detector(cfg, device=None, seed: int = 0) -> DetectorBundle:
     init_random_(model, torch.Generator().manual_seed(seed))
     return DetectorBundle(
         model=model.to(dev).eval(), task_anchors=task_anchors, box_coder=box_coder,
-        test_cfg=test_cfg, device=dev)
+        assigner=assigner, loss_cfg=loss_cfg, test_cfg=test_cfg, num_classes=num_classes,
+        device=dev)
 
 
 def host_voxelize_cfg(cfg):

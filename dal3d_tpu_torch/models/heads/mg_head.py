@@ -1,10 +1,10 @@
 """CBGS multi-group detection head and its predict path (port of
-``dal3d_tpu/models/heads/mg_head.py``: ``MultiGroupHead``, ``TestConfig``,
-``multi_group_predict``)."""
+``dal3d_tpu/models/heads/mg_head.py``: ``MultiGroupHead``, ``LossConfig``,
+``multi_group_loss``, ``TestConfig``, ``multi_group_predict``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -14,6 +14,7 @@ from ...core.anchors import TaskAnchors
 from ...core.box_coders import GroundBox3dCoder
 from ...ops.iou_matrix import rotated_iou_matrix_batched
 from ...ops.nms import greedy_nms_from_iou
+from ..losses.losses import prepare_loss_weights, sigmoid_focal_loss, weighted_smooth_l1
 
 
 class TaskHead(nn.Module):
@@ -44,6 +45,59 @@ class MultiGroupHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
         return [t(x) for t in self.tasks]
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    pos_cls_weight: float = 1.0
+    neg_cls_weight: float = 2.0
+    # norm_by_num_positives | norm_by_num_examples | norm_by_num_pos_neg | dont_norm
+    loss_norm_type: str = "norm_by_num_positives"
+    focal_gamma: float = 2.0
+    focal_alpha: float = 0.25
+    cls_loss_weight: float = 1.0
+    loc_loss_weight: float = 0.25
+    smooth_l1_sigma: float = 3.0
+    code_weights: Tuple[float, ...] = (1.0,) * 10
+    use_code_weights: bool = False  # reference quirk: code weights disabled
+    encode_rad_error_by_sin: bool = False
+
+
+def multi_group_loss(preds: List[Dict[str, torch.Tensor]], labels: List[torch.Tensor],
+                     reg_targets: List[torch.Tensor], num_classes: Sequence[int],
+                     cfg: LossConfig = LossConfig()) -> Dict[str, Any]:
+    """Total loss + per-task diagnostics: focal cls + smooth-L1 reg, each
+    summed and divided by the batch size, summed over tasks. labels per task
+    [B, A], reg_targets per task [B, A, code]. Returns {"loss", "loc_loss":
+    [T], "cls_loss": [T], "num_pos": [T]}."""
+    total = 0.0
+    logs: Dict[str, Any] = {"loc_loss": [], "cls_loss": [], "num_pos": []}
+    for t, pred in enumerate(preds):
+        nc = num_classes[t]
+        B = pred["box_preds"].shape[0]
+        code = reg_targets[t].shape[-1]
+        box_preds = pred["box_preds"].reshape(B, -1, code)
+        cls_preds = pred["cls_preds"].reshape(B, -1, nc)
+        lab = labels[t]
+
+        cls_weights, reg_weights, cared = prepare_loss_weights(
+            lab, cfg.pos_cls_weight, cfg.neg_cls_weight, cfg.loss_norm_type)
+        cls_targets = (lab * cared).long()
+        one_hot = F.one_hot(cls_targets, nc + 1)[..., 1:].to(box_preds.dtype)
+
+        loc_loss = weighted_smooth_l1(box_preds, reg_targets[t], reg_weights,
+                                      cfg.smooth_l1_sigma, cfg.code_weights,
+                                      cfg.use_code_weights)
+        cls_loss = sigmoid_focal_loss(cls_preds, one_hot, cls_weights, cfg.focal_gamma,
+                                      cfg.focal_alpha)
+        loc_reduced = loc_loss.sum() / B * cfg.loc_loss_weight
+        cls_reduced = cls_loss.sum() / B * cfg.cls_loss_weight
+        total = total + loc_reduced + cls_reduced
+        logs["loc_loss"].append(loc_reduced)
+        logs["cls_loss"].append(cls_reduced)
+        logs["num_pos"].append((lab > 0).sum())
+    logs["loss"] = total
+    return logs
 
 
 @dataclass(frozen=True)

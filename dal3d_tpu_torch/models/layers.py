@@ -1,8 +1,12 @@
 """Building blocks of the sparse backbone and the dense neck (port of the
-brick branches of ``dal3d_tpu/models/layers.py``), in eval mode.
+brick branches of ``dal3d_tpu/models/layers.py``).
 
 Parameters stay f32, as in the JAX package, and are cast to the layer's
-compute dtype at each call, so bf16 rounds in the same places.
+compute dtype at each call, so bf16 rounds in the same places. The norms
+follow ``nn.Module.training``: batch statistics in train mode, running ones in
+eval mode. Both keep the **biased** batch variance in the running average, as
+the JAX modules do (``torch.nn.BatchNorm*d`` would store the unbiased one),
+with momentum 0.01 in torch's convention.
 """
 from __future__ import annotations
 
@@ -13,36 +17,61 @@ from torch import nn
 from ..ops import sparse_brick as spb
 
 
+def _update_running(bn: nn.Module, mean: torch.Tensor, var: torch.Tensor) -> None:
+    """running <- (1 - momentum) * running + momentum * batch, in place,
+    outside the graph."""
+    with torch.no_grad():
+        bn.running_mean.mul_(1 - bn.momentum).add_(mean, alpha=bn.momentum)
+        bn.running_var.mul_(1 - bn.momentum).add_(var, alpha=bn.momentum)
+
+
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over valid sparse voxels, eval mode (running statistics;
-    eps 1e-3 as the reference's BatchNorm1d).
+    """BatchNorm over valid sparse voxels (eps 1e-3 and momentum 0.01 as the
+    reference's BatchNorm1d).
 
-    The statistics fold into one multiply-add in the input dtype, as JAX's
-    ``MaskedBatchNorm`` does, then padding voxels are zeroed."""
+    Train mode takes the masked mean and biased variance over every leading
+    dim in f32 (count clamped to 1; padding voxels contribute nothing) and
+    moves the running statistics towards them. The statistics fold into one
+    multiply-add in the input dtype, as JAX's ``MaskedBatchNorm`` does, then
+    padding voxels are zeroed."""
 
-    def __init__(self, channels: int, eps: float = 1e-3):
+    def __init__(self, channels: int, eps: float = 1e-3, momentum: float = 0.01):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + self.eps)
+        if self.training:
+            m = mask[..., None].float()
+            cnt = torch.clamp(m.sum(), min=1.0)
+            xf = x.float()
+            dims = tuple(range(x.ndim - 1))
+            mean = (xf * m).sum(dims) / cnt
+            var = (torch.square(xf - mean) * m).sum(dims) / cnt
+            _update_running(self, mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps)
         scale_eff = (self.weight * inv).to(x.dtype)
-        bias_eff = (self.bias - self.running_mean * self.weight * inv).to(x.dtype)
+        bias_eff = (self.bias - mean * self.weight * inv).to(x.dtype)
         y = x * scale_eff + bias_eff
         return torch.where(mask[..., None], y, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class BatchNorm2d(nn.Module):
-    """Dense NCHW batch norm, eval mode, with flax's arithmetic: normalise in
-    f32, cast back to the input dtype (eps 1e-3)."""
+    """Dense NCHW batch norm with flax's arithmetic (eps 1e-3, momentum
+    0.01): statistics and normalisation in f32, cast back to the input dtype.
+    Train mode takes the batch mean and the fast biased variance
+    max(0, E[x^2] - E[x]^2) over (B, H, W), as ``flax.linen.BatchNorm``."""
 
-    def __init__(self, channels: int, eps: float = 1e-3):
+    def __init__(self, channels: int, eps: float = 1e-3, momentum: float = 0.01):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -50,8 +79,15 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp(torch.square(xf).mean(dim=(0, 2, 3)) - torch.square(mean), min=0.0)
+            _update_running(self, mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
 
 

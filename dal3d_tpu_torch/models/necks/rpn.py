@@ -20,7 +20,7 @@ from ..layers import BatchNorm2d
 
 
 class ConvBN(nn.Module):
-    """conv (or transpose conv) + eval BN + ReLU in the compute dtype."""
+    """conv (or transpose conv) + BN + ReLU in the compute dtype."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int, padding: int,
                  transpose: bool, dtype: torch.dtype):

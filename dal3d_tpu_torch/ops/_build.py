@@ -27,6 +27,7 @@ COMMON_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # and must see the same rounding as the plain version, so no FMA contraction
 KERNELS = {
     "banded_conv": (),
+    "banded_dw": (),
     "iou_matrix": ("-fmad=false",),
     "pairwise_distance": (),
 }

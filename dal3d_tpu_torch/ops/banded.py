@@ -13,6 +13,16 @@ takes the full rulebook (``where(hit, idx, -1)``): there is no band plan, no
 every out-of-band entry (``fb_covered == oob_count``); in f32 up to the
 summation order, in bf16 up to where the two round (JAX rounds the in-band
 sum to bf16 before adding the fallback; the port rounds once).
+
+The op carries gradients (``torch.autograd.Function`` with the semantics of
+JAX's ``_banded_conv_bwd``): the incoming gradient is rounded to the table's
+dtype; the weight gradient is a second hand-written kernel
+(``csrc/banded_dw.cu``, the port of ``_dw_kernel``), f32 sums rounded to the
+weight's dtype; the input gradient of a tap-symmetric rulebook is the forward
+kernel again on the gradient with the taps reversed and each weight
+transposed, and of any other rulebook a per-tap matmul + ``index_add_`` in
+f32 (the counterpart of JAX's XLA scatter-add, which is no Pallas kernel).
+The caller says which (``symmetric``); nothing is detected at run time.
 """
 from __future__ import annotations
 
@@ -28,19 +38,67 @@ def _pad8(n: int) -> int:
     return ((n + 7) // 8) * 8
 
 
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """f32 sums for bf16 / f32 inputs (f64 stays f64, for gradcheck)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _gather_tap(tbl: torch.Tensor, safe: torch.Tensor, q: int) -> torch.Tensor:
+    """Rows of the zero-extended table [B, Mb+1, R] for tap q -> [B, M, R]."""
+    B, _, R = tbl.shape
+    return torch.gather(tbl, 1, safe[:, q, :, None].expand(B, safe.shape[2], R))
+
+
 def banded_conv_plain(table: torch.Tensor, idx: torch.Tensor,
                       w: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel: masked gather + per-tap matmul in
     f32, rounded to the table's dtype (the twin of ``_banded_fwd_xla``)."""
     B, Mb, R = table.shape
     Q, M = idx.shape[1], idx.shape[2]
+    acc = _acc_dtype(table.dtype)
     tbl = torch.cat([table, table.new_zeros(B, 1, R)], dim=1)
     safe = torch.where(idx >= 0, idx, Mb).long()
-    out = torch.zeros(B, M, w.shape[-1], dtype=torch.float32, device=table.device)
+    out = torch.zeros(B, M, w.shape[-1], dtype=acc, device=table.device)
     for q in range(Q):
-        g = torch.gather(tbl, 1, safe[:, q, :, None].expand(B, M, R))
-        out += torch.matmul(g.float(), w[q].float())
+        out += torch.matmul(_gather_tap(tbl, safe, q).to(acc), w[q].to(acc))
     return out.to(table.dtype)
+
+
+def banded_dw_plain(table: torch.Tensor, idx: torch.Tensor,
+                    g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the weight-gradient kernel: masked gather +
+    ``einsum("bmr,bmo->ro")`` per tap in f32 (the twin of the XLA branch of
+    ``_banded_conv_bwd``). table [B, Mb, R], idx [B, Q, M], g [B, M, Rout]
+    -> dw [Q, R, Rout] f32."""
+    B, Mb, R = table.shape
+    Q = idx.shape[1]
+    acc = _acc_dtype(table.dtype)
+    tbl = torch.cat([table, table.new_zeros(B, 1, R)], dim=1)
+    safe = torch.where(idx >= 0, idx, Mb).long()
+    gf = g.to(acc)
+    dw = torch.empty(Q, R, g.shape[-1], dtype=acc, device=table.device)
+    for q in range(Q):
+        dw[q] = torch.einsum("bmr,bmo->ro", _gather_tap(tbl, safe, q).to(acc), gf)
+    return dw
+
+
+def banded_dtable_scatter(g: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                          Mb: int) -> torch.Tensor:
+    """Input gradient of a rulebook that is not tap-symmetric:
+    dtable[b, idx[b, q, m]] += g[b, m] @ w[q]^T over the hits. Each tap's
+    product is rounded to g's dtype and added into an f32 buffer with
+    ``index_add_``, as JAX's XLA scatter-add branch does. g [B, M, Rout], w
+    [Q, R, Rout] -> [B, Mb, R] in g's dtype."""
+    B, M, _ = g.shape
+    Q, R = w.shape[0], w.shape[1]
+    acc = _acc_dtype(g.dtype)
+    buf = torch.zeros(B * (Mb + 1), R, dtype=acc, device=g.device)
+    base = (torch.arange(B, device=g.device) * (Mb + 1))[:, None]
+    for q in range(Q):
+        gw = torch.matmul(g, w[q].to(g.dtype).transpose(0, 1))  # f32 sums, g's dtype
+        rows = torch.where(idx[:, q] >= 0, idx[:, q].long(), Mb) + base
+        buf.index_add_(0, rows.reshape(-1), gw.reshape(B * M, R).to(acc))
+    return buf.view(B, Mb + 1, R)[:, :Mb].to(g.dtype)
 
 
 def banded_conv(table: torch.Tensor, idx: torch.Tensor,
@@ -91,10 +149,103 @@ def banded_conv(table: torch.Tensor, idx: torch.Tensor,
 
 banded_conv.launches = 0
 
+# blocks the weight-gradient launch aims for: a few waves of the card's 132
+# multiprocessors, several blocks resident on each
+_DW_TARGET_BLOCKS = 1056
+
+
+def banded_dw(table: torch.Tensor, idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The weight-gradient kernel's wrapper: table [B, Mb, R], idx [B, Q, M]
+    int32 (-1 = no contribution), g [B, M, Rout] in the table's dtype ->
+    dw [Q, R, Rout] f32, dw[q] = sum_{b, m} table[b, idx[b, q, m]]^T g[b, m].
+
+    CPU tensors take the plain version. CUDA tensors (bf16 or f32) launch
+    ``csrc/banded_dw.cu`` or raise; R and Rout are zero-padded to the kernel's
+    multiple of 8 where needed. The B*M rows are split over blocks whose
+    partial sums a second kernel adds in order (deterministic).
+    ``banded_dw.launches`` counts launches."""
+    if table.device.type == "cpu":
+        return banded_dw_plain(table, idx, g)
+    if table.device.type != "cuda":
+        raise ValueError(f"banded_dw: unsupported device {table.device}")
+    B, Mb, R = table.shape
+    Q, M = idx.shape[1], idx.shape[2]
+    Rout = g.shape[-1]
+    fn = {torch.bfloat16: "banded_dw_bf16", torch.float32: "banded_dw_f32"}.get(table.dtype)
+    if fn is None or g.dtype != table.dtype:
+        raise TypeError(f"banded_dw: table {table.dtype} / g {g.dtype}; "
+                        "the kernel takes bf16 or f32, both the same")
+    if idx.dtype != torch.int32 or idx.shape[0] != B or g.shape[:2] != (B, M):
+        raise ValueError(f"banded_dw: shapes table {tuple(table.shape)}, "
+                         f"idx {tuple(idx.shape)} {idx.dtype}, g {tuple(g.shape)}")
+    if idx.device != table.device or g.device != table.device:
+        raise ValueError("banded_dw: inputs must be on one device")
+    Rp, Routp = _pad8(R), _pad8(Rout)
+    if Rp != R:
+        table = F.pad(table, (0, Rp - R))
+    if Routp != Rout:
+        g = F.pad(g, (0, Routp - Rout))
+    table, idx, g = table.contiguous(), idx.contiguous(), g.contiguous()
+    tiles = Q * ((Rp + 63) // 64) * ((Routp + 63) // 64)
+    splits = max(1, min(-(-_DW_TARGET_BLOCKS // max(tiles, 1)), (B * M) // 256))
+    dw = torch.empty(Q, Rp, Routp, dtype=torch.float32, device=table.device)
+    part = (torch.empty(splits, Q, Rp, Routp, dtype=torch.float32, device=table.device)
+            if splits > 1 else dw)
+    lib = _build.load("banded_dw")
+    launch = getattr(lib, fn)
+    launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    with torch.cuda.device(table.device):
+        err = launch(table.data_ptr(), idx.data_ptr(), g.data_ptr(), dw.data_ptr(),
+                     part.data_ptr(), B, Mb, Rp, Q, M, Routp, splits,
+                     torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "banded_dw")
+    banded_dw.launches += 1
+    return dw[:, :R, :Rout] if (Rp != R or Routp != Rout) else dw
+
+
+banded_dw.launches = 0
+
+
+class _BandedConv(torch.autograd.Function):
+    """``banded_conv`` with the gradients of JAX's ``_banded_conv_bwd``. Work
+    the graph does not ask for is skipped: a constant weight launches no
+    weight-gradient kernel (and keeps no table), a table without a gradient
+    gets no input gradient."""
+
+    @staticmethod
+    def forward(ctx, table, idx, w, symmetric):
+        ctx.symmetric = symmetric
+        ctx.mb = table.shape[1]
+        ctx.save_for_backward(table if ctx.needs_input_grad[2] else None, idx, w)
+        return banded_conv(table, idx, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        table, idx, w = ctx.saved_tensors
+        g = g.to(w.dtype).contiguous()
+        dtable = dw = None
+        if ctx.needs_input_grad[0]:
+            if ctx.symmetric:
+                # the dual gather: same rulebook, taps reversed, weights transposed
+                dtable = banded_conv(g, idx, w.flip(0).transpose(1, 2).contiguous())
+            else:
+                dtable = banded_dtable_scatter(g, idx, w, ctx.mb)
+        if ctx.needs_input_grad[2]:
+            dw = banded_dw(table, idx, g).to(w.dtype)
+        return dtable, None, dw, None
+
 
 def banded_gather_matmul(table: torch.Tensor, wband: torch.Tensor,
-                         idx: torch.Tensor) -> torch.Tensor:
+                         idx: torch.Tensor, symmetric: bool = False) -> torch.Tensor:
     """Full banded op over a full rulebook (JAX's argument order): table
     [B, Mb, R], wband [Q, R, Rout] (cast to the table's dtype), idx
-    [B, Q, M] (-1 = miss) -> [B, M, Rout]."""
-    return banded_conv(table, idx.to(torch.int32), wband.to(table.dtype))
+    [B, Q, M] (-1 = miss) -> [B, M, Rout]; differentiable in table and wband.
+
+    ``symmetric`` states that the rulebook is tap-symmetric (M == Mb and
+    ``idx[b, Q-1-q, idx[b, q, m]] == m`` on every hit), which routes the input
+    gradient through the forward kernel; say False for any other rulebook."""
+    if symmetric and idx.shape[2] != table.shape[1]:
+        raise ValueError(f"banded_gather_matmul: a symmetric rulebook has M == Mb, got "
+                         f"M={idx.shape[2]}, Mb={table.shape[1]}")
+    return _BandedConv.apply(table, idx.to(torch.int32), wband.to(table.dtype), symmetric)

@@ -18,6 +18,13 @@ JAX's ``pack_host_rulebook`` layout [B, 11, Mb]: rows 0-8 the (dz, dy) taps in
 z-major order, rows 9/10 the left/right w-neighbour bricks (halo rows). Every
 conv runs as ``banded_gather_matmul`` over such a rulebook; there are no band
 plans (see ops/banded.py).
+
+Gradients: plans and rulebooks are integer tensors built outside the graph
+(``torch.no_grad``); the einsums that spread a layer weight over its banded
+block weights are differentiable; the halo-pad selection weights are
+constants. Each call tells ``banded_gather_matmul`` whether its rulebook is
+tap-symmetric: the subm conv and every halo-pad rulebook are, the strided
+conv's (M != Mb) is not.
 """
 from __future__ import annotations
 
@@ -84,6 +91,7 @@ def _grid_from_lin(brick_lin: torch.Tensor, nbc: int) -> torch.Tensor:
     return grid
 
 
+@torch.no_grad()
 def build_brick_grid(bb: BrickBatch) -> torch.Tensor:
     """[B, nbc+1] int32 brick-cell -> row index."""
     return _grid_from_lin(bb.brick_lin, bb.num_cells)
@@ -112,6 +120,7 @@ def _neighbor_lookup(brick_lin, grid, deltas, shape_bricks) -> torch.Tensor:
     return _grid_lookup(grid, qcell)
 
 
+@torch.no_grad()
 def halo_indices(bb: BrickBatch, grid: torch.Tensor | None = None) -> torch.Tensor:
     """[B, 2, Mb] rows of the left/right w-neighbour bricks (-1 = miss)."""
     if grid is None:
@@ -120,6 +129,7 @@ def halo_indices(bb: BrickBatch, grid: torch.Tensor | None = None) -> torch.Tens
                             (bb.shape[0], bb.shape[1], bb.wb))
 
 
+@torch.no_grad()
 def subm_rulebook(bb: BrickBatch, kernel_size=3,
                   grid: torch.Tensor | None = None) -> torch.Tensor:
     """[B, 11, Mb] int32 subm rulebook: the 9 (dz, dy) taps (w-taps live in
@@ -151,6 +161,7 @@ class BandedSubmRulebook:
     pad: torch.Tensor  # [B, 3, Mb] [left, self, right] rows of the halo-pad gather
 
 
+@torch.no_grad()
 def subm_rulebook_banded(bb: BrickBatch, kernel_size=3,
                          grid: torch.Tensor | None = None) -> BandedSubmRulebook:
     rb = subm_rulebook(bb, kernel_size, grid)
@@ -208,12 +219,12 @@ def subm_conv(bb: BrickBatch, weights: torch.Tensor, rulebook: BandedSubmRuleboo
     dt = bb.features.dtype
     pad_w = torch.as_tensor(_pad_wband_np(bw, C, with_valid=False), dtype=dt,
                             device=bb.features.device)
-    padded = banded_gather_matmul(bb.features, pad_w, rulebook.pad)
+    padded = banded_gather_matmul(bb.features, pad_w, rulebook.pad, symmetric=True)
     band_w = _halo_band(kd * kh, kw, bw, weights)  # [Kzy, (bw+2)C, bw*Cout]
     R2p = padded.shape[-1]
     if band_w.shape[1] != R2p:
         band_w = torch.nn.functional.pad(band_w, (0, 0, 0, R2p - band_w.shape[1]))
-    out = banded_gather_matmul(padded, band_w, rulebook.conv)
+    out = banded_gather_matmul(padded, band_w, rulebook.conv, symmetric=True)
     out = out.to(dt) * bb.vmask.repeat_interleave(Cout, dim=-1).to(dt)
     return bb.replace(features=out)
 
@@ -255,6 +266,7 @@ def _rank_first(occ: torch.Tensor, cap: int, fill: int) -> torch.Tensor:
     return out[:, :cap]
 
 
+@torch.no_grad()
 def downsample_plan(bb: BrickBatch, kernel_size, stride, padding, out_bw: int,
                     out_cap: int, grid: torch.Tensor | None = None):
     """Plan a strided sparse conv in brick space (JAX's ``spatial=True``
@@ -354,7 +366,8 @@ def downsample_conv_banded(bb: BrickBatch, weights: torch.Tensor, kernel_size, s
 
     rows_v = torch.cat([bb.features, bb.vmask.to(dt)], dim=-1)
     pad_w = torch.as_tensor(_pad_wband_np(bw, C, with_valid=True), dtype=dt, device=dev)
-    padded = banded_gather_matmul(rows_v, pad_w, _pad_rulebook(halo))  # [B, Mb, R2p]
+    padded = banded_gather_matmul(rows_v, pad_w, _pad_rulebook(halo),
+                                  symmetric=True)  # [B, Mb, R2p]
 
     # per-tap block weights [Q, R2p, pad8(out_bw*Cout + out_bw)]
     R2 = (bw + 2) * (C + 1)
@@ -373,7 +386,8 @@ def downsample_conv_banded(bb: BrickBatch, weights: torch.Tensor, kernel_size, s
     wq = torch.zeros(Kzy, nwb_h, R2p, _pad8(Routt), dtype=weights.dtype, device=dev)
     wq[:, :, :(bw + 2) * Cin, :out_bw * Cout] = band_f
     wq[:, :, (bw + 2) * Cin:R2, out_bw * Cout:Routt] = bv
-    out_all = banded_gather_matmul(padded, wq.reshape(Kzy * nwb_h, R2p, -1), idx)
+    out_all = banded_gather_matmul(padded, wq.reshape(Kzy * nwb_h, R2p, -1), idx,
+                                   symmetric=False)
 
     out = out_all[..., :out_bw * Cout]
     out_v = out_all[..., out_bw * Cout:Routt]
@@ -433,6 +447,7 @@ def _compact_cells_spatial(cells: torch.Tensor, nbc: int, cap: int,
     return torch.where(keys < nbc, lin, torch.full_like(lin, nbc))
 
 
+@torch.no_grad()
 def pack_plan_arrays(coords_zyx: torch.Tensor, valid: torch.Tensor, shape, bw: int,
                      mb_cap: int):
     """(brick_lin [B, Mb] int32, row [B, N] int32): the active bricks in

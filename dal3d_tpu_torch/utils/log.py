@@ -1,24 +1,31 @@
 """Root logger setup (own copy of ``dal3d_tpu/utils/log.py``; single
-process, so the file handler is always attached)."""
+process, so the file handler is always attached, also when an earlier call
+in the same process set the logger up without it or with another file)."""
 from __future__ import annotations
 
 import logging
+import os
 
 
 def get_root_logger(log_file: str | None = None, log_level: int | str = logging.INFO) -> logging.Logger:
     logger = logging.getLogger("dal3d")
     if isinstance(log_level, str):
         log_level = getattr(logging, log_level.upper())
-    if logger.handlers:
-        return logger
     fmt = logging.Formatter("%(asctime)s - %(name)s - %(levelname)s - %(message)s")
-    sh = logging.StreamHandler()
-    sh.setFormatter(fmt)
-    logger.addHandler(sh)
+    if not logger.handlers:
+        sh = logging.StreamHandler()
+        sh.setFormatter(fmt)
+        logger.addHandler(sh)
+        logger.setLevel(log_level)
+        logger.propagate = False
     if log_file is not None:
-        fh = logging.FileHandler(log_file)
+        path = os.path.abspath(log_file)
+        for h in [h for h in logger.handlers if isinstance(h, logging.FileHandler)]:
+            if h.baseFilename == path:
+                return logger
+            logger.removeHandler(h)  # a run logs to its own work_dir
+            h.close()
+        fh = logging.FileHandler(path)
         fh.setFormatter(fmt)
         logger.addHandler(fh)
-    logger.setLevel(log_level)
-    logger.propagate = False
     return logger

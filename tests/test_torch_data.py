@@ -155,10 +155,19 @@ def test_bf16_batches_stack_as_tensors(pool):
 
 
 def test_train_mode_is_not_ported(pool):
-    with pytest.raises(NotImplementedError):
-        NuScenesDataset(info_path=pool, pipeline=PIPELINE, tasks=TASKS)
-    with pytest.raises(NotImplementedError):
-        build_pipeline([dict(type="Preprocess", cfg=dict(mode="train"))], tasks=TASKS)
+    """What train mode still refuses: a GT-AUG sampler whose database file
+    exists (as in the JAX package, a missing file means no sampler) and the
+    camera stages. The train-mode dataset and Preprocess themselves are ported
+    (tests/test_torch_train_data.py)."""
+    train = dict(mode="train", class_names=["car"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        build_pipeline([dict(type="Preprocess", cfg=dict(train, db_sampler=dict(
+            db_info_path=pool, sample_groups=[dict(car=2)])))], tasks=TASKS)
+    stages = build_pipeline([dict(type="Preprocess", cfg=dict(train, db_sampler=dict(
+        db_info_path=pool + ".missing", sample_groups=[dict(car=2)])))], tasks=TASKS)
+    assert stages[0].mode == "train"
+    ds = NuScenesDataset(info_path=pool, class_names=["car"], pipeline=PIPELINE, tasks=TASKS)
+    assert not ds.test_mode and len(ds) > 0
     with pytest.raises(KeyError):
         build_pipeline([dict(type="LoadMultiViewImages")], tasks=TASKS)
 

@@ -177,3 +177,114 @@ def test_streaming_kcenter_on_card_matches_cpu(cuda, metric):  # noqa: F811
                                              t(already), max_select=n, metric=metric)
     assert count == rcount > 10 and sel.cpu().tolist() == ref.tolist()
     assert float(cost) == float(rcost)
+
+
+# --- training: the weight-gradient kernel and the banded backward -----------
+
+def _dw_case(rng, B, Q, M, Mb, R, Rout, dtype, dev, miss_p=0.5):
+    idx, hit = mk_rulebook(rng, B, Q, M, Mb, spread=max(Mb // 5, 2), miss_p=miss_p)
+    idx = t(np.where(hit, idx, -1)).to(dev)
+    table = t(rng.randn(B, Mb, R).astype(np.float32)).to(dev, dtype)
+    g = t((rng.randn(B, M, Rout) * 0.1).astype(np.float32)).to(dev, dtype)
+    return table, idx, g
+
+
+# (B, Q, M, Mb, R, Rout): several splits with a ragged last step; one split;
+# widths the wrapper pads; a single row block
+DW_SHAPES = [(2, 9, 1000, 900, 288, 256), (1, 3, 130, 130, 64, 72), (2, 3, 96, 80, 90, 306),
+             (3, 27, 517, 400, 312, 528)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_banded_dw_kernel_matches_plain(cuda, shape, dtype):  # noqa: F811
+    """Both sum the same products (exact in f32 for bf16 inputs) in f32, in
+    another order: within 1e-4 of the result's scale."""
+    B, Q, M, Mb, R, Rout = shape
+    table, idx, g = _dw_case(np.random.RandomState(7), B, Q, M, Mb, R, Rout, dtype, cuda)
+    idx[:, 1] = -1  # a tap with no hit at all
+    idx[:, :, 64:128] = -1  # a 64-row step with no hit
+    before = tbd.banded_dw.launches
+    got = tbd.banded_dw(table, idx, g)
+    torch.cuda.synchronize()
+    assert tbd.banded_dw.launches == before + 1
+    assert got.shape == (Q, R, Rout) and got.dtype == torch.float32
+    ref = tbd.banded_dw_plain(table, idx, g)
+    assert float(got[1].abs().max()) == 0.0
+    scale = float(ref.abs().max())
+    assert scale > 0 and float((got - ref).abs().max()) <= 1e-4 * scale
+    again = tbd.banded_dw(table, idx, g)  # two-pass reduction: the same bits every time
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_banded_backward_on_card_matches_cpu(cuda, symmetric, dtype):  # noqa: F811
+    """The autograd op on the card (K1 / scatter input gradient, K3 weight
+    gradient) against the same op on the CPU (plain versions)."""
+    rng = np.random.RandomState(11)
+    B, Q, M, R, Rout = 2, 3, 300, 64, 40
+    if symmetric:  # taps (-2, self, +2) over M rows
+        m = np.arange(M)
+        idx = np.stack([np.where(m >= 2, m - 2, -1), m, np.where(m < M - 2, m + 2, -1)])
+        idx = np.tile(idx[None], (B, 1, 1)).astype(np.int32)
+        idx[0, 0, 10] = idx[0, 2, 8] = -1  # a dual pair dropped together
+        Mb = M
+    else:
+        Mb = 250
+        idx0, hit = mk_rulebook(rng, B, Q, M, Mb, spread=30)
+        idx = np.where(hit, idx0, -1).astype(np.int32)
+    table = rng.randn(B, Mb, R).astype(np.float32)
+    w = (rng.randn(Q, R, Rout) * 0.1).astype(np.float32)
+    cot = rng.randn(B, M, Rout).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        tb = t(table).to(dev, dtype).requires_grad_(True)
+        wt = t(w).to(dev).requires_grad_(True)  # f32 parameter, cast inside the op
+        out = tbd.banded_gather_matmul(tb, wt, t(idx).to(dev), symmetric=symmetric)
+        (out.float() * t(cot).to(dev)).sum().backward()
+        grads[dev] = (tb.grad.float().cpu(), wt.grad.float().cpu())
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
+    for a, b in zip(grads["cpu"], grads["cuda"]):
+        assert float((a - b).abs().max()) <= tol * float(a.abs().max())
+
+
+def test_train_step_on_card_matches_cpu(cuda):  # noqa: F811
+    """One f32 train step: kernels on the card vs plain versions on the CPU,
+    same seeded weights, voxels and boxes: the logs within 1e-3 relative,
+    every updated batch statistic within 1e-4, the gradient as a whole within
+    2e-2 of its norm (single parameters move more when a ReLU unit within
+    rounding of zero changes side between the devices; the kernels are held
+    tightly one by one above)."""
+    from dal3d_tpu_torch.runtime.steps import make_train_step
+    from dal3d_tpu_torch.solver.optim import OneCycleSchedule, build_optimizer
+    from torch_port_utils import small_gt
+
+    cfg = small_cfg()
+    vf, vc, vv = small_voxels(3)
+    gt_boxes, gt_classes = small_gt(cfg, 3)
+    batch = {"voxel_features": vf, "voxel_coords": vc, "voxel_valid": vv,
+             "gt_boxes": gt_boxes, "gt_classes": gt_classes}
+    logs, stats, grads = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        bundle = build_detector(cfg, device=dev, seed=0)
+        opt = build_optimizer(OneCycleSchedule(total_steps=10)).init(
+            bundle.model.named_parameters())
+        k1, k3 = tbd.banded_conv.launches, tbd.banded_dw.launches
+        out = make_train_step(bundle, opt)(batch)
+        logs[dev] = {k: float(v) for k, v in out.items()}
+        stats[dev] = {k: v.cpu() for k, v in bundle.model.state_dict().items() if "running" in k}
+        grads[dev] = {k: p.grad.double().cpu() for k, p in bundle.model.named_parameters()}
+        if dev == "cuda":
+            # 42 forward launches + 36 dual gathers; one weight gradient per trained conv
+            assert tbd.banded_conv.launches - k1 == 78
+            assert tbd.banded_dw.launches - k3 == 21
+    assert logs["cpu"]["num_pos"] == logs["cuda"]["num_pos"] > 0
+    for k, v in logs["cpu"].items():
+        assert abs(logs["cuda"][k] - v) <= 1e-3 * abs(v), (k, v, logs["cuda"][k])
+    for k, v in stats["cpu"].items():
+        np.testing.assert_allclose(stats["cuda"][k].numpy(), v.numpy(), rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+    num = sum(float(((grads["cuda"][k] - g) ** 2).sum()) for k, g in grads["cpu"].items())
+    den = sum(float((g ** 2).sum()) for g in grads["cpu"].values())
+    assert den > 0 and (num / den) ** 0.5 <= 2e-2, (num / den) ** 0.5

@@ -51,6 +51,7 @@ def test_port_imports_nothing_of_jax():
     files = _port_files()
     assert len(files) > 40
     assert any(f.endswith(os.path.join("tools", "active_select.py")) for f in files)
+    assert any(f.endswith(os.path.join("tools", "train.py")) for f in files)
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imported_roots(f)
            if m in FORBIDDEN]
     assert not bad, bad
@@ -131,3 +132,19 @@ def test_selection_entry_points_without_device_need_a_gpu(monkeypatch, tmp_path)
     assert not os.path.exists(tmp_path / "missing.json")
     active_select.main([str(cfg), "--cpu"])  # first round: writes the empty buffer
     assert os.path.exists(tmp_path / "missing.json")
+
+
+def test_weight_gradient_wrapper_counts_and_takes_plain_on_cpu():
+    rng = np.random.RandomState(2)
+    idx, hit = mk_rulebook(rng, 2, 3, 64, 64, spread=8)
+    idx = t(np.where(hit, idx, -1))
+    table = t(rng.randn(2, 64, 16).astype(np.float32))
+    g = t(rng.randn(2, 64, 24).astype(np.float32))
+    n = tbd.banded_dw.launches
+    assert isinstance(n, int)
+    assert torch.equal(tbd.banded_dw(table, idx, g), tbd.banded_dw_plain(table, idx, g))
+    assert tbd.banded_dw.launches == n
+    with pytest.raises(ValueError):
+        tbd.banded_dw(torch.zeros(2, 8, 8, device="meta"),
+                      torch.zeros(2, 1, 8, dtype=torch.int32, device="meta"),
+                      torch.zeros(2, 8, 8, device="meta"))

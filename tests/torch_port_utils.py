@@ -82,3 +82,30 @@ def small_voxels(seed, B=2, N=1500, shape=(41, 64, 64)):
         vf[b, :n] = rng.randn(n, 5)
         vv[b, :n] = True
     return vf, vc, vv
+
+
+def small_gt(cfg, seed, B=2, G=8, per_task=1):
+    """Padded per-task GT boxes for ``small_cfg``'s 12.8 m grid: ``per_task``
+    boxes per sample and task, each near its class's anchor size and height,
+    with a velocity and a yaw. Returns (gt_boxes, gt_classes): lists per task
+    of [B, G, 9] f32 and [B, G] int32 (task-local 1-based, 0 = pad)."""
+    rng = np.random.RandomState(seed)
+    gens = cfg["target_assigner"]["anchor_generators"]
+    gt_boxes, gt_classes, flag = [], [], 0
+    for task in cfg["tasks"]:
+        nc = task["num_class"]
+        tb = np.zeros((B, G, 9), np.float32)
+        tb[..., 3:6] = 1.0
+        tc = np.zeros((B, G), np.int32)
+        for b in range(B):
+            for k in range(per_task):
+                c = rng.randint(nc)
+                g = gens[flag + c]
+                size = np.asarray(g["sizes"], np.float32) * rng.uniform(0.9, 1.1, 3)
+                tb[b, k] = [rng.uniform(-5, 5), rng.uniform(-5, 5), g["anchor_ranges"][2], *size,
+                            rng.uniform(-1, 1), rng.uniform(-1, 1), rng.uniform(-3.1, 3.1)]
+                tc[b, k] = c + 1
+        gt_boxes.append(tb)
+        gt_classes.append(tc)
+        flag += nc
+    return gt_boxes, gt_classes
