@@ -12,7 +12,9 @@ selection CLI (pool dataset and loader -> predict every frame -> pool scoring
 -> selector -> budgeted greedy k-center -> buffer JSON + subset infos), and
 the CBGS trainer through the training CLI (train-mode loader -> train step:
 forward, target assignment, loss, banded backward, clip, AdamW -> checkpoint
--> resume -> the selection CLI reads it).
+-> resume -> the selection CLI reads it), and the BEVFusion lidar-only
+predict on the gather engine (host voxels -> SparseEncoder -> SECOND +
+SECONDFPN -> TransFusion head -> decoded boxes).
 Phases, each fatal on failure:
 
   1. versions of torch / CUDA / nvcc and the card (nvidia-smi);
@@ -58,7 +60,23 @@ Phases, each fatal on failure:
      to the counts per step, checkpoint, resume, the selection CLI reads the
      result; the loss on a repeated batch falls; step time and its split,
      peak memory, device idle share; the same warm step fed by the loader
-     with and without its thread.
+     with and without its thread;
+ 12. BEVFusion lidar-only (TransFusion-L, configs/bevfusion_lidar.py) at
+     full width on two 300k-point clouds over +-54 m, voxelized on the host
+     at 0.075 m (120000 voxels kept of each): every launch of the fused
+     gather-GEMM (21 per predict) and of the row gather (1) held against
+     its plain version, with times for kernel, plain version, a PyTorch
+     yardstick, K1's f32 path on the same rulebook (gather-GEMM only) and
+     the bound; awkward small cases of both kernels;
+ 13. the tiny BEVFusion of the CPU parity tests in f32, on the card and on
+     the CPU (plain versions): equal query pixels and labels, boxes and
+     scores within 1e-4;
+ 14. the BEVFusion main path: launch counters set to 0, a warm-up and 10
+     timed predicts, counters read (21 and 1 per predict, nothing else);
+     outputs checked; BEV maps, heatmap and matched detections held against
+     the same forward on plain versions; stage split, peak memory, device
+     idle share; 4 frames of a synthetic infos file through the port's
+     dataset (the config's test pipeline) and loader into the same step.
 
 Prints a ``kernels`` JSON line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result, when no
@@ -108,28 +126,30 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def lidar_cloud(rng, n_points=POINTS) -> np.ndarray:
-    """Lidar-like cloud: radial ground rings dense near the ego, vertical
-    wall segments and box-shaped object clusters (the clustering of a
-    10-sweep nuScenes frame, as the JAX package's tools/microbench.py)."""
+def lidar_cloud(rng, n_points=POINTS, extent=51.2) -> np.ndarray:
+    """Lidar-like cloud within +-extent m: radial ground rings dense near the
+    ego, vertical wall segments and box-shaped object clusters (the
+    clustering of a 10-sweep nuScenes frame, as the JAX package's
+    tools/microbench.py)."""
     n_ground = int(n_points * 0.55)
     az = rng.uniform(-np.pi, np.pi, n_ground)
-    r = 2.0 + 48.0 * rng.power(2.2, n_ground)
+    r = 2.0 + (extent - 3.2) * rng.power(2.2, n_ground)
     ground = np.stack([r * np.cos(az), r * np.sin(az),
                        rng.normal(-1.8, 0.05, n_ground) + r * 0.003], 1)
     n_wall = int(n_points * 0.3)
     seg = rng.randint(0, 40, n_wall)
     saz = rng.uniform(-np.pi, np.pi, 40)[seg] + rng.normal(0, 0.02, n_wall)
-    sr = rng.uniform(8, 50, 40)[seg] + rng.normal(0, 0.3, n_wall)
+    sr = rng.uniform(8, extent - 1.2, 40)[seg] + rng.normal(0, 0.3, n_wall)
     wall = np.stack([sr * np.cos(saz), sr * np.sin(saz), rng.uniform(-1.8, 2.8, n_wall)], 1)
     n_obj = n_points - n_ground - n_wall
-    oc = rng.uniform(-45, 45, (25, 2))
+    oc = rng.uniform(-(extent - 6.2), extent - 6.2, (25, 2))
     oi = rng.randint(0, 25, n_obj)
     obj = np.stack([oc[oi, 0] + rng.uniform(-2.2, 2.2, n_obj),
                     oc[oi, 1] + rng.uniform(-1.0, 1.0, n_obj),
                     rng.uniform(-1.8, 0.2, n_obj)], 1)
     p = np.concatenate([ground, wall, obj], 0).astype(np.float32)
-    keep = (np.abs(p[:, 0]) < 51.2) & (np.abs(p[:, 1]) < 51.2) & (p[:, 2] > -5) & (p[:, 2] < 3)
+    keep = ((np.abs(p[:, 0]) < extent) & (np.abs(p[:, 1]) < extent) & (p[:, 2] > -5)
+            & (p[:, 2] < 3))
     return p[keep]
 
 
@@ -210,9 +230,10 @@ def iou_bound_ms(rows, cols) -> tuple:
 
 
 class Capture:
-    """Records the inputs of every launch of a kernel wrapper (by swapping
-    the module attribute the callers look up) for the hold-against-plain and
-    timing phases; the launches it wraps still run the kernel."""
+    """Records the inputs of every call of a kernel wrapper (by swapping the
+    module attribute the callers look up) for the hold-against-plain and
+    timing phases; the calls it wraps still run what the attribute held (the
+    kernel wrapper, or a plain version put there)."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
@@ -225,14 +246,15 @@ class Capture:
             self.calls.append(tuple(a.clone() for a in args))
             return self.orig(*args)
 
-        # the wrapper counts on the module attribute it is looked up by
-        spy.launches = self.orig.launches
+        # a wrapper counts on the module attribute it is looked up by
+        spy.launches = getattr(self.orig, "launches", 0)
         self.spy = spy
         setattr(self.module, self.name, spy)
         return self
 
     def __exit__(self, *exc):
-        self.orig.launches = self.spy.launches
+        if hasattr(self.orig, "launches"):
+            self.orig.launches = self.spy.launches
         setattr(self.module, self.name, self.orig)
 
 
@@ -244,6 +266,8 @@ def main() -> None:
         from dal3d_tpu_torch.models.heads.mg_head import multi_group_predict
         from dal3d_tpu_torch.ops import _build
         from dal3d_tpu_torch.ops import banded as bd
+        from dal3d_tpu_torch.ops import distance as td
+        from dal3d_tpu_torch.ops import gather as tg
         from dal3d_tpu_torch.ops import iou_matrix as tiou
         from dal3d_tpu_torch.ops.nms import greedy_nms_from_iou
         from dal3d_tpu_torch.runtime.steps import make_predict_step
@@ -415,7 +439,12 @@ def main() -> None:
         # 11. the training CLI at full width -----------------------------------------
         cli = training_run(tmp, dev)
 
-    # 12. kernels line, card line, result --------------------------------------
+        # 12-14. BEVFusion lidar-only predict at full width (K4, K5) ------------------
+        counters = (bd.banded_conv, bd.banded_dw, tiou.iou_matrix, td.pairwise_l1,
+                    td.pairwise_l2, tg.gather_gemm, tg.gather_rows)
+        gather = bevfusion_main_path(tmp, Config, counters, tg, bd)
+
+    # 15. kernels line, card line, result --------------------------------------
     kernels = [
         dict(name="banded_conv", route="cuda", source="dal3d_tpu_torch/ops/csrc/banded_conv.cu",
              replaces="dal3d_tpu/ops/banded.py:282", launches=k1_launches,
@@ -442,6 +471,9 @@ def main() -> None:
             launches=round_launches[name], **dist[name],
             launches_selection_round=round_launches[name],
             launches_train_size_selection=train_launches[name]))
+    for name, line in (("gather_gemm", 123), ("gather_rows", 76)):
+        kernels.append(dict(name=name, route="cuda", source="dal3d_tpu_torch/ops/csrc/gather.cu",
+                            replaces=f"dal3d_tpu/ops/pallas_gather.py:{line}", **gather[name]))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1628,6 +1660,427 @@ def train_step_split(bundle, opt, batch) -> dict:
         for n, a, b in zip(names, marks[:-1], marks[1:]):
             rec[n].append((b - a) * 1e3)
     return {n: float(np.median(v[1:])) for n, v in rec.items()}
+
+
+# ---------------------------------------------------------------------------
+# BEVFusion lidar-only (TransFusion-L) predict: the gather engine (K4, K5)
+# ---------------------------------------------------------------------------
+BF_POINTS, BF_EXTENT = 300_000, 54.0  # configs/bevfusion_lidar.py max_points, +-54 m
+K4_PER_PREDICT = 21  # stem, 4 subm convs at each of 4 levels, 3 downsamples, conv_out
+K5_PER_PREDICT = 1  # the query gather
+K4_TOL = 1e-5  # of the output's scale: f32 FMAs summed in another order than the plain matmuls
+BF_TOL = 1e-4  # of the scale, for maps and boxes after the whole f32 path
+
+
+def bevfusion_batch(seed: int, cfg) -> tuple:
+    """Two lidar-like clouds of 300000 points over +-54 m, each in a seeded
+    random point order (ground, walls and objects mixed, as a pooled
+    multi-sweep frame, instead of generation order, where the first 120000
+    voxels would all be ground), voxelized on the host at the config's
+    0.075 m. The voxelizer keeps the first ``max_voxel_num`` voxels in
+    first-appearance order. Returns (batch, occupied voxels before the cap,
+    host seconds)."""
+    from dal3d_tpu_torch.core.voxel_generator import points_to_voxel_mean as voxelize
+
+    vg = cfg["voxel_generator"]
+    cap = int(vg["max_voxel_num"])
+    rng = np.random.RandomState(seed)
+    vf = np.zeros((B, cap, 5), np.float32)
+    vc = np.zeros((B, cap, 3), np.int32)
+    vv = np.zeros((B, cap), bool)
+    occupied = []
+    t0 = time.perf_counter()
+    for b in range(B):
+        p = lidar_cloud(rng, BF_POINTS, BF_EXTENT)
+        pts = np.concatenate([p, rng.uniform(0, 255, (len(p), 1)).astype(np.float32),
+                              np.zeros((len(p), 1), np.float32)], 1)
+        pts = pts[rng.permutation(len(pts))]
+        # uncapped: the first ``cap`` voxels are the capped voxelizer's output
+        f, c, _ = voxelize(pts, vg["voxel_size"], vg["range"], vg["max_points_in_voxel"], len(pts))
+        occupied.append(len(f))
+        n = min(len(f), cap)
+        vf[b, :n], vc[b, :n], vv[b, :n] = f[:n], c[:n], True
+    batch = {"voxel_features": torch.from_numpy(vf), "voxel_coords": torch.from_numpy(vc),
+             "voxel_valid": torch.from_numpy(vv)}
+    return batch, occupied, time.perf_counter() - t0
+
+
+def gather_gemm_bound_ms(features, idx, hit, w) -> tuple:
+    """(bound ms, "bytes" | "operations") of one K4 launch: features, idx,
+    hit and weights read once, the output written once; 2 * hits * Cin *
+    Cout f32 operations."""
+    Bt, _, Cin = features.shape
+    M = idx.shape[2]
+    Cout = w.shape[-1]
+    nbytes = (features.numel() + idx.numel() + w.numel() + Bt * M * Cout) * 4 + hit.numel()
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = 2.0 * int(hit.sum()) * Cin * Cout / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k4_case(tg, dev, B_, N, Cin, K, M, Cout, seed) -> float:
+    """One awkward K4 case against the plain version (rows 100-299 without
+    a hit must come out zero); returns the error relative to scale."""
+    rng = np.random.RandomState(seed)
+    f = torch.from_numpy(rng.randn(B_, N, Cin).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.randint(0, N, (B_, K, M)).astype(np.int32)).to(dev)
+    hit = torch.from_numpy(rng.rand(B_, K, M) < 0.5).to(dev)
+    hit[:, :, 100:300] = False
+    w = torch.from_numpy((rng.randn(K, Cin, Cout) * 0.1).astype(np.float32)).to(dev)
+    got, ref = tg.gather_gemm(f, idx, hit, w), tg.gather_gemm_plain(f, idx, hit, w)
+    rel = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+    if not rel <= K4_TOL or (M > 100 and float(got[:, 100:300].abs().max()) != 0.0):
+        fail(f"gather_gemm awkward case {(B_, N, Cin, K, M, Cout)}: error {rel:.2e} of scale")
+    return rel
+
+
+def gather_kernels_check(bundle, batch, bd, tg) -> dict:
+    """Phase 12: every K4 / K5 launch of one full-width predict against its
+    plain version, with times, bound and yardsticks; awkward small cases."""
+    from dal3d_tpu_torch.runtime.bevfusion_steps import make_bevfusion_predict_step
+
+    predict = make_bevfusion_predict_step(bundle)
+    with Capture(tg, "gather_gemm") as k4, Capture(tg, "gather_rows") as k5:
+        predict(batch)
+        torch.cuda.synchronize()
+    if len(k4.calls) != K4_PER_PREDICT or len(k5.calls) != K5_PER_PREDICT:
+        fail(f"capture run launched gather_gemm {len(k4.calls)}x, gather_rows {len(k5.calls)}x; "
+             f"expected {K4_PER_PREDICT} and {K5_PER_PREDICT}")
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, k1_ms=0.0, bound_ms=0.0, t_bytes=0.0,
+               t_ops=0.0, hits=0, dense=0)
+    worst_abs = worst_rel = 0.0
+    print(f"gather_gemm launches of one predict (kernel vs plain, f32; tol = {K4_TOL:g} x "
+          "max|plain|; library = index_select + one matmul over K*Cin; K1 = banded_conv's f32 "
+          "path on the same rulebook):")
+    for n, (f, idx, hit, w) in enumerate(k4.calls):
+        got, ref = tg.gather_gemm(f, idx, hit, w), tg.gather_gemm_plain(f, idx, hit, w)
+        scale = max(float(ref.abs().max()), 1e-30)
+        err = float((got - ref).abs().max())
+        if not err <= K4_TOL * scale:
+            fail(f"gather_gemm launch {n} {tuple(f.shape)}x{tuple(w.shape)}: max_abs_err "
+                 f"{err:.3e} > {K4_TOL * scale:.3e}")
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, err / scale)
+        rb = torch.where(hit, idx, -1)
+        ms = cuda_time_ms(lambda: tg.gather_gemm(f, idx, hit, w), 5)
+        pms = cuda_time_ms(lambda: tg.gather_gemm_plain(f, idx, hit, w), 2)
+        lms = cuda_time_ms(library_banded(f, rb, w), 2)
+        k1ms = cuda_time_ms(lambda: bd.banded_conv(f, rb, w), 3)
+        bms, by = gather_gemm_bound_ms(f, idx, hit, w)
+        hits = int(hit.sum())
+        active = int((rb >= 0).any(1).sum())
+        for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("k1_ms", k1ms),
+                     ("bound_ms", bms), ("hits", hits), ("dense", hit.numel())):
+            tot[k] += v
+        tot["t_" + ("bytes" if by == "bytes" else "ops")] += bms
+        print(f"  #{n:2d} features {tuple(f.shape)} taps {idx.shape[1]} M {idx.shape[2]} "
+              f"(rows with a hit {active}) Cout {w.shape[-1]} hits {hits} "
+              f"({hits / hit.numel():.3f}): err {err / scale:.1e} of scale; kernel {ms:.4f} ms "
+              f"plain {pms:.3f} ms library {lms:.4f} ms K1 f32 {k1ms:.4f} ms bound {bms:.4f} ms "
+              f"({by})")
+    tot["bound_by"] = "bytes" if tot["t_bytes"] >= tot["t_ops"] else "operations"
+    print(f"gather_gemm per predict: kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
+          f"library {tot['library_ms']:.3f} ms, K1 f32 {tot['k1_ms']:.3f} ms, bound "
+          f"{tot['bound_ms']:.3f} ms ({tot['bound_by']}); hits {tot['hits']} of "
+          f"{tot['dense']} (row, tap) pairs; max_abs_err {worst_abs:.3e} (relative to output "
+          f"scale {worst_rel:.2e})")
+
+    table, rows = k5.calls[0]
+    if not torch.equal(tg.gather_rows(table, rows), tg.gather_rows_plain(table, rows)):
+        fail("gather_rows main-path launch differs from table[idx]")
+    k5n = dict(ms=cuda_time_ms(lambda: tg.gather_rows(table, rows), 50),
+              plain_ms=cuda_time_ms(lambda: tg.gather_rows_plain(table, rows), 50),
+              library_ms=cuda_time_ms(lambda: torch.index_select(table, 0, rows), 50),
+              max_abs_err=0.0, bound_by="bytes")
+    nbytes = rows.numel() * 4 + 2 * rows.numel() * table.shape[1] * table.element_size()
+    k5n["bound_ms"] = nbytes / PEAK_BYTES * 1e3
+    print(f"gather_rows table {tuple(table.shape)} idx {tuple(rows.shape)}: bit-equal to "
+          f"table[idx]; kernel {k5n['ms']:.4f} ms plain {k5n['plain_ms']:.4f} ms index_select "
+          f"{k5n['library_ms']:.4f} ms bound {k5n['bound_ms']:.5f} ms (bytes)")
+
+    dev = table.device
+    rels = [k4_case(tg, dev, 1, 300, 5, 27, 777, 16, 1), k4_case(tg, dev, 1, 50, 32, 3, 1, 128, 2),
+            k4_case(tg, dev, 2, 400, 64, 27, 333, 64, 3)]
+    rng = np.random.RandomState(4)
+    for C, M, dtype in ((5, 33, torch.float32), (128, 1, torch.float32), (3, 7, torch.bfloat16)):
+        tbl = torch.from_numpy(rng.randn(100, C).astype(np.float32)).to(dev, dtype)
+        ix = torch.from_numpy(rng.randint(0, 100, M).astype(np.int32)).to(dev)
+        if not torch.equal(tg.gather_rows(tbl, ix), tbl[ix.long()]):
+            fail(f"gather_rows awkward case C={C} M={M} {dtype} differs from table[idx]")
+    print(f"awkward cases: gather_gemm (Cin 5, M 777, 27 taps, rows without a hit), (M 1, "
+          f"Cout 128), (Cin 64, M 333) within {max(rels):.1e} of scale; gather_rows (C 5, M 33), "
+          "(M 1), (bf16, C 3) bit-equal")
+    k4 = dict(max_abs_err=worst_abs, ms=tot["ms"], plain_ms=tot["plain_ms"],
+              bound_ms=tot["bound_ms"], bound_by=tot["bound_by"], library_ms=tot["library_ms"],
+              k1_f32_ms=tot["k1_ms"])
+    return {"gather_gemm": k4, "gather_rows": k5n}
+
+
+def bevfusion_tiny_cfg() -> dict:
+    """The tiny lidar-only model of the CPU parity tests on a (41, 64, 64)
+    grid (12.8 m at 0.2 m)."""
+    return {"model": dict(type="BEVFusion", with_camera=False, num_proposals=8,
+                          decoder_channels=(16, 32), decoder_layer_nums=(1, 1),
+                          neck_out_channels=(16, 16), hidden_channel=16, ffn_channel=32,
+                          num_heads=2, voxel_caps=(2000, 1000, 500, 500)),
+            "voxel_generator": dict(range=[-6.4, -6.4, -5.0, 6.4, 6.4, 3.0],
+                                    voxel_size=[0.2, 0.2, 0.2], max_points_in_voxel=10,
+                                    max_voxel_num=1800),
+            "test_cfg": dict(out_size_factor=8, voxel_size=[0.2, 0.2], pc_range=[-6.4, -6.4])}
+
+
+def small_bevfusion_parity(tg) -> str:
+    """Phase 13: the tiny f32 BEVFusion predict on the card (kernels) and on
+    the CPU (plain versions), same seeded weights and host voxels: equal
+    query pixels and labels, boxes and scores within BF_TOL of max(1, |x|)."""
+    from dal3d_tpu_torch.core.voxel_generator import points_to_voxel_mean as voxelize
+    from dal3d_tpu_torch.models.builder import build_bevfusion
+    from dal3d_tpu_torch.runtime.bevfusion_steps import make_bevfusion_predict_step
+
+    cfg = bevfusion_tiny_cfg()
+    vg = cfg["voxel_generator"]
+    rng = np.random.RandomState(3)
+    vf = np.zeros((B, 1800, 5), np.float32)
+    vc = np.zeros((B, 1800, 3), np.int32)
+    vv = np.zeros((B, 1800), bool)
+    for b in range(B):
+        pts = rng.uniform([-6.4, -6.4, -3.0, 0, 0], [6.4, 6.4, 1.0, 255, 0],
+                          (6000, 5)).astype(np.float32)
+        f, c, _ = voxelize(pts, vg["voxel_size"], vg["range"], 10, 1800)
+        vf[b, :len(f)], vc[b, :len(f)], vv[b, :len(f)] = f, c, True
+    batch = {"voxel_features": vf, "voxel_coords": vc, "voxel_valid": vv}
+    outs, rows = {}, {}
+    for d in ("cpu", "cuda"):
+        with Capture(tg, "gather_rows") as rec:
+            o = make_bevfusion_predict_step(build_bevfusion(cfg, device=d, seed=1))(batch)
+        outs[d] = {k: v.float().cpu() for k, v in o.items()}
+        rows[d] = rec.calls[0][1].cpu()
+    a, b = outs["cpu"], outs["cuda"]
+    if not torch.equal(rows["cpu"], rows["cuda"]) or not torch.equal(a["label_preds"],
+                                                                     b["label_preds"]):
+        diff = (rows["cpu"] != rows["cuda"]).nonzero().flatten().tolist()
+        gaps = [abs(float(a["scores"].flatten()[i] - b["scores"].flatten()[i])) for i in diff]
+        fail(f"small BEVFusion predict: query pixels or labels differ at {diff} "
+             f"(score gaps {gaps})")
+    box = float(((a["box3d_lidar"] - b["box3d_lidar"]).abs()
+                 / a["box3d_lidar"].abs().clamp(min=1.0)).max())
+    sc = float((a["scores"] - b["scores"]).abs().max())
+    bev = float((a["bev_feat"] - b["bev_feat"]).abs().max()) / float(a["bev_feat"].abs().max())
+    if box > BF_TOL or sc > BF_TOL or bev > BF_TOL:
+        fail(f"small BEVFusion predict: box err {box:.2e}, score err {sc:.2e}, bev map {bev:.2e} "
+             f"(tol {BF_TOL:g})")
+    return (f"{int(vv.sum())} voxels; {rows['cpu'].numel()} query pixels and labels equal; box "
+            f"err {box:.1e} of max(1,|x|), score err {sc:.1e}, bev map err {bev:.1e} of scale")
+
+
+def bevfusion_forward(bundle, batch, tg, k4, k5, stop_at=""):
+    """One forward (and decode) with the K4 / K5 wrappers set to k4 / k5;
+    returns (preds, decoded, query rows)."""
+    from dal3d_tpu_torch.models.bevfusion import transfusion_decode
+    from dal3d_tpu_torch.runtime.bevfusion_steps import autotuned_convs
+
+    dev = bundle.device
+    saved = tg.gather_gemm, tg.gather_rows
+    tg.gather_gemm, tg.gather_rows = k4, k5
+    try:
+        with Capture(tg, "gather_rows") as rec, torch.inference_mode(), autotuned_convs():
+            preds = bundle.model(batch["voxel_features"].to(dev), batch["voxel_coords"].to(dev),
+                                 batch["voxel_valid"].to(dev), stop_at=stop_at)
+            dec = transfusion_decode(preds, bundle.test_cfg) if not stop_at else None
+        torch.cuda.synchronize()
+    finally:
+        tg.gather_gemm, tg.gather_rows = saved
+    return preds, dec, (rec.calls[0][1] if rec.calls else None)
+
+
+def bevfusion_plain_check(bundle, batch, tg) -> str:
+    """The main path once more with both kernels swapped for their plain
+    versions (same weights, same inputs): the lidar BEV map, the neck map and
+    the heatmap within BF_TOL of their scale; the queries matched by (pixel,
+    class), their boxes and scores within BF_TOL of max(1, |x|). A query
+    present on one side only must sit at the top-200 boundary: its score
+    within 1e-5 of the other side's 200th."""
+    kern = (tg.gather_gemm, tg.gather_rows)
+    plain = (tg.gather_gemm_plain, tg.gather_rows_plain)
+    lk = bevfusion_forward(bundle, batch, tg, *kern, stop_at="lidar")[0]["lidar"]
+    lp = bevfusion_forward(bundle, batch, tg, *plain, stop_at="lidar")[0]["lidar"]
+    pk, dk, rk = bevfusion_forward(bundle, batch, tg, *kern)
+    pp, dp, rp = bevfusion_forward(bundle, batch, tg, *plain)
+    report = []
+    for name, a, b in (("lidar map", lk, lp), ("neck map", pk["bev_feat"], pp["bev_feat"]),
+                       ("heatmap", pk["heatmap"], pp["heatmap"])):
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if not rel <= BF_TOL:
+            fail(f"BEVFusion main path vs plain: {name} error {rel:.3e} of scale > {BF_TOL:g}")
+        report.append(f"{name} {rel:.1e}")
+    P = pk["query_score"].shape[1]
+    HW = pk["heatmap"].shape[1] * pk["heatmap"].shape[2]
+    box_err = sc_err = 0.0
+    flips = 0
+    for b in range(pk["query_score"].shape[0]):
+        key_k = (pk["query_labels"][b].long() * HW + rk.view(-1, P)[b] - b * HW).tolist()
+        key_p = (pp["query_labels"][b].long() * HW + rp.view(-1, P)[b] - b * HW).tolist()
+        pos_p = {k: i for i, k in enumerate(key_p)}
+        for i, k in enumerate(key_k):
+            j = pos_p.get(k)
+            if j is None:
+                flips += 1
+                gap = abs(float(pk["query_score"][b, i] - pp["query_score"][b, -1]))
+                if gap > 1e-5:
+                    fail(f"BEVFusion main path vs plain: query {i} of sample {b} (key {k}) only "
+                         f"on the kernel side, score gap to the plain 200th {gap:.2e}")
+                continue
+            ba, bb_ = dk["box3d_lidar"][b, i].double(), dp["box3d_lidar"][b, j].double()
+            box_err = max(box_err, float(((ba - bb_).abs() / bb_.abs().clamp(min=1.0)).max()))
+            sc_err = max(sc_err, abs(float(dk["scores"][b, i] - dp["scores"][b, j])))
+    if box_err > BF_TOL or sc_err > BF_TOL:
+        fail(f"BEVFusion main path vs plain: matched detections box err {box_err:.2e}, score "
+             f"err {sc_err:.2e} (tol {BF_TOL:g})")
+    return (f"{', '.join(report)} of scale; {2 * P - flips} of {2 * P} queries matched by (pixel, "
+            f"class) (flips at the top-{P} boundary: {flips}), box err {box_err:.1e}, score "
+            f"err {sc_err:.1e}")
+
+
+def bevfusion_stage_split(bundle, batch, k4_ms: float) -> None:
+    """Host-clock split of one predict with a synchronize after each stage
+    (median of 5 after one warm-up); the lidar branch is also shown without
+    phase 12's K4 time (index grids, rulebooks, plans, norms, to_dense)."""
+    from dal3d_tpu_torch.models.bevfusion import transfusion_decode
+    from dal3d_tpu_torch.runtime.bevfusion_steps import autotuned_convs
+
+    model, dev = bundle.model, bundle.device
+    names = ["h2d", "lidar", "decoder", "head", "decode"]
+    rec = {n: [] for n in names}
+    with torch.inference_mode(), autotuned_convs():
+        for _ in range(6):
+            marks = [time.perf_counter()]
+            vf, vc, vv = (batch[k].to(dev) for k in ("voxel_features", "voxel_coords",
+                                                      "voxel_valid"))
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            lidar = model(vf, vc, vv, stop_at="lidar")["lidar"]
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            bev = model.neck(model.decoder(lidar))
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            preds = model.head(bev)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            transfusion_decode(preds, bundle.test_cfg)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            for n, a, b in zip(names, marks[:-1], marks[1:]):
+                rec[n].append((b - a) * 1e3)
+    med = {n: float(np.median(v[1:])) for n, v in rec.items()}
+    print(f"BEVFusion stage split (ms, median of 5, synchronized per stage): "
+          f"{', '.join(f'{n} {v:.2f}' for n, v in med.items())}; lidar without K4 "
+          f"({k4_ms:.2f} ms in phase 12): {med['lidar'] - k4_ms:.2f}")
+
+
+def bevfusion_loader_frames(tmp: str, cfg, predict) -> None:
+    """4 frames of a synthetic nuScenes infos file (data/datasets/synthetic.py:
+    300000 points per frame over +-54 m) through the port's NuScenesDataset
+    with the config's test pipeline and host voxelization, and its loader (in
+    line), into the predict step."""
+    from dal3d_tpu_torch.data.datasets.nuscenes import NuScenesDataset
+    from dal3d_tpu_torch.data.datasets.synthetic import make_synthetic_nuscenes
+    from dal3d_tpu_torch.data.loader import DataLoader
+
+    root = os.path.join(tmp, "bevfusion_frames")
+    info = make_synthetic_nuscenes(root, n_frames=4, n_logs=1, points_per_frame=BF_POINTS,
+                                   seed=5, range_xy=BF_EXTENT - 5.0)
+    val = cfg["data"]["val"]
+    ds = NuScenesDataset(info_path=info, root_path=root, nsweeps=val["nsweeps"],
+                         class_names=val["class_names"], test_mode=True,
+                         pipeline=[dict(st) for st in val["pipeline"]],
+                         tasks=[dict(t) for t in cfg["tasks"]], max_points=cfg["max_points"],
+                         voxelize_host=dict(cfg["voxel_generator"]))
+    it = iter(DataLoader(ds, batch_size=B, shuffle=False, drop_last=False, prefetch=0))
+    lines = []
+    for _ in range(len(ds) // B):
+        t0 = time.perf_counter()
+        batch = next(it)
+        t1 = time.perf_counter()
+        out = predict(batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if tuple(out["box3d_lidar"].shape) != (B, 200, 9) or not bool(
+                torch.isfinite(out["box3d_lidar"]).all()) or int(out["det_valid"].sum()) == 0:
+            fail("loader-fed BEVFusion predict: bad output")
+        lines.append(f"voxels {[int(v) for v in batch['voxel_valid'].sum(1)]}, preparation "
+                     f"{(t1 - t0) * 1e3:.0f} ms, predict {(t2 - t1) * 1e3:.1f} ms")
+    print(f"loader-fed frames ({len(ds)} through the test pipeline, batches of {B}): "
+          + "; ".join(lines))
+
+
+def bevfusion_main_path(tmp: str, Config, counters, tg, bd) -> dict:
+    """Phases 12-14: the BEVFusion predict at full width. Returns the
+    kernels-line numbers of K4 and K5 and their main-path launches."""
+    from dal3d_tpu_torch.models.builder import build_bevfusion
+    from dal3d_tpu_torch.runtime.bevfusion_steps import make_bevfusion_predict_step
+
+    cfg = Config.fromfile(os.path.join(ROOT, "configs", "bevfusion_lidar.py"))
+    batch, occupied, host_s = bevfusion_batch(10, cfg)
+    cap = int(cfg["voxel_generator"]["max_voxel_num"])
+    print(f"BEVFusion inputs: B={B}, {BF_POINTS} points/cloud over +-{BF_EXTENT} m in a seeded "
+          f"random order -> occupied voxels {occupied} at 0.075 m, the first {cap} kept "
+          f"({host_s:.2f} s host voxelization)")
+    bundle = build_bevfusion(cfg, seed=0)
+    print(f"BEVFusion model: {sum(p.numel() for p in bundle.model.parameters())} parameters, "
+          f"sparse shape {bundle.voxel_cfg.sparse_shape}, caps "
+          f"{[s.down.out_cap for s in bundle.model.encoder.stages[:3]]}")
+
+    # 12. K4 / K5 launch by launch
+    numbers = gather_kernels_check(bundle, batch, bd, tg)
+
+    # 13. small f32 BEVFusion predict: card (kernels) vs CPU (plain versions)
+    print(f"small f32 BEVFusion predict, card vs CPU: {small_bevfusion_parity(tg)}")
+
+    # 14. the main path
+    predict = make_bevfusion_predict_step(bundle)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = predict(batch)  # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TIMED_ITERS):
+        t0 = time.perf_counter()
+        out = predict(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    n_runs = TIMED_ITERS + 1
+    launches = {c.__name__: c.launches for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {n: 0 for n in launches}
+    want.update(gather_gemm=K4_PER_PREDICT * n_runs, gather_rows=K5_PER_PREDICT * n_runs)
+    if launches != want:
+        fail(f"BEVFusion main path launched {launches} in {n_runs} predicts; expected {want}")
+    shapes = {"box3d_lidar": (B, 200, 9), "scores": (B, 200), "label_preds": (B, 200),
+              "det_valid": (B, 200), "bev_feat": (B, 180, 180, 512)}
+    for k, shp in shapes.items():
+        if tuple(out[k].shape) != shp:
+            fail(f"BEVFusion output {k} has shape {tuple(out[k].shape)}, expected {shp}")
+        if out[k].is_floating_point() and not bool(torch.isfinite(out[k]).all()):
+            fail(f"BEVFusion output {k} is not finite")
+    n_det = [int(x) for x in out["det_valid"].sum(1)]
+    if min(n_det) == 0:
+        fail(f"BEVFusion: no detections {n_det}")
+    ms_med = float(np.median(times))
+    print(f"BEVFusion predict (B={B}): median {ms_med:.2f} ms, mean {np.mean(times):.2f} ms, "
+          f"min {min(times):.2f} ms over {TIMED_ITERS} iterations -> {B / ms_med * 1e3:.2f} "
+          f"scans/s; peak memory {peak_gb:.2f} GB; detections {n_det}, scores "
+          f"{float(out['scores'].min()):.3f}-{float(out['scores'].max()):.3f}; launches "
+          f"gather_gemm {launches['gather_gemm']} gather_rows {launches['gather_rows']} in "
+          f"{n_runs} predicts, no other kernel")
+    print(f"BEVFusion main path vs the same path on plain versions: "
+          f"{bevfusion_plain_check(bundle, batch, tg)}")
+    bevfusion_stage_split(bundle, batch, numbers["gather_gemm"]["ms"])
+    device_profile(lambda: predict(batch), "BEVFusion predict", ms_med)
+    bevfusion_loader_frames(tmp, cfg, predict)
+    numbers["gather_gemm"]["launches"] = launches["gather_gemm"]
+    numbers["gather_rows"]["launches"] = launches["gather_rows"]
+    return numbers
 
 
 if __name__ == "__main__":

@@ -19,6 +19,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from ...ops import sparse_backend as sp
 from ...ops import sparse_brick as spb
 from ..layers import MaskedBatchNorm, SparseConvDown, SubMConv
 
@@ -39,18 +40,27 @@ def _bn_relu(bn: MaskedBatchNorm, x: spb.BrickBatch) -> spb.BrickBatch:
 
 
 class SparseBasicBlock(nn.Module):
-    """Residual block of two SubM 3x3x3 convs with biases."""
+    """Residual block of two SubM 3x3x3 convs, on a BrickBatch or a
+    SparseBatch. det3d's blocks carry conv biases; the BEVFusion encoder's
+    mmcv BasicBlock convs are bias-free (``use_bias=False``)."""
 
-    def __init__(self, planes: int, dtype: torch.dtype):
+    def __init__(self, planes: int, dtype: torch.dtype, use_bias: bool = True):
         super().__init__()
         self.planes = planes
-        self.conv1 = SubMConv(planes, planes, dtype=dtype)
+        self.conv1 = SubMConv(planes, planes, use_bias=use_bias, dtype=dtype)
         self.bn1 = MaskedBatchNorm(planes)
-        self.conv2 = SubMConv(planes, planes, dtype=dtype)
+        self.conv2 = SubMConv(planes, planes, use_bias=use_bias, dtype=dtype)
         self.bn2 = MaskedBatchNorm(planes)
 
-    def forward(self, x: spb.BrickBatch, rb: spb.BandedSubmRulebook) -> spb.BrickBatch:
+    def forward(self, x, rb):
         identity = x.features
+        if isinstance(x, sp.SparseBatch):
+            out = self.conv1(x, rb)
+            out = self.conv2(out.replace(features=torch.relu(self.bn1(out.features, out.valid))),
+                             rb)
+            f = torch.relu(self.bn2(out.features, out.valid) + identity)
+            return out.replace(features=torch.where(
+                out.valid[..., None], f, torch.zeros((), dtype=f.dtype, device=f.device)))
         out = _bn_relu(self.bn1, self.conv1(x, rb))
         out = self.conv2(out, rb)
         f = self.bn2(out.feat4(), out.vmask)

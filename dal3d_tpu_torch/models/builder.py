@@ -1,6 +1,8 @@
 """Config-driven model construction (port of
 ``dal3d_tpu/models/builder.py::build_detector``): config dict -> model on a
-device, task anchors, box coder, target assigner, loss and test config."""
+device, task anchors, box coder, target assigner, loss and test config; and
+``build_bevfusion``, the construction that the JAX package writes inline in
+``tools/train_bevfusion.py`` and ``tools/profile_bevfusion.py``."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -14,7 +16,10 @@ from ..core.anchors import TaskAnchors, generate_task_anchors
 from ..core.box_coders import GroundBox3dCoder, build_box_coder
 from ..core.target_assigner import DeviceTargetAssigner
 from ..device import resolve_device
+from ..ops.voxelize import VoxelConfig
 from .backbones.scn import BANDED_CAPS_DEFAULT, BRICK_WIDTHS_DEFAULT
+from .bevfusion import BEVFusion, TransFusionTestCfg
+from .bevfusion.sparse_encoder import VOXEL_CAPS
 from .detectors.voxelnet import FPNVoxelNet
 from .heads.mg_head import LossConfig, TestConfig
 from .layers import BatchNorm2d, MaskedBatchNorm, SparseConvDown, SubMConv
@@ -48,30 +53,40 @@ def grid_size(voxel_generator) -> tuple:
 
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights that keep activations O(1) through the stack:
-    convs ~ N(0, 2/fan_in), biases ~ 0.05 N(0, 1), BN affine and running
-    statistics near the identity with 10-20 % spread. Draws on the CPU from
-    ``generator``, so one seed gives the same weights on every device."""
+    convs ~ N(0, 2/fan_in) (a ReLU follows), linear layers ~ N(0, 1/fan_in)
+    (attention logits and the prediction FFNs' outputs stay O(1), so box
+    sizes exp(dim) stay finite), biases ~ 0.05 N(0, 1), BN and LayerNorm
+    affine and BN running statistics near the identity with 10-20 % spread.
+    Draws on the CPU from ``generator``, so one seed gives the same weights
+    on every device."""
     with torch.no_grad():
         for m in model.modules():
+            gain = 2.0
             if isinstance(m, (SubMConv, SparseConvDown)):  # [K, Cin, Cout]
                 fan_in = m.weight.shape[0] * m.weight.shape[1]
             elif isinstance(m, ConvBN):  # [Cin, Cout, k, k] if transpose
                 fan_in = (m.weight.shape[0] if m.transpose
                           else int(np.prod(m.weight.shape[1:])))
-            elif isinstance(m, nn.Conv2d):  # head 1x1
-                fan_in = m.weight.shape[1]
+            elif isinstance(m, nn.Conv2d):
+                fan_in = int(np.prod(m.weight.shape[1:]))
+            elif isinstance(m, nn.Linear):
+                fan_in, gain = m.weight.shape[1], 1.0
             else:
                 fan_in = 0
             if fan_in:
                 m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
-                               * float(np.sqrt(2.0 / fan_in)))
+                               * float(np.sqrt(gain / fan_in)))
             if isinstance(m, (MaskedBatchNorm, BatchNorm2d)):
                 C = m.weight.shape[0]
                 m.weight.copy_(1 + 0.2 * torch.randn(C, generator=generator))
                 m.bias.copy_(0.1 * torch.randn(C, generator=generator))
                 m.running_mean.copy_(0.1 * torch.randn(C, generator=generator))
                 m.running_var.copy_(1 + 0.1 * torch.rand(C, generator=generator))
-            elif isinstance(m, nn.Conv2d) and m.bias is not None:
+            elif isinstance(m, nn.LayerNorm):
+                C = m.weight.shape[0]
+                m.weight.copy_(1 + 0.1 * torch.randn(C, generator=generator))
+                m.bias.copy_(0.05 * torch.randn(C, generator=generator))
+            elif isinstance(m, (nn.Conv2d, nn.Linear)) and m.bias is not None:
                 m.bias.copy_(0.05 * torch.randn(m.bias.shape, generator=generator))
     return model
 
@@ -172,3 +187,59 @@ def loader_voxelize_cfg(cfg):
     """``voxelize_host`` for loader-fed passes (pool scoring, eval). With no
     host plans to decide on, this is ``host_voxelize_cfg``."""
     return host_voxelize_cfg(cfg)
+
+
+@dataclass
+class BEVFusionBundle:
+    """What the BEVFusion predict step needs, built once from a config."""
+
+    model: Any  # BEVFusion on ``device``
+    test_cfg: TransFusionTestCfg
+    voxel_cfg: VoxelConfig
+    device: torch.device
+
+
+def build_bevfusion(cfg, device=None, seed: int = 0) -> BEVFusionBundle:
+    """cfg: a BEVFusion experiment Config (model / voxel_generator /
+    test_cfg, as ``configs/bevfusion_lidar.py``). The lidar-only model gets
+    seeded random weights (``init_random_``); load trained ones with
+    ``models/convert_flax.py::load_flax_bevfusion`` or ``load_state_dict``.
+    ``device=None`` means the CUDA card and raises when there is none.
+
+    Raises NotImplementedError, naming its ROADMAP item, for what is not
+    ported: ``with_camera`` (A10), ``head="centerpoint"`` (A10),
+    ``with_map_seg`` (A10)."""
+    mc = dict(cfg["model"])
+    if mc.get("type") != "BEVFusion":
+        raise KeyError(f"build_bevfusion: model type {mc.get('type')!r} is not BEVFusion")
+    if mc.get("head", "transfusion") != "transfusion":
+        raise NotImplementedError(f"BEVFusion head {mc.get('head')!r}: only the TransFusion "
+                                  "head is ported; the CenterPoint head waits for ROADMAP A10")
+    if mc.get("with_map_seg", False):
+        raise NotImplementedError("BEVFusion map segmentation is not ported: ROADMAP A10")
+    dev = resolve_device(device)
+    vg = cfg["voxel_generator"]
+    voxel_cfg = VoxelConfig(tuple(vg["range"]), tuple(vg["voxel_size"]),
+                            int(vg["max_points_in_voxel"]), int(vg["max_voxel_num"]))
+    model = BEVFusion(
+        voxel_cfg, with_camera=bool(mc.get("with_camera", False)),
+        num_classes=int(mc.get("num_classes", 10)),
+        num_proposals=int(mc.get("num_proposals", 200)),
+        decoder_channels=tuple(mc.get("decoder_channels", (128, 256))),
+        decoder_layer_nums=tuple(mc.get("decoder_layer_nums", (5, 5))),
+        neck_out_channels=tuple(mc.get("neck_out_channels", (256, 256))),
+        voxel_caps=tuple(mc.get("voxel_caps", VOXEL_CAPS)),
+        hidden_channel=int(mc.get("hidden_channel", 128)),
+        num_heads=int(mc.get("num_heads", 8)),
+        ffn_channel=int(mc.get("ffn_channel", 256)),
+    )
+    init_random_(model, torch.Generator().manual_seed(seed))
+    tc = dict(cfg.get("test_cfg", {}) or {})
+    test_cfg = TransFusionTestCfg(
+        out_size_factor=int(tc.get("out_size_factor", 8)),
+        voxel_size=tuple(tc.get("voxel_size", (0.075, 0.075))),
+        pc_range=tuple(tc.get("pc_range", (-54.0, -54.0))),
+        score_threshold=float(tc.get("score_threshold", 0.0)),
+    )
+    return BEVFusionBundle(model=model.to(dev).eval(), test_cfg=test_cfg,
+                           voxel_cfg=voxel_cfg, device=dev)

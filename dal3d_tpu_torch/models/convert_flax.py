@@ -2,9 +2,10 @@
 
 The inverse of ``dal3d_tpu/models/convert_second.py`` (which maps det3d
 torch checkpoints onto the flax trees): it takes the ``{"params",
-"batch_stats"}`` trees of a banded ``FPNVoxelNet`` as nested dicts of numpy
-arrays and returns the matching ``state_dict`` of
-``models/detectors/voxelnet.py::FPNVoxelNet``.
+"batch_stats"}`` trees of a banded ``FPNVoxelNet``, or of a lidar-only
+``BEVFusion``, as nested dicts of numpy arrays and returns the matching
+``state_dict`` of ``models/detectors/voxelnet.py::FPNVoxelNet`` or
+``models/bevfusion/bevfusion.py::BEVFusion``.
 
 Layouts:
   - sparse conv kernels [K, Cin, Cout] (z-major taps) carry over unchanged;
@@ -12,7 +13,11 @@ Layouts:
   - a flax ``ConvTranspose`` kernel [kh, kw, Cin, Cout] becomes torch's
     [Cin, Cout, kh, kw] flipped in space (flax correlates, torch's transposed
     conv flips);
-  - BN scale/bias/mean/var -> weight/bias/running_mean/running_var.
+  - BN scale/bias/mean/var -> weight/bias/running_mean/running_var;
+  - a flax ``Dense`` kernel [in, out] becomes an ``nn.Linear`` weight
+    [out, in]; the attention projections' [d, heads, d/heads] (query, key,
+    value) and [heads, d/heads, d] (out) kernels are flattened over
+    (heads, d/heads) first.
 """
 from __future__ import annotations
 
@@ -50,7 +55,8 @@ def _bn(params, stats, src: str, dst: str, out: dict) -> None:
 def _block(params, stats, src: str, dst: str, out: dict) -> None:
     for j in (0, 1):
         out[f"{dst}.conv{j + 1}.weight"] = params[f"{src}/SubMConv_{j}/kernel"]
-        out[f"{dst}.conv{j + 1}.bias"] = params[f"{src}/SubMConv_{j}/bias"]
+        if f"{src}/SubMConv_{j}/bias" in params:  # the BEVFusion encoder's are bias-free
+            out[f"{dst}.conv{j + 1}.bias"] = params[f"{src}/SubMConv_{j}/bias"]
         _bn(params, stats, f"{src}/MaskedBatchNorm_{j}", f"{dst}.bn{j + 1}", out)
 
 
@@ -115,4 +121,95 @@ def load_flax_variables(model, variables: dict):
     parameter and buffer must be covered)."""
     sd = flax_to_state_dict(variables, model)
     model.load_state_dict(sd, strict=True)
+    return model
+
+
+def _dense(params, src: str, dst: str, out: dict) -> None:
+    out[f"{dst}.weight"] = params[f"{src}/kernel"].T
+    if f"{src}/bias" in params:
+        out[f"{dst}.bias"] = params[f"{src}/bias"]
+
+
+def _attention(params, src: str, dst: str, out: dict) -> None:
+    for name in ("query", "key", "value"):
+        k = params[f"{src}/{name}/kernel"]  # [d, heads, d/heads]
+        out[f"{dst}.{name}.weight"] = k.reshape(k.shape[0], -1).T
+        out[f"{dst}.{name}.bias"] = params[f"{src}/{name}/bias"].reshape(-1)
+    k = params[f"{src}/out/kernel"]  # [heads, d/heads, d]
+    out[f"{dst}.out.weight"] = k.reshape(-1, k.shape[-1]).T
+    out[f"{dst}.out.bias"] = params[f"{src}/out/bias"]
+
+
+def bevfusion_flax_to_state_dict(variables: dict, model) -> Dict[str, torch.Tensor]:
+    """{"params", "batch_stats"} of a lidar-only flax BEVFusion -> state_dict
+    of the port's ``model`` (a BEVFusion; its stages give the layout)."""
+    params = _flatten(variables["params"])
+    stats = _flatten(variables.get("batch_stats", {}))
+    out: Dict[str, np.ndarray] = {}
+
+    # encoder: flax numbers blocks, downsamples and norms in traversal order
+    se, enc = "SparseEncoder_0", model.encoder
+    out["encoder.stem.weight"] = params[f"{se}/SubMConv_0/kernel"]
+    _bn(params, stats, f"{se}/MaskedBatchNorm_0", "encoder.stem_bn", out)
+    n_block = n_down = 0
+    for i, stage in enumerate(enc.stages):
+        for j in range(len(stage.blocks)):
+            _block(params, stats, f"{se}/SparseBasicBlock_{n_block}",
+                   f"encoder.stages.{i}.blocks.{j}", out)
+            n_block += 1
+        if stage.down is not None:
+            out[f"encoder.stages.{i}.down.weight"] = params[f"{se}/SparseConvDown_{n_down}/kernel"]
+            _bn(params, stats, f"{se}/MaskedBatchNorm_{n_down + 1}",
+                f"encoder.stages.{i}.down_bn", out)
+            n_down += 1
+    out["encoder.conv_out.weight"] = params[f"{se}/SparseConvDown_{n_down}/kernel"]
+    _bn(params, stats, f"{se}/MaskedBatchNorm_{n_down + 1}", "encoder.conv_out_bn", out)
+
+    for b, block in enumerate(model.decoder.blocks):
+        for j in range(len(block)):
+            n = sum(len(blk) for blk in model.decoder.blocks[:b]) + j
+            out[f"decoder.blocks.{b}.{j}.weight"] = _conv2d(params[f"SECOND_0/Conv_{n}/kernel"])
+            _bn(params, stats, f"SECOND_0/BatchNorm2d_{n}/BatchNorm_0",
+                f"decoder.blocks.{b}.{j}.bn", out)
+    n = {"Conv": 0, "ConvTranspose": 0}
+    for i, deblock in enumerate(model.neck.deblocks):
+        kind = "ConvTranspose" if deblock.transpose else "Conv"
+        k = params[f"SECONDFPN_0/{kind}_{n[kind]}/kernel"]
+        n[kind] += 1
+        out[f"neck.deblocks.{i}.weight"] = _conv_transpose2d(k) if deblock.transpose else _conv2d(k)
+        _bn(params, stats, f"SECONDFPN_0/BatchNorm2d_{i}/BatchNorm_0",
+            f"neck.deblocks.{i}.bn", out)
+
+    hd = "TransFusionHead_0"
+    for name in ("shared_conv", "heatmap_conv", "heatmap_out"):
+        out[f"head.{name}.weight"] = _conv2d(params[f"{hd}/{name}/kernel"])
+        if f"{hd}/{name}/bias" in params:
+            out[f"head.{name}.bias"] = params[f"{hd}/{name}/bias"]
+    _bn(params, stats, f"{hd}/heatmap_bn/BatchNorm_0", "head.heatmap_bn", out)
+    _dense(params, f"{hd}/class_encoding", "head.class_encoding", out)
+    for pe in ("self_posembed", "cross_posembed"):
+        _dense(params, f"{hd}/{pe}/fc1", f"head.{pe}.fc1", out)
+        _bn(params, stats, f"{hd}/{pe}/bn/BatchNorm_0", f"head.{pe}.bn", out)
+        _dense(params, f"{hd}/{pe}/fc2", f"head.{pe}.fc2", out)
+    dec = f"{hd}/decoder0"
+    _attention(params, f"{dec}/MultiHeadDotProductAttention_0", "head.decoder0.self_attn", out)
+    _attention(params, f"{dec}/MultiHeadDotProductAttention_1", "head.decoder0.cross_attn", out)
+    for j in range(3):
+        out[f"head.decoder0.norm{j + 1}.weight"] = params[f"{dec}/LayerNorm_{j}/scale"]
+        out[f"head.decoder0.norm{j + 1}.bias"] = params[f"{dec}/LayerNorm_{j}/bias"]
+    _dense(params, f"{dec}/Dense_0", "head.decoder0.ffn1", out)
+    _dense(params, f"{dec}/Dense_1", "head.decoder0.ffn2", out)
+    for name in ("center", "height", "dim", "rot", "vel", "heatmap"):
+        src, dst = f"{hd}/pred_{name}", f"head.pred_{name}"
+        _dense(params, f"{src}/conv0", f"{dst}.conv0", out)
+        _bn(params, stats, f"{src}/bn0/BatchNorm_0", f"{dst}.bn0", out)
+        _dense(params, f"{src}/out", f"{dst}.out", out)
+
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def load_flax_bevfusion(model, variables: dict):
+    """Load a lidar-only flax BEVFusion's variables into the port's BEVFusion
+    (strict: every parameter and buffer must be covered)."""
+    model.load_state_dict(bevfusion_flax_to_state_dict(variables, model), strict=True)
     return model

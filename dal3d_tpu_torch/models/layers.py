@@ -1,5 +1,8 @@
-"""Building blocks of the sparse backbone and the dense neck (port of the
-brick branches of ``dal3d_tpu/models/layers.py``).
+"""Building blocks of the sparse backbones and the dense necks (port of the
+brick and gather-engine branches of ``dal3d_tpu/models/layers.py``).
+
+The sparse convs take a ``BrickBatch`` (the banded brick engine of the CBGS
+backbone) or a ``SparseBatch`` (the gather engine of BEVFusion's encoder).
 
 Parameters stay f32, as in the JAX package, and are cast to the layer's
 compute dtype at each call, so bf16 rounds in the same places. The norms
@@ -14,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops import sparse_backend as sp
 from ..ops import sparse_brick as spb
 
 
@@ -78,11 +82,13 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = (1, -1, 1, 1)
+        return self._norm(x, (0, 2, 3), (1, -1, 1, 1))
+
+    def _norm(self, x: torch.Tensor, dims: tuple, shape: tuple) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp(torch.square(xf).mean(dim=(0, 2, 3)) - torch.square(mean), min=0.0)
+            mean = xf.mean(dim=dims)
+            var = torch.clamp(torch.square(xf).mean(dim=dims) - torch.square(mean), min=0.0)
             _update_running(self, mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -91,9 +97,20 @@ class BatchNorm2d(nn.Module):
         return y.to(x.dtype)
 
 
+class BatchNormLast(BatchNorm2d):
+    """``BatchNorm2d``'s arithmetic over a channel-last input [..., C]
+    (flax's ``BatchNorm`` normalises over every axis but the last), as
+    TransFusion applies it to [B, N, C] query features with eps 1e-5 and
+    momentum 0.1 (flax's 0.9)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._norm(x, tuple(range(x.ndim - 1)), (-1,))
+
+
 class SubMConv(nn.Module):
-    """Submanifold sparse conv on a BrickBatch with a prebuilt shared
-    rulebook; weight [K, Cin, Cout] in z-major tap order."""
+    """Submanifold sparse conv with a prebuilt shared rulebook, on a
+    BrickBatch (banded engine) or a SparseBatch (gather engine); weight
+    [K, Cin, Cout] in z-major tap order. Padding voxels stay zero."""
 
     def __init__(self, cin: int, cout: int, kernel_size=3, use_bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -104,9 +121,16 @@ class SubMConv(nn.Module):
         self.weight = nn.Parameter(torch.zeros(K, cin, cout))
         self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
-    def forward(self, x: spb.BrickBatch, rulebook: spb.BandedSubmRulebook) -> spb.BrickBatch:
+    def forward(self, x, rulebook):
         if x.features.dtype != self.dtype:
             x = x.replace(features=x.features.to(self.dtype))
+        if isinstance(x, sp.SparseBatch):
+            out = sp.subm_conv(x, self.weight.to(self.dtype), rulebook, self.kernel_size)
+            if self.bias is not None:
+                out = out.replace(features=torch.where(
+                    out.valid[..., None], out.features + self.bias.to(self.dtype),
+                    torch.zeros((), dtype=self.dtype, device=out.lin.device)))
+            return out
         out = spb.subm_conv(x, self.weight.to(self.dtype), rulebook, self.kernel_size)
         if self.bias is not None:
             bias_row = self.bias.to(self.dtype).repeat(out.bw)
@@ -118,20 +142,24 @@ class SubMConv(nn.Module):
 
 
 class SparseConvDown(nn.Module):
-    """Strided sparse conv (new output active set) on the banded engine,
-    bias-free as every downsample of the backbone."""
+    """Strided sparse conv (new output active set of at most ``out_cap``
+    sites) on the banded engine (``out_bw``: the output brick width) or the
+    gather engine; bias-free as every downsample of both backbones."""
 
     def __init__(self, cin: int, cout: int, kernel_size, stride, padding,
-                 out_cap: int, out_bw: int, dtype: torch.dtype = torch.float32):
+                 out_cap: int, out_bw: int = 0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
         self.out_cap, self.out_bw, self.dtype = out_cap, out_bw, dtype
         K = int(np.prod(spb._triple(kernel_size)))
         self.weight = nn.Parameter(torch.zeros(K, cin, cout))
 
-    def forward(self, x: spb.BrickBatch, grid: torch.Tensor | None = None) -> spb.BrickBatch:
+    def forward(self, x, grid: torch.Tensor | None = None):
         if x.features.dtype != self.dtype:
             x = x.replace(features=x.features.to(self.dtype))
+        if isinstance(x, sp.SparseBatch):
+            return sp.sparse_conv_downsample(x, self.weight.to(self.dtype), self.kernel_size,
+                                             self.stride, self.padding, self.out_cap, grid)
         return spb.downsample_conv_banded(
             x, self.weight.to(self.dtype), self.kernel_size, self.stride, self.padding,
             out_bw=self.out_bw, out_cap=self.out_cap, grid=grid)

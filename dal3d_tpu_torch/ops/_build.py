@@ -28,6 +28,7 @@ COMMON_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 KERNELS = {
     "banded_conv": (),
     "banded_dw": (),
+    "gather": (),
     "iou_matrix": ("-fmad=false",),
     "pairwise_distance": (),
 }

@@ -257,7 +257,11 @@ def _rank_first(occ: torch.Tensor, cap: int, fill: int) -> torch.Tensor:
     occupied keys (``fill`` past the last), via the same cumsum rank and slot
     scatter as JAX's ``_rank_grid`` compaction."""
     B, K = occ.shape
-    pos = torch.cumsum(occ, dim=1) - 1
+    # one scan over the flattened rows (a device-wide scan: a scan along a
+    # long innermost dim runs one block per row), then each row's offset off
+    csum = torch.cumsum(occ.reshape(-1), dim=0).view(B, K)
+    before = torch.cat([csum.new_zeros(1), csum[:-1, -1]])
+    pos = csum - before[:, None] - 1
     tgt = torch.where(occ > 0, torch.clamp(pos, max=cap), torch.full_like(pos, cap))
     keys = torch.arange(K, device=occ.device, dtype=torch.long).expand(B, K)
     out = torch.full((B, cap + 1), fill, dtype=torch.long, device=occ.device)

@@ -288,3 +288,73 @@ def test_train_step_on_card_matches_cpu(cuda):  # noqa: F811
     num = sum(float(((grads["cuda"][k] - g) ** 2).sum()) for k, g in grads["cpu"].items())
     den = sum(float((g ** 2).sum()) for g in grads["cpu"].values())
     assert den > 0 and (num / den) ** 0.5 <= 2e-2, (num / den) ** 0.5
+
+
+# the fused gather-GEMM (K4): (B, N, Cin, K, M, Cout, hit fraction). The first
+# is tests/test_pallas_gather.py's case; then the stem's Cin 5 with M not a
+# multiple of any tile, the encoder's 64- and 128-wide convs, M = 1, and a
+# Cout of 200 (padded to 256: two column tiles)
+GATHER_GEMM_SHAPES = [
+    (2, 600, 16, 5, 1500, 32, 0.6),
+    (1, 300, 5, 27, 777, 16, 0.5),
+    (2, 400, 64, 27, 1000, 64, 0.3),
+    (2, 500, 128, 27, 333, 128, 0.5),
+    (1, 50, 32, 3, 1, 128, 1.0),
+    (2, 100, 12, 4, 300, 200, 0.5),
+]
+
+
+@pytest.mark.parametrize("shape", GATHER_GEMM_SHAPES)
+def test_gather_gemm_kernel_matches_plain(cuda, shape):  # noqa: F811
+    """f32 FMAs in another order than the plain version's matmuls: within
+    1e-5 of the output's scale. Rows 100-299 have no hit at all (zero rows);
+    the misses point at arbitrary rows, which must add nothing."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    B, N, Cin, K, M, Cout, hit_p = shape
+    rng = np.random.RandomState(sum(shape[:6]))
+    feats = t(rng.randn(B, N, Cin).astype(np.float32)).to(cuda)
+    idx = t(rng.randint(0, N, (B, K, M)).astype(np.int32)).to(cuda)
+    hit = t(rng.rand(B, K, M) < hit_p).to(cuda)
+    hit[:, :, 100:300] = False
+    w = t((rng.randn(K, Cin, Cout) * 0.1).astype(np.float32)).to(cuda)
+    before = tg.gather_gemm.launches
+    got = tg.gather_gemm(feats, idx, hit, w)
+    torch.cuda.synchronize()
+    assert tg.gather_gemm.launches == before + 1
+    assert got.shape == (B, M, Cout) and got.dtype == torch.float32
+    ref = tg.gather_gemm_plain(feats, idx, hit, w)
+    scale = max(float(ref.abs().max()), 1e-30)
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+    if M > 100:
+        assert float(got[:, 100:300].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype,C,M", [(torch.float32, 128, 400), (torch.float32, 5, 33),
+                                       (torch.bfloat16, 3, 1), (torch.float32, 128, 1)])
+def test_gather_rows_kernel_matches_plain(cuda, dtype, C, M):  # noqa: F811
+    """A copy: bit-equal to table[idx], for 16-, 4- and 2-byte row pieces."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    rng = np.random.RandomState(C + M)
+    table = t(rng.randn(1000, C).astype(np.float32)).to(cuda, dtype)
+    idx = t(rng.randint(0, 1000, M).astype(np.int32)).to(cuda)
+    before = tg.gather_rows.launches
+    got = tg.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert tg.gather_rows.launches == before + 1
+    assert got.dtype == dtype and torch.equal(got, tg.gather_rows_plain(table, idx))
+
+
+def test_gather_gemm_kernel_refuses_other_types(cuda):  # noqa: F811
+    """The kernel takes f32 features and weights and an int32 rulebook."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    feats = torch.zeros(1, 8, 8, device=cuda)
+    idx = torch.zeros(1, 2, 4, dtype=torch.int32, device=cuda)
+    hit = torch.ones(1, 2, 4, dtype=torch.bool, device=cuda)
+    w = torch.zeros(2, 8, 16, device=cuda)
+    with pytest.raises(TypeError):
+        tg.gather_gemm(feats.bfloat16(), idx, hit, w.bfloat16())
+    with pytest.raises(ValueError):
+        tg.gather_gemm(feats, idx.long(), hit, w)

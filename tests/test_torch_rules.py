@@ -13,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from dal3d_tpu_torch.models.builder import build_detector
+from dal3d_tpu_torch.models.builder import build_bevfusion, build_detector
 from dal3d_tpu_torch.ops import banded as tbd
 from dal3d_tpu_torch.ops import distance as tdist
+from dal3d_tpu_torch.ops import gather as tg
 from dal3d_tpu_torch.ops import iou_matrix as tiou
 from dal3d_tpu_torch.selectors import BaseSelector
 from dal3d_tpu_torch.selectors.maps import feature_map
@@ -68,6 +69,15 @@ def test_entry_point_without_device_needs_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_detector(small_cfg())
     assert build_detector(small_cfg(), device="cpu").device.type == "cpu"
+    bev = {"model": dict(type="BEVFusion", num_proposals=4, decoder_channels=(8, 8),
+                         decoder_layer_nums=(1, 1), neck_out_channels=(8, 8),
+                         hidden_channel=8, ffn_channel=8, num_heads=2),
+           "voxel_generator": dict(range=[-3.2, -3.2, -5.0, 3.2, 3.2, 3.0],
+                                   voxel_size=[0.2, 0.2, 0.2], max_points_in_voxel=10,
+                                   max_voxel_num=100)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_bevfusion(bev)
+    assert build_bevfusion(bev, device="cpu").device.type == "cpu"
 
 
 def test_kernel_wrappers_count_and_take_plain_on_cpu():
@@ -148,3 +158,28 @@ def test_weight_gradient_wrapper_counts_and_takes_plain_on_cpu():
         tbd.banded_dw(torch.zeros(2, 8, 8, device="meta"),
                       torch.zeros(2, 1, 8, dtype=torch.int32, device="meta"),
                       torch.zeros(2, 8, 8, device="meta"))
+
+
+def test_gather_wrappers_count_and_take_plain_on_cpu():
+    rng = np.random.RandomState(3)
+    feats = t(rng.randn(2, 50, 8).astype(np.float32))
+    idx = t(rng.randint(0, 50, (2, 3, 70)).astype(np.int32))
+    hit = t(rng.rand(2, 3, 70) < 0.6)
+    w = t(rng.randn(3, 8, 16).astype(np.float32))
+    n4, n5 = tg.gather_gemm.launches, tg.gather_rows.launches
+    assert isinstance(n4, int) and isinstance(n5, int)
+    assert torch.equal(tg.gather_gemm(feats, idx, hit, w),
+                       tg.gather_gemm_plain(feats, idx, hit, w))
+    assert torch.equal(tg.gather_rows(feats[0], idx[0, 0]), feats[0][idx[0, 0].long()])
+    assert (tg.gather_gemm.launches, tg.gather_rows.launches) == (n4, n5)
+
+
+def test_gather_wrappers_refuse_other_devices():
+    with pytest.raises(ValueError):
+        tg.gather_gemm(torch.zeros(1, 4, 8, device="meta"),
+                       torch.zeros(1, 2, 3, dtype=torch.int32, device="meta"),
+                       torch.zeros(1, 2, 3, dtype=torch.bool, device="meta"),
+                       torch.zeros(2, 8, 16, device="meta"))
+    with pytest.raises(ValueError):
+        tg.gather_rows(torch.zeros(4, 8, device="meta"),
+                       torch.zeros(3, dtype=torch.int32, device="meta"))
