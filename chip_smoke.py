@@ -220,6 +220,41 @@ def banded_bound_ms(table, idx, w) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def band_bound_ms(table, idx, w) -> float:
+    """Least time of one banded launch with these weights: the bytes of
+    banded_bound_ms, or 2 * sum_q hits_q * nnz(w[q]) operations (the work
+    left when every zero of the weights is skipped), whichever is larger."""
+    Bt, Mb, R = table.shape
+    es = table.element_size()
+    nbytes = Bt * Mb * R * es + idx.numel() * 4 + w.numel() * es + Bt * idx.shape[2] * w.shape[-1] * es
+    hits_q = (idx >= 0).sum(dim=(0, 2)).double()
+    nnz_q = (w != 0).sum(dim=(1, 2)).double()
+    ops = 2.0 * float((hits_q * nnz_q).sum())
+    peak = PEAK_BF16 if es == 2 else PEAK_F32
+    return max(nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3)
+
+
+def k1_walk(bd, idx, w, bn: int) -> tuple:
+    """(steps the bf16 forward kernel walks, steps of the dense walk) over
+    the (row tile, column tile, active tap) triples of one launch: a step is
+    one 32-row K-block of one tap; the kernel skips the K-blocks whose
+    weights under its bn-wide column tile are all zero (bd.band_block_mask
+    is the plain version of its flags)."""
+    Bt, Q, M = idx.shape
+    bm = 128  # the kernel's row tile
+    nmt = -(-M // bm)
+    hit = torch.nn.functional.pad(idx >= 0, (0, nmt * bm - M))
+    active = hit.view(Bt, Q, nmt, bm).any(-1).sum(dim=(0, 2)).double()  # row tiles per tap
+    blocks = bd.band_block_mask(w)  # [Q, nKB, nNB64]
+    per = bn // bd.BAND_BLOCK[1]
+    nnb = -(-blocks.shape[2] // per)
+    blocks = torch.nn.functional.pad(blocks, (0, nnb * per - blocks.shape[2]))
+    tile_blocks = blocks.view(Q, blocks.shape[1], nnb, per).any(-1).sum(dim=(1, 2)).double()
+    walked = float((active * tile_blocks).sum())
+    dense = float(active.sum()) * blocks.shape[1] * nnb
+    return walked, dense
+
+
 def iou_bound_ms(rows, cols) -> tuple:
     G, N, _ = rows.shape
     M = cols.shape[1]
@@ -317,7 +352,9 @@ def main() -> None:
         fail(f"capture run launched banded_conv {len(k1.calls)}x, iou_matrix "
              f"{len(k2.calls)}x; expected {K1_PER_PREDICT} and {K2_PER_PREDICT}")
     k1_err, k1_rows = 0.0, []
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, t_bytes=0.0, t_ops=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, band_bound_ms=0.0, library_ms=0.0,
+               t_bytes=0.0, t_ops=0.0, walked=0.0, dense=0.0)
+    tile_n = _build.load("banded_conv").banded_conv_tile_n
     for n, (table, idx, w) in enumerate(k1.calls):
         got = bd.banded_conv(table, idx, w).float()
         ref = bd.banded_conv_plain(table, idx, w).float()
@@ -331,20 +368,28 @@ def main() -> None:
         pms = cuda_time_ms(lambda: bd.banded_conv_plain(table, idx, w), 2)
         lms = cuda_time_ms(library_banded(table, idx, w), 2)
         bms, by = banded_bound_ms(table, idx, w)
-        tot["ms"] += ms
-        tot["plain_ms"] += pms
-        tot["library_ms"] += lms
-        tot["bound_ms"] += bms
-        tot["t_" + ("bytes" if by == "bytes" else "ops")] += bms
+        band = band_bound_ms(table, idx, w)
+        bn = tile_n(w.shape[1], w.shape[2])
+        walked, dense = k1_walk(bd, idx, w, bn)
+        for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("bound_ms", bms),
+                     ("band_bound_ms", band), ("t_" + ("bytes" if by == "bytes" else "ops"), bms),
+                     ("walked", walked), ("dense", dense)):
+            tot[k] += v
         k1_rows.append((n, tuple(table.shape), tuple(idx.shape), tuple(w.shape),
-                        int((idx >= 0).sum()), err, tol, ms, pms, lms, bms, by))
-    print("banded_conv launches of one predict (kernel vs plain, bf16; tol = 2^-7 x max|plain|):")
-    for n, ts, ish, ws, hits, err, tol, ms, pms, lms, bms, by in k1_rows:
+                        int((idx >= 0).sum()), err, tol, ms, pms, lms, bms, by, band, bn,
+                        1.0 - walked / max(dense, 1.0)))
+    print("banded_conv launches of one predict (kernel vs plain, bf16; tol = 2^-7 x max|plain|; "
+          "bound: dense hits x R x Rout; band: hits x nnz(w) per tap; BN: the kernel's column "
+          "tile; skipped: share of (tap, 32-row K-block) steps of the active taps skipped as "
+          "zero weight blocks):")
+    for n, ts, ish, ws, hits, err, tol, ms, pms, lms, bms, by, band, bn, skip in k1_rows:
         print(f"  #{n:2d} table {ts} idx {ish} w {ws} hits {hits}: err {err:.2e} (tol {tol:.2e}) "
-              f"kernel {ms:.4f} ms plain {pms:.3f} ms library {lms:.4f} ms bound {bms:.4f} ms ({by})")
+              f"kernel {ms:.4f} ms plain {pms:.3f} ms library {lms:.4f} ms bound {bms:.4f} ms ({by}) "
+              f"band {band:.4f} ms; BN {bn} skipped {skip:.3f}")
     k1_abs = max(r[5] for r in k1_rows)
     print(f"banded_conv per predict: kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
-          f"library {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms; "
+          f"library {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms, band bound "
+          f"{tot['band_bound_ms']:.3f} ms; steps skipped {1.0 - tot['walked'] / tot['dense']:.3f}; "
           f"max_abs_err {k1_abs:.3e} (max relative to output scale {k1_err:.2e})")
 
     rows, cols = k2.calls[0]
@@ -451,7 +496,7 @@ def main() -> None:
              max_abs_err=k1_abs, ms=tot["ms"], plain_ms=tot["plain_ms"],
              bound_ms=tot["bound_ms"],
              bound_by="bytes" if tot["t_bytes"] >= tot["t_ops"] else "operations",
-             library_ms=tot["library_ms"]),
+             library_ms=tot["library_ms"], band_bound_ms=tot["band_bound_ms"]),
         dict(name="iou_matrix", route="cuda", source="dal3d_tpu_torch/ops/csrc/iou_matrix.cu",
              replaces="dal3d_tpu/ops/pallas_iou.py:133", launches=k2_launches,
              max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound,
@@ -1243,7 +1288,8 @@ def weight_gradient_check(cfg, vf, vc, vv, dev) -> dict:
     print(f"full-width train step (bf16, B={B}): {logs}")
     del bundle, opt, step
 
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, t_bytes=0.0, t_ops=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, t_bytes=0.0, t_ops=0.0,
+               hits=0.0, slots=0.0)
     worst_abs, worst_rel = 0.0, 0.0
     print("banded_dw launches of one train step, in backward order (kernel vs plain, bf16; "
           "tol = 1e-3 x max|plain|):")
@@ -1260,15 +1306,22 @@ def weight_gradient_check(cfg, vf, vc, vv, dev) -> dict:
         pms = cuda_time_ms(lambda: bd.banded_dw_plain(table, idx, g), 2)
         lms = cuda_time_ms(library_dw(table, idx, g), 2)
         bms, by = dw_bound_ms(table, idx, g)
+        hits = int((idx >= 0).sum())
         for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("bound_ms", bms),
-                     ("t_" + ("bytes" if by == "bytes" else "ops"), bms)):
+                     ("t_" + ("bytes" if by == "bytes" else "ops"), bms), ("hits", hits),
+                     ("slots", idx.numel())):
             tot[k] += v
+        again = bd.banded_dw(table, idx, g)
+        if not torch.equal(got, again):
+            fail(f"banded_dw launch {n}: two calls on the same inputs differ")
         print(f"  #{n:2d} table {tuple(table.shape)} idx {tuple(idx.shape)} g {tuple(g.shape)} "
-              f"hits {int((idx >= 0).sum())}: err {err:.2e} (tol {1e-3 * scale:.2e}) kernel "
-              f"{ms:.4f} ms plain {pms:.3f} ms library {lms:.4f} ms bound {bms:.4f} ms ({by})")
+              f"hits {hits}: err {err:.2e} (tol {1e-3 * scale:.2e}) kernel "
+              f"{ms:.4f} ms plain {pms:.3f} ms library {lms:.4f} ms bound {bms:.4f} ms ({by}); "
+              f"rows compacted away {1.0 - hits / idx.numel():.3f}")
     print(f"banded_dw per train step: kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
-          f"library {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms; max_abs_err "
-          f"{worst_abs:.3e} (max relative to the result's scale {worst_rel:.2e})")
+          f"library {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms; rows compacted "
+          f"away {1.0 - tot['hits'] / tot['slots']:.3f}; the same bits on a second call; "
+          f"max_abs_err {worst_abs:.3e} (max relative to the result's scale {worst_rel:.2e})")
 
     # three shapes of the path, again in f32: the last L0 subm conv, the ds1
     # strided conv (M != Mb), the deepest subm conv

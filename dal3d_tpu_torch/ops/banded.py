@@ -49,6 +49,22 @@ def _gather_tap(tbl: torch.Tensor, safe: torch.Tensor, q: int) -> torch.Tensor:
     return torch.gather(tbl, 1, safe[:, q, :, None].expand(B, safe.shape[2], R))
 
 
+# (rows, columns) of the weight blocks whose zeros the forward kernel skips
+# (FLAG_BK, FLAG_BN of csrc/banded_conv.cu)
+BAND_BLOCK = (32, 64)
+
+
+def band_block_mask(w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the forward kernel's skip flags: w [Q, R, Rout] ->
+    [Q, ceil(R / bk), ceil(Rout / bn)] bool for (bk, bn) = BAND_BLOCK, True
+    where the block holds a nonzero (-0 counts as zero)."""
+    bk, bn = BAND_BLOCK
+    Q, R, Rout = w.shape
+    nkb, nnb = -(-R // bk), -(-Rout // bn)
+    nz = F.pad(w != 0, (0, nnb * bn - Rout, 0, nkb * bk - R))
+    return nz.view(Q, nkb, bk, nnb, bn).any(4).any(2)
+
+
 def banded_conv_plain(table: torch.Tensor, idx: torch.Tensor,
                       w: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel: masked gather + per-tap matmul in
@@ -110,7 +126,9 @@ def banded_conv(table: torch.Tensor, idx: torch.Tensor,
     index below Mb, as the rulebook builders guarantee) launch
     ``csrc/banded_conv.cu`` or raise; R and Rout are zero-padded to the
     kernel's multiple of 8 where needed (the callers in ops/sparse_brick.py
-    choose aligned widths, so the main path copies nothing).
+    choose aligned widths, so the main path copies nothing). The kernel
+    skips the ``BAND_BLOCK`` blocks of w that hold only zeros (see
+    ``band_block_mask``): exact for a finite table.
     ``banded_conv.launches`` counts kernel launches."""
     if table.device.type == "cpu":
         return banded_conv_plain(table, idx, w)
@@ -135,13 +153,17 @@ def banded_conv(table: torch.Tensor, idx: torch.Tensor,
         w = F.pad(w, (0, Routp - Rout, 0, Rp - R))
     table, idx, w = table.contiguous(), idx.contiguous(), w.contiguous()
     out = torch.empty(B, M, Routp, dtype=table.dtype, device=table.device)
+    # the kernel's skip flags: one int per 32 x 64 block of each w[q]
+    flags = torch.empty(Q * -(-Rp // BAND_BLOCK[0]) * -(-Routp // BAND_BLOCK[1]),
+                        dtype=torch.int32, device=table.device)
     lib = _build.load("banded_conv")
     launch = getattr(lib, fn)
-    launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     launch.restype = ctypes.c_int
     with torch.cuda.device(table.device):
-        err = launch(table.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
-                     B, Mb, Rp, Q, M, Routp, torch.cuda.current_stream().cuda_stream)
+        err = launch(table.data_ptr(), idx.data_ptr(), w.data_ptr(), flags.data_ptr(),
+                     out.data_ptr(), B, Mb, Rp, Q, M, Routp,
+                     torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "banded_conv")
     banded_conv.launches += 1
     return out[..., :Rout] if Routp != Rout else out
@@ -149,9 +171,22 @@ def banded_conv(table: torch.Tensor, idx: torch.Tensor,
 
 banded_conv.launches = 0
 
-# blocks the weight-gradient launch aims for: a few waves of the card's 132
-# multiprocessors, several blocks resident on each
-_DW_TARGET_BLOCKS = 1056
+# the dw tile (rows of R, columns of Rout) of each kernel of csrc/banded_dw.cu
+# and the blocks of it one multiprocessor holds at once
+_DW_TILE = {torch.bfloat16: (128, 256), torch.float32: (64, 64)}
+_DW_RESIDENT = {torch.bfloat16: 1, torch.float32: 4}
+# the kernel's scratch ints after the partial tiles (hit counts, share ranges)
+_DW_SCRATCH_INTS = 640
+_DW_MIN_SHARE = 4096  # (row, tap) pairs per share at least
+
+
+def _dw_shares(tiles: int, rows: int, taps: int, slots: int) -> int:
+    """Equal shares of the hits (blocks per dw tile) for a weight-gradient
+    launch of ``tiles`` dw tiles on a card that holds ``slots`` blocks at
+    once: one full wave and not a block more (the shares are equal, so a
+    second wave of a few blocks would double the time), each share over at
+    least ``_DW_MIN_SHARE`` (row, tap) pairs."""
+    return max(1, min(slots // tiles, rows * taps // _DW_MIN_SHARE))
 
 
 def banded_dw(table: torch.Tensor, idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -161,8 +196,10 @@ def banded_dw(table: torch.Tensor, idx: torch.Tensor, g: torch.Tensor) -> torch.
 
     CPU tensors take the plain version. CUDA tensors (bf16 or f32) launch
     ``csrc/banded_dw.cu`` or raise; R and Rout are zero-padded to the kernel's
-    multiple of 8 where needed. The B*M rows are split over blocks whose
-    partial sums a second kernel adds in order (deterministic).
+    multiple of 8 where needed. The hits of all taps are cut into equal
+    shares, one block per (dw tile, share), each of which multiplies only
+    hit rows; a last kernel adds each tap's partial sums in share order
+    (deterministic: the same bits on every call). At most 64 taps.
     ``banded_dw.launches`` counts launches."""
     if table.device.type == "cpu":
         return banded_dw_plain(table, idx, g)
@@ -186,18 +223,22 @@ def banded_dw(table: torch.Tensor, idx: torch.Tensor, g: torch.Tensor) -> torch.
     if Routp != Rout:
         g = F.pad(g, (0, Routp - Rout))
     table, idx, g = table.contiguous(), idx.contiguous(), g.contiguous()
-    tiles = Q * ((Rp + 63) // 64) * ((Routp + 63) // 64)
-    splits = max(1, min(-(-_DW_TARGET_BLOCKS // max(tiles, 1)), (B * M) // 256))
+    if Q > 64:
+        raise ValueError(f"banded_dw: the kernel takes at most 64 taps, got {Q}")
+    tr, to = _DW_TILE[table.dtype]
+    sms = torch.cuda.get_device_properties(table.device).multi_processor_count
+    shares = _dw_shares(-(-Rp // tr) * -(-Routp // to), B * M, Q, sms * _DW_RESIDENT[table.dtype])
     dw = torch.empty(Q, Rp, Routp, dtype=torch.float32, device=table.device)
-    part = (torch.empty(splits, Q, Rp, Routp, dtype=torch.float32, device=table.device)
-            if splits > 1 else dw)
+    # partial tiles (shares + Q - 1 of them) and the kernel's ints
+    part = torch.empty((shares + Q - 1) * Rp * Routp + _DW_SCRATCH_INTS, dtype=torch.float32,
+                       device=table.device)
     lib = _build.load("banded_dw")
     launch = getattr(lib, fn)
     launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     launch.restype = ctypes.c_int
     with torch.cuda.device(table.device):
         err = launch(table.data_ptr(), idx.data_ptr(), g.data_ptr(), dw.data_ptr(),
-                     part.data_ptr(), B, Mb, Rp, Q, M, Routp, splits,
+                     part.data_ptr(), B, Mb, Rp, Q, M, Routp, shares,
                      torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "banded_dw")
     banded_dw.launches += 1

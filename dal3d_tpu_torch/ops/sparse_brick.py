@@ -350,32 +350,19 @@ def _down_tap(sw: int, pw: int, dw: int, p: int, b0h: int, nwb_h: int, bw: int):
     return jb, col
 
 
-def downsample_conv_banded(bb: BrickBatch, weights: torch.Tensor, kernel_size, stride,
-                    padding, out_bw: int, out_cap: int, plan=None,
-                    grid: torch.Tensor | None = None) -> BrickBatch:
-    """Strided sparse conv on the banded engine (``downsample_conv_banded``):
-    a 3-tap halo-pad gather of the combined [features | validity] table, then
-    one Q = kd*kh*nwb_h tap gather whose block weights yield [conv output |
-    per-voxel validity count]. weights [kd*kh*kw, Cin, Cout] z-major."""
-    if plan is None:
-        plan = downsample_plan(bb, kernel_size, stride, padding, out_bw, out_cap, grid)
-    out_lin, idx, out_shape, meta, halo = plan
+def down_wband(weights: torch.Tensor, bw: int, out_bw: int, meta: dict,
+               R2p: int) -> torch.Tensor:
+    """[kd*kh*nwb_h, R2p, pad8(out_bw*Cout + out_bw)] block weights of the
+    strided conv's tap gather over the halo-padded [features | validity]
+    rows (R2p wide): per (dz, dy, covering brick) tap, output voxel p takes
+    the padded column of input voxel sw*p - pw + dw for each w-tap dw, and
+    counts that column's validity. weights [kd*kh*kw, Cin, Cout] z-major."""
     kd, kh, kw, sw, pw = meta["kd"], meta["kh"], meta["kw"], meta["sw"], meta["pw"]
     b0h, nwb_h = meta["b0h"], meta["nwb_h"]
     Kzy = kd * kh
-    bw, C = bb.bw, bb.channels
     Cin, Cout = weights.shape[-2], weights.shape[-1]
-    dt = bb.features.dtype
-    dev = bb.features.device
-
-    rows_v = torch.cat([bb.features, bb.vmask.to(dt)], dim=-1)
-    pad_w = torch.as_tensor(_pad_wband_np(bw, C, with_valid=True), dtype=dt, device=dev)
-    padded = banded_gather_matmul(rows_v, pad_w, _pad_rulebook(halo),
-                                  symmetric=True)  # [B, Mb, R2p]
-
-    # per-tap block weights [Q, R2p, pad8(out_bw*Cout + out_bw)]
-    R2 = (bw + 2) * (C + 1)
-    R2p = padded.shape[-1]
+    dev = weights.device
+    R2 = (bw + 2) * (Cin + 1)
     Routt = out_bw * Cout + out_bw
     S = np.zeros((kw, nwb_h, bw + 2, out_bw), np.float32)
     for dw in range(kw):
@@ -390,8 +377,32 @@ def downsample_conv_banded(bb: BrickBatch, weights: torch.Tensor, kernel_size, s
     wq = torch.zeros(Kzy, nwb_h, R2p, _pad8(Routt), dtype=weights.dtype, device=dev)
     wq[:, :, :(bw + 2) * Cin, :out_bw * Cout] = band_f
     wq[:, :, (bw + 2) * Cin:R2, out_bw * Cout:Routt] = bv
-    out_all = banded_gather_matmul(padded, wq.reshape(Kzy * nwb_h, R2p, -1), idx,
-                                   symmetric=False)
+    return wq.reshape(Kzy * nwb_h, R2p, -1)
+
+
+def downsample_conv_banded(bb: BrickBatch, weights: torch.Tensor, kernel_size, stride,
+                    padding, out_bw: int, out_cap: int, plan=None,
+                    grid: torch.Tensor | None = None) -> BrickBatch:
+    """Strided sparse conv on the banded engine (``downsample_conv_banded``):
+    a 3-tap halo-pad gather of the combined [features | validity] table, then
+    one Q = kd*kh*nwb_h tap gather whose block weights yield [conv output |
+    per-voxel validity count]. weights [kd*kh*kw, Cin, Cout] z-major."""
+    if plan is None:
+        plan = downsample_plan(bb, kernel_size, stride, padding, out_bw, out_cap, grid)
+    out_lin, idx, out_shape, meta, halo = plan
+    bw, C = bb.bw, bb.channels
+    Cout = weights.shape[-1]
+    dt = bb.features.dtype
+    dev = bb.features.device
+
+    rows_v = torch.cat([bb.features, bb.vmask.to(dt)], dim=-1)
+    pad_w = torch.as_tensor(_pad_wband_np(bw, C, with_valid=True), dtype=dt, device=dev)
+    padded = banded_gather_matmul(rows_v, pad_w, _pad_rulebook(halo),
+                                  symmetric=True)  # [B, Mb, R2p]
+
+    Routt = out_bw * Cout + out_bw
+    wq = down_wband(weights, bw, out_bw, meta, padded.shape[-1])
+    out_all = banded_gather_matmul(padded, wq, idx, symmetric=False)
 
     out = out_all[..., :out_bw * Cout]
     out_v = out_all[..., out_bw * Cout:Routt]

@@ -1,0 +1,287 @@
+#!/usr/bin/env python
+"""Calibration of the building blocks of the banded kernels on the card.
+
+    python -m dal3d_tpu_torch.tools.hopper_calibration
+
+Builds one small CUDA program from the port's device helpers
+(``ops/csrc/common.cuh``) into ``build/calibration/`` and prints, on the
+CUDA card, what each piece of the banded kernels' main loop sustains alone
+and together:
+
+  - ``mma.sync`` m16n8k16 (bf16 in, f32 accumulate) from registers;
+  - ``ldmatrix.trans`` + ``mma.sync`` from a swizzled shared tile, for the
+    warp tiles the kernels use (32 x 32, 64 x 32, 64 x 64);
+  - gathers of random rows into a 4-stage shared ring (16-byte ``cp.async``,
+    or global loads through registers), for row pieces of 64-512 bytes;
+  - a K1-shaped main loop (128 x 64 tile, 8 warps of 32 x 32, the port's
+    ``cp_async_pipeline``): compute alone, the pipeline without copies, and
+    with copies of random rows from a 2.3 MB and a 115 MB table.
+
+Each line gives TFLOP/s of bf16 work or TB/s of gathered bytes, from CUDA
+events around one launch. Needs the CUDA card and nvcc; exits nonzero
+without them. Development numbers for ``PERF.md``, not part of any path.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+from ..ops import _build
+
+SOURCE = r'''
+#include "common.cuh"
+#include <cstdio>
+#include <cuda_bf16.h>
+using namespace dal3d;
+
+static float elapsed(cudaEvent_t a, cudaEvent_t b) {
+  float ms;
+  cudaEventSynchronize(b);
+  cudaEventElapsedTime(&ms, a, b);
+  return ms;
+}
+
+// mma.sync from registers: 8 independent accumulators a warp
+__global__ void __launch_bounds__(256, 2) mma_regs(float* out, int iters) {
+  float acc[8][4] = {};
+  uint32_t a[4] = {threadIdx.x, threadIdx.x * 3u, threadIdx.x * 5u, threadIdx.x * 7u};
+  uint32_t b0 = threadIdx.x * 11u, b1 = threadIdx.x * 13u;
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mma_bf16_16816(acc[j], a, b0, b1);
+  float s = 0;
+  for (int j = 0; j < 8; ++j) s += acc[j][0] + acc[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+// ldmatrix.trans + mma.sync from [32][256] swizzled tiles; 8 warps of
+// (16 MT) x (16 NP) as 2 x 4
+template <int MT, int NP>
+__global__ void __launch_bounds__(256, 1) mma_smem(float* out, int iters) {
+  __shared__ __align__(128) __nv_bfloat16 sa[32 * 256], sb[32 * 256];
+  for (int i = threadIdx.x; i < 32 * 256; i += 256) {
+    sa[i] = __float2bfloat16(i * 1e-3f);
+    sb[i] = sa[i];
+  }
+  __syncthreads();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, wr = warp / 4, wo = warp % 4;
+  float acc[MT][NP * 2][4] = {};
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int kk = 0; kk < 32; kk += 16) {
+      uint32_t af[MT][4], bf[NP][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldmatrix_x4_trans(af[mt], sa + swz<32>(kk + lane % 8 + (lane / 16) * 8,
+                                               (wr * MT * 16 + mt * 16) / 8 + (lane / 8) % 2));
+#pragma unroll
+      for (int np = 0; np < NP; ++np)
+        ldmatrix_x4_trans(bf[np], sb + swz<32>(kk + lane % 8 + ((lane / 8) % 2) * 8,
+                                               (wo * NP * 16 + np * 16) / 8 + lane / 16));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NP * 2; ++nt)
+          mma_bf16_16816(acc[mt][nt], af[mt], bf[nt / 2][(nt % 2) * 2], bf[nt / 2][(nt % 2) * 2 + 1]);
+    }
+  }
+  float s = 0;
+  for (int mt = 0; mt < MT; ++mt)
+    for (int nt = 0; nt < NP * 2; ++nt) s += acc[mt][nt][0] + acc[mt][nt][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+__device__ __forceinline__ unsigned row_hash(unsigned h) {
+  h ^= h >> 13;
+  h *= 3266489917u;
+  return h ^ (h >> 16);
+}
+
+// gathers of ROWS random rows x SEG bytes a step into a 4-stage ring;
+// LDG: through registers instead of cp.async
+template <bool LDG, int SEG, int ROWS>
+__global__ void __launch_bounds__(256, 2)
+gather(const unsigned char* __restrict__ src, int nrows, int rowb, float* out, int steps) {
+  extern __shared__ __align__(128) unsigned char sm[];
+  constexpr int TILE = ROWS * SEG, STG = 4;
+  const int tid = threadIdx.x;
+  float acc = 0;
+  for (int s = 0; s < steps + STG - 1; ++s) {
+    if (s < steps) {
+      unsigned char* dst = sm + (s % STG) * TILE;
+      for (int e = tid; e < TILE / 16; e += 256) {
+        const int r = e / (SEG / 16), c = e % (SEG / 16);
+        const unsigned row = row_hash(blockIdx.x * 7919u + (s * ROWS + r) * 2246822519u) % nrows;
+        const unsigned char* g = src + (size_t)row * rowb + c * 16;
+        if (LDG) {
+          *reinterpret_cast<uint4*>(dst + e * 16) = __ldg(reinterpret_cast<const uint4*>(g));
+        } else {
+          cp_async16(dst + e * 16, g, true);
+        }
+      }
+      if (!LDG) cp_async_commit();
+    }
+    const int t = s - (STG - 1);
+    if (t >= 0) {
+      if (!LDG) cp_async_wait<STG - 1>();
+      __syncthreads();
+      acc += reinterpret_cast<const float*>(sm + (t % STG) * TILE)[tid % (TILE / 4)];
+      __syncthreads();
+    }
+  }
+  out[blockIdx.x * 256 + tid] = acc;
+}
+
+// K1-shaped main loop: A [128][32] of random rows, B [32][64]; MODE 0: compute
+// alone on one stage; 1: pipeline without copies; 2: pipeline with copies
+template <int MODE>
+__global__ void __launch_bounds__(256, 2)
+k1_loop(const __nv_bfloat16* __restrict__ src, int nrows, float* out, int iters) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(smem);
+  constexpr int STAGE = 128 * 32 + 32 * 64;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, wm = warp / 2, wn = warp % 2;
+  float acc[2][4][4] = {};
+  auto load = [&](int s, int buf) {
+    if (MODE < 2) return;
+    __nv_bfloat16* a = st + buf * STAGE;
+    __nv_bfloat16* bs = a + 128 * 32;
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      const int c16 = tid + it * 256, r = c16 / 4, c = c16 % 4;
+      const unsigned row = row_hash(blockIdx.x * 7919u + (s * 128 + r) * 2246822519u) % nrows;
+      cp_async16(a + swz<4>(r, c), src + (size_t)row * 288 + c * 8, true);
+    }
+    cp_async16(bs + swz<8>(tid / 8, tid % 8), src + (size_t)(tid / 8) * 288 + (tid % 8) * 8, true);
+  };
+  auto compute = [&](int buf) {
+    const __nv_bfloat16* a = st + buf * STAGE;
+    const __nv_bfloat16* bs = a + 128 * 32;
+#pragma unroll
+    for (int kk = 0; kk < 32; kk += 16) {
+      uint32_t af[2][4], bf[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        ldmatrix_x4(af[mt], a + swz<4>(wm * 32 + mt * 16 + lane % 16, kk / 8 + lane / 16));
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        ldmatrix_x4_trans(bf[np], bs + swz<8>(kk + lane % 8 + ((lane / 8) % 2) * 8,
+                                              (wn * 32 + np * 16) / 8 + lane / 16));
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_bf16_16816(acc[mt][nt], af[mt], bf[nt / 2][(nt % 2) * 2], bf[nt / 2][(nt % 2) * 2 + 1]);
+    }
+  };
+  if (MODE == 0) {
+    for (int i = 0; i < iters; ++i) compute(0);
+  } else {
+    cp_async_pipeline<6, 2>([&](int s) { return s < iters; }, load, compute);
+  }
+  float s = 0;
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 4; ++j) s += acc[i][j][0] + acc[i][j][3];
+  out[blockIdx.x * 256 + tid] = s;
+}
+
+int main() {
+  const int sms = 132;
+  float* out;
+  cudaMalloc(&out, 4096 * 256 * 4);
+  cudaEvent_t a, b;
+  cudaEventCreate(&a);
+  cudaEventCreate(&b);
+  {
+    const int iters = 4096, blocks = sms * 2;
+    mma_regs<<<blocks, 256>>>(out, 16);
+    cudaEventRecord(a);
+    mma_regs<<<blocks, 256>>>(out, iters);
+    cudaEventRecord(b);
+    const double f = 8.0 * 4096 * iters * blocks * 8;
+    printf("mma.sync from registers: %.1f TFLOP/s\n", f / elapsed(a, b) / 1e9);
+  }
+#define SMEM(MT, NP, NAME)                                                        \
+  {                                                                               \
+    const int iters = 4096, blocks = sms;                                          \
+    mma_smem<MT, NP><<<blocks, 256>>>(out, 16);                                    \
+    cudaEventRecord(a);                                                           \
+    mma_smem<MT, NP><<<blocks, 256>>>(out, iters);                                 \
+    cudaEventRecord(b);                                                           \
+    const double f = 2.0 * MT * NP * 2 * 4096 * iters * blocks * 8;               \
+    printf("ldmatrix.trans + mma.sync, warp tile %s: %.1f TFLOP/s\n", NAME,        \
+           f / elapsed(a, b) / 1e9);                                               \
+  }
+  SMEM(2, 2, "32 x 32")
+  SMEM(4, 2, "64 x 32")
+  SMEM(4, 4, "64 x 64")
+  const size_t rowb = 1536, nrows = 40000;
+  unsigned char* src;
+  cudaMalloc(&src, rowb * 80000 * 2);
+  cudaMemset(src, 0, rowb * 80000 * 2);
+#define GATHER(LDG, SEG, ROWS, NAME)                                                   \
+  {                                                                                    \
+    const int steps = 512, blocks = sms * 2, smem = 4 * ROWS * SEG;                    \
+    cudaFuncSetAttribute(gather<LDG, SEG, ROWS>,                                       \
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);           \
+    gather<LDG, SEG, ROWS><<<blocks, 256, smem>>>(src, nrows, rowb, out, 8);           \
+    cudaEventRecord(a);                                                                \
+    gather<LDG, SEG, ROWS><<<blocks, 256, smem>>>(src, nrows, rowb, out, steps);       \
+    cudaEventRecord(b);                                                                \
+    printf("gather %s, %d B x %d rows a step: %.2f TB/s\n", NAME, SEG, ROWS,            \
+           (double)SEG * ROWS * steps * blocks / elapsed(a, b) / 1e9);                 \
+  }
+  GATHER(false, 64, 128, "cp.async 16 B")
+  GATHER(false, 256, 32, "cp.async 16 B")
+  GATHER(false, 512, 32, "cp.async 16 B")
+  GATHER(true, 64, 128, "ld.global + st.shared 16 B")
+#define LOOP(MODE, NROWS, NAME)                                                          \
+  {                                                                                      \
+    const int iters = 2048, blocks = sms * 2, smem = 6 * (128 * 32 + 32 * 64) * 2;       \
+    cudaFuncSetAttribute(k1_loop<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,     \
+                         smem);                                                          \
+    k1_loop<MODE><<<blocks, 256, smem>>>((const __nv_bfloat16*)src, NROWS, out, 8);      \
+    cudaEventRecord(a);                                                                  \
+    k1_loop<MODE><<<blocks, 256, smem>>>((const __nv_bfloat16*)src, NROWS, out, iters);  \
+    cudaEventRecord(b);                                                                  \
+    const float ms = elapsed(a, b);                                                      \
+    printf("K1-shaped loop, %s: %.1f TFLOP/s, %.2f TB/s gathered\n", NAME,               \
+           2.0 * 128 * 64 * 32 * iters * blocks / ms / 1e9,                              \
+           MODE == 2 ? 12288.0 * iters * blocks / ms / 1e9 : 0.0);                       \
+  }
+  LOOP(0, 4000, "compute alone")
+  LOOP(1, 4000, "pipeline without copies")
+  LOOP(2, 4000, "pipeline, copies from 2.3 MB")
+  LOOP(2, 200000, "pipeline, copies from 115 MB")
+  const cudaError_t e = cudaDeviceSynchronize();
+  printf("status: %s\n", cudaGetErrorString(e));
+  return e == cudaSuccess ? 0 : 1;
+}
+'''
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("hopper_calibration: needs the CUDA card", file=sys.stderr)
+        return 1
+    out_dir = _build.BUILD_DIR.parent / "calibration"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, exe = out_dir / "calibration.cu", out_dir / "calibration"
+    src.write_text(SOURCE)
+    cmd = [_build.nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", f"-I{_build.CSRC}",
+           "-o", str(exe), str(src)]
+    build = subprocess.run(cmd, capture_output=True, text=True)
+    if build.returncode != 0:
+        print(build.stdout + build.stderr, file=sys.stderr)
+        return build.returncode
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    print(f"card: {torch.cuda.get_device_name(0)} | {smi.stdout.strip()}")
+    run = subprocess.run([str(exe)], env=dict(os.environ), text=True)
+    return run.returncode
+
+
+if __name__ == "__main__":
+    sys.exit(main())

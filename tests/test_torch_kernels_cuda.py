@@ -20,22 +20,69 @@ from torch_port_utils import cuda, mk_rulebook, small_cfg, small_voxels, t  # no
 pytestmark = pytest.mark.cuda
 
 
+def _path_weight(kind, rng):
+    """[Q, R, Rout] f32 weights of the kind the main path gives K1, built by
+    the port's own functions at small widths (brick width 8, 16 channels),
+    or a dense / ragged / zero-block weight."""
+    from dal3d_tpu_torch.ops import sparse_brick as spb
+
+    def layer(K, cin, cout):
+        return torch.from_numpy((rng.randn(K, cin, cout) * 0.1).astype(np.float32))
+
+    if kind == "halo_band":  # subm conv: [9, 10*16, 8*16]
+        return spb._halo_band(9, 3, 8, layer(27, 16, 16))
+    if kind == "dual":  # the dual gather's weight of the same conv
+        return spb._halo_band(9, 3, 8, layer(27, 16, 16)).flip(0).transpose(1, 2).contiguous()
+    if kind in ("pad", "pad_valid"):  # halo pad: 0/1 shifts
+        return torch.from_numpy(spb._pad_wband_np(8, 16, with_valid=kind == "pad_valid"))
+    if kind == "down":  # strided conv 16 -> 32, stride 2, brick width 8 -> 8
+        _, meta = spb.downsample_static_meta((11, 32, 64), 8, 3, 2, 1, 8)
+        return spb.down_wband(layer(27, 16, 32), 8, 8, meta, spb._pad8(10 * 17))
+    Q, R, Rout = {"dense": (9, 288, 256), "zero_blocks": (9, 288, 256),
+                  "ragged_600x520": (9, 600, 520), "ragged_776x520": (3, 776, 520),
+                  "ragged_516x776": (3, 516, 776), "ragged_656x528": (18, 656, 528)}[kind]
+    w = torch.from_numpy((rng.randn(Q, R, Rout) * 0.05).astype(np.float32))
+    if kind == "zero_blocks":
+        w[2] = 0.0  # a whole tap
+        w[0, :32] = 0.0  # the first K-block of a tap
+        w[3, 256:] = 0.0  # the last, partial K-block
+        w[4, 32:64, 192:] = 0.0  # a K-block under the last column tile only
+        w[5, :, :64] = 0.0  # the first column tile of a tap
+        w[6, 100:101, 7] = -0.0  # a signed zero inside a zero row
+    return w
+
+
+# weights of the main path, a dense and a zero-block weight, and widths that
+# are not multiples of the tiles (M is 1000 throughout, Mb 900)
+K1_WEIGHTS = ["dense", "halo_band", "dual", "pad", "pad_valid", "down", "zero_blocks",
+              "ragged_600x520", "ragged_776x520", "ragged_516x776", "ragged_656x528"]
+
+
+@pytest.mark.parametrize("kind", K1_WEIGHTS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_banded_kernel_matches_plain(cuda, dtype):  # noqa: F811
+def test_banded_kernel_matches_plain(cuda, dtype, kind):  # noqa: F811
     """bf16: both sum the same bf16 products in f32 and round once, so they
-    agree to one bf16 ulp (2**-7 relative); f32: summation order only."""
+    agree to one bf16 ulp (2**-7 relative); f32: summation order only. The
+    kernel walks only the weight blocks that hold a nonzero: on the halo-pad
+    shifts, where every output is one product or none, it is bit-equal."""
     rng = np.random.RandomState(5)
-    B, Q, M, Mb, R, Rout = 2, 9, 1000, 900, 288, 256
+    w = _path_weight(kind, rng)
+    Q, R, Rout = w.shape
+    B, M, Mb = 2, 1000, 900
     idx, hit = mk_rulebook(rng, B, Q, M, Mb, spread=200, miss_p=0.5)
     idx = t(np.where(hit, idx, -1)).to(cuda)
-    idx[:, :, 640:704] = -1  # one 64-row block with no hit at all
+    idx[:, :, 256:384] = -1  # one 128-row block with no hit at all
+    idx[:, Q // 2, 512:] = -1  # a tap active in some row blocks only
     table = t(rng.randn(B, Mb, R).astype(np.float32)).to(cuda, dtype)
-    w = t((rng.randn(Q, R, Rout) * 0.05).astype(np.float32)).to(cuda, dtype)
+    w = w.to(cuda, dtype)
     before = tbd.banded_conv.launches
     got = tbd.banded_conv(table, idx, w)
     torch.cuda.synchronize()
     assert tbd.banded_conv.launches == before + 1
     ref = tbd.banded_conv_plain(table, idx, w)
+    assert got.shape == ref.shape == (B, M, Rout)
+    if kind.startswith("pad"):
+        assert torch.equal(got, ref)
     tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
     np.testing.assert_allclose(got.float().cpu().numpy(), ref.float().cpu().numpy(),
                                rtol=tol, atol=tol)
@@ -189,21 +236,33 @@ def _dw_case(rng, B, Q, M, Mb, R, Rout, dtype, dev, miss_p=0.5):
     return table, idx, g
 
 
-# (B, Q, M, Mb, R, Rout): several splits with a ragged last step; one split;
-# widths the wrapper pads; a single row block
+# (B, Q, M, Mb, R, Rout): the wrapper cuts the hits into one to a few dozen
+# equal shares; a ragged last step; one short share; widths the wrapper pads;
+# a single row block; the path's ragged widths (R 600 / 656 / 776, Rout 520 /
+# 528) over several shares
 DW_SHAPES = [(2, 9, 1000, 900, 288, 256), (1, 3, 130, 130, 64, 72), (2, 3, 96, 80, 90, 306),
-             (3, 27, 517, 400, 312, 528)]
+             (3, 27, 517, 400, 312, 528), (2, 9, 6016, 6016, 600, 520),
+             (2, 3, 3000, 2500, 776, 528), (2, 9, 4000, 4000, 656, 520)]
 
 
+@pytest.mark.parametrize("pattern", ["random", "sparse"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", DW_SHAPES)
-def test_banded_dw_kernel_matches_plain(cuda, shape, dtype):  # noqa: F811
+def test_banded_dw_kernel_matches_plain(cuda, shape, dtype, pattern):  # noqa: F811
     """Both sum the same products (exact in f32 for bf16 inputs) in f32, in
-    another order: within 1e-4 of the result's scale."""
+    another order: within 1e-4 of the result's scale. The kernel multiplies
+    hit rows only; "sparse" leaves tap 0 a single hit row (its dw is one
+    exact outer product: bit-equal) and every later tap no hit in its first
+    1100 rows, more than a compaction window. Two calls give the same bits."""
     B, Q, M, Mb, R, Rout = shape
     table, idx, g = _dw_case(np.random.RandomState(7), B, Q, M, Mb, R, Rout, dtype, cuda)
     idx[:, 1] = -1  # a tap with no hit at all
     idx[:, :, 64:128] = -1  # a 64-row step with no hit
+    if pattern == "sparse":
+        rows = torch.arange(B * M, device=cuda).view(B, 1, M)  # flattened (b, m)
+        idx = torch.where(rows >= 1100, idx, -1)
+        idx[:, 0] = -1
+        idx[B - 1, 0, M // 2] = Mb // 3
     before = tbd.banded_dw.launches
     got = tbd.banded_dw(table, idx, g)
     torch.cuda.synchronize()
@@ -211,9 +270,11 @@ def test_banded_dw_kernel_matches_plain(cuda, shape, dtype):  # noqa: F811
     assert got.shape == (Q, R, Rout) and got.dtype == torch.float32
     ref = tbd.banded_dw_plain(table, idx, g)
     assert float(got[1].abs().max()) == 0.0
+    if pattern == "sparse":
+        assert torch.equal(got[0], ref[0]) and float(got[0].abs().max()) > 0
     scale = float(ref.abs().max())
     assert scale > 0 and float((got - ref).abs().max()) <= 1e-4 * scale
-    again = tbd.banded_dw(table, idx, g)  # two-pass reduction: the same bits every time
+    again = tbd.banded_dw(table, idx, g)  # ordered reduction: the same bits every time
     assert torch.equal(got, again)
 
 
