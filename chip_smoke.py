@@ -23,7 +23,8 @@ Phases, each fatal on failure:
   3. captures the inputs of every kernel launch of one predict and holds each
      launch against the kernel's plain PyTorch version on the same inputs;
      times kernel, plain version and a PyTorch yardstick (index_select +
-     matmul for the banded gather-GEMM) at those shapes;
+     matmul for the banded gather-GEMM) at those shapes; host us per call of
+     one banded launch, bound once and bound on every call;
   4. the same predict in f32 on a small grid, on the card and on the CPU
      (plain versions): detections equal as sets;
   5. the main path: launch counters set to 0, a warm-up and 10 timed
@@ -64,10 +65,16 @@ Phases, each fatal on failure:
  12. BEVFusion lidar-only (TransFusion-L, configs/bevfusion_lidar.py) at
      full width on two 300k-point clouds over +-54 m, voxelized on the host
      at 0.075 m (120000 voxels kept of each): every launch of the fused
-     gather-GEMM (21 per predict) and of the row gather (1) held against
-     its plain version, with times for kernel, plain version, a PyTorch
-     yardstick, K1's f32 path on the same rulebook (gather-GEMM only) and
-     the bound; awkward small cases of both kernels;
+     gather-GEMM (21 per predict) held against its plain version and
+     bit-equal on a second call, with times for kernel, plain version, a
+     PyTorch yardstick, K1's f32 path on the same rulebook, the bounds of
+     the FMA and the 3xTF32 routes, TFLOP/s on hits, the (row, tap) pairs
+     it multiplies against the hits and against an unsorted walk, and
+     the cost of each rulebook's plan (once per rulebook); the row gather
+     (1) on the strided view of TransFusion's map, bit-equal to table[idx],
+     against advanced indexing on the same view and the old copy +
+     index_select, with host us per call; awkward small cases of both
+     kernels;
  13. the tiny BEVFusion of the CPU parity tests in f32, on the card and on
      the CPU (plain versions): equal query pixels and labels, boxes and
      scores within 1e-4;
@@ -78,7 +85,11 @@ Phases, each fatal on failure:
      idle share; 4 frames of a synthetic infos file through the port's
      dataset (the config's test pipeline) and loader into the same step.
 
-Prints a ``kernels`` JSON line, the nvidia-smi line, and as its last line
+Kernel times are device times per call (``cuda_time_ms``: the launches
+queued behind a device-side sleep, so that the host's enqueue is not timed);
+host microseconds per call are printed apart where they matter (K1, K5, the
+gather-GEMM's plans). Prints a ``kernels`` JSON line, the nvidia-smi line,
+and as its last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result, when no
 GPU is present or the port cannot be imported.
 """
@@ -100,9 +111,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# NVIDIA H100 SXM data sheet (dense): bf16 tensor cores, f32 outside the
-# tensor cores, HBM3 bandwidth
+# NVIDIA H100 SXM data sheet (dense): bf16 and TF32 tensor cores, f32 outside
+# the tensor cores, HBM3 bandwidth
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 # f32 operations per (i, j) pair of the IoU kernel: 2 directions x 4 edges x
@@ -178,9 +190,18 @@ def make_batch(seed: int, cfg):
 
 
 def cuda_time_ms(fn, iters: int) -> float:
+    """Device ms per call of ``fn``: CUDA events around ``iters`` calls
+    queued behind a device-side sleep that outlasts their enqueue, so that a
+    call whose host work is longer than its device work (a small launch)
+    is timed on the device, not on the host (host_us measures the host)."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.0, 3.0 * iters * host + 1e-3) * 2e9))  # ~2e9 SM cycles a second
     start.record()
     for _ in range(iters):
         fn()
@@ -255,6 +276,29 @@ def k1_walk(bd, idx, w, bn: int) -> tuple:
     return walked, dense
 
 
+def k1_host_us(bd, calls) -> None:
+    """Host us per call of one K1 launch of the predict (the first with
+    aligned widths): the wrapper, and its C launch alone bound once against
+    bound on every call."""
+    import ctypes
+
+    table, idx, w = next(c for c in calls if c[0].shape[-1] % 8 == 0 and c[2].shape[-1] % 8 == 0)
+    Bt, Mb, R = table.shape
+    Q, M = idx.shape[1], idx.shape[2]
+    Rout = w.shape[-1]
+    flags = torch.empty(Q * -(-R // bd.BAND_BLOCK[0]) * -(-Rout // bd.BAND_BLOCK[1]),
+                        dtype=torch.int32, device=table.device)
+    out = torch.empty(Bt, M, Rout, dtype=table.dtype, device=table.device)
+    args = (table.data_ptr(), idx.data_ptr(), w.data_ptr(), flags.data_ptr(), out.data_ptr(), Bt,
+            Mb, R, Q, M, Rout)
+    once, per_call = launch_host_us("banded_conv", "banded_conv_bf16",
+                                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6, table.device, args)
+    wrapper = host_us(lambda: bd.banded_conv(table, idx, w))
+    print(f"banded_conv host us per call (table {tuple(table.shape)}, w {tuple(w.shape)}): wrapper "
+          f"{wrapper:.2f}; the C launch alone bound once {once:.2f} vs bound per call with guard "
+          f"and stream lookup {per_call:.2f}")
+
+
 def iou_bound_ms(rows, cols) -> tuple:
     G, N, _ = rows.shape
     M = cols.shape[1]
@@ -262,6 +306,16 @@ def iou_bound_ms(rows, cols) -> tuple:
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = G * N * M * IOU_OPS_PER_PAIR / PEAK_F32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _clone(a):
+    """A copy of a captured argument: a tensor (strides kept), a tuple of
+    tensors (the gather-GEMM's plan), or None."""
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    if isinstance(a, tuple):
+        return type(a)(*(x.clone() for x in a))
+    return a
 
 
 class Capture:
@@ -278,7 +332,7 @@ class Capture:
         self.orig = getattr(self.module, self.name)
 
         def spy(*args):
-            self.calls.append(tuple(a.clone() for a in args))
+            self.calls.append(tuple(_clone(a) for a in args))
             return self.orig(*args)
 
         # a wrapper counts on the module attribute it is looked up by
@@ -387,6 +441,7 @@ def main() -> None:
               f"kernel {ms:.4f} ms plain {pms:.3f} ms library {lms:.4f} ms bound {bms:.4f} ms ({by}) "
               f"band {band:.4f} ms; BN {bn} skipped {skip:.3f}")
     k1_abs = max(r[5] for r in k1_rows)
+    k1_host_us(bd, k1.calls)
     print(f"banded_conv per predict: kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
           f"library {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms, band bound "
           f"{tot['band_bound_ms']:.3f} ms; steps skipped {1.0 - tot['walked'] / tot['dense']:.3f}; "
@@ -809,7 +864,9 @@ def distance_kernels_check(dev) -> dict:
             if tag == "band":
                 out[metric] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                                    library_ms=lms, shape=f"[{N},{C}]x[{M},{C}]")
-        out[metric]["max_abs_err"] = worst
+            elif tag == "row":  # the streaming launch, once per pick
+                row = dict(row_ms=ms, row_bound_ms=bms, row_library_ms=lms)
+        out[metric].update(row, max_abs_err=worst)
     return out
 
 
@@ -1721,7 +1778,8 @@ def train_step_split(bundle, opt, batch) -> dict:
 BF_POINTS, BF_EXTENT = 300_000, 54.0  # configs/bevfusion_lidar.py max_points, +-54 m
 K4_PER_PREDICT = 21  # stem, 4 subm convs at each of 4 levels, 3 downsamples, conv_out
 K5_PER_PREDICT = 1  # the query gather
-K4_TOL = 1e-5  # of the output's scale: f32 FMAs summed in another order than the plain matmuls
+K4_TOL = 1e-5  # of the output's scale: 3xTF32 products with f32 sums, in another order than
+# the plain matmuls
 BF_TOL = 1e-4  # of the scale, for maps and boxes after the whole f32 path
 
 
@@ -1758,38 +1816,111 @@ def bevfusion_batch(seed: int, cfg) -> tuple:
     return batch, occupied, time.perf_counter() - t0
 
 
-def gather_gemm_bound_ms(features, idx, hit, w) -> tuple:
-    """(bound ms, "bytes" | "operations") of one K4 launch: features, idx,
-    hit and weights read once, the output written once; 2 * hits * Cin *
-    Cout f32 operations."""
+def gather_gemm_bound_ms(features, idx, hit, w) -> dict:
+    """Least times (ms) of one K4 launch: "bytes" (features, idx, hit and
+    weights read once, the output written once), "fma" (2 * hits * Cin *
+    Cout f32 operations on the FMA units) and "tc" (the same f32-accurate
+    products in 3xTF32 on the tensor cores: three TF32 products per f32
+    one); "bound" is the larger of the bytes and the lesser operation route,
+    "by" what sets it."""
     Bt, _, Cin = features.shape
     M = idx.shape[2]
     Cout = w.shape[-1]
     nbytes = (features.numel() + idx.numel() + w.numel() + Bt * M * Cout) * 4 + hit.numel()
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = 2.0 * int(hit.sum()) * Cin * Cout / PEAK_F32 * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    ops = 2.0 * int(hit.sum()) * Cin * Cout
+    t = dict(bytes=nbytes / PEAK_BYTES * 1e3, fma=ops / PEAK_F32 * 1e3,
+             tc=3 * ops / PEAK_TF32 * 1e3)
+    t_ops = min(t["fma"], t["tc"])
+    t["bound"], t["by"] = (t["bytes"], "bytes") if t["bytes"] >= t_ops else (t_ops, "operations")
+    return t
 
 
-def k4_case(tg, dev, B_, N, Cin, K, M, Cout, seed) -> float:
+def unsorted_walk(hit, cout: int) -> int:
+    """(row, tap) pairs of an unsorted walk for one column tile: rows in
+    rulebook order, tiles of 256 rows (Cout 16), 128 (32, 64) or 64 (128),
+    every tap with a hit in the tile over all of its rows (the walk of the
+    kernel's FMA version, before 3xTF32)."""
+    from dal3d_tpu_torch.ops.gather import _cout_pad
+
+    c = _cout_pad(cout)
+    bm = 256 if c == 16 else (128 if c <= 64 else 64)
+    Bt, K, M = hit.shape
+    T = -(-M // bm)
+    h = torch.nn.functional.pad(hit, (0, T * bm - M))
+    return int(h.view(Bt, K, T, bm).any(-1).sum()) * bm
+
+
+def k4_case(tg, dev, B_, N, Cin, K, M, Cout, seed, hit_p=0.5, span=0.0) -> float:
     """One awkward K4 case against the plain version (rows 100-299 without
-    a hit must come out zero); returns the error relative to scale."""
+    a hit must come out zero; ``span`` spreads the features over 10^-span
+    to 10^span), bit-equal on a second call and on the sorted plan; returns
+    the error relative to scale."""
     rng = np.random.RandomState(seed)
-    f = torch.from_numpy(rng.randn(B_, N, Cin).astype(np.float32)).to(dev)
+    f = rng.randn(B_, N, Cin) * 10.0 ** rng.uniform(-span, span, (B_, N, Cin))
+    f = torch.from_numpy(f.astype(np.float32)).to(dev)
     idx = torch.from_numpy(rng.randint(0, N, (B_, K, M)).astype(np.int32)).to(dev)
-    hit = torch.from_numpy(rng.rand(B_, K, M) < 0.5).to(dev)
+    hit = torch.from_numpy(rng.rand(B_, K, M) < hit_p).to(dev)
     hit[:, :, 100:300] = False
     w = torch.from_numpy((rng.randn(K, Cin, Cout) * 0.1).astype(np.float32)).to(dev)
     got, ref = tg.gather_gemm(f, idx, hit, w), tg.gather_gemm_plain(f, idx, hit, w)
     rel = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
     if not rel <= K4_TOL or (M > 100 and float(got[:, 100:300].abs().max()) != 0.0):
         fail(f"gather_gemm awkward case {(B_, N, Cin, K, M, Cout)}: error {rel:.2e} of scale")
+    if not (torch.equal(got, tg.gather_gemm(f, idx, hit, w))
+            and torch.equal(got, tg.gather_gemm(f, idx, hit, w, tg.gather_plan(idx, hit)))):
+        fail(f"gather_gemm awkward case {(B_, N, Cin, K, M, Cout)}: a second call, or the call "
+             "on the sorted plan, differs")
     return rel
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds per call of ``fn``: the enqueue, not the device
+    work (nothing synchronizes inside the window, and the launch queue does
+    not fill at these counts)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def bound_per_call(name: str, fn_name: str, argtypes, device, args):
+    """A launch bound on every call, for the host-time comparison only:
+    the library looked up, ctypes argtypes and restype set, the device guard
+    entered and torch.cuda.current_stream() asked, on every call."""
+    import ctypes
+
+    from dal3d_tpu_torch.ops import _build
+
+    lib = _build.load(name)
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, fn_name)
+
+
+def launch_host_us(name: str, fn_name: str, argtypes, device, args) -> tuple:
+    """(bound once, bound per call) host us of one C launch with the same
+    arguments: what the bind-once helper takes off every wrapper call."""
+    from dal3d_tpu_torch.ops import _build
+
+    once = _build.function(name, fn_name, argtypes)
+    return (host_us(lambda: once(device, *args)),
+            host_us(lambda: bound_per_call(name, fn_name, argtypes, device, args)))
 
 
 def gather_kernels_check(bundle, batch, bd, tg) -> dict:
     """Phase 12: every K4 / K5 launch of one full-width predict against its
-    plain version, with times, bound and yardsticks; awkward small cases."""
+    plain version and bit-equal on a repeat, with times, both bounds, the
+    walk (pairs multiplied against hits, and against an unsorted walk),
+    the plans' cost once per rulebook, yardsticks; awkward small cases."""
+    import ctypes
+
     from dal3d_tpu_torch.runtime.bevfusion_steps import make_bevfusion_predict_step
 
     predict = make_bevfusion_predict_step(bundle)
@@ -1800,71 +1931,143 @@ def gather_kernels_check(bundle, batch, bd, tg) -> dict:
         fail(f"capture run launched gather_gemm {len(k4.calls)}x, gather_rows {len(k5.calls)}x; "
              f"expected {K4_PER_PREDICT} and {K5_PER_PREDICT}")
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, k1_ms=0.0, bound_ms=0.0, t_bytes=0.0,
-               t_ops=0.0, hits=0, dense=0)
+               t_ops=0.0, fma_ms=0.0, tc_ms=0.0, hits=0, dense=0, walked=0, unsorted=0,
+               steps=0, plan_ms=0.0, plan_host_ms=0.0, plans=0, flops=0.0)
     worst_abs = worst_rel = 0.0
     print(f"gather_gemm launches of one predict (kernel vs plain, f32; tol = {K4_TOL:g} x "
-          "max|plain|; library = index_select + one matmul over K*Cin; K1 = banded_conv's f32 "
-          "path on the same rulebook):")
-    for n, (f, idx, hit, w) in enumerate(k4.calls):
-        got, ref = tg.gather_gemm(f, idx, hit, w), tg.gather_gemm_plain(f, idx, hit, w)
+          "max|plain|, and bit-equal on a second call; library = index_select + one matmul over "
+          "K*Cin; K1 = banded_conv's f32 path on the same rulebook; bounds: bytes, f32 FMA, "
+          "3xTF32 tensor cores; walked = (row, tap) pairs the warps multiply / hits, unsorted = "
+          "the same for rulebook-order tiles of 256/128/64 rows; TFLOP/s = 2 hits Cin Cout / "
+          "kernel time):")
+    prev = None
+    for n, (f, idx, hit, w, plan) in enumerate(k4.calls):
+        Cin, Cout = f.shape[-1], w.shape[-1]
+        shared = prev is not None and prev[0].shape == idx.shape and torch.equal(
+            prev[0], idx) and torch.equal(prev[1], hit)
+        if plan is None:  # a rulebook used once: the wrapper's plan keeps the rows' order
+            plan = tg.gather_plan(idx, hit, sort=False)
+        if not shared:  # a new rulebook: its plan is made once, here timed once
+            sort = plan.order is not None
+            pms_ = cuda_time_ms(lambda: tg.gather_plan(idx, hit, sort), 5)
+            phu = host_us(lambda: tg.gather_plan(idx, hit, sort), 20)
+            tot["plan_ms"] += pms_
+            tot["plan_host_ms"] += phu / 1e3
+            tot["plans"] += 1
+            kind = ("hit-mask sort and fold, shared by the launches after it" if sort
+                    else "fold only, rows in order: used once")
+            print(f"  plan of the rulebook {tuple(idx.shape)} ({kind}): {pms_:.4f} ms on the "
+                  f"device, {phu:.1f} us on the host")
+        prev = (idx, hit)
+        got, ref = tg.gather_gemm(f, idx, hit, w, plan), tg.gather_gemm_plain(f, idx, hit, w)
         scale = max(float(ref.abs().max()), 1e-30)
         err = float((got - ref).abs().max())
         if not err <= K4_TOL * scale:
             fail(f"gather_gemm launch {n} {tuple(f.shape)}x{tuple(w.shape)}: max_abs_err "
                  f"{err:.3e} > {K4_TOL * scale:.3e}")
+        if not torch.equal(got, tg.gather_gemm(f, idx, hit, w, plan)):
+            fail(f"gather_gemm launch {n}: a second call on the same inputs differs")
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, err / scale)
-        rb = torch.where(hit, idx, -1)
-        ms = cuda_time_ms(lambda: tg.gather_gemm(f, idx, hit, w), 5)
+        rb = torch.where(hit, idx, -1)  # the yardsticks' rulebook
+        ms = cuda_time_ms(lambda: tg.gather_gemm(f, idx, hit, w, plan), 5)
         pms = cuda_time_ms(lambda: tg.gather_gemm_plain(f, idx, hit, w), 2)
         lms = cuda_time_ms(library_banded(f, rb, w), 2)
         k1ms = cuda_time_ms(lambda: bd.banded_conv(f, rb, w), 3)
-        bms, by = gather_gemm_bound_ms(f, idx, hit, w)
+        bnd = gather_gemm_bound_ms(f, idx, hit, w)
         hits = int(hit.sum())
-        active = int((rb >= 0).any(1).sum())
+        blocks, groups = tg.gemm_walk(plan, Cout)
+        walked = int(groups.sum()) * tg.gemm_tile_rows(Cout)[1]
+        old = unsorted_walk(hit, Cout)
+        flops = 2.0 * hits * Cin * Cout
         for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("k1_ms", k1ms),
-                     ("bound_ms", bms), ("hits", hits), ("dense", hit.numel())):
+                     ("bound_ms", bnd["bound"]), ("fma_ms", bnd["fma"]), ("tc_ms", bnd["tc"]),
+                     ("hits", hits), ("dense", hit.numel()), ("walked", walked),
+                     ("unsorted", old), ("steps", int(blocks.sum())), ("flops", flops)):
             tot[k] += v
-        tot["t_" + ("bytes" if by == "bytes" else "ops")] += bms
-        print(f"  #{n:2d} features {tuple(f.shape)} taps {idx.shape[1]} M {idx.shape[2]} "
-              f"(rows with a hit {active}) Cout {w.shape[-1]} hits {hits} "
-              f"({hits / hit.numel():.3f}): err {err / scale:.1e} of scale; kernel {ms:.4f} ms "
-              f"plain {pms:.3f} ms library {lms:.4f} ms K1 f32 {k1ms:.4f} ms bound {bms:.4f} ms "
-              f"({by})")
+        tot["t_" + ("bytes" if bnd["by"] == "bytes" else "ops")] += bnd["bound"]
+        print(f"  #{n:2d} features {tuple(f.shape)} taps {idx.shape[1]} M {idx.shape[2]} Cout "
+              f"{Cout} hits {hits} ({hits / hit.numel():.3f}): err {err / scale:.1e} of scale, "
+              f"repeat bit-equal; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s on hits) "
+              f"plain {pms:.3f} library {lms:.4f} K1 f32 {k1ms:.4f}; bounds bytes "
+              f"{bnd['bytes']:.4f} fma {bnd['fma']:.4f} 3xtf32 {bnd['tc']:.4f} -> "
+              f"{bnd['bound']:.4f}"
+              f" ms ({bnd['by']}); walked {walked / hits:.2f} x hits (unsorted {old / hits:.2f}), "
+              f"{int(blocks.sum())} (block, tap) steps")
     tot["bound_by"] = "bytes" if tot["t_bytes"] >= tot["t_ops"] else "operations"
-    print(f"gather_gemm per predict: kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
-          f"library {tot['library_ms']:.3f} ms, K1 f32 {tot['k1_ms']:.3f} ms, bound "
-          f"{tot['bound_ms']:.3f} ms ({tot['bound_by']}); hits {tot['hits']} of "
-          f"{tot['dense']} (row, tap) pairs; max_abs_err {worst_abs:.3e} (relative to output "
-          f"scale {worst_rel:.2e})")
+    k4_ms = tot["ms"] + tot["plan_ms"]
+    print(f"gather_gemm plans: {tot['plans']} rulebooks, {tot['plan_ms']:.3f} ms of device time "
+          f"per predict ({tot['plan_host_ms']:.3f} ms on the host)")
+    print(f"gather_gemm per predict: {k4_ms:.3f} ms (kernel {tot['ms']:.3f} + plans "
+          f"{tot['plan_ms']:.3f}), {tot['flops'] / tot['ms'] / 1e9:.1f} TFLOP/s on hits; plain "
+          f"{tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms, K1 f32 "
+          f"{tot['k1_ms']:.3f} ms; bound {tot['bound_ms']:.3f} ms ({tot['bound_by']}; operation "
+          f"routes: f32 FMA {tot['fma_ms']:.3f}, 3xTF32 {tot['tc_ms']:.3f}); hits {tot['hits']} "
+          f"of {tot['dense']} (row, tap) pairs, walked {tot['walked'] / tot['hits']:.3f} x hits "
+          f"(unsorted {tot['unsorted'] / tot['hits']:.3f}); max_abs_err {worst_abs:.3e} "
+          f"(relative to output scale {worst_rel:.2e})")
 
+    # K5: the query gather from the [B, H*W, C] view of the NCHW map
     table, rows = k5.calls[0]
-    if not torch.equal(tg.gather_rows(table, rows), tg.gather_rows_plain(table, rows)):
+    Bt, R, C = table.shape
+    flat = table.reshape(Bt * R, C)  # a contiguous copy
+    got = tg.gather_rows(table, rows)
+    if not (torch.equal(got, flat[rows.long()])
+            and torch.equal(got, tg.gather_rows_plain(table, rows))):
         fail("gather_rows main-path launch differs from table[idx]")
+    bi = torch.div(rows.long(), R, rounding_mode="floor")
+    ri = torch.remainder(rows.long(), R)
     k5n = dict(ms=cuda_time_ms(lambda: tg.gather_rows(table, rows), 50),
-              plain_ms=cuda_time_ms(lambda: tg.gather_rows_plain(table, rows), 50),
-              library_ms=cuda_time_ms(lambda: torch.index_select(table, 0, rows), 50),
-              max_abs_err=0.0, bound_by="bytes")
-    nbytes = rows.numel() * 4 + 2 * rows.numel() * table.shape[1] * table.element_size()
+               plain_ms=cuda_time_ms(lambda: tg.gather_rows_plain(table, rows), 50),
+               library_ms=cuda_time_ms(lambda: table[bi, ri], 50),
+               copy_index_select_ms=cuda_time_ms(
+                   lambda: torch.index_select(table.reshape(Bt * R, C), 0, rows), 50),
+               max_abs_err=0.0, bound_by="bytes")
+    nbytes = rows.numel() * 4 + 2 * rows.numel() * C * table.element_size()
     k5n["bound_ms"] = nbytes / PEAK_BYTES * 1e3
-    print(f"gather_rows table {tuple(table.shape)} idx {tuple(rows.shape)}: bit-equal to "
-          f"table[idx]; kernel {k5n['ms']:.4f} ms plain {k5n['plain_ms']:.4f} ms index_select "
-          f"{k5n['library_ms']:.4f} ms bound {k5n['bound_ms']:.5f} ms (bytes)")
+    k5n["host_us"] = host_us(lambda: tg.gather_rows(table, rows))
+    k5n["library_host_us"] = host_us(lambda: table[bi, ri])
+    out = torch.empty(rows.numel(), C, device=table.device)
+    es = table.element_size()
+    k5_args = (table.data_ptr(), rows.data_ptr(), out.data_ptr(), rows.numel(), Bt * R, R,
+               table.stride(0) * es, table.stride(1) * es, table.stride(2) * es, es, C * es)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    once, per_call = launch_host_us("gather", "gather_rows", [P] * 3 + [I] + [L] * 5 + [I] * 2,
+                                    table.device, k5_args)
+    print(f"gather_rows view {tuple(table.shape)} strides {table.stride()} idx "
+          f"{tuple(rows.shape)}: bit-equal to table[idx] on a contiguous copy; kernel "
+          f"{k5n['ms']:.4f} ms, plain {k5n['plain_ms']:.4f} ms, advanced indexing on the view "
+          f"{k5n['library_ms']:.4f} ms, the old path (reshape copy + index_select) "
+          f"{k5n['copy_index_select_ms']:.4f} ms, bound {k5n['bound_ms']:.5f} ms (bytes); host "
+          f"us per call: wrapper {k5n['host_us']:.2f}, advanced indexing "
+          f"{k5n['library_host_us']:.2f}; the C launch alone bound once {once:.2f} vs bound per "
+          f"call with guard and stream lookup {per_call:.2f}")
 
     dev = table.device
     rels = [k4_case(tg, dev, 1, 300, 5, 27, 777, 16, 1), k4_case(tg, dev, 1, 50, 32, 3, 1, 128, 2),
-            k4_case(tg, dev, 2, 400, 64, 27, 333, 64, 3)]
+            k4_case(tg, dev, 2, 400, 64, 27, 333, 64, 3),
+            k4_case(tg, dev, 2, 5000, 128, 27, 4000, 128, 5, hit_p=0.19, span=3.0),
+            k4_case(tg, dev, 1, 100, 12, 4, 300, 200, 6)]
     rng = np.random.RandomState(4)
-    for C, M, dtype in ((5, 33, torch.float32), (128, 1, torch.float32), (3, 7, torch.bfloat16)):
-        tbl = torch.from_numpy(rng.randn(100, C).astype(np.float32)).to(dev, dtype)
-        ix = torch.from_numpy(rng.randint(0, 100, M).astype(np.int32)).to(dev)
+    for C_, M_, dtype in ((5, 33, torch.float32), (128, 1, torch.float32), (3, 7, torch.bfloat16)):
+        tbl = torch.from_numpy(rng.randn(100, C_).astype(np.float32)).to(dev, dtype)
+        ix = torch.from_numpy(rng.randint(0, 100, M_).astype(np.int32)).to(dev)
         if not torch.equal(tg.gather_rows(tbl, ix), tbl[ix.long()]):
-            fail(f"gather_rows awkward case C={C} M={M} {dtype} differs from table[idx]")
+            fail(f"gather_rows awkward case C={C_} M={M_} {dtype} differs from table[idx]")
+        v = tbl[:, 1:]  # rows not 16-byte aligned
+        if C_ > 1 and not torch.equal(tg.gather_rows(v, ix), v[ix.long()]):
+            fail(f"gather_rows awkward case C={C_} M={M_} {dtype} on an unaligned view differs")
     print(f"awkward cases: gather_gemm (Cin 5, M 777, 27 taps, rows without a hit), (M 1, "
-          f"Cout 128), (Cin 64, M 333) within {max(rels):.1e} of scale; gather_rows (C 5, M 33), "
-          "(M 1), (bf16, C 3) bit-equal")
-    k4 = dict(max_abs_err=worst_abs, ms=tot["ms"], plain_ms=tot["plain_ms"],
+          f"Cout 128), (Cin 64, M 333), (Cin 128, 19 % hits, features over 1e-3..1e3), (Cout 200) "
+          f"within {max(rels):.1e} of scale, bit-equal on a repeat and on the sorted plan; "
+          "gather_rows (C 5, M 33), "
+          "(M 1), (bf16, C 3) and their unaligned views bit-equal")
+    k4 = dict(max_abs_err=worst_abs, ms=k4_ms, plain_ms=tot["plain_ms"],
               bound_ms=tot["bound_ms"], bound_by=tot["bound_by"], library_ms=tot["library_ms"],
-              k1_f32_ms=tot["k1_ms"])
+              kernel_ms=tot["ms"], plan_ms=tot["plan_ms"], plan_host_ms=tot["plan_host_ms"],
+              k1_f32_ms=tot["k1_ms"],
+              bound_fma_ms=tot["fma_ms"], bound_3xtf32_ms=tot["tc_ms"],
+              walked_per_hit=tot["walked"] / tot["hits"],
+              unsorted_walked_per_hit=tot["unsorted"] / tot["hits"])
     return {"gather_gemm": k4, "gather_rows": k5n}
 
 
@@ -1953,7 +2156,8 @@ def bevfusion_plain_check(bundle, batch, tg) -> str:
     present on one side only must sit at the top-200 boundary: its score
     within 1e-5 of the other side's 200th."""
     kern = (tg.gather_gemm, tg.gather_rows)
-    plain = (tg.gather_gemm_plain, tg.gather_rows_plain)
+    plain = (lambda f, idx, hit, w, plan=None: tg.gather_gemm_plain(f, idx, hit, w),
+             tg.gather_rows_plain)
     lk = bevfusion_forward(bundle, batch, tg, *kern, stop_at="lidar")[0]["lidar"]
     lp = bevfusion_forward(bundle, batch, tg, *plain, stop_at="lidar")[0]["lidar"]
     pk, dk, rk = bevfusion_forward(bundle, batch, tg, *kern)

@@ -11,6 +11,8 @@ c*D + d.
 The JAX module builds each level's index grid twice (once for the subm
 rulebook, once more inside the downsample). This one builds it once per
 level and shares it: the same plans, one grid (340 MB per frame at L0) less.
+Each level's subm rulebook carries the gather-GEMM kernel's walk plan, made
+once and shared by the level's subm convs (at L0 the stem's too).
 """
 from __future__ import annotations
 
@@ -62,12 +64,12 @@ class SparseEncoder(nn.Module):
     def forward(self, sb: sp.SparseBatch) -> torch.Tensor:
         """SparseBatch at the voxel grid -> dense BEV map [B, H', W', C*D']."""
         grid = sp.build_index_grid(sb)
-        rb = sp.subm_rulebook(sb, 3, grid)
+        rb = sp.with_plan(sp.subm_rulebook(sb, 3, grid))
         x = _bn_relu(self.stem_bn, self.stem(sb, rb))
         for i, stage in enumerate(self.stages):
             if i > 0:
                 grid = sp.build_index_grid(x)
-                rb = sp.subm_rulebook(x, 3, grid)
+                rb = sp.with_plan(sp.subm_rulebook(x, 3, grid))
             for block in stage.blocks:
                 x = block(x, rb)
             if stage.down is not None:

@@ -167,10 +167,10 @@ class TransFusionHead(nn.Module):
         qy = torch.div(pix, W, rounding_mode="floor")
         qx = pix - qy * W
 
-        feat_flat = x.permute(0, 2, 3, 1).reshape(B, H * W, d)  # (y, x) row order
+        # (y, x) row order; a view of the NCHW map, which the row gather reads in place
+        feat_flat = x.permute(0, 2, 3, 1).reshape(B, H * W, d)
         rows = pix + (torch.arange(B, device=bev.device) * (H * W))[:, None]
-        q_feat = _gather.gather_rows(feat_flat.reshape(B * H * W, d),
-                                     rows.reshape(-1).to(torch.int32)).view(B, P, d)
+        q_feat = _gather.gather_rows(feat_flat, rows.reshape(-1).to(torch.int32)).view(B, P, d)
         q_feat = q_feat + self.class_encoding(F.one_hot(cls_id, nc).to(q_feat.dtype))
 
         q_xy = torch.stack([qx, qy], dim=-1).to(torch.float32) + 0.5

@@ -6,6 +6,10 @@ alone (no PyTorch headers, so a build takes seconds) into
 with ctypes. The hash covers the source, the shared header and the flags, so
 a library is rebuilt only when one of them changes. Nothing is compiled at
 import time: the first kernel launch, or ``build_all``, builds.
+
+``function`` hands a wrapper its launch function with the ctypes argument
+types set once, when the library loads: a launch then costs the call itself,
+with a device guard only when the tensors' card is not the current one.
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -35,6 +41,7 @@ KERNELS = {
 
 _lock = threading.Lock()
 _libs: dict = {}
+_functions: dict = {}
 
 
 def nvcc() -> str:
@@ -128,3 +135,38 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.dal3d_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+class Launch:
+    """One C launch function of a kernel library, bound once: ``argtypes``
+    (every argument but the trailing stream) and ``restype`` are set when it
+    is first asked for. ``launch(device, *args)`` calls it on the current
+    stream of ``device`` and raises on a nonzero cudaError_t."""
+
+    __slots__ = ("lib", "fn", "what")
+
+    def __init__(self, lib: ctypes.CDLL, fn_name: str, argtypes, what: str):
+        self.lib, self.what = lib, what
+        self.fn = getattr(lib, fn_name)
+        self.fn.argtypes = [*argtypes, ctypes.c_void_p]
+        self.fn.restype = ctypes.c_int
+
+    def __call__(self, device: torch.device, *args) -> None:
+        index, current = device.index, torch._C._cuda_getDevice()
+        if index is None or index == current:
+            err = self.fn(*args, torch._C._cuda_getCurrentRawStream(current))
+        else:
+            with torch.cuda.device(index):
+                err = self.fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        if err != 0:
+            check(self.lib, err, self.what)
+
+
+def function(name: str, fn_name: str, argtypes, what: str | None = None) -> Launch:
+    """The launch function ``fn_name`` of ``csrc/<name>.cu`` (built and
+    loaded on first use), bound once with ``argtypes`` plus the stream."""
+    launch = _functions.get((name, fn_name))
+    if launch is None:
+        launch = Launch(load(name), fn_name, argtypes, what or fn_name)
+        _functions[(name, fn_name)] = launch
+    return launch

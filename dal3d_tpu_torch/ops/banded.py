@@ -156,15 +156,9 @@ def banded_conv(table: torch.Tensor, idx: torch.Tensor,
     # the kernel's skip flags: one int per 32 x 64 block of each w[q]
     flags = torch.empty(Q * -(-Rp // BAND_BLOCK[0]) * -(-Routp // BAND_BLOCK[1]),
                         dtype=torch.int32, device=table.device)
-    lib = _build.load("banded_conv")
-    launch = getattr(lib, fn)
-    launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    launch.restype = ctypes.c_int
-    with torch.cuda.device(table.device):
-        err = launch(table.data_ptr(), idx.data_ptr(), w.data_ptr(), flags.data_ptr(),
-                     out.data_ptr(), B, Mb, Rp, Q, M, Routp,
-                     torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "banded_conv")
+    _build.function("banded_conv", fn, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6,
+                    "banded_conv")(table.device, table.data_ptr(), idx.data_ptr(), w.data_ptr(),
+                                   flags.data_ptr(), out.data_ptr(), B, Mb, Rp, Q, M, Routp)
     banded_conv.launches += 1
     return out[..., :Rout] if Routp != Rout else out
 
@@ -232,15 +226,9 @@ def banded_dw(table: torch.Tensor, idx: torch.Tensor, g: torch.Tensor) -> torch.
     # partial tiles (shares + Q - 1 of them) and the kernel's ints
     part = torch.empty((shares + Q - 1) * Rp * Routp + _DW_SCRATCH_INTS, dtype=torch.float32,
                        device=table.device)
-    lib = _build.load("banded_dw")
-    launch = getattr(lib, fn)
-    launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    launch.restype = ctypes.c_int
-    with torch.cuda.device(table.device):
-        err = launch(table.data_ptr(), idx.data_ptr(), g.data_ptr(), dw.data_ptr(),
-                     part.data_ptr(), B, Mb, Rp, Q, M, Routp, shares,
-                     torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "banded_dw")
+    _build.function("banded_dw", fn, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7, "banded_dw")(
+        table.device, table.data_ptr(), idx.data_ptr(), g.data_ptr(), dw.data_ptr(),
+        part.data_ptr(), B, Mb, Rp, Q, M, Routp, shares)
     banded_dw.launches += 1
     return dw[:, :R, :Rout] if (Rp != R or Routp != Rout) else dw
 

@@ -58,15 +58,9 @@ def _launch(name: str, fn: str, x: torch.Tensor, y: torch.Tensor, extra=()) -> t
     N, C = x.shape
     M = y.shape[0]
     out = torch.empty(N, M, dtype=torch.float32, device=x.device)
-    lib = _build.load("pairwise_distance")
-    launch = getattr(lib, fn)
-    launch.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (3 + len(extra))
-                       + [ctypes.c_void_p])
-    launch.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        err = launch(x.data_ptr(), y.data_ptr(), out.data_ptr(), N, M, C, *extra,
-                     torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, name)
+    _build.function("pairwise_distance", fn,
+                    [ctypes.c_void_p] * 3 + [ctypes.c_int] * (3 + len(extra)), name)(
+        x.device, x.data_ptr(), y.data_ptr(), out.data_ptr(), N, M, C, *extra)
     return out
 
 

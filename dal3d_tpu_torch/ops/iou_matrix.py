@@ -102,13 +102,9 @@ def iou_matrix(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
         raise ValueError("iou_matrix: records must be contiguous on one device")
     M = cols.shape[1]
     out = torch.empty(G, N, M, dtype=torch.float32, device=rows.device)
-    lib = _build.load("iou_matrix")
-    lib.iou_matrix_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.iou_matrix_f32.restype = ctypes.c_int
-    with torch.cuda.device(rows.device):
-        err = lib.iou_matrix_f32(rows.data_ptr(), cols.data_ptr(), out.data_ptr(),
-                                 G, N, M, torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "iou_matrix")
+    _build.function("iou_matrix", "iou_matrix_f32", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3,
+                    "iou_matrix")(rows.device, rows.data_ptr(), cols.data_ptr(), out.data_ptr(),
+                                  G, N, M)
     iou_matrix.launches += 1
     return out
 

@@ -58,12 +58,13 @@ def _kernel_offsets(kernel_size) -> np.ndarray:
 
 
 def gather_gemm(features: torch.Tensor, idx: torch.Tensor, hit: torch.Tensor,
-                weights: torch.Tensor) -> torch.Tensor:
+                weights: torch.Tensor, plan=None) -> torch.Tensor:
     """Core sparse conv compute: features [B, N, Cin], idx / hit [B, K, M],
     weights [K, Cin, Cout] -> [B, M, Cout], ``sum_k hit * features[b, idx] @
     W[k]``. One launch of the fused gather-GEMM kernel (``ops/gather.py``)
-    on the card, its plain version on the CPU."""
-    return _gather.gather_gemm(features, idx, hit, weights)
+    on the card, its plain version on the CPU; ``plan`` is the rulebook's
+    ``gather_plan`` where the caller made it once for several convs."""
+    return _gather.gather_gemm(features, idx, hit, weights, plan)
 
 
 def to_dense(sb: SparseBatch) -> torch.Tensor:

@@ -6,9 +6,9 @@ searchsorted engine is not ported: the port has no environment knobs, and
 that engine waits for ROADMAP A9."""
 from .sparse import SparseBatch, gather_gemm, to_dense
 from .sparse_grid import (build_index_grid, downsample_plan, from_voxels,
-                          sparse_conv_downsample, subm_conv, subm_rulebook)
+                          sparse_conv_downsample, subm_conv, subm_rulebook, with_plan)
 
 __all__ = [
     "SparseBatch", "gather_gemm", "to_dense", "from_voxels", "subm_rulebook",
-    "subm_conv", "sparse_conv_downsample", "downsample_plan", "build_index_grid",
+    "subm_conv", "sparse_conv_downsample", "downsample_plan", "build_index_grid", "with_plan",
 ]

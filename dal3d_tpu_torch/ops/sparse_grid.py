@@ -12,7 +12,9 @@
 Rulebooks come in JAX's form, ``(max(idx, 0), hit)``, and plans are built on
 the tensor's device outside the graph; they are bit-identical to JAX's. The
 compute is ``ops/sparse.py::gather_gemm`` (the fused gather-GEMM kernel).
-Rows are not kept sorted: padding rows carry ``lin == D*H*W``.
+Rows are not kept sorted: padding rows carry ``lin == D*H*W``. A rulebook
+that several convs share carries the kernel's walk plan made once
+(``with_plan``: ``(idx, hit, plan)``).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .gather import gather_plan
 from .sparse import SparseBatch, _kernel_offsets, _triple, gather_gemm
 from .sparse_brick import _decode, _rank_first
 
@@ -125,13 +128,22 @@ def downsample_plan(sb: SparseBatch, kernel_size, stride, padding, out_cap: int,
     return out_lin.to(torch.int32), idx, hit, (Do, Ho, Wo)
 
 
+def with_plan(rulebook):
+    """(idx, hit) -> (idx, hit, plan): a rulebook shared by several convs,
+    with the gather-GEMM kernel's walk plan (``ops/gather.py::gather_plan``)
+    made once for all of them."""
+    idx, hit = rulebook
+    return idx, hit, gather_plan(idx, hit)
+
+
 def subm_conv(sb: SparseBatch, weights: torch.Tensor, rulebook=None,
               kernel_size=3) -> SparseBatch:
-    """Submanifold sparse conv, weights [K, Cin, Cout]; padding rows stay 0."""
+    """Submanifold sparse conv, weights [K, Cin, Cout]; padding rows stay 0.
+    ``rulebook`` is ``(idx, hit)`` or ``with_plan``'s ``(idx, hit, plan)``."""
     if rulebook is None:
         rulebook = subm_rulebook(sb, kernel_size)
-    idx, hit = rulebook
-    out = gather_gemm(sb.features, idx, hit, weights)
+    idx, hit = rulebook[:2]
+    out = gather_gemm(sb.features, idx, hit, weights, rulebook[2] if len(rulebook) > 2 else None)
     out = torch.where(sb.valid[..., None], out, torch.zeros((), dtype=out.dtype,
                                                             device=out.device))
     return SparseBatch(features=out, lin=sb.lin, shape=sb.shape)

@@ -9,6 +9,12 @@ CUDA card, what each piece of the banded kernels' main loop sustains alone
 and together:
 
   - ``mma.sync`` m16n8k16 (bf16 in, f32 accumulate) from registers;
+  - ``mma.sync`` m16n8k8 (TF32 in, f32 accumulate) from registers, alone and
+    as the fused gather-GEMM's 3xTF32 step (operands split into big and
+    small TF32 parts, three products into fresh accumulators, added to the
+    sums in f32), with the split by cvt.rna or by integer operations: the
+    ceiling of that kernel's inner loop, in TFLOP/s of TF32 work and of the
+    f32 work it stands for;
   - ``ldmatrix.trans`` + ``mma.sync`` from a swizzled shared tile, for the
     warp tiles the kernels use (32 x 32, 64 x 32, 64 x 64);
   - gathers of random rows into a 4-stage shared ring (16-byte ``cp.async``,
@@ -51,6 +57,95 @@ __global__ void __launch_bounds__(256, 2) mma_regs(float* out, int iters) {
     for (int j = 0; j < 8; ++j) mma_bf16_16816(acc[j], a, b0, b1);
   float s = 0;
   for (int j = 0; j < 8; ++j) s += acc[j][0] + acc[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// TF32 mma.sync from registers: 8 independent accumulators a warp
+__global__ void __launch_bounds__(256, 2) mma_tf32_regs(float* out, int iters) {
+  float acc[8][4] = {};
+  uint32_t a[4] = {threadIdx.x, threadIdx.x * 3u, threadIdx.x * 5u, threadIdx.x * 7u};
+  uint32_t b0 = threadIdx.x * 11u, b1 = threadIdx.x * 13u;
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mma_tf32(acc[j], a, b0, b1);
+  float s = 0;
+  for (int j = 0; j < 8; ++j) s += acc[j][0] + acc[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+// big + small with round-to-nearest-away TF32 parts: both by cvt.rna (MODE
+// 0), or big by integer operations on the f32 word that give the same bits
+// (MODE 1, the fused gather-GEMM's split)
+template <int MODE>
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = MODE == 0 ? tf32_rna(x) : (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// the fused gather-GEMM's 3xTF32 step on a 32 x 64 warp tile, operands from
+// registers (changing every iteration, so nothing is hoisted): A and B split
+// into big and small, for each pair of 8-column tiles small*big, big*small,
+// big*big into fresh accumulators, then added to the f32 sums
+template <int MODE>
+__global__ void __launch_bounds__(256, 2) tf32x3_step(float* out, int iters) {
+  float acc[2][8][4] = {};
+  const float base = 1.0f + threadIdx.x * 1e-3f;
+  for (int it = 0; it < iters; ++it) {
+    const float x = base + it * 1e-6f;
+    uint32_t ab[2][4], as[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split<MODE>(x * (i * 4 + q + 1), ab[i][q], as[i][q]);
+#pragma unroll
+    for (int j0 = 0; j0 < 8; j0 += 2) {
+      uint32_t bb[2][2], bs[2][2];
+      float part[2][2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) split<MODE>(x * (j0 + jj + h + 0.5f), bb[jj][h], bs[jj][h]);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) part[i][jj][q] = 0.0f;
+          mma_tf32(part[i][jj], as[i], bb[jj][0], bb[jj][1]);
+        }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_tf32(part[i][jj], ab[i], bs[jj][0], bs[jj][1]);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_tf32(part[i][jj], ab[i], bb[jj][0], bb[jj][1]);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[i][j0 + jj][q] += part[i][jj][q];
+    }
+  }
+  float s = 0;
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 8; ++j) s += acc[i][j][0] + acc[i][j][3];
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
 
@@ -201,6 +296,29 @@ int main() {
     const double f = 8.0 * 4096 * iters * blocks * 8;
     printf("mma.sync from registers: %.1f TFLOP/s\n", f / elapsed(a, b) / 1e9);
   }
+  {
+    const int iters = 4096, blocks = sms * 2;
+    mma_tf32_regs<<<blocks, 256>>>(out, 16);
+    cudaEventRecord(a);
+    mma_tf32_regs<<<blocks, 256>>>(out, iters);
+    cudaEventRecord(b);
+    const double f = 8.0 * 2048 * iters * blocks * 8;
+    printf("mma.sync TF32 m16n8k8 from registers: %.1f TFLOP/s\n", f / elapsed(a, b) / 1e9);
+  }
+#define TF32X3(MODE, NAME)                                                              \
+  {                                                                                     \
+    const int iters = 2048, blocks = sms * 2;                                           \
+    tf32x3_step<MODE><<<blocks, 256>>>(out, 16);                                        \
+    cudaEventRecord(a);                                                                 \
+    tf32x3_step<MODE><<<blocks, 256>>>(out, iters);                                     \
+    cudaEventRecord(b);                                                                 \
+    const double f = 3.0 * 16 * 2048 * iters * blocks * 8; /* 3 passes, 16 tiles */     \
+    const float ms = elapsed(a, b);                                                     \
+    printf("3xTF32 step, 32 x 64 warp tile, %s: %.1f TFLOP/s of TF32 work, %.1f TFLOP/s " \
+           "of f32 work\n", NAME, f / ms / 1e9, f / 3 / ms / 1e9);                      \
+  }
+  TF32X3(0, "both parts by cvt.rna")
+  TF32X3(1, "big by integer operations")
 #define SMEM(MT, NP, NAME)                                                        \
   {                                                                               \
     const int iters = 4096, blocks = sms;                                          \

@@ -407,6 +407,85 @@ def test_gather_rows_kernel_matches_plain(cuda, dtype, C, M):  # noqa: F811
     assert got.dtype == dtype and torch.equal(got, tg.gather_rows_plain(table, idx))
 
 
+# the redesigned K4 (3xTF32 on the tensor cores, rows grouped by hit mask):
+# (Cin, Cout) of every launch type of the BEVFusion encoder, the stem's Cin 5,
+# and Cout 200 (two column tiles of 128)
+K4_WIDTHS = [(5, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64), (64, 128), (128, 128),
+             (128, 200)]
+
+
+@pytest.mark.parametrize("Cin,Cout", K4_WIDTHS)
+def test_gather_gemm_kernel_random_rows(cuda, Cin, Cout):  # noqa: F811
+    """Rows in random order with 19 % hits, M = 4000 (no multiple of a
+    tile), 500 rows without a hit (whole tiles that miss, sorted first by
+    the plan), features spread over 1e-3..1e3: within 1e-5 of scale, the
+    rows without a hit exactly 0, the same bits on a second call and with
+    the plan made by the caller."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    rng = np.random.RandomState(Cin * 1000 + Cout)
+    B, N, K, M = 2, 5000, 27, 4000
+    f = rng.randn(B, N, Cin) * 10.0 ** rng.uniform(-3, 3, (B, N, Cin))
+    feats = t(f.astype(np.float32)).to(cuda)
+    idx = t(rng.randint(0, N, (B, K, M)).astype(np.int32)).to(cuda)
+    hit = t(rng.rand(B, K, M) < 0.19).to(cuda)
+    hit[:, :, 1000:1500] = False
+    w = t((rng.randn(K, Cin, Cout) * 0.1).astype(np.float32)).to(cuda)
+    got = tg.gather_gemm(feats, idx, hit, w)
+    torch.cuda.synchronize()
+    ref = tg.gather_gemm_plain(feats, idx, hit, w)
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+    assert float(got[:, 1000:1500].abs().max()) == 0.0
+    assert torch.equal(got, tg.gather_gemm(feats, idx, hit, w))
+    assert torch.equal(got, tg.gather_gemm(feats, idx, hit, w, tg.gather_plan(idx, hit)))
+
+
+@pytest.mark.parametrize("Cout", [16, 32, 64, 128])
+def test_gather_gemm_kernel_l0_like_rulebook(cuda, Cout):  # noqa: F811
+    """A subm rulebook of surface voxels in random order (about 10 % hits),
+    as the L0 convs see: within 1e-5 of scale, repeat bit-equal."""
+    from dal3d_tpu_torch.ops import gather as tg
+    from test_torch_gather_tf32 import surface_rulebook
+
+    idx, hit = (x.to(cuda) for x in surface_rulebook(Cout))
+    rng = np.random.RandomState(Cout)
+    Cin = 16 if Cout <= 32 else Cout
+    feats = t(rng.randn(1, idx.shape[2], Cin).astype(np.float32)).to(cuda)
+    w = t((rng.randn(27, Cin, Cout) * 0.1).astype(np.float32)).to(cuda)
+    got = tg.gather_gemm(feats, idx, hit, w)
+    ref = tg.gather_gemm_plain(feats, idx, hit, w)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(got, tg.gather_gemm(feats, idx, hit, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_rows_kernel_reads_strided_views(cuda, dtype):  # noqa: F811
+    """The [B, H*W, C] view of an NCHW map read in place (element-strided
+    rows), an index past the rows giving a zero row; rows that are not
+    16-byte aligned (a column slice of a [N, 6] table, a 5-wide bf16 row):
+    bit-equal to table[idx] on a contiguous copy."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    rng = np.random.RandomState(7)
+    x = t(rng.randn(2, 128, 30, 30).astype(np.float32)).to(cuda, dtype)
+    view = x.permute(0, 2, 3, 1).reshape(2, 900, 128)
+    rows = t(rng.randint(0, 1800, 400).astype(np.int32)).to(cuda)
+    before = tg.gather_rows.launches
+    got = tg.gather_rows(view, rows)
+    torch.cuda.synchronize()
+    assert tg.gather_rows.launches == before + 1
+    assert torch.equal(got, view.reshape(1800, 128)[rows.long()])
+    assert torch.equal(got, tg.gather_rows_plain(view, rows))
+    past = torch.tensor([5, 1800, -1], dtype=torch.int32, device=cuda)
+    z = tg.gather_rows(view, past)
+    assert torch.equal(z[0], view.reshape(1800, 128)[5]) and float(z[1:].abs().max()) == 0.0
+    for width, cut in ((6, 1), (5, 0), (9, 3)):
+        tbl = t(rng.randn(1000, width).astype(np.float32)).to(cuda, dtype)[:, cut:]
+        ix = t(rng.randint(0, 1000, 77).astype(np.int32)).to(cuda)
+        assert torch.equal(tg.gather_rows(tbl, ix), tbl.contiguous()[ix.long()])
+
+
 def test_gather_gemm_kernel_refuses_other_types(cuda):  # noqa: F811
     """The kernel takes f32 features and weights and an int32 rulebook."""
     from dal3d_tpu_torch.ops import gather as tg
