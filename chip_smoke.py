@@ -24,7 +24,10 @@ Phases, each fatal on failure:
      launch against the kernel's plain PyTorch version on the same inputs;
      times kernel, plain version and a PyTorch yardstick (index_select +
      matmul for the banded gather-GEMM) at those shapes; host us per call of
-     one banded launch, bound once and bound on every call;
+     one banded launch, bound once and bound on every call; the rotated IoU
+     on the predict's input and on a synthetic [12, 1000, 1000] set, each
+     with the share of pairs its cull lets through, its bound for those
+     inputs and the all-pairs bound;
   4. the same predict in f32 on a small grid, on the card and on the CPU
      (plain versions): detections equal as sets;
   5. the main path: launch counters set to 0, a warm-up and 10 timed
@@ -34,7 +37,8 @@ Phases, each fatal on failure:
   6. the pairwise L1 / L2 distance kernels against their plain versions at
      the selection's shapes ([4096 | 1 | 600, 512] x [28130, 512] and an
      awkward small one), with times for kernel, plain version, torch.cdist
-     and the bound;
+     and the bound (for L2 the FMA and the 3xTF32 routes, TFLOP/s of f32
+     work, the pre-pass's time);
   7. one selection round at full width: a synthetic pool of 32 frames in the
      nuScenes infos schema (250k-point clouds over keyframe + 9 sweep files)
      goes through ``dal3d_tpu_torch.tools.active_select.main`` with a
@@ -45,7 +49,8 @@ Phases, each fatal on failure:
   8. selection at nuScenes-train size: 28130 seeded embeddings, budget 4800
      on top of a prior round of 600 frames, matrix and streaming k-center for
      both metrics, each selection held to the greedy property under its plain
-     distances;
+     distances; the whole-map launch of each metric, L2's beside torch.cdist
+     at that shape;
   9. the weight-gradient kernel: every launch of one full-width train step
      against its plain version, with times, bound and an index_select +
      batched-matmul yardstick; three shapes of the path (an L0 subm conv, the
@@ -120,6 +125,11 @@ PEAK_BYTES = 3.35e12
 # f32 operations per (i, j) pair of the IoU kernel: 2 directions x 4 edges x
 # (4 planes x 12 + 18 per-edge clip / cross / accumulate), plus the final 8
 IOU_OPS_PER_PAIR = 2 * 4 * (4 * 12 + 18) + 8
+# f32 operations per pair of the IoU kernel's cull: the centres' difference
+# (2), its squared length (3), the reaches' sum plus margin and its square
+# (3), the two distance tests (2), the zero-area test (an add, a compare and
+# two logic operations)
+IOU_CULL_OPS = 14
 K1_PER_PREDICT = 42  # L0: 5 subm x (pad + conv) + ds1 x 2; stages 1-3: 4 x 2 + 2 each
 K2_PER_PREDICT = 1
 # a train step: the 42 forward launches and one dual gather for every call with
@@ -299,13 +309,28 @@ def k1_host_us(bd, calls) -> None:
           f"and stream lookup {per_call:.2f}")
 
 
-def iou_bound_ms(rows, cols) -> tuple:
+def iou_clips(tiou, rows, cols) -> tuple:
+    """(pairs surviving K2's cull, clips these inputs need): of one record
+    set against itself the result is symmetric, so a pair and its mirror
+    need one clip."""
+    keep = ~tiou.iou_cull_plain(rows, cols)
+    need = torch.triu(keep).sum() if rows is cols else keep.sum()
+    return int(keep.sum()), int(need)
+
+
+def iou_bound_ms(rows, cols, clips: int) -> tuple:
+    """K2's bound for these inputs: the larger of the bytes (records once,
+    the output once) and the operations the inputs need (every pair's cull,
+    the clips of the surviving pairs) at the f32 peak; and the all-pairs
+    operations bound (every pair clipped) beside it. (bound ms, bound by,
+    all-pairs ms)."""
     G, N, _ = rows.shape
     M = cols.shape[1]
     nbytes = (rows.numel() + cols.numel() + G * N * M) * 4
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = G * N * M * IOU_OPS_PER_PAIR / PEAK_F32 * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = (G * N * M * IOU_CULL_OPS + clips * IOU_OPS_PER_PAIR) / PEAK_F32 * 1e3
+    t_all = max(t_bytes, G * N * M * IOU_OPS_PER_PAIR / PEAK_F32 * 1e3)
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (t_all,)
 
 
 def _clone(a):
@@ -448,6 +473,8 @@ def main() -> None:
           f"max_abs_err {k1_abs:.3e} (max relative to output scale {k1_err:.2e})")
 
     rows, cols = k2.calls[0]
+    if torch.equal(rows, cols):  # the predict passes one record set twice; Capture cloned each
+        cols = rows
     got, ref = tiou.iou_matrix(rows, cols), tiou.iou_matrix_plain(rows, cols)
     k2_err = float((got - ref).abs().max())
     if not k2_err <= 1e-5:
@@ -472,11 +499,36 @@ def main() -> None:
     if not s_err <= 1e-5 or not np.allclose(checks, want, atol=1e-3):
         fail(f"iou_matrix synthetic [12,1000,1000]: max_abs_err {s_err:.3e}, pairs {checks} vs {want}")
     k2_err = max(k2_err, s_err)
+    # both routes: one set against itself (mirrored) and against a copy
+    k2_bits = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for a, b in ((got, ref), (sgot, sref), (tiou.iou_matrix(rows, rows.clone()), ref)))
     k2_ms = cuda_time_ms(lambda: tiou.iou_matrix(rows, cols), 20)
     k2_plain = cuda_time_ms(lambda: tiou.iou_matrix_plain(rows, cols), 3)
-    k2_bound, k2_by = iou_bound_ms(rows, cols)
-    print(f"iou_matrix {tuple(rows.shape)}: max_abs_err {k2_err:.2e} (tol 1e-05) kernel {k2_ms:.4f} ms "
-          f"plain {k2_plain:.3f} ms bound {k2_bound:.4f} ms ({k2_by}); synthetic pairs {checks}")
+    k2_syn_ms = cuda_time_ms(lambda: tiou.iou_matrix(srec, srec), 20)
+    # the floor of the cull and the write: boxes on a 40 m grid, where only a
+    # box and itself meet
+    grid = np.zeros((12, 1000, 5), np.float32)
+    grid[..., 0], grid[..., 1] = np.arange(1000) % 40 * 40.0, np.arange(1000) // 40 * 40.0
+    grid[..., 2:4] = bx[..., 2:4]
+    grec = tiou._pack_rowdat(torch.from_numpy(grid).to(dev))
+    if not torch.equal(tiou.iou_matrix(grec, grec), tiou.iou_matrix_plain(grec, grec)):
+        fail("iou_matrix on the 40 m grid differs from its plain version")
+    k2_grid_ms = cuda_time_ms(lambda: tiou.iou_matrix(grec, grec), 20)
+    k2_keep, k2_clips = iou_clips(tiou, rows, cols)
+    k2_syn_keep, k2_syn_clips = iou_clips(tiou, srec, srec)
+    k2_bound, k2_by, k2_all = iou_bound_ms(rows, cols, k2_clips)
+    k2_syn_bound, k2_syn_by, k2_syn_all = iou_bound_ms(srec, srec, k2_syn_clips)
+    k2_share, k2_syn_share = k2_keep / got.numel(), k2_syn_keep / sgot.numel()
+    print(f"iou_matrix main-path input {tuple(rows.shape)}: max_abs_err {k2_err:.2e} (tol 1e-05; "
+          f"bit-equal on both inputs and both routes: {k2_bits}) kernel {k2_ms:.4f} ms "
+          f"plain {k2_plain:.3f} ms; "
+          f"pairs surviving the cull {k2_share:.4f} ({k2_clips} clips needed, a pair and its "
+          f"mirror once); bound for these inputs {k2_bound:.4f} ms "
+          f"({k2_by}), all pairs clipped {k2_all:.4f} ms")
+    print(f"iou_matrix synthetic {tuple(srec.shape)}: kernel {k2_syn_ms:.4f} ms; surviving "
+          f"{k2_syn_share:.4f}; bound {k2_syn_bound:.4f} ms ({k2_syn_by}), all pairs clipped "
+          f"{k2_syn_all:.4f} ms; pairs {checks}; on a 40 m grid of the same boxes (only the "
+          f"diagonal survives) {k2_grid_ms:.4f} ms")
 
     # 4. small f32 predict: card (kernels) vs CPU (plain versions) -------------
     small = small_f32_parity(Config, build_detector, make_predict_step)
@@ -528,7 +580,7 @@ def main() -> None:
         round_launches = selection_round(tmp, dev)
 
         # 8. selection at nuScenes-train size ---------------------------------------
-        train_launches = train_size_selection(tmp, dev)
+        train_launches, train_maps = train_size_selection(tmp, dev)
 
         # 9. the weight-gradient kernel and the banded backward ----------------------
         k3 = weight_gradient_check(cfg, vf, vc, vv, dev)
@@ -555,7 +607,10 @@ def main() -> None:
         dict(name="iou_matrix", route="cuda", source="dal3d_tpu_torch/ops/csrc/iou_matrix.cu",
              replaces="dal3d_tpu/ops/pallas_iou.py:133", launches=k2_launches,
              max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound,
-             bound_by=k2_by, library_ms=None),
+             bound_by=k2_by, library_ms=None, design="exact cull of far pairs + compaction",
+             all_pairs_bound_ms=k2_all, surviving=k2_share, synthetic_ms=k2_syn_ms,
+             synthetic_bound_ms=k2_syn_bound, synthetic_surviving=k2_syn_share,
+             grid_ms=k2_grid_ms),
     ]
     kernels[0]["launches_selection_round"] = round_launches["banded_conv"]
     kernels[1]["launches_selection_round"] = round_launches["iou_matrix"]
@@ -564,13 +619,15 @@ def main() -> None:
     kernels.insert(2, dict(
         name="banded_dw", route="cuda", source="dal3d_tpu_torch/ops/csrc/banded_dw.cu",
         replaces="dal3d_tpu/ops/banded.py:341", launches=cli["banded_dw"], **k3))
-    for name, line in (("pairwise_l1", 25), ("pairwise_l2", 68)):
+    for name, line, src in (("pairwise_l1", 25, "pairwise_distance"),
+                            ("pairwise_l2", 68, "pairwise_l2_tf32")):
         kernels.append(dict(
-            name=name, route="cuda", source="dal3d_tpu_torch/ops/csrc/pairwise_distance.cu",
+            name=name, route="cuda", source=f"dal3d_tpu_torch/ops/csrc/{src}.cu",
+            row_source="dal3d_tpu_torch/ops/csrc/pairwise_distance.cu",
             replaces=f"dal3d_tpu/ops/pallas_distance.py:{line}",
             launches=round_launches[name], **dist[name],
             launches_selection_round=round_launches[name],
-            launches_train_size_selection=train_launches[name]))
+            launches_train_size_selection=train_launches[name], **train_maps[name]))
     for name, line in (("gather_gemm", 123), ("gather_rows", 76)):
         kernels.append(dict(name=name, route="cuda", source="dal3d_tpu_torch/ops/csrc/gather.cu",
                             replaces=f"dal3d_tpu/ops/pallas_gather.py:{line}", **gather[name]))
@@ -797,10 +854,20 @@ def embeddings(rng, n: int, scenes: int) -> np.ndarray:
     return np.maximum(centers[scene] + 0.35 * rng.randn(n, EMB_C).astype(np.float32), 0.0)
 
 
-def distance_bound_ms(N: int, M: int, C: int, ops_per_step: int) -> tuple:
+def distance_bound_ms(N: int, M: int, C: int, metric: str) -> tuple:
+    """(bound ms, bound by, FMA route ms, 3xTF32 route ms or None). The
+    operations' time is the lesser of the routes the card has for the work:
+    L1's 3 f32 operations per element step on the FMA units (it has no
+    tensor-core form); L2's product on the FMA units (one FMA, 2 operations
+    per step) or on the tensor cores as three TF32 products (2 operations
+    each at the TF32 peak). The bound is the larger of that and the bytes
+    (inputs once, the output once)."""
     t_bytes = (N * C + M * C + N * M) * 4 / PEAK_BYTES * 1e3
-    t_ops = float(N) * M * C * ops_per_step / PEAK_F32 * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    steps = float(N) * M * C
+    t_fma = steps * (L1_OPS if metric == "pairwise_l1" else L2_OPS) / PEAK_F32 * 1e3
+    t_tc = None if metric == "pairwise_l1" else 3 * 2 * steps / PEAK_TF32 * 1e3
+    t_ops = t_fma if t_tc is None else min(t_fma, t_tc)
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (t_fma, t_tc)
 
 
 def distance_error(metric: str, fn, plain, x, y, tag: str) -> tuple:
@@ -846,9 +913,10 @@ def distance_kernels_check(dev) -> dict:
     out = {}
     print("pairwise distance kernels vs plain (l1: |err| <= 1e-5 x max|plain|; l2: squared "
           "distances within 2e-6 x (|x|^2+|y|^2), err and tol printed at the largest scale, "
-          "distances 1e-4 relative away from the diagonal):")
-    for metric, fn, plain, p, ops in (("pairwise_l1", td.pairwise_l1, td.pairwise_l1_plain, 1.0, L1_OPS),
-                                      ("pairwise_l2", td.pairwise_l2, td.pairwise_l2_plain, 2.0, L2_OPS)):
+          "distances 1e-4 relative away from the diagonal; l2 with more than 8 rows: 3xTF32 "
+          "on the tensor cores, its time including the pre-pass):")
+    for metric, fn, plain, p in (("pairwise_l1", td.pairwise_l1, td.pairwise_l1_plain, 1.0),
+                                 ("pairwise_l2", td.pairwise_l2, td.pairwise_l2_plain, 2.0)):
         worst = 0.0
         for tag, x, y in shapes:
             N, M, C = x.shape[0], y.shape[0], x.shape[1]
@@ -857,16 +925,28 @@ def distance_kernels_check(dev) -> dict:
             ms = cuda_time_ms(lambda: fn(x, y), iters)
             pms = cuda_time_ms(lambda: plain(x, y), 1)
             lms = cuda_time_ms(lambda: torch.cdist(x, y, p=p), 1 if N >= 600 else 5)
-            bms, by = distance_bound_ms(N, M, C, ops)
+            bms, by, t_fma, t_tc = distance_bound_ms(N, M, C, metric)
             worst = max(worst, err)
-            print(f"  {metric} {tag:8s} [{N},{C}]x[{M},{C}]: err {err:.2e} (tol {tol:.2e}) kernel "
-                  f"{ms:.4f} ms plain {pms:.3f} ms cdist {lms:.4f} ms bound {bms:.4f} ms ({by})")
+            line = (f"  {metric} {tag:8s} [{N},{C}]x[{M},{C}]: err {err:.2e} (tol {tol:.2e}) kernel "
+                    f"{ms:.4f} ms plain {pms:.3f} ms cdist {lms:.4f} ms bound {bms:.4f} ms ({by}; "
+                    f"FMA route {t_fma:.4f}" + ("" if t_tc is None else f", 3xTF32 route {t_tc:.4f}")
+                    + f"); {2.0 * N * M * C / ms / 1e9:.1f} TFLOP/s of f32 work")
+            extra = {}
+            if metric == "pairwise_l2" and N > td._ROW_MAX_N:
+                cp = -(-C // td._K_TILE) * td._K_TILE
+                split_ms = (cuda_time_ms(lambda: td.l2_split(x, cp), 20)
+                            + cuda_time_ms(lambda: td.l2_split(y, cp), 20))
+                line += f"; pre-pass of x and y {split_ms:.4f} ms of it"
+                extra = dict(split_ms=split_ms, fma_bound_ms=t_fma, tf32x3_bound_ms=t_tc,
+                             tflops_f32=2.0 * N * M * C / ms / 1e9)
+            print(line)
             if tag == "band":
                 out[metric] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                                   library_ms=lms, shape=f"[{N},{C}]x[{M},{C}]")
+                                   library_ms=lms, shape=f"[{N},{C}]x[{M},{C}]", **extra)
             elif tag == "row":  # the streaming launch, once per pick
                 row = dict(row_ms=ms, row_bound_ms=bms, row_library_ms=lms)
         out[metric].update(row, max_abs_err=worst)
+    out["pairwise_l2"]["design"] = "3xTF32 wgmma (TMA ring, mbarriers) above 8 rows"
     return out
 
 
@@ -1151,7 +1231,8 @@ def kcenter_loop_ms(feats, costs, prior, remaining, wrapper) -> tuple:
 
 
 def train_size_selection(tmp: str, dev) -> dict:
-    """Phase 8. N = 28130 seeded embeddings and frame costs (0.12 + 0.04 x
+    """Phase 8 (returns the launches of each kernel over the selector runs,
+    and its whole-map launch time). N = 28130 seeded embeddings and frame costs (0.12 + 0.04 x
     boxes, boxes 0-60), budget 4800 on top of a prior round of 600 frames,
     through FeatureSelector: the materialized map (kcenter_on_map) and the
     streaming loop (kcenter_on_features), for l2_ref (L1) and l2."""
@@ -1176,13 +1257,15 @@ def train_size_selection(tmp: str, dev) -> dict:
     remaining = float(int(prior_key) + budget) - float(costs[prior].sum())
     buffer_file = os.path.join(tmp, "train_buffer.json")
     feats = torch.from_numpy(emb).to(dev)
-    launches = {}
+    launches, maps = {}, {}
     print(f"selection at nuScenes-train size: N = {N_TRAIN}, C = {EMB_C}, prior round of 600 "
           f"frames (key {prior_key}), budget {budget}, remaining {remaining:.1f}")
     for metric, wrapper, plain in (("l2_ref", td.pairwise_l1, td.pairwise_l1_plain),
                                    ("l2", td.pairwise_l2, td.pairwise_l2_plain)):
         mat_ms = cuda_time_ms(lambda: wrapper(feats, feats), 2)
-        bms, by = distance_bound_ms(N_TRAIN, N_TRAIN, EMB_C, L1_OPS if metric == "l2_ref" else L2_OPS)
+        bms, by, t_fma, t_tc = distance_bound_ms(N_TRAIN, N_TRAIN, EMB_C, wrapper.__name__)
+        # cdist (TF32 off) at the map's shape, for L2 only: cdist p=1 is ~40x slower
+        lib_ms = cuda_time_ms(lambda: torch.cdist(feats, feats), 1) if metric == "l2" else None
         # the whole map against the plain version, 4096 rows of it at a time
         full = wrapper(feats, feats)
         full2 = wrapper(feats, feats, squared=True) if metric == "l2" else None
@@ -1236,10 +1319,15 @@ def train_size_selection(tmp: str, dev) -> dict:
         launches[wrapper.__name__] = wrapper.launches  # of the two selector runs
         loop = kcenter_loop_ms(feats, costs, prior, remaining, wrapper)
         print(f"  {wrapper.__name__} [{N_TRAIN},{EMB_C}]x[{N_TRAIN},{EMB_C}] matrix launch: "
-              f"{mat_ms:.2f} ms, bound {bms:.2f} ms ({by}), whole map within {full_err:.2f} of its "
+              f"{mat_ms:.2f} ms ({2.0 * N_TRAIN * N_TRAIN * EMB_C / mat_ms / 1e9:.1f} TFLOP/s of "
+              f"f32 work), bound {bms:.2f} ms ({by}; FMA route {t_fma:.2f}"
+              + ("" if t_tc is None else f", 3xTF32 route {t_tc:.2f}") + ")"
+              + ("" if lib_ms is None else f", cdist {lib_ms:.2f} ms") +
+              f"; whole map within {full_err:.2f} of its "
               f"tolerance of the plain version; k-center loop alone: matrix {loop[0]:.3f} ms per "
               f"pick, streaming {loop[1]:.3f} ms per pick ({loop[2]} picks)")
-    return launches
+        maps[wrapper.__name__] = dict(map_ms=mat_ms, map_bound_ms=bms, map_library_ms=lib_ms)
+    return launches, maps
 
 
 # ---------------------------------------------------------------------------

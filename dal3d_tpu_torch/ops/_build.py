@@ -37,6 +37,7 @@ KERNELS = {
     "gather": (),
     "iou_matrix": ("-fmad=false",),
     "pairwise_distance": (),
+    "pairwise_l2_tf32": (),
 }
 
 _lock = threading.Lock()

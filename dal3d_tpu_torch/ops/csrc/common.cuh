@@ -5,9 +5,13 @@
 // The device helpers below (namespace dal3d) are the building blocks of the
 // banded engine's tensor-core kernels (banded_conv.cu, banded_dw.cu):
 // 16-byte cp.async copies, ldmatrix loads, the bf16 mma.sync.m16n8k16 and the
-// XOR swizzle of shared-memory tiles.
+// XOR swizzle of shared-memory tiles; and of the Hopper pipeline of
+// pairwise_l2_tf32.cu: mbarriers, 2-D TMA loads of 128-byte-swizzled tiles
+// (the host encodes their tensor maps, make_tma_2d), wgmma descriptors of
+// such tiles and the TF32 wgmma.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -109,4 +113,150 @@ __device__ __forceinline__ void cp_async_pipeline(Ready ready, Load load, Comput
   cp_async_wait<0>();
 }
 
+// --- Hopper: mbarriers, TMA, wgmma ------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// an mbarrier of `count` arrivals per phase; the fence makes the init
+// visible to the async proxy (TMA) before any thread uses it
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// one arrival that also announces `bytes` of TMA transactions to come
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// spins until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t b = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box at (c0 innermost, c1) of the tensor map into shared memory;
+// completion is counted in bytes on `bar`. Out-of-bounds elements read 0.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile of 128-byte rows as TMA writes it with
+// 128-byte swizzle: 8-row swizzle atoms of 1024 bytes, one after the other
+// (stride byte offset 1024), the tile 1024-byte aligned. A k-step inside
+// the 128-byte row adds its byte offset >> 4 to the descriptor.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* tile) {
+  uint64_t d = 0;
+  d |= static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>(1) << 16;           // leading byte offset: unused (swizzled K-major)
+  d |= static_cast<uint64_t>(1024 >> 4) << 32;   // stride byte offset
+  d |= static_cast<uint64_t>(1) << 62;           // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pins each accumulator register in place between the asm statements around
+// it, so that the compiler neither reads it before wgmma_wait nor writes it
+// after the wgmma that uses it has been issued
+template <int N>
+__device__ __forceinline__ void wgmma_fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128, f32, in the warpgroup's registers) = (scale_d ? d : 0) +
+// A (64 x 8, K-major, shared) * B (128 x 8, K-major, shared)^T, TF32 in.
+// Thread t of the warpgroup holds d[4 j + q] at row 16 (t / 32) + (t % 32) / 4
+// + 8 (q / 2), column 8 j + 2 (t % 4) + q % 2.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint64_t a, uint64_t b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 }  // namespace dal3d
+
+// Host: the tensor map of a row-major [rows, cols] f32 matrix (cols * 4 a
+// multiple of 16 bytes, base 16-byte aligned) read in boxes of box_rows x
+// 32 floats (128 bytes) with 128-byte swizzle, for wgmma_desc_sw128 tiles.
+// cuTensorMapEncodeTiled lives in libcuda, not in the runtime library: it is
+// looked up once through the runtime, so the kernels' libraries need no link
+// against libcuda. Returns a cudaError_t as an int.
+static inline int make_tma_2d(CUtensorMap* map, const void* base, int rows, int cols,
+                              int box_rows) {
+  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                             const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                             const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (q != cudaDriverEntryPointSuccess || fn == nullptr)
+      return static_cast<int>(cudaErrorSymbolNotFound);
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 4};
+  const cuuint32_t box[2] = {32, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}

@@ -6,31 +6,31 @@
 // x [N, C], y [M, C] f32 row-major, out [N, M] f32.
 //
 // Replaces the TPU kernels dal3d_tpu/ops/pallas_distance.py::_l1_kernel
-// (launched by pairwise_l1_pallas) and ::_l2_kernel (pairwise_l2_pallas).
-// They compute the function, not the TPU's blocks: N and M need no padding to
-// 256 and C none to 128; ragged edges are masked here. The L2 product x . y
-// is computed in the kernel body with f32 FMAs, as the Pallas kernel does
-// with dot_general, and the squared norms come from the same staged tiles.
+// (launched by pairwise_l1_pallas) and, for N <= 8, ::_l2_kernel
+// (pairwise_l2_pallas); the L2 matrix for N > 8 is the 3xTF32 tensor-core
+// kernel of pairwise_l2_tf32.cu. They compute the function, not the TPU's
+// blocks: N and M need no padding to 256 and C none to 128; ragged edges are
+// masked here.
 //
-// Two kernels per metric, chosen by N:
-//  - tile kernel (N > ROW_MAX_N): one block per 128 x 64 output tile, 256
+// Two kernels, chosen by N:
+//  - L1 tile kernel (N > ROW_MAX_N): one block per 128 x 64 output tile, 256
 //    threads, an 8 x 4 register micro-tile per thread. x and y tiles of a
 //    16-wide slice of C are staged transposed in shared memory (the next
 //    slice is prefetched into registers while the current one is used), so
 //    per slice a thread reads 2 float4 of x (broadcast) and 4 floats of y
 //    for 32 accumulator updates. A thread's 4 columns are 16 apart, so a
 //    half-warp stores 16 consecutive floats of an output row.
-//  - row kernel (N <= ROW_MAX_N, the streaming k-center's [1, C] x [M, C]):
-//    one warp per output element (i, j), lanes stride over C with float4
-//    loads where C % 4 == 0, a shuffle reduction at the end. A 128-row
-//    tile would waste 127/128 of its work here.
+//  - row kernel, L1 and L2 (N <= ROW_MAX_N, the streaming k-center's
+//    [1, C] x [M, C]): one warp per output element (i, j), lanes stride over
+//    C with float4 loads where C % 4 == 0 and both bases are 16-byte
+//    aligned, a shuffle reduction at the end. A 128-row tile would waste
+//    127/128 of its work here.
 //
-// Bound on the card. Tile launch at N = M = 28130, C = 512: 4.05e11 element
-// steps; L1 does 3 f32 operations per step (subtract, abs, add), L2 does 2
-// (one FMA), against the 67 TFLOP/s f32 peak outside the tensor cores: 18.1
-// ms and 12.1 ms. The 3.17 GB output takes 0.95 ms at 3.35 TB/s, so
-// operations bound it. Row launch (N = 1): y is read once, 57.6 MB, 0.017 ms:
-// bytes bound it.
+// Bound on the card. L1 tile launch at N = M = 28130, C = 512: 4.05e11
+// element steps of 3 f32 operations (subtract, abs, add) against the 67
+// TFLOP/s f32 peak outside the tensor cores: 18.1 ms; the 3.17 GB output
+// takes 0.95 ms at 3.35 TB/s, so operations bound it. Row launch (N = 1): y
+// is read once, 57.6 MB, 0.017 ms: bytes bound it.
 
 #include "common.cuh"
 
@@ -50,8 +50,8 @@ constexpr int ROW_WARPS = 8; // warps (output elements) per block of the row ker
 enum Metric { kL1 = 0, kL2 = 1 };
 
 // Loads 4 consecutive floats of row `r` (of `rows`) starting at column k of a
-// [rows, C] matrix; zero beyond either edge. vec4: C % 4 == 0, so the address
-// is 16-byte aligned and k + 3 < C whenever k < C.
+// [rows, C] matrix; zero beyond either edge. vec4: C % 4 == 0 and a 16-byte
+// aligned base, so the address is 16-byte aligned and k + 3 < C whenever k < C.
 __device__ __forceinline__ float4 load4(const float* __restrict__ a, int r, int rows, int k, int C,
                                         bool vec4) {
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -68,19 +68,15 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ a, int r, int 
   return v;
 }
 
-template <int METRIC>
 __global__ void __launch_bounds__(THREADS)
-pairwise_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                     float* __restrict__ out, int N, int M, int C, int squared) {
+l1_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
+               float* __restrict__ out, int N, int M, int C, bool vec4) {
   __shared__ __align__(16) float xs[CK][LDX];
   __shared__ __align__(16) float ys[CK][LDY];
-  __shared__ float xx[TM];
-  __shared__ float yy[TN];
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   const int i0 = blockIdx.y * TM, j0 = blockIdx.x * TN;
-  const bool vec4 = (C & 3) == 0;
 
   // staging roles: 4 consecutive lanes cover 16 consecutive floats of a row
   const int lk = (tid & 3) * 4;   // column offset inside the slice
@@ -91,7 +87,6 @@ pairwise_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
   for (int r = 0; r < 8; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-  float nx0 = 0.f, nx1 = 0.f, ny = 0.f;  // partial squared norms (L2)
 
   float4 px0 = load4(x, i0 + lr, N, lk, C, vec4);
   float4 px1 = load4(x, i0 + lr + 64, N, lk, C, vec4);
@@ -102,11 +97,6 @@ pairwise_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
     xs[lk + 0][lr + 64] = px1.x; xs[lk + 1][lr + 64] = px1.y;
     xs[lk + 2][lr + 64] = px1.z; xs[lk + 3][lr + 64] = px1.w;
     ys[lk + 0][lr] = py.x; ys[lk + 1][lr] = py.y; ys[lk + 2][lr] = py.z; ys[lk + 3][lr] = py.w;
-    if (METRIC == kL2) {
-      nx0 += px0.x * px0.x + px0.y * px0.y + px0.z * px0.z + px0.w * px0.w;
-      nx1 += px1.x * px1.x + px1.y * px1.y + px1.z * px1.z + px1.w * px1.w;
-      ny += py.x * py.x + py.y * py.y + py.z * py.z + py.w * py.w;
-    }
     __syncthreads();
     if (k0 + CK < C) {  // prefetch the next slice while this one is used
       px0 = load4(x, i0 + lr, N, k0 + CK + lk, C, vec4);
@@ -124,26 +114,7 @@ pairwise_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
 #pragma unroll
       for (int r = 0; r < 8; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if (METRIC == kL1) acc[r][c] += fabsf(a[r] - b[c]);
-          else acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-        }
-    }
-    __syncthreads();
-  }
-
-  if (METRIC == kL2) {
-    // the 4 lanes that staged one row hold its partial norms
-    nx0 += __shfl_xor_sync(0xffffffffu, nx0, 1);
-    nx0 += __shfl_xor_sync(0xffffffffu, nx0, 2);
-    nx1 += __shfl_xor_sync(0xffffffffu, nx1, 1);
-    nx1 += __shfl_xor_sync(0xffffffffu, nx1, 2);
-    ny += __shfl_xor_sync(0xffffffffu, ny, 1);
-    ny += __shfl_xor_sync(0xffffffffu, ny, 2);
-    if ((tid & 3) == 0) {
-      xx[lr] = nx0;
-      xx[lr + 64] = nx1;
-      yy[lr] = ny;
+        for (int c = 0; c < 4; ++c) acc[r][c] += fabsf(a[r] - b[c]);
     }
     __syncthreads();
   }
@@ -156,12 +127,7 @@ pairwise_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
     for (int c = 0; c < 4; ++c) {
       const int j = j0 + tx + 16 * c;
       if (j >= M) continue;
-      float v = acc[r][c];
-      if (METRIC == kL2) {
-        v = fmaxf(xx[ty * 8 + r] + yy[tx + 16 * c] - 2.0f * v, 0.0f);
-        if (!squared) v = sqrtf(v);
-      }
-      out[(size_t)i * M + j] = v;
+      out[(size_t)i * M + j] = acc[r][c];
     }
   }
 }
@@ -169,7 +135,7 @@ pairwise_tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
 template <int METRIC>
 __global__ void __launch_bounds__(ROW_WARPS * 32)
 pairwise_row_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                    float* __restrict__ out, int N, int M, int C, int squared) {
+                    float* __restrict__ out, int N, int M, int C, int squared, bool vec4) {
   const int lane = threadIdx.x & 31;
   const int j = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
   const int i = blockIdx.y;
@@ -177,7 +143,7 @@ pairwise_row_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const float* xi = x + (size_t)i * C;
   const float* yj = y + (size_t)j * C;
   float s = 0.f, sx = 0.f, sy = 0.f;
-  if ((C & 3) == 0) {
+  if (vec4) {
     const float4* x4 = reinterpret_cast<const float4*>(xi);
     const float4* y4 = reinterpret_cast<const float4*>(yj);
     for (int k = lane; k < (C >> 2); k += 32) {
@@ -228,12 +194,18 @@ int launch(const void* x, const void* y, void* out, int N, int M, int C, int squ
   const float* yf = static_cast<const float*>(y);
   float* of = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // float4 loads where every row starts on a 16-byte boundary
+  const bool vec4 = (C & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+                    (reinterpret_cast<uintptr_t>(y) & 15) == 0;
   if (N <= ROW_MAX_N) {
     dim3 grid((M + ROW_WARPS - 1) / ROW_WARPS, N);
-    pairwise_row_kernel<METRIC><<<grid, ROW_WARPS * 32, 0, st>>>(xf, yf, of, N, M, C, squared);
-  } else {
+    pairwise_row_kernel<METRIC><<<grid, ROW_WARPS * 32, 0, st>>>(xf, yf, of, N, M, C, squared,
+                                                                 vec4);
+  } else if (METRIC == kL1) {
     dim3 grid((M + TN - 1) / TN, (N + TM - 1) / TM);
-    pairwise_tile_kernel<METRIC><<<grid, THREADS, 0, st>>>(xf, yf, of, N, M, C, squared);
+    l1_tile_kernel<<<grid, THREADS, 0, st>>>(xf, yf, of, N, M, C, vec4);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);  // L2 matrices: pairwise_l2_tf32.cu
   }
   return static_cast<int>(cudaGetLastError());
 }

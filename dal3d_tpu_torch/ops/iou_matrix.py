@@ -6,6 +6,12 @@ edge vectors, inward clip planes, area); the kernel
 (``csrc/iou_matrix.cu``) then computes every pair's Green's-theorem
 intersection from two records. The plain version below repeats the kernel's
 arithmetic broadcast over [G, N, M].
+
+The kernel skips the clip of a pair whose plain value is exactly +0.0 by
+construction (boxes whose circumscribed discs lie apart by a margin, or a
+box of zero area) and writes +0.0 there. ``iou_cull_plain`` is the plain
+twin of that predicate, for the tests and ``chip_smoke.py``; the tests show
+on the CPU that the plain version gives +0.0 on every pair it culls.
 """
 from __future__ import annotations
 
@@ -18,6 +24,13 @@ from . import _build
 
 _EPS = 1e-4  # meters; identical to the JAX kernel
 _REC = 32  # record floats (29 used)
+# the cull (csrc/iou_matrix.cu, kCullMargin / kCullRel): two boxes are apart
+# when their centres lie farther apart than the sum of their reaches plus
+# this margin (meters); a reach is the circumradius plus this share of
+# |cx| + |cy| + r, for the rounding of coordinates far from the origin
+_CULL_MARGIN = 1e-2
+_CULL_REL = 1e-5
+_F32_MAX = float(torch.finfo(torch.float32).max)
 
 
 def _pack_rowdat(boxes: torch.Tensor) -> torch.Tensor:
@@ -84,6 +97,38 @@ def iou_matrix_plain(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
     return torch.where(union > 0, inter / union, 0.0)
 
 
+def cull_keys_plain(rec: torch.Tensor) -> tuple:
+    """Per record [..., 32]: (cx, cy, reach, zero_area), in the kernel's
+    order of operations. The centre is the mean of the corners (lanes 0-7),
+    the reach the circumradius about it widened by _CULL_REL; a record with
+    a lane 0-28 that is not finite gets a NaN reach, which no cull passes.
+    zero_area: lane 28 is +0.0."""
+    x, y = rec[..., 0:4], rec[..., 4:8]
+    cx = ((x[..., 0] + x[..., 1]) + (x[..., 2] + x[..., 3])) * 0.25
+    cy = ((y[..., 0] + y[..., 1]) + (y[..., 2] + y[..., 3])) * 0.25
+    ex, ey = x - cx[..., None], y - cy[..., None]
+    r = torch.sqrt((ex * ex + ey * ey).amax(-1))
+    nonfinite = (rec[..., :29] * 0.0).sum(-1)  # 0, or NaN if a lane is inf or NaN
+    reach = r + _CULL_REL * ((cx.abs() + cy.abs()) + r) + nonfinite
+    zero_area = rec[..., 28].view(torch.int32) == 0
+    return cx, cy, reach, zero_area
+
+
+def iou_cull_plain(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the kernel's cull: records [G, N, 32] x [G, M, 32] ->
+    bool [G, N, M], True where the kernel writes +0.0 without the clip.
+    Every comparison fails on NaN, and a distance or reach that overflows
+    fails too, so such pairs go through the clip."""
+    cxi, cyi, ri, zi = (k[:, :, None] for k in cull_keys_plain(rows))
+    cxj, cyj, rj, zj = (k[:, None, :] for k in cull_keys_plain(cols))
+    dx, dy = cxi - cxj, cyi - cyj
+    d2 = dx * dx + dy * dy
+    s = (ri + rj) + _CULL_MARGIN
+    apart = (d2 > s * s) & (d2 <= _F32_MAX)
+    empty = (zi | zj) & ((ri + rj) <= _F32_MAX)
+    return apart | empty
+
+
 def iou_matrix(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
     """The kernel's wrapper: records [G, N, 32] x [G, M, 32] f32 -> [G, N, M].
 
@@ -101,10 +146,12 @@ def iou_matrix(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
     if cols.device != rows.device or not (rows.is_contiguous() and cols.is_contiguous()):
         raise ValueError("iou_matrix: records must be contiguous on one device")
     M = cols.shape[1]
+    # one record set against itself (the NMS): the kernel mirrors its pairs
+    same = rows.data_ptr() == cols.data_ptr() and N == M
     out = torch.empty(G, N, M, dtype=torch.float32, device=rows.device)
-    _build.function("iou_matrix", "iou_matrix_f32", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3,
+    _build.function("iou_matrix", "iou_matrix_f32", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4,
                     "iou_matrix")(rows.device, rows.data_ptr(), cols.data_ptr(), out.data_ptr(),
-                                  G, N, M)
+                                  G, N, M, int(same))
     iou_matrix.launches += 1
     return out
 

@@ -15,6 +15,11 @@ and together:
     sums in f32), with the split by cvt.rna or by integer operations: the
     ceiling of that kernel's inner loop, in TFLOP/s of TF32 work and of the
     f32 work it stands for;
+  - TF32 ``wgmma`` m64n128k8 from 128-byte-swizzled shared tiles (two
+    warpgroups a block), chained into one accumulator, and as the pairwise
+    L2 kernel's 3xTF32 chunk (twelve instructions into a fresh accumulator,
+    waited for, then added to the f32 sums): the ceiling of that kernel's
+    consumer loop;
   - ``ldmatrix.trans`` + ``mma.sync`` from a swizzled shared tile, for the
     warp tiles the kernels use (32 x 32, 64 x 32, 64 x 64);
   - gathers of random rows into a 4-stage shared ring (16-byte ``cp.async``,
@@ -146,6 +151,51 @@ __global__ void __launch_bounds__(256, 2) tf32x3_step(float* out, int iters) {
   float s = 0;
   for (int i = 0; i < 2; ++i)
     for (int j = 0; j < 8; ++j) s += acc[i][j][0] + acc[i][j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+// TF32 wgmma m64n128k8 from shared memory: A [128][32] and B [128][32]
+// f32 tiles (128-byte rows, 1024-byte aligned), two warpgroups a block, each
+// on its 64 rows of A. CHUNK 0: every instruction chained into one
+// accumulator; CHUNK 1: the pairwise L2 kernel's step, 3 x 4 instructions
+// into a fresh accumulator, waited for, then added to the f32 sums.
+template <int CHUNK>
+__global__ void __launch_bounds__(256, 1) wgmma_tf32(float* out, int iters) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* sm = raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
+  for (int i = threadIdx.x; i < 256 * 32; i += 256)
+    reinterpret_cast<float*>(sm)[i] = (i % 7) * 0.25f;
+  __syncthreads();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+  const int wg = threadIdx.x / 128;
+  const uint64_t a = wgmma_desc_sw128(sm + wg * 64 * 128), b = wgmma_desc_sw128(sm + 128 * 128);
+  float acc[64], part[64];
+  for (int q = 0; q < 64; ++q) acc[q] = part[q] = 0.0f;
+  for (int it = 0; it < iters; ++it) {
+    wgmma_fence_operands(part);
+    wgmma_fence();
+    if (CHUNK) {
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n128k8_tf32(part, a + 2 * kk, b + 2 * kk, p > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_operands(part);
+#pragma unroll
+      for (int q = 0; q < 64; ++q) acc[q] = __fadd_rn(acc[q], part[q]);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 12; ++kk) wgmma_m64n128k8_tf32(part, a + 2 * (kk % 4), b + 2 * (kk % 4), 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+  }
+  wgmma_wait<0>();
+  wgmma_fence_operands(part);
+  float s = 0;
+  for (int q = 0; q < 64; ++q) s += acc[q] + part[q];
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
 
@@ -319,6 +369,22 @@ int main() {
   }
   TF32X3(0, "both parts by cvt.rna")
   TF32X3(1, "big by integer operations")
+#define WGMMA(CHUNK, NAME)                                                               \
+  {                                                                                      \
+    const int iters = 4096, blocks = sms, smem = 256 * 128 + 1024;                       \
+    cudaFuncSetAttribute(wgmma_tf32<CHUNK>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                         smem);                                                          \
+    wgmma_tf32<CHUNK><<<blocks, 256, smem>>>(out, 16);                                    \
+    cudaEventRecord(a);                                                                  \
+    wgmma_tf32<CHUNK><<<blocks, 256, smem>>>(out, iters);                                 \
+    cudaEventRecord(b);                                                                  \
+    const double f = 2.0 * 64 * 128 * 8 * 12 * 2 * (double)iters * blocks;               \
+    const float ms = elapsed(a, b);                                                      \
+    printf("wgmma TF32 m64n128k8 from shared memory, %s: %.1f TFLOP/s of TF32 work, "    \
+           "%.1f TFLOP/s of f32 work as 3xTF32\n", NAME, f / ms / 1e9, f / 3 / ms / 1e9);  \
+  }
+  WGMMA(0, "chained into one accumulator")
+  WGMMA(1, "the pairwise L2 kernel's chunk (12 into a fresh accumulator, wait, add)")
 #define SMEM(MT, NP, NAME)                                                        \
   {                                                                               \
     const int iters = 4096, blocks = sms;                                          \

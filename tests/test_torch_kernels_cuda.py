@@ -498,3 +498,100 @@ def test_gather_gemm_kernel_refuses_other_types(cuda):  # noqa: F811
         tg.gather_gemm(feats.bfloat16(), idx, hit, w.bfloat16())
     with pytest.raises(ValueError):
         tg.gather_gemm(feats, idx.long(), hit, w)
+
+
+# --- the redesigned K7 (3xTF32 wgmma) and K2 (exact cull) --------------------
+
+def _l2_check(x, y):
+    """One K7 call against pairwise_l2_plain at the existing tolerances
+    (squared distances within 2e-6 of |x|^2 + |y|^2, distances 1e-4 relative
+    away from the diagonal), bit-equal on a repeat; one launch a call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = tdist.pairwise_l2.launches
+    got2 = tdist.pairwise_l2(x, y, squared=True)
+    got = tdist.pairwise_l2(x, y)
+    again = tdist.pairwise_l2(x, y)
+    torch.cuda.synchronize()
+    assert tdist.pairwise_l2.launches == before + 3
+    assert got.shape == (x.shape[0], y.shape[0]) and bool(torch.isfinite(got).all())
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    scale = (x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
+    ref2 = tdist.pairwise_l2_plain(x, y, squared=True)
+    assert float(((got2 - ref2).abs() / scale).max()) <= 2e-6
+    ref = ref2.sqrt()
+    far = ref > 0.1 * scale.sqrt()
+    assert float(((got - ref).abs() / ref.clamp(min=1e-30))[far].max()) <= 1e-4
+
+
+# ragged N and M around the 128-row tiles, C on and off the 32-float k tile
+L2_TF32_SHAPES = [(9, 1031, 512), (257, 1031, 16), (1031, 257, 500), (1031, 9, 512),
+                  (257, 9, 500), (130, 2000, 16)]
+
+
+@pytest.mark.parametrize("N,M,C", L2_TF32_SHAPES)
+def test_l2_tf32_kernel_matches_plain(cuda, N, M, C):  # noqa: F811
+    x, y = _embeddings(N, M, C, 11, cuda)
+    _l2_check(x, y)
+
+
+def test_l2_tf32_kernel_reads_views(cuda):  # noqa: F811
+    """The pre-pass reads x through its strides: an unaligned contiguous
+    view, every other column of a wider matrix, a transposed one, and x is
+    y (split once; the diagonal is rounding noise)."""
+    rng = np.random.RandomState(12)
+    base = t(np.abs(rng.randn(1 + 300 * 500)).astype(np.float32)).to(cuda)
+    x = base[1:].view(300, 500)  # 4 bytes off a 16-byte boundary
+    y = t(np.abs(rng.randn(700, 1000)).astype(np.float32)).to(cuda)[:, ::2]
+    _l2_check(x, y)
+    z = t(np.abs(rng.randn(500, 260)).astype(np.float32)).to(cuda).T  # [260, 500], strides (1, 260)
+    _l2_check(z, y.contiguous())
+    _l2_check(x, x)
+    d = tdist.pairwise_l2(x, x)
+    assert float(d.diagonal().max()) <= 1e-2 * float(x.norm(dim=1).min())
+
+
+def _iou_boxes(kind, rng, G=3, N=400):
+    b = np.zeros((G, N, 5), np.float32)
+    b[..., 2:4] = rng.uniform(0.4, 12.0, (G, N, 2))
+    b[..., 4] = rng.uniform(-np.pi, np.pi, (G, N))
+    if kind == "spread":  # uniform over +-50 m: a few percent survive
+        b[..., :2] = rng.uniform(-50, 50, (G, N, 2))
+    elif kind == "clustered":  # NMS-like: jittered copies of 10 objects
+        b[..., :2] = rng.uniform(-40, 40, (G, 10, 2))[:, rng.randint(0, 10, N)]
+        b[..., :2] += rng.normal(0, 0.5, (G, N, 2))
+    elif kind == "all_culled":  # a 40 m grid: only a box and itself meet
+        g = np.arange(N)
+        b[..., 0], b[..., 1] = (g % 20) * 40.0 - 400.0, (g // 20) * 40.0 - 400.0
+    elif kind == "all_surviving":  # every disc overlaps every other
+        b[..., :2] = rng.uniform(-0.3, 0.3, (G, N, 2))
+    elif kind == "zero_padded":  # the NMS pads its candidate slots with zeros
+        b[..., :2] = rng.uniform(-50, 50, (G, N, 2))
+        b[:, N // 2:] = 0.0
+    return b
+
+
+@pytest.mark.parametrize("kind", ["spread", "clustered", "all_culled", "all_surviving",
+                                  "zero_padded"])
+def test_iou_kernel_cull_is_exact(cuda, kind):  # noqa: F811
+    """Bit-equal to the plain version (max error 0), on rows is cols as the
+    NMS calls it (the mirrored route), on a copy of the rows and on two
+    record sets; the cull covers what it should."""
+    rng = np.random.RandomState(len(kind))
+    rows = tiou._pack_rowdat(t(_iou_boxes(kind, rng)).to(cuda))
+    other = tiou._pack_rowdat(t(_iou_boxes(kind, rng, N=333)).to(cuda))
+    for r, c in ((rows, rows), (rows, rows.clone()), (rows, other), (other, rows)):
+        before = tiou.iou_matrix.launches
+        got = tiou.iou_matrix(r, c)
+        torch.cuda.synchronize()
+        assert tiou.iou_matrix.launches == before + 1
+        ref = tiou.iou_matrix_plain(r, c)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), \
+            float((got - ref).abs().max())
+    cull = tiou.iou_cull_plain(rows, rows)
+    eye = torch.eye(rows.shape[1], dtype=torch.bool, device=cuda)
+    if kind == "all_culled":
+        assert bool(cull[:, ~eye].all())
+    if kind == "all_surviving":
+        assert not bool(cull.any())
+    if kind == "zero_padded":
+        assert bool(cull[:, 200:].all()) and float(got[:, :, 200:].abs().max()) == 0.0
