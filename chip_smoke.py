@@ -12,9 +12,12 @@ selection CLI (pool dataset and loader -> predict every frame -> pool scoring
 -> selector -> budgeted greedy k-center -> buffer JSON + subset infos), and
 the CBGS trainer through the training CLI (train-mode loader -> train step:
 forward, target assignment, loss, banded backward, clip, AdamW -> checkpoint
--> resume -> the selection CLI reads it), and the BEVFusion lidar-only
+-> resume -> the selection CLI reads it), the BEVFusion lidar-only
 predict on the gather engine (host voxels -> SparseEncoder -> SECOND +
-SECONDFPN -> TransFusion head -> decoded boxes).
+SECONDFPN -> TransFusion head -> decoded boxes), and two active-learning
+rounds closed through the CLIs (data preparation and GT database -> seed
+selection -> the subset's GT database -> training with GT-AUG and its val
+phase -> evaluation -> model-based selection).
 Phases, each fatal on failure:
 
   1. versions of torch / CUDA / nvcc and the card (nvidia-smi);
@@ -88,18 +91,36 @@ Phases, each fatal on failure:
      outputs checked; BEV maps, heatmap and matched detections held against
      the same forward on plain versions; stage split, peak memory, device
      idle share; 4 frames of a synthetic infos file through the port's
-     dataset (the config's test pipeline) and loader into the same step.
+     dataset (the config's test pipeline) and loader into the same step;
+ 15. two active-learning rounds through the port's CLIs on the production
+     config (configs/_cbgs_base.py at full width: its GT-AUG sampler and its
+     workflow with a val phase) over a synthetic set of 16 + 4 frames:
+     ``create_data synthetic_data_prep`` (infos, lidar files and the GT
+     database, 10-sweep names), ``active_select`` (init, then
+     ``--force_random``), ``create_data nuscenes_data_prep --suffix``,
+     ``train --budget`` (an epoch with GT-AUG from the subset's database,
+     then the val phase), ``dist_test --checkpoint --out``, ``active_select
+     --checkpoint`` (FeatureSelector, L2 k-center). Launch counters set to 0
+     before and read after, held to the counts per predict batch, train step
+     and map; the loop's file contracts checked; every IoU call of the
+     evaluation held against the same call on the CPU (1e-5) and the
+     kitti-style metrics from card IoUs equal to those from CPU IoUs; seconds
+     per CLI, the train CLI's iteration and data wait, the eval's frames/s
+     split, kitti_eval's seconds with its IoU calls apart; the dist_test
+     detections on the trained checkpoint matched against the same path on
+     plain versions.
 
 Kernel times are device times per call (``cuda_time_ms``: the launches
 queued behind a device-side sleep, so that the host's enqueue is not timed);
 host microseconds per call are printed apart where they matter (K1, K5, the
-gather-GEMM's plans). Prints a ``kernels`` JSON line, the nvidia-smi line,
-and as its last line
+gather-GEMM's plans). Prints the whole run's seconds, a ``kernels`` JSON
+line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result, when no
 GPU is present or the port cannot be imported.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import pickle
@@ -373,6 +394,7 @@ class Capture:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     try:
@@ -596,7 +618,10 @@ def main() -> None:
                     td.pairwise_l2, tg.gather_gemm, tg.gather_rows)
         gather = bevfusion_main_path(tmp, Config, counters, tg, bd)
 
-    # 15. kernels line, card line, result --------------------------------------
+        # 15. two AL rounds through the CLIs: data, GT-AUG, train + val, eval -------
+        loop_launches = al_loop(tmp, dev, counters)
+
+    # 16. kernels line, card line, result --------------------------------------
     kernels = [
         dict(name="banded_conv", route="cuda", source="dal3d_tpu_torch/ops/csrc/banded_conv.cu",
              replaces="dal3d_tpu/ops/banded.py:282", launches=k1_launches,
@@ -619,6 +644,8 @@ def main() -> None:
     kernels.insert(2, dict(
         name="banded_dw", route="cuda", source="dal3d_tpu_torch/ops/csrc/banded_dw.cu",
         replaces="dal3d_tpu/ops/banded.py:341", launches=cli["banded_dw"], **k3))
+    for k in kernels:
+        k["launches_al_loop"] = loop_launches[k["name"]]
     for name, line, src in (("pairwise_l1", 25, "pairwise_distance"),
                             ("pairwise_l2", 68, "pairwise_l2_tf32")):
         kernels.append(dict(
@@ -627,10 +654,12 @@ def main() -> None:
             replaces=f"dal3d_tpu/ops/pallas_distance.py:{line}",
             launches=round_launches[name], **dist[name],
             launches_selection_round=round_launches[name],
-            launches_train_size_selection=train_launches[name], **train_maps[name]))
+            launches_train_size_selection=train_launches[name],
+            launches_al_loop=loop_launches[name], **train_maps[name]))
     for name, line in (("gather_gemm", 123), ("gather_rows", 76)):
         kernels.append(dict(name=name, route="cuda", source="dal3d_tpu_torch/ops/csrc/gather.cu",
                             replaces=f"dal3d_tpu/ops/pallas_gather.py:{line}", **gather[name]))
+    print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2426,6 +2455,364 @@ def bevfusion_main_path(tmp: str, Config, counters, tg, bd) -> dict:
     numbers["gather_gemm"]["launches"] = launches["gather_gemm"]
     numbers["gather_rows"]["launches"] = launches["gather_rows"]
     return numbers
+
+
+# ---------------------------------------------------------------------------
+# the AL loop through the CLIs: data preparation, GT-AUG, train with its val
+# phase, evaluation, two selection rounds
+# ---------------------------------------------------------------------------
+
+LOOP_FRAMES, LOOP_BUDGET, LOOP_SEED = 16, 3, 7
+
+
+def write_loop_config(path: str, root: str, buffer_file: str, work_dir: str,
+                      extra: str = "") -> None:
+    """The production base (configs/_cbgs_base.py: its model at full width,
+    its GT-AUG sampler and its workflow with a val phase) pointed at the
+    synthetic set under ``root``, with a FeatureSelector on the L2 k-center
+    for the model-based round. The base module's dicts are shared by every
+    load in this process, so the config copies what it changes."""
+    info = os.path.join(root, "infos_{}_10sweeps_withvelo.pkl")
+    with open(path, "w") as f:
+        f.write(f"import copy, sys\nsys.path.insert(0, {os.path.join(ROOT, 'configs')!r})\n"
+                "from _cbgs_base import *  # noqa: F401,F403\n"
+                "data = copy.deepcopy(data)\n"
+                f"data['train'].update(root_path={root!r}, info_path={info.format('train')!r})\n"
+                f"data['val'].update(root_path={root!r}, info_path={info.format('val')!r})\n"
+                "data['train']['pipeline'][2]['cfg']['db_sampler']['db_info_path'] = "
+                f"{os.path.join(root, 'dbinfos_train_10sweeps_withvelo.pkl')!r}\n"
+                f"work_dir = {work_dir!r}\n"
+                f"selector = dict(type='FeatureSelector', budget={LOOP_BUDGET}, "
+                f"buffer_file={buffer_file!r}, infos_origin={info.format('train')!r}, "
+                "distance_type='l2', streaming=False)\n" + extra)
+
+
+class IouRecorder:
+    """Wraps the evaluation's IoU functions where ``eval/kitti_eval.py`` looks
+    them up (``ops.rotated_iou.rotated_iou_matrix`` / ``boxes_iou3d``):
+    every call's inputs and output go to the host, its time (synchronized)
+    is summed."""
+
+    def __init__(self, module):
+        self.module, self.calls, self.seconds = module, [], 0.0
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.module, n) for n in ("rotated_iou_matrix", "boxes_iou3d")}
+
+        def wrap(name, fn):
+            def call(a, b, *args):
+                sync = a.is_cuda
+                if sync:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(a, b, *args)
+                if sync:
+                    torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                self.calls.append((name, a.cpu(), b.cpu(), out.cpu(), a.device.type))
+                return out
+            return call
+
+        for n, fn in self.orig.items():
+            setattr(self.module, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.module, n, fn)
+
+
+def loop_round(tag: str, buffer_file: str, info_path: str, n_rounds: int) -> tuple:
+    """The buffer holds ``n_rounds`` cumulative budgets after the empty one,
+    each extending the one before without duplicates, and each budget's
+    subset pkl holds exactly the buffer's frames. Returns (last budget key,
+    its frames, the subset infos)."""
+    from dal3d_tpu_torch.utils.fileio import load
+
+    buf = load(buffer_file)
+    keys = sorted(buf, key=int)
+    origin = load(info_path)
+    if len(keys) != n_rounds + 1 or keys[0] != "0" or buf["0"]:
+        fail(f"{tag}: buffer keys {keys}, expected the empty round and {n_rounds} budgets")
+    for prev, key in zip(keys[1:], keys[2:]):
+        if not set(buf[prev]) < set(buf[key]):
+            fail(f"{tag}: budget {key} does not extend budget {prev}")
+    last = keys[-1]
+    if not buf[last] or len(set(buf[last])) != len(buf[last]):
+        fail(f"{tag}: budget {last} holds {buf[last]}")
+    subset = load(info_path.replace(".pkl", f"_{last}.pkl"))
+    if [i["token"] for i in subset] != [origin[i]["token"] for i in buf[last]]:
+        fail(f"{tag}: the subset infos of budget {last} do not match the buffer")
+    return last, buf[last], subset
+
+
+def match_loop_dets(card: dict, plain: dict) -> tuple:
+    """Pairs each frame's valid detections of two runs one to one: greedy by
+    the card's score, the same label and the nearest centre within 0.1 m.
+    Returns (matched, card total, plain total, largest box gap (max |diff|
+    over the 9 values), largest centre gap, largest score gap)."""
+    matched = n_card = n_plain = 0
+    box_gap = ctr_gap = score_gap = 0.0
+    for token, a in card.items():
+        b = plain[token]
+        va, vb = a["det_valid"].astype(bool), b["det_valid"].astype(bool)
+        ba, bb = a["box3d_lidar"][va].astype(np.float64), b["box3d_lidar"][vb].astype(np.float64)
+        sa, sb = a["scores"][va], b["scores"][vb]
+        la, lb = a["label_preds"][va], b["label_preds"][vb]
+        n_card, n_plain = n_card + len(sa), n_plain + len(sb)
+        used = np.zeros(len(sb), bool)
+        for k in np.argsort(-sa, kind="stable"):
+            d = np.hypot(bb[:, 0] - ba[k, 0], bb[:, 1] - ba[k, 1])
+            d[used | (lb != la[k]) | (d >= 0.1)] = np.inf
+            if not len(d) or not np.isfinite(d.min()):
+                continue
+            j = int(d.argmin())
+            used[j] = True
+            matched += 1
+            box_gap = max(box_gap, float(np.abs(bb[j] - ba[k]).max()))
+            ctr_gap = max(ctr_gap, float(d[j]))
+            score_gap = max(score_gap, abs(float(sb[j]) - float(sa[k])))
+    return matched, n_card, n_plain, box_gap, ctr_gap, score_gap
+
+
+def al_loop(tmp: str, dev, counters) -> dict:
+    """Phase 15: two AL rounds through the port's CLIs on the production
+    config at full width. Returns the phase's launches of each kernel."""
+    import re
+
+    from dal3d_tpu_torch.data import DataLoader
+    from dal3d_tpu_torch.models.builder import build_detector
+    from dal3d_tpu_torch.ops import banded as bd
+    from dal3d_tpu_torch.ops import iou_matrix as tiou
+    from dal3d_tpu_torch.ops import rotated_iou as tri
+    from dal3d_tpu_torch.runtime import checkpoint as ckpt
+    from dal3d_tpu_torch.runtime import evaluation as tev
+    from dal3d_tpu_torch.runtime.steps import make_predict_step
+    from dal3d_tpu_torch.tools import active_select, create_data, dist_test, train
+    from dal3d_tpu_torch.utils.config import Config
+    from dal3d_tpu_torch.utils.fileio import load
+
+    base = os.path.join(tmp, "al_loop")
+    root = os.path.join(base, "data", "synthetic")
+    buffer_file = os.path.join(base, "buffer.json")
+    work = os.path.join(base, "work_round1")
+    cfg_path = os.path.join(base, "loop.py")
+    os.makedirs(base)
+    write_loop_config(cfg_path, root, buffer_file, work)
+    info_train = os.path.join(root, "infos_train_10sweeps_withvelo.pkl")
+    dets_path = os.path.join(base, "dets.pkl")
+    on_cpu = ["--cpu"] if dev.type == "cpu" else []
+    seconds = {}
+
+    def cli(tag, fn, argv, on_device=True):
+        t0 = time.perf_counter()
+        out = fn(argv + (on_cpu if on_device else []))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds[tag] = time.perf_counter() - t0
+        return out
+
+    for c in counters:
+        c.launches = 0
+    t_phase = time.perf_counter()
+    with IouRecorder(tri) as rec:
+        cli("create_data synthetic_data_prep", create_data.main,
+            ["synthetic_data_prep", "--root_path", root, "--n_frames", str(LOOP_FRAMES),
+             "--n_logs", "2", "--seed", "0"], on_device=False)
+        cli("active_select (init)", active_select.main, [cfg_path])
+        if load(buffer_file) != {"0": []}:
+            fail(f"AL loop: the first selection run wrote {load(buffer_file)}")
+        cli("active_select --force_random", active_select.main,
+            [cfg_path, "--force_random", "--seed", "3407"])
+        b1, picks1, sub1 = loop_round("round 1", buffer_file, info_train, 1)
+        cli(f"create_data nuscenes_data_prep --suffix {b1}", create_data.main,
+            ["nuscenes_data_prep", "--root_path", root, "--suffix", b1], on_device=False)
+        db1 = os.path.join(root, f"dbinfos_train_10sweeps_withvelo_{b1}.pkl")
+        dbinfos = load(db1)
+        n_obj = sum(len(i["gt_names"]) for i in sub1)
+        n_db = sum(len(v) for v in dbinfos.values())
+        if n_db != n_obj or any(d["image_idx"] >= len(sub1) or
+                                not d["path"].startswith(f"gt_database_10sweeps_withvelo_{b1}/")
+                                for v in dbinfos.values() for d in v):
+            fail(f"AL loop: the suffixed GT database holds {n_db} objects for the subset's "
+                 f"{n_obj}, or objects of other frames")
+        np.random.seed(LOOP_SEED)
+        trainer = cli(f"train --budget {b1} (1 epoch + val)", train.main,
+                      [cfg_path, "--budget", b1, "--work_dir", work, "--epochs", "1",
+                       "--seed", "0"])
+        steps = trainer.step
+        del trainer
+        with open(os.path.join(work, "train.log")) as f:
+            log = f.read()
+        val = re.findall(r"val epoch 1: (\{.*\})", log)
+        if (f"training on {info_train.replace('.pkl', f'_{b1}.pkl')}" not in log
+                or f"GT-AUG database {db1}" not in log or len(val) != 1
+                or "mAP_bev" not in val[0] or steps < 1):
+            fail(f"AL loop: training did not read the suffixed infos and database, or ran no "
+                 f"val phase ({steps} steps; val lines {val})")
+        np.random.seed(LOOP_SEED)
+        result = cli("dist_test --checkpoint --out", dist_test.main,
+                     [cfg_path, "--checkpoint", work, "--work_dir", work, "--out", dets_path])
+        if "mAP_bev" not in result.get("kitti_style", {}):
+            fail(f"AL loop: evaluation returned no metrics: {result}")
+        cli("active_select --checkpoint (round 2)", active_select.main,
+            [cfg_path, "--checkpoint", work, "--seed", "3407"])
+        b2, picks2, _ = loop_round("round 2", buffer_file, info_train, 2)
+    phase_s = time.perf_counter() - t_phase
+    launches = {c.__name__: c.launches for c in counters}
+
+    cfg = Config.fromfile(cfg_path)
+    n_val = len(load(os.path.join(root, "infos_val_10sweeps_withvelo.pkl")))
+    batches = 2 * -(-n_val // B) + -(-LOOP_FRAMES // B)  # val, dist_test, round-2 scoring
+    want = {c.__name__: 0 for c in counters}
+    want.update(banded_conv=K1_PER_PREDICT * batches + K1_PER_TRAIN_STEP * steps,
+                iou_matrix=K2_PER_PREDICT * batches, banded_dw=K3_PER_TRAIN_STEP * steps,
+                pairwise_l2=1)
+    if launches != want:
+        fail(f"AL loop launched {launches}; expected {want} ({batches} predict batches of "
+             f"{B}, {steps} train steps, one L2 map)")
+    print(f"AL loop through the CLIs (configs/_cbgs_base.py at full width, B={B}; "
+          f"{LOOP_FRAMES} train + {n_val} val synthetic frames of 10 sweeps; budget "
+          f"{LOOP_BUDGET} a round): {phase_s:.1f} s; "
+          + "; ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
+    print(f"  rounds: budget {b1} -> {len(picks1)} frames, budget {b2} -> {len(picks2)} frames "
+          f"(cumulative); suffixed GT database {n_db} objects of the subset's {len(sub1)} frames; "
+          f"training read the suffixed infos and database; launches {launches} (as expected: "
+          f"{batches} predict batches, {steps} train steps, one L2 map)")
+    lines = re.findall(r"Epoch \[1\]\[(\d+)\] lr: [0-9.]+, time: ([0-9.]+) \(([0-9.]+) data\)", log)
+    if not lines:
+        fail("AL loop: the train log has no iteration line")
+    it = np.array([[float(x[1]), float(x[2])] for x in lines]) * 1e3
+    print(f"  train CLI with GT-AUG on, {steps} steps, iteration as logged ("
+          f"{int(cfg['log_config']['interval'])}-step averages): "
+          f"{', '.join(f'{v:.0f}' for v in it[:, 0])} ms, of which data wait "
+          f"{', '.join(f'{v:.0f}' for v in it[:, 1])} ms")
+    print(f"  val in training: {val[0]}")
+    print(f"  dist_test: {result}")
+
+    # kitti_style_eval from the card's IoUs and from the CPU's, on the
+    # dist_test detections and on the val set's gt boxes moved by 0-0.5 m
+    # (a set that matches, whatever one epoch of training gives)
+    with open(dets_path, "rb") as f:
+        dets = pickle.load(f)
+    dataset = tev.build_val_dataset(cfg)
+    rng = np.random.RandomState(LOOP_SEED)
+    near = {}
+    for info in dataset.infos:
+        n = len(info["gt_names"])
+        box = info["gt_boxes"] + rng.uniform(0, 0.5, (n, 9)).astype(np.float32)
+        near[info["token"]] = {
+            "box3d_lidar": box, "scores": rng.uniform(0.1, 1, n).astype(np.float32),
+            "label_preds": np.array([dataset.class_names.index(c) for c in info["gt_names"]]),
+            "det_valid": np.ones(n, bool)}
+    n_det = sum(int(d["det_valid"].sum()) for d in dets.values())
+    report = []
+    for tag, d in (("dist_test detections", dets), ("moved gt boxes", near)):
+        with IouRecorder(tri) as rec2:
+            t0 = time.perf_counter()
+            ap_card = tev.kitti_style_eval(dataset, d, device=dev)
+            eval_s = time.perf_counter() - t0
+        rec.calls += rec2.calls
+        ap_cpu = tev.kitti_style_eval(dataset, d, device="cpu")
+        if ap_card != ap_cpu:
+            fail(f"AL loop: kitti_style_eval of the {tag} from the card's IoUs {ap_card} != "
+                 f"from the CPU's {ap_cpu}")
+        report.append(f"{tag}: {eval_s:.3f} s, of which {len(rec2.calls)} IoU calls "
+                      f"{rec2.seconds:.3f} s; mAP_bev {ap_card['mAP_bev']:.4f} mAP_3d "
+                      f"{ap_card['mAP_3d']:.4f}")
+    if not ap_card["mAP_bev"] > 0:
+        fail(f"AL loop: kitti_style_eval of moved gt boxes gives {ap_card}")
+
+    # every IoU call of the phase's evaluations on the card against the same
+    # call on the CPU
+    card_calls = [c for c in rec.calls if c[4] == dev.type]
+    iou_err, pairs = 0.0, 0
+    for name, a, b, out, _ in card_calls:
+        iou_err = max(iou_err, float((getattr(tri, name)(a, b) - out).abs().max()))
+        pairs += out.numel()
+    if not pairs or not iou_err <= 1e-5:
+        fail(f"AL loop: {len(card_calls)} eval IoU calls ({pairs} pairs), max |card - CPU| "
+             f"{iou_err:.3e} > 1e-5")
+    print(f"  dist_test: {n_det} valid detections over {len(dets)} frames; eval IoUs: "
+          f"{len(card_calls)} calls on the card ({pairs} pairs), max |card - CPU| {iou_err:.2e} "
+          f"(tol 1e-05); kitti_style_eval equal from card and CPU IoUs, "
+          + "; ".join(report))
+
+    # the eval's rate, and the dist_test detections against the same path on
+    # plain versions (ROADMAP C, open check 1)
+    bundle = build_detector(cfg, device=dev)
+    ckpt.load_checkpoint(work, bundle.model)
+    predict = make_predict_step(bundle)
+    loader = DataLoader(dataset, B, shuffle=False, drop_last=False)
+    np.random.seed(LOOP_SEED)
+    t0 = time.perf_counter()
+    again = tev.predict_dataset(predict, loader)
+    rate = n_val / (time.perf_counter() - t0)
+    host_s, dev_s, fetch_s = [], [], []
+    np.random.seed(LOOP_SEED)
+    t_wait = time.perf_counter()
+    for batch in loader:
+        t_a = time.perf_counter()
+        out = predict({k: batch[k] for k in tev.FEED_KEYS})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t_b = time.perf_counter()
+        for k in tev.DET_KEYS:
+            out[k].cpu()
+        t_wait_next = time.perf_counter()
+        host_s.append(t_a - t_wait)
+        dev_s.append(t_b - t_a)
+        fetch_s.append(t_wait_next - t_b)
+        t_wait = t_wait_next
+    same = all(np.array_equal(d[k], again[tok][k]) for tok, d in dets.items()
+               for k in tev.DET_KEYS)
+    print(f"  eval predict: {n_val} frames at {rate:.2f} frames/s (one loader thread); split per "
+          f"batch of {B}: host (loader wait) {np.median(host_s) * 1e3:.1f} ms, device "
+          f"(synchronized) {np.median(dev_s) * 1e3:.1f} ms, fetch {np.median(fetch_s) * 1e3:.2f} "
+          f"ms; the same predict again in this process is bit-equal to dist_test's: {same}")
+
+    def on_plain():
+        k1, k2 = bd.banded_conv, tiou.iou_matrix
+        bd.banded_conv, tiou.iou_matrix = bd.banded_conv_plain, tiou.iou_matrix_plain
+        try:
+            np.random.seed(LOOP_SEED)
+            return tev.predict_dataset(predict, loader)
+        finally:
+            bd.banded_conv, tiou.iou_matrix = k1, k2
+
+    # at the config's score threshold (the dist_test detections), and at 0,
+    # where every NMS survivor is kept whatever one epoch did to the scores
+    plain = on_plain()
+    bundle.test_cfg = dataclasses.replace(bundle.test_cfg, score_threshold=0.0)
+    np.random.seed(LOOP_SEED)
+    card0 = tev.predict_dataset(predict, loader)
+    for tag, card, ref in (("dist_test detections (score threshold "
+                            f"{cfg['test_cfg']['score_threshold']})", dets, plain),
+                           ("the same at score threshold 0", card0, on_plain())):
+        matched, n_card, n_plain, box_gap, ctr_gap, score_gap = match_loop_dets(card, ref)
+        if matched and not score_gap <= 0.02:
+            fail(f"AL loop: {tag} vs plain versions: matched pairs' score gap {score_gap:.3e} "
+                 f"> 0.02")
+        scores = np.concatenate([d["scores"][d["det_valid"].astype(bool)] for d in card.values()])
+        print(f"  {tag} on the trained checkpoint vs the same path on plain versions: matched "
+              f"{matched} of {n_card} (plain {n_plain}; same label, centre within 0.1 m), match "
+              f"rate {matched / max(n_card, n_plain, 1):.4f}; matched pairs' largest gaps: box "
+              f"{box_gap:.3e}, centre {ctr_gap:.3e} m, score {score_gap:.3e} (tol 0.02); scores "
+              + (f"{scores.min():.4g}-{scores.max():.4g}" if len(scores) else "none"))
+    # the maps of the trained checkpoint on the first val batch (gated at 5e-2
+    # of scale, as phase 5 holds the random weights)
+    bundle.test_cfg = dataclasses.replace(bundle.test_cfg, score_threshold=0.1)
+    np.random.seed(LOOP_SEED)
+    batch = next(iter(loader))
+    batch = {k: torch.as_tensor(batch[k]) for k in tev.FEED_KEYS}
+    with torch.inference_mode():
+        heads = bundle.model(*(batch[k].to(dev) for k in tev.FEED_KEYS))["preds"]
+    top = max(float(torch.sigmoid(h["cls_preds"].float()).max()) for h in heads)
+    finite = all(bool(torch.isfinite(h["box_preds"]).all()) for h in heads)
+    print(f"  trained checkpoint, first val batch: "
+          f"{plain_reference_check(bd, tiou, bundle, predict, batch, predict(batch))}; largest "
+          f"class score {top:.4g}, box maps finite: {finite}")
+    return launches
 
 
 if __name__ == "__main__":

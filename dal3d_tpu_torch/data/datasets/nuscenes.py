@@ -5,15 +5,18 @@ In test mode the infos are taken as they are; in train mode ``_set_infos``
 resamples the frames per class with ratio (1 / num_classes) / class frequency
 (CBGS), drawing from numpy's global generator as the JAX package does.
 ``get_sensor_data`` runs the pipeline over the info dict. ``evaluation``
-is not ported yet.
+writes the nuScenes submission json of padded detections and runs the
+official devkit when it is installed.
 """
 from __future__ import annotations
 
+import os
 import pickle
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ...utils.fileio import dump
 from ..pipelines.loading import LoadPointCloudAnnotations, LoadPointCloudFromFile
 from ..pipelines.preprocess import Preprocess, ReformatFixedShape
 
@@ -83,6 +86,7 @@ class NuScenesDataset:
         self._class_names = list(class_names or [])
         self.test_mode = test_mode
         self.version = version
+        self.eval_version = "detection_cvpr_2019"
         self.load_infos(info_path)
         self.pipeline = (
             build_pipeline(pipeline or [], tasks=tasks, max_points=max_points,
@@ -157,3 +161,34 @@ class NuScenesDataset:
 
     def __getitem__(self, idx: int):
         return self.get_sensor_data(idx)
+
+    def convert_detections_to_nusc(self, detections: Dict[str, dict]) -> dict:
+        """Padded detections (token -> box3d_lidar / scores / label_preds /
+        det_valid, host arrays) -> nuScenes submission dict."""
+        from .nusc_eval import detections_to_nusc_boxes
+
+        nusc_annos = {"results": {}, "meta": {
+            "use_camera": False, "use_lidar": True, "use_radar": False,
+            "use_map": False, "use_external": False,
+        }}
+        token_to_info = {i["token"]: i for i in self._nusc_infos}
+        for token, det in detections.items():
+            info = token_to_info[token]
+            nusc_annos["results"][token] = detections_to_nusc_boxes(
+                det, info, self._class_names
+            )
+        return nusc_annos
+
+    def evaluation(self, detections: Dict[str, dict], output_dir: str = ".", testset=False):
+        """Write ``<output_dir>/results_nusc.json``; run the official devkit
+        when it is importable, else report the file alone (as the JAX
+        package does)."""
+        nusc_annos = self.convert_detections_to_nusc(detections)
+        res_path = os.path.join(output_dir, "results_nusc.json")
+        dump(nusc_annos, res_path)
+        try:
+            from .nusc_eval import eval_main
+
+            return eval_main(res_path, self._root_path, self.version, self.eval_version, output_dir)
+        except ImportError:
+            return {"results": {"nusc": f"submission written to {res_path} (devkit unavailable)"}}

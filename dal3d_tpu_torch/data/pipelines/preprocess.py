@@ -1,11 +1,12 @@
 """Preprocess + fixed-shape formatting stages of the data path (port of
 ``dal3d_tpu/data/pipelines/preprocess.py``).
 
-``Preprocess`` in train mode: class filter -> per-object noise -> flip /
-rotation / scale -> point shuffle, every draw from numpy's global generator
-in the JAX package's order; in val mode the optional point shuffle alone. The
-GT-AUG paste (``db_sampler``) is not ported yet: as in the JAX package a
-missing ``db_info_path`` means no sampler, an existing one raises here.
+``Preprocess`` in train mode: class filter -> GT-AUG paste -> per-object
+noise -> flip / rotation / scale -> point shuffle, every draw from numpy's
+global generator in the JAX package's order; in val mode the optional point
+shuffle alone. As in the JAX package, the GT-AUG sampler (``db_sampler``) is
+built whenever its ``db_info_path`` exists (the ``enable`` flag is not read)
+and a missing file means no sampler.
 ``ReformatFixedShape`` pads the points to a fixed shape, voxelizes on the host
 (``core.voxel_generator``) and, in train mode, splits the GT boxes per task
 into padded arrays with task-local class ids; sparse plans are built on the
@@ -13,15 +14,15 @@ GPU by the backbone, so no host plans are shipped.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-import os
-
 from ...core import box_np_ops
 from ...core.voxel_generator import points_to_voxel_mean
+from ..sampler import DataBaseSamplerV2, build_db_preprocessors
 from . import augment
 
 
@@ -43,13 +44,17 @@ class Preprocess:
             self.global_scaling_noise = cfg.get("global_scale_noise", [1.0, 1.0])
             self.class_names = list(cfg["class_names"])
             self.min_points_in_gt = cfg.get("min_points_in_gt", -1)
-            db_cfg = cfg.get("db_sampler", None)
-            # the JAX package builds the sampler whenever its database file
-            # exists (the enable flag is ignored) and goes without otherwise
-            if db_cfg and os.path.exists(str(dict(db_cfg).get("db_info_path", ""))):
-                raise NotImplementedError(
-                    f"db_sampler with an existing database {dict(db_cfg)['db_info_path']!r}: "
-                    "the GT-AUG sampler is not ported yet (ROADMAP A8)")
+            db_cfg = dict(cfg.get("db_sampler") or {})
+            self.db_sampler: Optional[DataBaseSamplerV2] = None
+            # built whenever the database file exists (the enable flag is not
+            # read), as in the JAX package
+            if os.path.exists(str(db_cfg.get("db_info_path", ""))):
+                self.db_sampler = DataBaseSamplerV2(
+                    db_cfg["db_info_path"],
+                    [dict(g) for g in db_cfg.get("sample_groups", [])],
+                    db_prepor=build_db_preprocessors(db_cfg.get("db_prep_steps", [])),
+                    rate=db_cfg.get("rate", 1.0),
+                )
 
     def __call__(self, res: dict, info: dict):
         res["mode"] = self.mode
@@ -68,6 +73,24 @@ class Preprocess:
             gt_boxes_mask = np.array(
                 [n in self.class_names for n in gt_dict["gt_names"]], dtype=bool
             )
+
+            if self.db_sampler is not None:
+                sampled = self.db_sampler.sample_all(
+                    res["metadata"].get("image_prefix", ""),
+                    gt_dict["gt_boxes"],
+                    gt_dict["gt_names"],
+                    num_point_features=points.shape[1],
+                )
+                if sampled is not None:
+                    gt_dict["gt_names"] = np.concatenate([gt_dict["gt_names"], sampled["gt_names"]])
+                    gt_dict["gt_boxes"] = np.concatenate([gt_dict["gt_boxes"], sampled["gt_boxes"]])
+                    gt_boxes_mask = np.concatenate([gt_boxes_mask, sampled["gt_masks"]])
+                    sp = sampled["points"]
+                    if sp.shape[1] < points.shape[1]:
+                        sp = np.hstack([sp, np.zeros((sp.shape[0], points.shape[1] - sp.shape[1]),
+                                                     sp.dtype)])
+                    points = np.concatenate([sp, points], axis=0)
+
             augment.noise_per_object(
                 gt_dict["gt_boxes"], points, gt_boxes_mask,
                 rotation_perturb=self.gt_rotation_noise,

@@ -243,3 +243,21 @@ def build_bevfusion(cfg, device=None, seed: int = 0) -> BEVFusionBundle:
     )
     return BEVFusionBundle(model=model.to(dev).eval(), test_cfg=test_cfg,
                            voxel_cfg=voxel_cfg, device=dev)
+
+
+def eval_test_cfg(cfg, logger=None) -> dict:
+    """The metric evaluation's test_cfg (JAX's ``eval_test_cfg``): the exact
+    top-k prefilter, so that a reported mAP is reproducible. The port's head
+    always takes the exact top-k (``heads/mg_head.py::multi_group_predict``),
+    so a config that asks for the approximate one is refused rather than
+    quietly given the exact one."""
+    tcfg = dict(cfg.get("test_cfg", {}) or {})
+    nms = dict(tcfg.get("nms", {}))
+    nms.setdefault("use_approx_topk", False)
+    if nms["use_approx_topk"]:
+        raise NotImplementedError("test_cfg.nms.use_approx_topk=True: the approximate top-k "
+                                  "prefilter is not ported yet (ROADMAP A9.i)")
+    tcfg["nms"] = nms
+    if logger is not None:
+        logger.info("top-k prefilter: exact")
+    return tcfg

@@ -2,8 +2,10 @@
 
 The train step does the work; the trainer owns the epoch / iteration loop,
 LogBuffer-style averaged text logging every ``log_interval`` steps, per-epoch
-checkpointing, iteration timing, and resume. The capacity report and the
-tensorboard writer of the JAX trainer are not ported yet.
+checkpointing, iteration timing, resume, and the val phases of the
+workflow (a ``val_fn`` every ``val_interval`` epochs and after the last). The
+capacity report and the tensorboard writer of the JAX trainer are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import numpy as np
 
 from ..solver.optim import one_cycle_lr
 from . import checkpoint as ckpt
-from .steps import make_train_step
+from .steps import make_predict_step, make_train_step
 
 
 class LogBuffer:
@@ -49,6 +51,7 @@ class Trainer:
         self.log_interval = log_interval
         self.checkpoint_interval = checkpoint_interval
         self.train_step = make_train_step(bundle, optimizer)
+        self.predict_step = make_predict_step(bundle)
         self.lr_fn = one_cycle_lr(one_cycle_cfg) if one_cycle_cfg is not None else None
         self.initialized = False
         self.step = 0
@@ -107,15 +110,24 @@ class Trainer:
         self.epoch += 1
         return buf.average()
 
-    def run(self, train_loader_fn: Callable[[int], Iterable], total_epochs: int):
-        """Train epochs up to ``total_epochs``, a checkpoint every
-        ``checkpoint_interval`` epochs and after the last. The val phases of
-        the JAX trainer's workflow are not ported yet."""
+    def run(self, train_loader_fn: Callable[[int], Iterable], total_epochs: int,
+            val_fn: Optional[Callable[["Trainer"], Dict]] = None,
+            val_interval: Optional[int] = None):
+        """Workflow [('train', val_interval), ('val', 1)] cycled up to
+        ``total_epochs``: a checkpoint every ``checkpoint_interval`` epochs
+        and after the last; ``val_fn(self)`` every ``val_interval`` epochs and
+        after the last (``val_interval`` None: after the last only). Returns
+        the last val result, or None."""
         if not self.initialized:
             raise RuntimeError("call init_state first")
+        result = None
         while self.epoch < total_epochs:
             stats = self.train_epoch(train_loader_fn(self.epoch))
             self.logger.info(f"Epoch {self.epoch} done: loss {stats.get('loss', float('nan')):.4f}")
             if self.epoch % self.checkpoint_interval == 0 or self.epoch == total_epochs:
                 self.save()
                 self.logger.info(f"saved checkpoint epoch {self.epoch}")
+            at_val = val_interval is not None and self.epoch % val_interval == 0
+            if val_fn is not None and (at_val or self.epoch == total_epochs):
+                result = val_fn(self)
+        return result

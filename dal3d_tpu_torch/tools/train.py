@@ -4,11 +4,21 @@
     python -m dal3d_tpu_torch.tools.train CONFIG --work_dir DIR [--epochs N] [--no_validate]
 
 Flow and flags of the JAX package's ``tools/train.py``: load the
-executable-python config, rewrite the info path with the AL budget suffix,
-build the train dataset (CBGS resampling at load) and the detector, and run
-the OneCycle AdamW workflow with per-epoch checkpoints
+executable-python config, rewrite the info and GT-database paths with the AL
+budget suffix, build the train dataset (CBGS resampling at load) and the
+detector, and run the OneCycle AdamW workflow with per-epoch checkpoints
 ``<work_dir>/checkpoints/epoch_<n>.pth`` that ``--resume_from`` continues and
-``python -m dal3d_tpu_torch.tools.active_select --checkpoint`` reads.
+``python -m dal3d_tpu_torch.tools.active_select --checkpoint`` reads. A
+workflow with a ``val`` phase evaluates the config's ``data.val`` set every
+``train`` epochs of the workflow and after the last (``--no_validate`` skips
+it); the result is logged as ``val epoch <n>: {...}``.
+
+One difference in what ``--budget`` does: the JAX CLI rewrites the GT-AUG
+database path in ``train_preprocessor``, a copy of the config that the train
+pipeline never reads, so its budgeted runs paste from the full database; the
+port rewrites the path in the train pipeline's ``Preprocess`` stage, so a
+budgeted run pastes only the objects of the selected subset (the database
+that ``create_data nuscenes_data_prep --suffix`` writes).
 
 One difference in what a ``--seed`` gives: the JAX CLI draws a sample batch
 to initialise its flax model, and the loader thread it leaves behind prepares
@@ -20,11 +30,9 @@ pipeline and loader themselves give equal batches after equal draws).
 It runs on the CUDA card; ``--cpu`` is the only way onto the CPU (every
 kernel wrapper then takes its plain PyTorch version).
 
-Not ported yet, each refused with the ROADMAP item it waits for: a workflow
-with ``val`` phases unless ``--no_validate`` (A8), a ``db_sampler`` whose
-database file exists (A8), ``estimator`` configs and the partial-label
-dataset (A9), ``--torch_init`` (A1-5: the port-side det3d weights loader),
-``--n_model > 1`` (A11).
+Not ported yet, each refused with the ROADMAP item it waits for:
+``estimator`` configs and the partial-label dataset (A9), ``--torch_init``
+(A1-5: the port-side det3d weights loader), ``--n_model > 1`` (A11).
 """
 import argparse
 import os
@@ -66,10 +74,11 @@ def _refuse_unported(args, cfg) -> None:
     if cfg.get("dataset_type", "NuScenesDataset") not in ("NuScenesDataset", "NUSC"):
         raise NotImplementedError(f"dataset_type {cfg['dataset_type']!r} is not ported yet "
                                   "(ROADMAP A9)")
-    workflow = cfg.get("workflow")
-    if not args.no_validate and workflow and any(w[0] == "val" for w in workflow):
-        raise NotImplementedError("the in-training val workflow is not ported yet (ROADMAP "
-                                  "A8): pass --no_validate")
+
+
+def _budget_path(path: str, budget: str) -> str:
+    ext = os.path.splitext(path)[-1]
+    return path.replace(ext, f"_{budget}{ext}")
 
 
 def main(argv=None):
@@ -94,18 +103,17 @@ def main(argv=None):
     logger = get_root_logger(os.path.join(work_dir, "train.log"), cfg.get("log_level", "INFO"))
     logger.info(f"device: {device}")
 
-    # AL budget path rewriting
+    # AL budget path rewriting: the infos, and the GT-AUG database of the
+    # Preprocess stages the train pipeline builds
     train_data = dict(cfg["data"]["train"])
     if args.budget is not None:
-        ip = train_data["info_path"]
-        ext = os.path.splitext(ip)[-1]
-        train_data["info_path"] = ip.replace(ext, f"_{args.budget}{ext}")
+        train_data["info_path"] = _budget_path(train_data["info_path"], args.budget)
         logger.info(f"AL budget {args.budget}: training on {train_data['info_path']}")
-        db = cfg["train_preprocessor"].get("db_sampler") if cfg.get("train_preprocessor") else None
-        if db:
-            dbp = db["db_info_path"]
-            dext = os.path.splitext(dbp)[-1]
-            db["db_info_path"] = dbp.replace(dext, f"_{args.budget}{dext}")
+        for stage in train_data.get("pipeline", []):
+            db = stage.get("cfg", {}).get("db_sampler") if stage["type"] == "Preprocess" else None
+            if db:
+                db["db_info_path"] = _budget_path(db["db_info_path"], args.budget)
+                logger.info(f"AL budget {args.budget}: GT-AUG database {db['db_info_path']}")
 
     bundle = build_detector(cfg, device=device, seed=args.seed or 0)
     dataset = NuScenesDataset(
@@ -155,7 +163,24 @@ def main(argv=None):
     elif args.load_from:
         trainer.load_from(args.load_from)
 
-    trainer.run(loader_fn, total_epochs)
+    # in-training val workflow [('train', N), ('val', 1)]: evaluate every N
+    # train epochs and after the last
+    val_fn = val_interval = None
+    workflow = cfg.get("workflow")
+    if not args.no_validate and workflow and any(w[0] == "val" for w in workflow):
+        from ..runtime.evaluation import build_val_dataset, evaluate_dataset
+
+        val_interval = next((int(n) for phase, n in workflow if phase == "train"), None)
+        val_dataset = build_val_dataset(cfg)
+
+        def val_fn(trainer):
+            loader = DataLoader(val_dataset, batch_size, shuffle=False, drop_last=False)
+            result = evaluate_dataset(trainer.predict_step, val_dataset, loader, work_dir,
+                                      logger=logger, device=device)
+            logger.info(f"val epoch {trainer.epoch}: {result}")
+            return result
+
+    trainer.run(loader_fn, total_epochs, val_fn=val_fn, val_interval=val_interval)
     logger.info("training done")
     return trainer
 

@@ -16,7 +16,8 @@ from dal3d_tpu_torch.core.voxel_generator import points_to_voxel_mean
 from dal3d_tpu_torch.data import DataLoader, NuScenesDataset, build_pipeline
 from dal3d_tpu_torch.data.datasets.synthetic import make_synthetic_nuscenes
 from dal3d_tpu_torch.models.builder import host_voxelize_cfg, loader_voxelize_cfg
-from dal3d_tpu_torch.utils.fileio import load
+from dal3d_tpu_torch.data.sampler import DataBaseSamplerV2
+from dal3d_tpu_torch.utils.fileio import dump, load
 
 VOXEL = dict(range=[-51.2, -51.2, -5.0, 51.2, 51.2, 3.0], voxel_size=[0.1, 0.1, 0.2],
              max_points_in_voxel=3, max_voxel_num=4000)
@@ -155,17 +156,21 @@ def test_bf16_batches_stack_as_tensors(pool):
 
 
 def test_train_mode_is_not_ported(pool):
-    """What train mode still refuses: a GT-AUG sampler whose database file
-    exists (as in the JAX package, a missing file means no sampler) and the
-    camera stages. The train-mode dataset and Preprocess themselves are ported
+    """What train mode still refuses: the camera stages. A GT-AUG database
+    that exists builds the sampler, a missing file means none, as in the JAX
+    package (tests/test_torch_gt_aug.py holds the sampler against JAX's). The
+    train-mode dataset and Preprocess themselves are ported
     (tests/test_torch_train_data.py)."""
     train = dict(mode="train", class_names=["car"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        build_pipeline([dict(type="Preprocess", cfg=dict(train, db_sampler=dict(
-            db_info_path=pool, sample_groups=[dict(car=2)])))], tasks=TASKS)
+    db = pool.replace(".pkl", "_dbinfos.pkl")
+    dump({"car": [{"name": "car", "num_points_in_gt": 9, "difficulty": 0}]}, db)
+    stages = build_pipeline([dict(type="Preprocess", cfg=dict(train, db_sampler=dict(
+        db_info_path=db, sample_groups=[dict(car=2)])))], tasks=TASKS)
+    assert isinstance(stages[0].db_sampler, DataBaseSamplerV2)
+    assert len(stages[0].db_sampler.db_infos["car"]) == 1
     stages = build_pipeline([dict(type="Preprocess", cfg=dict(train, db_sampler=dict(
         db_info_path=pool + ".missing", sample_groups=[dict(car=2)])))], tasks=TASKS)
-    assert stages[0].mode == "train"
+    assert stages[0].mode == "train" and stages[0].db_sampler is None
     ds = NuScenesDataset(info_path=pool, class_names=["car"], pipeline=PIPELINE, tasks=TASKS)
     assert not ds.test_mode and len(ds) > 0
     with pytest.raises(KeyError):

@@ -5,7 +5,12 @@ post-NMS detections for a fully dense scene, made with the seeded det3d-named
 weights of tests/oracle_utils.py. Those weights reach the port through both
 bridges (det3d -> flax: dal3d_tpu/models/convert_second.py; flax -> port:
 dal3d_tpu_torch/models/convert_flax.py), and the port's banded engine runs
-the scene at the oracle scale. Same tolerances as tests/test_golden_fixture.py."""
+the scene at the oracle scale. Same tolerances as tests/test_golden_fixture.py.
+
+Part 2: the port's detections of the scene through the port's nuScenes
+conversion (``data/datasets/nusc_eval.py``) reproduce the frozen submission
+dicts (tests/fixtures/golden_submission.json)."""
+import json
 import os
 
 import numpy as np
@@ -15,11 +20,12 @@ import torch
 from dal3d_tpu.models.convert_second import convert_second_state_dict
 from dal3d_tpu_torch.core.anchors import generate_task_anchors
 from dal3d_tpu_torch.core.box_coders import GroundBox3dCoder
+from dal3d_tpu_torch.data.datasets.nusc_eval import detections_to_nusc_boxes
 from dal3d_tpu_torch.models.convert_flax import load_flax_variables
 from dal3d_tpu_torch.models.detectors.voxelnet import FPNVoxelNet
 from dal3d_tpu_torch.models.heads.mg_head import TestConfig, multi_group_predict
-from oracle_utils import (DS_FILTERS, DS_STRIDES, LAYER_NUMS, NUM_CLASSES, US_FILTERS,
-                          US_STRIDES, VCFG, dense_voxels, rnd_state_dict)
+from oracle_utils import (DS_FILTERS, DS_STRIDES, GOLDEN_CLASS_NAMES, LAYER_NUMS, NUM_CLASSES,
+                          US_FILTERS, US_STRIDES, VCFG, dense_voxels, rnd_state_dict)
 from torch_port_utils import t
 
 FIXDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
@@ -77,3 +83,22 @@ def test_post_nms_detections_match_fixture(port_out):
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(dets["box3d_lidar"].numpy()[valid],
                                fix["det_box3d_lidar"][valid], rtol=1e-4, atol=1e-4)
+
+
+def test_submission_formatting_matches_fixture(port_out):
+    """Golden part 2, as tests/test_golden_fixture.py holds the JAX package."""
+    with open(os.path.join(FIXDIR, "golden_submission.json")) as f:
+        sub = json.load(f)
+    _, dets = port_out
+    info = {k: (np.asarray(v) if isinstance(v, list) else v) for k, v in sub["info"].items()}
+    det0 = {k: dets[k][0].numpy() for k in ("box3d_lidar", "scores", "label_preds", "det_valid")}
+    got = detections_to_nusc_boxes(det0, info, GOLDEN_CLASS_NAMES)
+    ref = sub["results"]
+    assert len(got) == len(ref) > 0
+    for g, r in zip(got, ref):
+        assert g["sample_token"] == r["sample_token"]
+        assert g["detection_name"] == r["detection_name"]
+        assert g["attribute_name"] == r["attribute_name"]
+        for key in ("translation", "size", "rotation", "velocity"):
+            np.testing.assert_allclose(g[key], r[key], rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(g["detection_score"], r["detection_score"], rtol=1e-4)

@@ -2,8 +2,10 @@
 kernels): ``python -m dal3d_tpu_torch.tools.train`` on a small synthetic
 labeled set trains an epoch, writes a checkpoint, resumes from it with the
 step count and the schedule carried on, and the selection CLI loads the
-result; every option that is not ported yet raises and names its ROADMAP
-item."""
+result; a workflow with a val phase evaluates after the epoch; a GT-AUG
+database that exists is pasted from (with ``--budget``, the subset's); every
+option that is not ported yet raises and names its ROADMAP item."""
+import ast
 import os
 import re
 
@@ -11,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from dal3d_tpu_torch.data.create_gt_database import create_groundtruth_database
 from dal3d_tpu_torch.data.datasets.synthetic import DEFAULT_CLASSES, make_synthetic_nuscenes
 from dal3d_tpu_torch.runtime.trainer import LogBuffer
 from dal3d_tpu_torch.solver.optim import OneCycleSchedule, one_cycle_lr
@@ -131,15 +134,12 @@ def test_cli_without_cpu_flag_needs_a_gpu(labeled, monkeypatch):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("val_workflow", "A8"), ("torch_init", "A1-5"), ("n_model", "A11"), ("estimator", "A9"),
-    ("partial_dataset", "A9"), ("db_sampler", "A8")])
+    ("torch_init", "A1-5"), ("n_model", "A11"), ("estimator", "A9"), ("partial_dataset", "A9")])
 def test_unported_options_raise_with_their_roadmap_item(labeled, case, item):
     root, info = labeled
     work = str(root / f"work_{case}")
     args, over = ["--cpu", "--no_validate"], {}
-    if case == "val_workflow":
-        args = ["--cpu"]
-    elif case == "torch_init":
+    if case == "torch_init":
         args += ["--torch_init", "weights.npz"]
     elif case == "n_model":
         args += ["--n_model", "2"]
@@ -147,12 +147,47 @@ def test_unported_options_raise_with_their_roadmap_item(labeled, case, item):
         over = dict(estimator=dict(type="Estimator"))
     elif case == "partial_dataset":
         over = dict(dataset_type="NUSC_PART")
-    elif case == "db_sampler":  # the database file exists: JAX would build the sampler
-        over = dict(prep=dict(db_sampler=dict(db_info_path=info, sample_groups=[dict(car=2)])))
     cfg = _write_cfg(root / f"cfg_{case}.py", info, work, **over)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         train.main([cfg, "--work_dir", work] + args)
     assert not os.path.exists(os.path.join(work, "checkpoints"))
+
+
+@pytest.mark.parametrize("case", ["val_workflow", "db_sampler"])
+def test_options_that_were_refused_now_run(labeled, case):
+    """The two options the port refused before its evaluation and GT-AUG
+    slice: a workflow with a val phase (without --no_validate) returns the
+    kitti-style metrics after the last epoch; a GT-AUG database that exists
+    is built and pasted from, under --budget the subset's database."""
+    root, info = labeled
+    work = str(root / f"work_ran_{case}")
+    if case == "val_workflow":
+        cfg = _write_cfg(root / f"cfg_ran_{case}.py", info, work)
+        tr = train.main([cfg, "--work_dir", work, "--epochs", "1", "--cpu", "--seed", "0"])
+        log = open(os.path.join(work, "train.log")).read()
+        val = re.findall(r"val epoch 1: (\{.*\})", log)
+        assert len(val) == 1
+        result = ast.literal_eval(val[0])
+        assert set(result["kitti_style"]) == {"mAP_bev", "mAP_3d"}
+        assert os.path.exists(os.path.join(work, "results_nusc.json"))
+    else:
+        sub = info.replace(".pkl", "_2.pkl")
+        dump([load(info)[i] for i in (3, 0, 1, 2)], sub)
+        db = create_groundtruth_database(str(root), sub, nsweeps=10, suffix="2")
+        full_db = db.replace("_2.pkl", ".pkl")  # the config names the full database
+        prep = dict(db_sampler=dict(type="GT-AUG", enable=False, db_info_path=full_db,
+                                    sample_groups=[dict(car=4), dict(pedestrian=4)],
+                                    db_prep_steps=[], rate=1.0))
+        cfg = _write_cfg(root / f"cfg_ran_{case}.py", info, work, prep=prep)
+        with open(cfg, "a") as f:  # the database's paths are relative to the data root
+            f.write(f"data['train']['root_path'] = {str(root)!r}\n")
+        tr = train.main([cfg, "--work_dir", work, "--epochs", "1", "--cpu", "--seed", "0",
+                         "--no_validate", "--budget", "2"])
+        log = open(os.path.join(work, "train.log")).read()
+        assert f"training on {sub}" in log and f"GT-AUG database {db}" in log
+        assert not os.path.exists(full_db)  # only the subset's database exists
+    assert tr.epoch == 1 and tr.step >= 2
+    assert os.path.exists(os.path.join(work, "checkpoints", "epoch_1.pth"))
 
 
 def test_log_buffer_averages_the_last_n():
