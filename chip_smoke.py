@@ -108,7 +108,22 @@ Phases, each fatal on failure:
      per CLI, the train CLI's iteration and data wait, the eval's frames/s
      split, kitti_eval's seconds with its IoU calls apart; the dist_test
      detections on the trained checkpoint matched against the same path on
-     plain versions.
+     plain versions;
+ 16. raw points through the device voxelizer (ops/voxelize.py): both
+     voxelizers on phase 5's and phase 14's clouds (padded to 300000 points)
+     on the card against the same functions on the CPU (integer outputs
+     bit-equal, features within 1e-6 of scale), a repeat on the card, device
+     ms against the host voxelizer's and the bytes bound; the CBGS and
+     BEVFusion predicts fed raw points (launch counts, medians beside the
+     host-fed ones, device profiles, maps against plain versions); PPAL and
+     CALD rounds through the CLIs (ppal_pred_list, ppal_unc, active_select;
+     cald_pred_list plain and --augment, cald_ent, active_select) on phase
+     15's set and checkpoint, then on a slice of the pool on the card and
+     with --cpu, the files compared; --torch_init at full width (a det3d
+     .pth of seeded weights -> convert_second -> dist_test and an epoch of
+     train, the loaded tensors equal to the written ones); the overfit twin
+     (tests/test_torch_accuracy.py: 600 steps from raw points, mAP gates,
+     detections against the plain versions).
 
 Kernel times are device times per call (``cuda_time_ms``: the launches
 queued behind a device-side sleep, so that the host's enqueue is not timed);
@@ -196,6 +211,18 @@ def lidar_cloud(rng, n_points=POINTS, extent=51.2) -> np.ndarray:
     return p[keep]
 
 
+def cbgs_clouds(seed: int) -> list:
+    """Phase 5's B clouds of POINTS lidar-like points, [n, 5] each (x, y, z,
+    intensity, time 0), in generation order (ground, walls, objects)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(B):
+        p = lidar_cloud(rng)
+        out.append(np.concatenate([p, rng.uniform(0, 255, (len(p), 1)).astype(np.float32),
+                                   np.zeros((len(p), 1), np.float32)], 1))
+    return out
+
+
 def make_batch(seed: int, cfg):
     """B clouds -> host voxels [B, 60000, ...]. Points stay in generation
     order (ground, walls, objects), as the JAX package's bench.py feeds them,
@@ -204,15 +231,11 @@ def make_batch(seed: int, cfg):
     from dal3d_tpu_torch.core.voxel_generator import points_to_voxel_mean as voxelize
 
     vg = cfg["voxel_generator"]
-    rng = np.random.RandomState(seed)
     vf = np.zeros((B, MAX_VOXELS, 5), np.float32)
     vc = np.zeros((B, MAX_VOXELS, 3), np.int32)
     vv = np.zeros((B, MAX_VOXELS), bool)
     n_vox = []
-    for b in range(B):
-        p = lidar_cloud(rng)
-        pts = np.concatenate([p, rng.uniform(0, 255, (len(p), 1)).astype(np.float32),
-                              np.zeros((len(p), 1), np.float32)], 1)
+    for b, pts in enumerate(cbgs_clouds(seed)):
         f, c, _ = voxelize(pts, vg["voxel_size"], vg["range"], vg["max_points_in_voxel"],
                            MAX_VOXELS)
         vf[b, :len(f)], vc[b, :len(f)], vv[b, :len(f)] = f, c, True
@@ -619,9 +642,14 @@ def main() -> None:
         gather = bevfusion_main_path(tmp, Config, counters, tg, bd)
 
         # 15. two AL rounds through the CLIs: data, GT-AUG, train + val, eval -------
-        loop_launches = al_loop(tmp, dev, counters)
+        loop_launches, loop = al_loop(tmp, dev, counters)
 
-    # 16. kernels line, card line, result --------------------------------------
+        # 16. raw points: device voxelizer, predicts, PPAL / CALD, torch_init, overfit
+        raw = raw_points_phase(tmp, dev, Config, counters,
+                               {"CBGS": ms_med, "BEVFusion": gather["predict_ms"]}, loop,
+                               bd, tiou, tg)
+
+    # kernels line, card line, result -------------------------------------------
     kernels = [
         dict(name="banded_conv", route="cuda", source="dal3d_tpu_torch/ops/csrc/banded_conv.cu",
              replaces="dal3d_tpu/ops/banded.py:282", launches=k1_launches,
@@ -659,6 +687,8 @@ def main() -> None:
     for name, line in (("gather_gemm", 123), ("gather_rows", 76)):
         kernels.append(dict(name=name, route="cuda", source="dal3d_tpu_torch/ops/csrc/gather.cu",
                             replaces=f"dal3d_tpu/ops/pallas_gather.py:{line}", **gather[name]))
+    for k in kernels:
+        k["launches_raw_points"] = raw["launches"][k["name"]]
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
@@ -739,12 +769,11 @@ def plain_reference_check(bd, tiou, bundle, predict, batch, out) -> str:
     label, center within 0.1 m, score within 0.02): with random weights the
     1000-candidate top-k sits among near-equal scores, so a last-bit
     difference reorders candidates and NMS."""
-    dev = bundle.device
+    from dal3d_tpu_torch.runtime.steps import model_inputs
 
     def forward():
         with torch.inference_mode():
-            return bundle.model(batch["voxel_features"].to(dev), batch["voxel_coords"].to(dev),
-                                batch["voxel_valid"].to(dev))
+            return bundle.model(**model_inputs(batch, bundle.device))
 
     mk = forward()
     k1, k2 = bd.banded_conv, tiou.iou_matrix
@@ -1900,6 +1929,19 @@ K4_TOL = 1e-5  # of the output's scale: 3xTF32 products with f32 sums, in anothe
 BF_TOL = 1e-4  # of the scale, for maps and boxes after the whole f32 path
 
 
+def bevfusion_clouds(seed: int) -> list:
+    """Phase 14's B clouds of BF_POINTS lidar-like points over +-BF_EXTENT m,
+    [n, 5] each, each in a seeded random point order."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(B):
+        p = lidar_cloud(rng, BF_POINTS, BF_EXTENT)
+        pts = np.concatenate([p, rng.uniform(0, 255, (len(p), 1)).astype(np.float32),
+                              np.zeros((len(p), 1), np.float32)], 1)
+        out.append(pts[rng.permutation(len(pts))])
+    return out
+
+
 def bevfusion_batch(seed: int, cfg) -> tuple:
     """Two lidar-like clouds of 300000 points over +-54 m, each in a seeded
     random point order (ground, walls and objects mixed, as a pooled
@@ -1912,17 +1954,13 @@ def bevfusion_batch(seed: int, cfg) -> tuple:
 
     vg = cfg["voxel_generator"]
     cap = int(vg["max_voxel_num"])
-    rng = np.random.RandomState(seed)
     vf = np.zeros((B, cap, 5), np.float32)
     vc = np.zeros((B, cap, 3), np.int32)
     vv = np.zeros((B, cap), bool)
     occupied = []
+    clouds = bevfusion_clouds(seed)
     t0 = time.perf_counter()
-    for b in range(B):
-        p = lidar_cloud(rng, BF_POINTS, BF_EXTENT)
-        pts = np.concatenate([p, rng.uniform(0, 255, (len(p), 1)).astype(np.float32),
-                              np.zeros((len(p), 1), np.float32)], 1)
-        pts = pts[rng.permutation(len(pts))]
+    for b, pts in enumerate(clouds):
         # uncapped: the first ``cap`` voxels are the capped voxelizer's output
         f, c, _ = voxelize(pts, vg["voxel_size"], vg["range"], vg["max_points_in_voxel"], len(pts))
         occupied.append(len(f))
@@ -2250,14 +2288,18 @@ def bevfusion_forward(bundle, batch, tg, k4, k5, stop_at=""):
     returns (preds, decoded, query rows)."""
     from dal3d_tpu_torch.models.bevfusion import transfusion_decode
     from dal3d_tpu_torch.runtime.bevfusion_steps import autotuned_convs
+    from dal3d_tpu_torch.runtime.steps import model_inputs
 
-    dev = bundle.device
+    inputs = model_inputs(batch, bundle.device)
+    if "vf" in inputs:  # host voxels, positional; raw points by keyword
+        args, kw = (inputs["vf"].float(), inputs["vc"], inputs["vv"]), {}
+    else:
+        args, kw = (), inputs
     saved = tg.gather_gemm, tg.gather_rows
     tg.gather_gemm, tg.gather_rows = k4, k5
     try:
         with Capture(tg, "gather_rows") as rec, torch.inference_mode(), autotuned_convs():
-            preds = bundle.model(batch["voxel_features"].to(dev), batch["voxel_coords"].to(dev),
-                                 batch["voxel_valid"].to(dev), stop_at=stop_at)
+            preds = bundle.model(*args, stop_at=stop_at, **kw)
             dec = transfusion_decode(preds, bundle.test_cfg) if not stop_at else None
         torch.cuda.synchronize()
     finally:
@@ -2389,7 +2431,8 @@ def bevfusion_loader_frames(tmp: str, cfg, predict) -> None:
 
 def bevfusion_main_path(tmp: str, Config, counters, tg, bd) -> dict:
     """Phases 12-14: the BEVFusion predict at full width. Returns the
-    kernels-line numbers of K4 and K5 and their main-path launches."""
+    kernels-line numbers of K4 and K5 and their main-path launches, and the
+    predict's median ms."""
     from dal3d_tpu_torch.models.builder import build_bevfusion
     from dal3d_tpu_torch.runtime.bevfusion_steps import make_bevfusion_predict_step
 
@@ -2454,6 +2497,7 @@ def bevfusion_main_path(tmp: str, Config, counters, tg, bd) -> dict:
     bevfusion_loader_frames(tmp, cfg, predict)
     numbers["gather_gemm"]["launches"] = launches["gather_gemm"]
     numbers["gather_rows"]["launches"] = launches["gather_rows"]
+    numbers["predict_ms"] = ms_med
     return numbers
 
 
@@ -2577,7 +2621,8 @@ def match_loop_dets(card: dict, plain: dict) -> tuple:
 
 def al_loop(tmp: str, dev, counters) -> dict:
     """Phase 15: two AL rounds through the port's CLIs on the production
-    config at full width. Returns the phase's launches of each kernel."""
+    config at full width. Returns the phase's launches of each kernel, and
+    the set's and the round's files (for phase 16)."""
     import re
 
     from dal3d_tpu_torch.data import DataLoader
@@ -2587,7 +2632,7 @@ def al_loop(tmp: str, dev, counters) -> dict:
     from dal3d_tpu_torch.ops import rotated_iou as tri
     from dal3d_tpu_torch.runtime import checkpoint as ckpt
     from dal3d_tpu_torch.runtime import evaluation as tev
-    from dal3d_tpu_torch.runtime.steps import make_predict_step
+    from dal3d_tpu_torch.runtime.steps import VOXEL_KEYS, make_predict_step
     from dal3d_tpu_torch.tools import active_select, create_data, dist_test, train
     from dal3d_tpu_torch.utils.config import Config
     from dal3d_tpu_torch.utils.fileio import load
@@ -2753,7 +2798,7 @@ def al_loop(tmp: str, dev, counters) -> dict:
     t_wait = time.perf_counter()
     for batch in loader:
         t_a = time.perf_counter()
-        out = predict({k: batch[k] for k in tev.FEED_KEYS})
+        out = predict({k: batch[k] for k in VOXEL_KEYS})
         if dev.type == "cuda":
             torch.cuda.synchronize()
         t_b = time.perf_counter()
@@ -2804,16 +2849,502 @@ def al_loop(tmp: str, dev, counters) -> dict:
     bundle.test_cfg = dataclasses.replace(bundle.test_cfg, score_threshold=0.1)
     np.random.seed(LOOP_SEED)
     batch = next(iter(loader))
-    batch = {k: torch.as_tensor(batch[k]) for k in tev.FEED_KEYS}
+    batch = {k: torch.as_tensor(batch[k]) for k in VOXEL_KEYS}
     with torch.inference_mode():
-        heads = bundle.model(*(batch[k].to(dev) for k in tev.FEED_KEYS))["preds"]
+        heads = bundle.model(*(batch[k].to(dev) for k in VOXEL_KEYS))["preds"]
     top = max(float(torch.sigmoid(h["cls_preds"].float()).max()) for h in heads)
     finite = all(bool(torch.isfinite(h["box_preds"]).all()) for h in heads)
     print(f"  trained checkpoint, first val batch: "
           f"{plain_reference_check(bd, tiou, bundle, predict, batch, predict(batch))}; largest "
           f"class score {top:.4g}, box maps finite: {finite}")
+    return launches, dict(root=root, cfg_path=cfg_path, work=work, buffer_file=buffer_file,
+                          info_train=info_train, budget=b1,
+                          info_val=os.path.join(root, "infos_val_10sweeps_withvelo.pkl"))
+
+
+
+# ---------------------------------------------------------------------------
+# raw points: the device voxelizer, predicts fed points, the PPAL / CALD
+# pre-pass CLIs, --torch_init, the overfit twin
+# ---------------------------------------------------------------------------
+
+RAW_P = 300_000  # the configs' max_points: the loaders pad every cloud to it
+CPU_POOL = 2  # frames of the pool slice the CLIs run on the card and the CPU
+
+
+def padded_points(clouds) -> tuple:
+    """[B, RAW_P, 5] f32 points and [B, RAW_P] validity on the host, as the
+    loaders' ReformatFixedShape pads them."""
+    pts = torch.zeros(len(clouds), RAW_P, 5)
+    valid = torch.zeros(len(clouds), RAW_P, dtype=torch.bool)
+    for b, p in enumerate(clouds):
+        n = min(len(p), RAW_P)
+        pts[b, :n] = torch.from_numpy(p[:n])
+        valid[b, :n] = True
+    return pts, valid
+
+
+def voxelizer_bound_ms(pts, M: int) -> float:
+    """The bytes the voxelizer must move: the points and validity read once,
+    features [B, M, F] f32, coordinates [B, M, 3] and counts [B, M] int32 and
+    validity [B, M] written once, over the HBM rate."""
+    Bp, P, F = pts.shape
+    nbytes = Bp * P * (F * 4 + 1) + Bp * M * (F * 4 + 3 * 4 + 4 + 1)
+    return nbytes / PEAK_BYTES * 1e3
+
+
+def voxelizer_check(tag: str, cfg, clouds, dev) -> dict:
+    """Both device voxelizers on the card against the same functions on the
+    CPU (integer outputs bit-equal, features within 1e-6 of scale), a repeat
+    on the card, device ms against the host voxelizer's ms for the batch and
+    the bytes bound."""
+    from dal3d_tpu_torch.core.voxel_generator import points_to_voxel_mean
+    from dal3d_tpu_torch.ops.voxelize import VoxelConfig, voxelize_mean, voxelize_mean_grid
+
+    vg = cfg["voxel_generator"]
+    vcfg = VoxelConfig(tuple(vg["range"]), tuple(vg["voxel_size"]),
+                       int(vg["max_points_in_voxel"]), int(vg["max_voxel_num"]))
+    pts, valid = padded_points(clouds)
+    gp, gv = pts.to(dev), valid.to(dev)
+    res = {}
+    for fn in (voxelize_mean_grid, voxelize_mean):
+        cpu = fn(pts, valid, vcfg)
+        card, again = fn(gp, gv, vcfg), fn(gp, gv, vcfg)
+        for k in ("coordinates", "num_points", "voxel_valid", "num_voxels"):
+            if not torch.equal(card[k].cpu(), cpu[k]):
+                fail(f"{tag} {fn.__name__}: {k} on the card differs from the CPU's")
+        scale = max(float(cpu["features"].abs().max()), 1e-30)
+        err = float((card["features"].cpu() - cpu["features"]).abs().max()) / scale
+        if not err <= 1e-6:
+            fail(f"{tag} {fn.__name__}: features on the card {err:.2e} of scale from the CPU's "
+                 "(tol 1e-6)")
+        repeat = all(torch.equal(card[k], again[k]) for k in card)
+        ms = cuda_time_ms(lambda: fn(gp, gv, vcfg), 10)
+        res[fn.__name__] = dict(ms=ms, err=err, repeat=repeat,
+                                voxels=[int(x) for x in card["num_voxels"]])
+    t0 = time.perf_counter()
+    for p in clouds:
+        points_to_voxel_mean(p[:RAW_P], vg["voxel_size"], vg["range"],
+                             int(vg["max_points_in_voxel"]), vcfg.max_voxel_num)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    bound = voxelizer_bound_ms(pts, vcfg.max_voxel_num)
+    g, m = res["voxelize_mean_grid"], res["voxelize_mean"]
+    print(f"device voxelizer, {tag} (B={B}, {[len(p) for p in clouds]} points padded to {RAW_P}, "
+          f"grid {vcfg.grid_size}, max {vcfg.max_voxel_num} voxels): voxelize_mean_grid (the "
+          f"models' path) {g['ms']:.3f} ms on the card, voxels {g['voxels']}, features "
+          f"{g['err']:.1e} of scale from the CPU's (tol 1e-06), coordinates / counts / validity "
+          f"/ order bit-equal, a repeat on the card bit-equal: {g['repeat']}; voxelize_mean "
+          f"(first arrivals) {m['ms']:.3f} ms, features {m['err']:.1e}, repeat bit-equal "
+          f"{m['repeat']}; bound {bound:.4f} ms (bytes); host voxelizer "
+          f"(core/voxel_generator.py) {host_ms:.1f} ms for the batch")
+    return dict(grid_ms=g["ms"], sort_ms=m["ms"], host_ms=host_ms, bound_ms=bound,
+                repeat=g["repeat"], voxels=g["voxels"])
+
+
+def timed_predicts(predict, batch) -> tuple:
+    """A warm-up and TIMED_ITERS synchronized predicts: (last output, ms)."""
+    out = predict(batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TIMED_ITERS):
+        t0 = time.perf_counter()
+        out = predict(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, times
+
+
+def raw_predicts(cfgs, counters, host_fed_ms, bd, tiou, tg) -> dict:
+    """The CBGS and BEVFusion predicts fed raw points (B=2, the clouds of
+    phases 5 and 14), each with its launch counts, median, device profile and
+    plain check, beside the host-fed medians. Returns the launches."""
+    from dal3d_tpu_torch.models.builder import build_bevfusion, build_detector
+    from dal3d_tpu_torch.runtime.bevfusion_steps import make_bevfusion_predict_step
+    from dal3d_tpu_torch.runtime.steps import make_predict_step
+
+    cbgs = build_detector(cfgs["cbgs"], seed=0)
+    bev = build_bevfusion(cfgs["bevfusion"], seed=0)
+    runs = (("CBGS", cbgs, make_predict_step(cbgs), cbgs_clouds(0),
+             dict(banded_conv=K1_PER_PREDICT, iou_matrix=K2_PER_PREDICT)),
+            ("BEVFusion", bev, make_bevfusion_predict_step(bev), bevfusion_clouds(10),
+             dict(gather_gemm=K4_PER_PREDICT, gather_rows=K5_PER_PREDICT)))
+    total = {c.__name__: 0 for c in counters}
+    for tag, bundle, predict, clouds, per in runs:
+        pts, valid = padded_points(clouds)
+        batch = {"points": pts, "points_valid": valid}
+        for c in counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out, times = timed_predicts(predict, batch)
+        launches = {c.__name__: c.launches for c in counters}
+        want = {n: per.get(n, 0) * (TIMED_ITERS + 1) for n in launches}
+        if launches != want:
+            fail(f"{tag} predict from raw points launched {launches}; expected {want}")
+        for k, v in out.items():
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                fail(f"{tag} predict from raw points: output {k} is not finite")
+        n_det = [int(x) for x in out["det_valid"].sum(1)]
+        if min(n_det) == 0:
+            fail(f"{tag} predict from raw points: no detections {n_det}")
+        med = float(np.median(times))
+        print(f"{tag} predict from raw points (B={B}, device voxelizer): median {med:.2f} ms "
+              f"(host-fed, phase {5 if tag == 'CBGS' else 14}: {host_fed_ms[tag]:.2f} ms, the "
+              f"host voxelizer not counted), min {min(times):.2f} ms -> {B / med * 1e3:.2f} "
+              f"scans/s; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+              f"detections {n_det}; launches {launches} in {TIMED_ITERS + 1} predicts")
+        if tag == "CBGS":
+            check = plain_reference_check(bd, tiou, bundle, predict, batch, out)
+        else:
+            check = bevfusion_plain_check(bundle, batch, tg)
+        print(f"  {tag} from raw points vs the same path on plain versions: {check}")
+        device_profile(lambda: predict(batch), f"{tag} raw predict", med)
+        for n, v in launches.items():
+            total[n] += v
+        del bundle, predict
+        torch.cuda.empty_cache()
+    return total
+
+
+def write_prepass_config(path: str, loop: dict, selector: str, info: str, buffer_file: str,
+                         base: str, f32: bool) -> None:
+    """The AL loop's production config (phase 15) with the PPAL or CALD
+    selector of configs/cbgs_ppal.py / cbgs_cald.py over the pool ``info``,
+    its files under ``base``, and the score threshold at 0: after one epoch
+    from random weights no box clears the config's 0.1 (ROADMAP C, open
+    check 1), and the pre-passes need detections. ``f32``: the backbone and
+    the host voxel features in f32 (the card-vs-CPU comparison: bf16
+    convolutions round differently on the two devices)."""
+    sel = {"PPALSelector": dict(type="PPALSelector", delta=1.5,
+                                diff_file=os.path.join(base, "diff_category_average.json"),
+                                pred_store_file=os.path.join(base, "ppal_pred.npz")),
+           "CaldSelector": dict(type="CaldSelector",
+                                sorted_idx_file=os.path.join(base, "cald_ent_sorted_idx.json"),
+                                jsdiv_file=os.path.join(base, "idx_to_jsdiv.pkl"))}[selector]
+    sel.update(budget=LOOP_BUDGET, buffer_file=buffer_file, infos_origin=info)
+    extra = (f"selector = {sel!r}\ntest_cfg = copy.deepcopy(test_cfg)\n"
+             "test_cfg['score_threshold'] = 0.0\n")
+    if f32:
+        extra += ("model = copy.deepcopy(model)\nmodel['backbone']['dtype'] = 'float32'\n"
+                  "voxel_generator = dict(voxel_generator, bf16=False)\n")
+    write_loop_config(path, loop["root"], buffer_file, loop["work"], extra=extra)
+
+
+def prepass_round(tag: str, base: str, loop: dict, info: str, buffer0: dict, on_cpu: bool,
+                  seconds: dict, f32: bool = False) -> dict:
+    """One PPAL round and one CALD round through the port's CLIs over the
+    pool ``info``, each from the buffer ``buffer0``: ppal_pred_list,
+    ppal_unc, active_select (PPALSelector); cald_pred_list plain and
+    --augment, cald_ent, active_select (CaldSelector). Returns the files'
+    contents."""
+    from dal3d_tpu_torch.tools import (active_select, cald_ent, cald_pred_list,
+                                       ppal_pred_list, ppal_unc)
+    from dal3d_tpu_torch.utils.fileio import dump, load
+
+    os.makedirs(base)
+    flag = ["--cpu"] if on_cpu else []
+    out = {}
+    labeled = buffer0[max(buffer0, key=int)]
+
+    def cli(name, fn, argv):
+        np.random.seed(LOOP_SEED)  # a frame's sweep draw uses numpy's global generator
+        t0 = time.perf_counter()
+        r = fn(argv + flag)
+        if not on_cpu:
+            torch.cuda.synchronize()
+        seconds[f"{tag} {name}"] = time.perf_counter() - t0
+        return r
+
+    cwd = os.getcwd()
+    os.chdir(base)  # ppal_unc writes dict_p_iou.pkl to the working directory
+    try:
+        for selector in ("PPALSelector", "CaldSelector"):
+            buffer_file = os.path.join(base, f"{selector}.json")
+            dump(buffer0, buffer_file)
+            cfg = os.path.join(base, f"{selector}.py")
+            write_prepass_config(cfg, loop, selector, info, buffer_file, base, f32)
+            if selector == "PPALSelector":
+                pl = os.path.join(base, "pred_list.pkl")
+                out["pred_list"] = cli("ppal_pred_list", ppal_pred_list.main,
+                                       [cfg, "--checkpoint", loop["work"], "--out", pl])
+                out["weights"] = cli("ppal_unc", ppal_unc.main,
+                                     [cfg, "--pred_list", pl,
+                                      "--out", os.path.join(base, "diff_category_average.json")])
+                cli("active_select (PPAL)", active_select.main,
+                    [cfg, "--checkpoint", loop["work"], "--seed", "3407"])
+            else:
+                plain, aug = (os.path.join(base, n) for n in ("plain.pkl", "aug.pkl"))
+                out["cald_plain"] = cli("cald_pred_list", cald_pred_list.main,
+                                        [cfg, "--checkpoint", loop["work"], "--out", plain])
+                out["cald_aug"] = cli("cald_pred_list --augment", cald_pred_list.main,
+                                      [cfg, "--checkpoint", loop["work"], "--out", aug,
+                                       "--augment"])
+                out["order"], out["jsdiv"] = cli(
+                    "cald_ent", cald_ent.main,
+                    [cfg, "--pred_list", plain, "--pred_list_aug", aug,
+                     "--sorted_out", os.path.join(base, "cald_ent_sorted_idx.json"),
+                     "--jsdiv_out", os.path.join(base, "idx_to_jsdiv.pkl")])
+                cli("active_select (CALD)", active_select.main, [cfg, "--seed", "3407"])
+            out[selector] = open(buffer_file, "rb").read()
+            buf = load(buffer_file)
+            new = buf[max(buf, key=int)]
+            if (len(buf) != len(buffer0) + 1 or not set(labeled) < set(new)
+                    or len(set(new)) != len(new)):
+                fail(f"{tag} {selector} round: buffer {buf} does not extend {labeled}")
+    finally:
+        os.chdir(cwd)
+    tokens = [i["token"] for i in load(info)]
+    for k in ("pred_list", "cald_plain", "cald_aug"):
+        if list(out[k]) != tokens:
+            fail(f"{tag} {k}: tokens {list(out[k])[:3]}... are not the pool's")
+    if sorted(out["order"]) != list(range(len(tokens))) or sorted(out["jsdiv"]) != sorted(
+            range(len(tokens))):
+        fail(f"{tag} cald_ent: ranking {out['order']} / JS divergences of {sorted(out['jsdiv'])}")
+    return out
+
+
+def prepass_phase(tmp: str, dev, loop: dict, counters) -> dict:
+    """The PPAL and CALD rounds through the CLIs on phase 15's synthetic
+    set and trained checkpoint, on the card over the whole pool. Returns
+    the round's launches."""
+    from dal3d_tpu_torch.utils.fileio import load
+
+    base = os.path.join(tmp, "prepass")
+    pool = load(loop["info_train"])
+    # from phase 15's first round: its second left no frame of the pool out
+    buffer0 = {"0": [], loop["budget"]: load(loop["buffer_file"])[loop["budget"]]}
+    labeled = buffer0[loop["budget"]]
+    seconds = {}
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    card = prepass_round("card", os.path.join(base, "card"), loop, loop["info_train"], buffer0,
+                         False, seconds)
+    phase_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    n = len(pool)
+    batches = 4 * -(-n // B)  # three prediction lists and PPAL's pool scoring
+    want = {c.__name__: 0 for c in counters}
+    want.update(banded_conv=K1_PER_PREDICT * batches, iou_matrix=K2_PER_PREDICT * batches,
+                pairwise_l1=1)  # cbgs_ppal.py's k-center: distance_type l2_ref is L1
+    if launches != want:
+        fail(f"PPAL / CALD round launched {launches}; expected {want} ({batches} predict "
+             f"batches of {B}, one L1 map)")
+    n_det = sum(int(d["det_valid"].sum()) for d in card["pred_list"].values())
+    n_aug = sum(int(d["det_valid"].sum()) for d in card["cald_aug"].values())
+    print(f"PPAL / CALD rounds through the CLIs (phase 15's checkpoint and {n}-frame pool, "
+          f"labeled {len(labeled)}, budget {LOOP_BUDGET}, score threshold 0): {phase_s:.1f} s; "
+          + "; ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
+    print(f"  launches {launches} (as expected: {batches} predict batches, one L1 map); "
+          f"detections {n_det} plain, {n_aug} flipped; PPAL weights {card['weights']}; CALD "
+          f"ranking {card['order']}")
+
     return launches
 
+
+def match_sets(card: dict, cpu: dict) -> tuple:
+    """Pairs each frame's valid detections of two prediction lists one to
+    one: greedy by the card's score, the same label and the nearest box (the
+    largest |difference| over its 9 values, relative to max(1, |value|)).
+    Returns (pairs within 1e-3, card total, CPU total, the largest box and
+    score gaps of those pairs)."""
+    matched = n_a = n_b = 0
+    box_gap = score_gap = 0.0
+    for token, a in card.items():
+        b = cpu[token]
+        va, vb = a["det_valid"].astype(bool), b["det_valid"].astype(bool)
+        ba, bb = a["box3d_lidar"][va].astype(np.float64), b["box3d_lidar"][vb].astype(np.float64)
+        sa, sb = a["scores"][va], b["scores"][vb]
+        la, lb = a["label_preds"][va], b["label_preds"][vb]
+        n_a, n_b = n_a + len(sa), n_b + len(sb)
+        used = np.zeros(len(sb), bool)
+        for k in np.argsort(-sa, kind="stable"):
+            d = (np.abs(bb - ba[k]) / np.maximum(np.abs(ba[k]), 1.0)).max(1) if len(bb) else bb
+            d = np.where(used | (lb != la[k]), np.inf, d)
+            if not len(d) or not d.min() <= 1e-3:
+                continue
+            j = int(d.argmin())
+            used[j] = True
+            matched += 1
+            box_gap = max(box_gap, float(d[j]))
+            score_gap = max(score_gap, abs(float(sb[j]) - float(sa[k])))
+    return matched, n_a, n_b, box_gap, score_gap
+
+
+def prepass_card_vs_cpu(tmp: str, loop: dict) -> None:
+    """The pre-pass CLIs on a CPU_POOL-frame slice of the pool, nothing
+    labeled, in f32, on the card and with --cpu: their files compared."""
+    from dal3d_tpu_torch.utils.fileio import dump, load
+
+    base = os.path.join(tmp, "prepass")
+    sl = os.path.join(base, "slice.pkl")
+    dump(load(loop["info_train"])[:CPU_POOL], sl)
+    seconds = {}
+    got = {side: prepass_round(side, os.path.join(base, side.replace(" ", "_")), loop, sl,
+                               {"0": []}, side == "cpu", seconds, f32=True)
+           for side in ("card slice", "cpu")}
+    a, b = got["card slice"], got["cpu"]
+    report, bad = [], []
+    for k in ("pred_list", "cald_plain", "cald_aug"):
+        matched, n_a, n_b, box_gap, score_gap = match_sets(a[k], b[k])
+        if matched != n_a or n_a != n_b or not score_gap <= 1e-4:
+            bad.append(k)
+        report.append(f"{k} {matched}/{n_a} matched (CPU {n_b}), box gap {box_gap:.1e}, score "
+                      f"gap {score_gap:.1e}")
+    w_gap = max(abs(a["weights"][c] - b["weights"][c]) for c in a["weights"])
+    js_gap = max(abs(a["jsdiv"][i] - b["jsdiv"][i]) for i in a["jsdiv"])
+    if set(a["weights"]) != set(b["weights"]) or not w_gap <= 1e-4:
+        bad.append("ppal_unc")
+    if a["order"] != b["order"] or not js_gap <= 1e-4:
+        bad.append("cald_ent")
+    bad += [sel for sel in ("PPALSelector", "CaldSelector") if a[sel] != b[sel]]
+    print(f"  the same CLIs on a {CPU_POOL}-frame slice (nothing labeled, f32), card vs --cpu: "
+          f"{'; '.join(report)} (tol: every detection paired within 1e-3 of max(1, |box|), "
+          f"scores within 1e-4); PPAL weights within "
+          f"{w_gap:.1e}, CALD ranking {a['order']} / {b['order']}, JS divergences within "
+          f"{js_gap:.1e} (tol 1e-4); buffers {a['PPALSelector']!r} / {b['PPALSelector']!r}, "
+          f"{a['CaldSelector']!r} / {b['CaldSelector']!r}; "
+          + "; ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
+    if bad:
+        fail(f"pre-pass CLIs, card vs CPU: {bad} differ beyond their tolerances")
+
+
+def torch_init_phase(tmp: str, dev, loop: dict, counters) -> dict:
+    """--torch_init at full width: a det3d-named .pth of seeded random
+    weights (every tensor the loader maps on the production config) ->
+    convert_second -> dist_test --torch_init and one train --torch_init epoch
+    on the round-1 subset; the loaded model equals the written weights after
+    the layout map. Returns the launches."""
+    from dal3d_tpu_torch.models.builder import build_detector
+    from dal3d_tpu_torch.models.convert_second import apply_torch_init, to_det3d_state_dict
+    from dal3d_tpu_torch.tools import convert_second, dist_test, train
+    from dal3d_tpu_torch.utils.config import Config
+    from dal3d_tpu_torch.utils.fileio import load
+
+    base = os.path.join(tmp, "torch_init")
+    os.makedirs(base)
+    cfg = Config.fromfile(loop["cfg_path"])
+    src = build_detector(cfg, device="cpu", seed=21).model.state_dict()
+    det3d = to_det3d_state_dict(src)
+    pth, npz = os.path.join(base, "det3d.pth"), os.path.join(base, "det3d.npz")
+    torch.save({"state_dict": {f"module.{k}": torch.from_numpy(v) for k, v in det3d.items()}},
+               pth)
+    seconds = {}
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    convert_second.main([pth, npz, "--config", loop["cfg_path"]])
+    seconds["convert_second"] = time.perf_counter() - t0
+    # the loaded model against the written tensors, each through the layout
+    # map written out here: spconv [kd, kh, kw, Cin, Cout] -> [kd*kh*kw, Cin, Cout]
+    model = build_detector(cfg, device=dev, seed=0).model
+    apply_torch_init(model, npz)
+    stem = det3d["backbone.middle_conv0.0.weight"]
+    mapped = torch.from_numpy(stem.reshape(-1, *stem.shape[3:]))
+    loaded = model.state_dict()
+    same = all(torch.equal(loaded[k].cpu(), v) for k, v in src.items())
+    if not same or not torch.equal(loaded["backbone.l0.stem.weight"].cpu(), mapped):
+        fail("torch_init: the loaded model differs from the written det3d weights")
+    np.random.seed(LOOP_SEED)
+    t0 = time.perf_counter()
+    work = os.path.join(base, "work")
+    result = dist_test.main([loop["cfg_path"], "--torch_init", npz, "--work_dir", work,
+                             "--out", os.path.join(base, "dets.pkl")])
+    torch.cuda.synchronize()
+    seconds["dist_test --torch_init"] = time.perf_counter() - t0
+    np.random.seed(LOOP_SEED)
+    t0 = time.perf_counter()
+    tr = train.main([loop["cfg_path"], "--budget", loop["budget"], "--work_dir", work,
+                     "--epochs", "1", "--no_validate", "--seed", "0", "--torch_init", npz])
+    torch.cuda.synchronize()
+    seconds["train --torch_init --epochs 1"] = time.perf_counter() - t0
+    steps = tr.step
+    del tr
+    launches = {c.__name__: c.launches for c in counters}
+    n_val = len(load(loop["info_val"]))
+    batches = -(-n_val // B)
+    want = {c.__name__: 0 for c in counters}
+    want.update(banded_conv=K1_PER_PREDICT * batches + K1_PER_TRAIN_STEP * steps,
+                iou_matrix=K2_PER_PREDICT * batches, banded_dw=K3_PER_TRAIN_STEP * steps)
+    if steps < 1 or launches != want or "mAP_bev" not in result.get("kitti_style", {}):
+        fail(f"torch_init: {steps} train steps, launched {launches}, expected {want}; dist_test "
+             f"gave {result}")
+    with open(os.path.join(work, "test.log")) as f:
+        if f"initialized from converted torch checkpoint {npz}" not in f.read():
+            fail("torch_init: dist_test did not load the converted checkpoint")
+    with open(os.path.join(work, "train.log")) as f:
+        if f"warm-started from converted torch checkpoint {npz}" not in f.read():
+            fail("torch_init: train did not load the converted checkpoint")
+    print(f"--torch_init at full width ({len(det3d)} det3d tensors of the production config, "
+          f"seeded): the loaded model equals the written weights after the layout map; "
+          f"dist_test {result.get('kitti_style')}; train {steps} steps on budget "
+          f"{loop['budget']}; launches {launches} (as expected); "
+          + "; ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
+    return launches
+
+
+def overfit_phase(bd, tiou, counters) -> tuple:
+    """tests/test_torch_accuracy.py's scene on the card: STEPS train steps
+    from raw points, the mAP gates, and the detections against the same
+    weights on the plain versions. Returns (launches, seconds)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_accuracy as acc
+
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    logs, bundle, batch, out, res = acc.overfit("cuda")
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    if not (logs["loss"] < 0.05 and res["mAP_bev"] >= 0.5 and res["mAP_3d"] >= 0.3):
+        fail(f"overfit twin: loss {logs['loss']:.4f} (< 0.05), {res} (mAP_bev >= 0.5, "
+             "mAP_3d >= 0.3)")
+    from dal3d_tpu_torch.runtime.steps import make_predict_step
+
+    k1, k2 = bd.banded_conv, tiou.iou_matrix
+    bd.banded_conv, tiou.iou_matrix = bd.banded_conv_plain, tiou.iou_matrix_plain
+    try:
+        ref = make_predict_step(bundle)({"points": batch["points"],
+                                         "points_valid": batch["points_valid"]})
+        ref = {k: v.cpu().numpy() for k, v in ref.items()}
+    finally:
+        bd.banded_conv, tiou.iou_matrix = k1, k2
+    def to_frames(o):
+        return {str(b): {k: o[k][b] for k in ("box3d_lidar", "scores", "label_preds",
+                                              "det_valid")} for b in range(B)}
+
+    matched, n_card, n_plain, box_gap, ctr_gap, score_gap = match_loop_dets(to_frames(out),
+                                                                            to_frames(ref))
+    if not matched or not score_gap <= 0.02:
+        fail(f"overfit twin vs plain versions: matched {matched} of {n_card}, score gap "
+             f"{score_gap:.3e}")
+    print(f"overfit twin (tests/test_torch_accuracy.py's scene, {acc.STEPS} steps from raw "
+          f"points on the card): {phase_s:.1f} s; loss {logs['loss']:.4f}; kitti AP40 {res}; "
+          f"detections vs the same weights on plain versions: matched {matched} of {n_card} "
+          f"(plain {n_plain}), match rate {matched / max(n_card, n_plain, 1):.4f}, gaps box "
+          f"{box_gap:.2e} centre {ctr_gap:.2e} m score {score_gap:.2e} (tol 0.02); launches "
+          f"{launches}")
+    return launches, phase_s
+
+
+def raw_points_phase(tmp: str, dev, Config, counters, host_fed_ms, loop, bd, tiou, tg) -> dict:
+    """Phase 16. Returns each kernel's launches over the phase."""
+    t_phase = time.perf_counter()
+    cfgs = {k: Config.fromfile(os.path.join(ROOT, "configs", f)) for k, f in
+            (("cbgs", "cbgs_spatial_temporal.py"), ("bevfusion", "bevfusion_lidar.py"))}
+    vox = {"cbgs": voxelizer_check("CBGS (configs/cbgs_spatial_temporal.py, phase 5's clouds)",
+                                   cfgs["cbgs"], cbgs_clouds(0), dev),
+           "bevfusion": voxelizer_check("BEVFusion (configs/bevfusion_lidar.py, phase 14's "
+                                        "clouds)", cfgs["bevfusion"], bevfusion_clouds(10), dev)}
+    parts = [raw_predicts(cfgs, counters, host_fed_ms, bd, tiou, tg),
+             prepass_phase(tmp, dev, loop, counters),
+             torch_init_phase(tmp, dev, loop, counters)]
+    over, over_s = overfit_phase(bd, tiou, counters)
+    parts.append(over)
+    total = {c.__name__: sum(p[c.__name__] for p in parts) for c in counters}
+    prepass_card_vs_cpu(tmp, loop)
+    print(f"phase 16 (raw points): {time.perf_counter() - t_phase:.1f} s; launches {total}")
+    return dict(launches=total, voxelizer=vox, overfit_s=over_s)
 
 if __name__ == "__main__":
     main()

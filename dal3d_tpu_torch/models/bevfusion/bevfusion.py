@@ -1,22 +1,22 @@
 """BEVFusion, lidar-only TransFusion-L (port of the lidar branch, decoder and
 TransFusion head of ``dal3d_tpu/models/bevfusion/bevfusion.py``).
 
-Host voxels -> SparseEncoder (gather engine) -> dense BEV map -> SECOND +
-SECONDFPN -> TransFusionHead. The camera branch (Swin, LSS FPN, view
+Host voxels, or raw points voxelized on the device (``voxelize_mean_grid``
+at the config's grid) -> SparseEncoder (gather engine) -> dense BEV map ->
+SECOND + SECONDFPN -> TransFusionHead. The camera branch (Swin, LSS FPN, view
 transforms, fusers), the CenterPoint head, map segmentation and training
-are not ported: each raises with its ROADMAP item (A10); raw points need the
-device voxelizer (A9).
+are not ported: each raises with its ROADMAP item (A10).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ...ops import sparse_backend as sp
-from ...ops.voxelize import VoxelConfig
+from ...ops.voxelize import VoxelConfig, voxelize_mean_grid
 from .second import SECOND, SECONDFPN
 from .sparse_encoder import ENCODER_CHANNELS, VOXEL_CAPS, SparseEncoder
 from .transfusion import TransFusionHead
@@ -55,23 +55,34 @@ class BEVFusion(nn.Module):
         self.head = TransFusionHead(int(np.sum(neck_out_channels)), num_classes, num_proposals,
                                     hidden_channel, num_heads, ffn_channel)
 
-    def forward(self, voxel_features: torch.Tensor, voxel_coords: torch.Tensor,
-                voxel_valid: torch.Tensor, stop_at: str = ""):
+    def forward(self, voxel_features: Optional[torch.Tensor] = None,
+                voxel_coords: Optional[torch.Tensor] = None,
+                voxel_valid: Optional[torch.Tensor] = None, stop_at: str = "", *,
+                points: Optional[torch.Tensor] = None,
+                points_valid: Optional[torch.Tensor] = None):
         """Host voxels (features [B, N, F], coords [B, N, 3] int (z, y, x),
-        valid [B, N]) -> the head's predictions with ``bev_feat`` (the neck's
-        map [B, H, W, 512]). ``stop_at`` cuts the forward for the stage split:
-        "lidar" -> {"lidar": encoder map}, "decoder" -> {"decoder": neck map}."""
+        valid [B, N]), or with none of them raw ``points`` [B, P, F] and
+        ``points_valid`` [B, P] voxelized here at the model's grid (as JAX's
+        model without ``voxel_features``) -> the head's predictions with
+        ``bev_feat`` (the neck's map [B, H, W, 512]). Fed voxels must lie in
+        the grid. ``stop_at`` cuts the forward for the stage split: "lidar" ->
+        {"lidar": encoder map}, "decoder" -> {"decoder": neck map}."""
         if self.training:
             raise NotImplementedError("BEVFusion training (Hungarian assignment on the "
                                       "device, gaussian heatmaps, 3D-IoU cost) is not "
                                       "ported: ROADMAP A10; call .eval()")
         if stop_at not in STOP_AT:
             raise ValueError(f"stop_at={stop_at!r}: the lidar-only model stops at {STOP_AT}")
-        valid = voxel_valid.bool()
-        dims = torch.as_tensor(self.sparse_shape, device=voxel_coords.device)
-        outside = ((voxel_coords < 0) | (voxel_coords >= dims)).any(-1) & valid
-        if bool(outside.any()):
-            raise ValueError(f"voxel coordinates outside the grid {self.sparse_shape}")
+        if voxel_features is None:
+            vox = voxelize_mean_grid(points, points_valid, self.voxel_cfg)
+            voxel_features, voxel_coords = vox["features"], vox["coordinates"]
+            valid = vox["voxel_valid"]
+        else:
+            valid = voxel_valid.bool()
+            dims = torch.as_tensor(self.sparse_shape, device=voxel_coords.device)
+            outside = ((voxel_coords < 0) | (voxel_coords >= dims)).any(-1) & valid
+            if bool(outside.any()):
+                raise ValueError(f"voxel coordinates outside the grid {self.sparse_shape}")
         sb = sp.from_voxels(voxel_features.float(), voxel_coords, valid, self.sparse_shape)
         lidar = self.encoder(sb)  # [B, H/8, W/8, 128 * 2]
         if stop_at == "lidar":

@@ -34,6 +34,7 @@ class DetectorBundle:
     config."""
 
     model: Any  # FPNVoxelNet on ``device``
+    voxel_cfg: VoxelConfig  # the device voxelizer's grid (raw-point batches)
     task_anchors: List[TaskAnchors]
     box_coder: GroundBox3dCoder
     assigner: DeviceTargetAssigner
@@ -104,8 +105,11 @@ def build_detector(cfg, device=None, seed: int = 0) -> DetectorBundle:
     if backbone_cfg.get("impl", "gather") != "banded":
         raise ValueError(f"the port runs the banded backbone, config asks for "
                          f"impl={backbone_cfg.get('impl')!r}")
-    nx, ny, nz = grid_size(cfg["voxel_generator"])
-    sparse_shape = (nz + 1, ny, nx)
+    vg = cfg["voxel_generator"]
+    voxel_cfg = VoxelConfig(tuple(vg["range"]), tuple(vg["voxel_size"]),
+                            int(vg["max_points_in_voxel"]), int(vg["max_voxel_num"]))
+    nx, ny, _ = voxel_cfg.grid_size
+    sparse_shape = voxel_cfg.sparse_shape
 
     tasks = [dict(t) for t in cfg["tasks"]]
     num_classes = tuple(int(t["num_class"]) for t in tasks)
@@ -165,19 +169,22 @@ def build_detector(cfg, device=None, seed: int = 0) -> DetectorBundle:
         backbone_dtype=_DTYPES[str(backbone_cfg.get("dtype", "float32"))],
         brick_widths=tuple(backbone_cfg.get("brick_widths", BRICK_WIDTHS_DEFAULT)),
         banded_caps=tuple(backbone_cfg.get("banded_caps", BANDED_CAPS_DEFAULT)),
+        voxel_cfg=voxel_cfg,
     )
     init_random_(model, torch.Generator().manual_seed(seed))
     return DetectorBundle(
-        model=model.to(dev).eval(), task_anchors=task_anchors, box_coder=box_coder,
-        assigner=assigner, loss_cfg=loss_cfg, test_cfg=test_cfg, num_classes=num_classes,
-        device=dev)
+        model=model.to(dev).eval(), voxel_cfg=voxel_cfg, task_anchors=task_anchors,
+        box_coder=box_coder, assigner=assigner, loss_cfg=loss_cfg, test_cfg=test_cfg,
+        num_classes=num_classes, device=dev)
 
 
 def host_voxelize_cfg(cfg):
     """``voxelize_host`` dict for the data pipeline (the voxel_generator
     knobs: range, voxel_size, max_points_in_voxel, max_voxel_num, bf16), or
-    None when the config turns host voxelization off. No brick-plan sub-dict:
-    the backbone builds its plans on the GPU."""
+    None when the config sets ``voxelize_host = False``: the loaders then ship
+    the padded raw points alone, and the steps voxelize them on the device
+    (``ops/voxelize.py``). No brick-plan sub-dict: the backbone builds its
+    plans on the GPU."""
     if not cfg.get("voxelize_host", True):
         return None
     return dict(cfg["voxel_generator"])

@@ -1,13 +1,15 @@
-"""FPNVoxelNet on host voxels (port of
-``dal3d_tpu/models/detectors/voxelnet.py``): banded sparse backbone -> RPN ->
-multi-group head, plus the pooled neck embedding the AL selectors read."""
+"""FPNVoxelNet (port of ``dal3d_tpu/models/detectors/voxelnet.py``): host
+voxels, or raw points voxelized on the input's device -> banded sparse
+backbone -> RPN -> multi-group head, plus the pooled neck embedding the AL
+selectors read."""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
+from ...ops.voxelize import VoxelConfig, voxelize_mean, voxelize_mean_grid
 from ..backbones.scn import BANDED_CAPS_DEFAULT, BRICK_WIDTHS_DEFAULT, FPNSpMiddleResNetFHD
 from ..heads.mg_head import MultiGroupHead
 from ..necks.rpn import RPN
@@ -20,8 +22,14 @@ class FPNVoxelNet(nn.Module):
                  rpn_layer_nums=(5, 5), rpn_ds_strides=(1, 2),
                  rpn_ds_filters=(128, 256), rpn_us_strides=(1, 2),
                  rpn_us_filters=(256, 256), backbone_dtype: torch.dtype = torch.float32,
-                 brick_widths=BRICK_WIDTHS_DEFAULT, banded_caps=BANDED_CAPS_DEFAULT):
+                 brick_widths=BRICK_WIDTHS_DEFAULT, banded_caps=BANDED_CAPS_DEFAULT,
+                 voxel_cfg: Optional[VoxelConfig] = None, sort_free_voxelize: bool = True):
         super().__init__()
+        # the device voxelizer of a raw-point forward: the grid variant
+        # (ascending cells, mean of all points) unless sort_free_voxelize is
+        # off (first arrivals, mean of the first max_points_in_voxel)
+        self.voxel_cfg = voxel_cfg
+        self.sort_free_voxelize = sort_free_voxelize
         # depth left after the four downsamples (kernel 3, stride 2, z
         # padding 1, 1, 0, 0): the BEV map has 128 * d_out channels
         d_out = int(sparse_shape[0])
@@ -35,10 +43,25 @@ class FPNVoxelNet(nn.Module):
         self.head = MultiGroupHead(num_classes, in_channels=sum(rpn_us_filters),
                                    code_size=code_size)
 
-    def forward(self, vf: torch.Tensor, vc: torch.Tensor, vv: torch.Tensor):
+    def voxelize(self, points: torch.Tensor, points_valid: torch.Tensor):
+        """Raw points [B, P, F] + validity [B, P] -> (features [B, M, F],
+        coords [B, M, 3] zyx, valid [B, M]) on the points' device."""
+        if self.voxel_cfg is None:
+            raise ValueError("a raw-point forward needs the model's voxel_cfg")
+        fn = voxelize_mean_grid if self.sort_free_voxelize else voxelize_mean
+        vox = fn(points, points_valid, self.voxel_cfg)
+        return vox["features"], vox["coordinates"], vox["voxel_valid"]
+
+    def forward(self, vf: Optional[torch.Tensor] = None, vc: Optional[torch.Tensor] = None,
+                vv: Optional[torch.Tensor] = None, *, points: Optional[torch.Tensor] = None,
+                points_valid: Optional[torch.Tensor] = None):
         """Host voxels (features [B, N, F], coords [B, N, 3] zyx, valid
-        [B, N]) -> {"preds", "embedding" [B, 512], "dense", "neck_feat",
-        "middle"}."""
+        [B, N]), or with none of them raw ``points`` [B, P, F] and
+        ``points_valid`` [B, P], voxelized here (as JAX's ``__call__`` with
+        ``voxels=None``) -> {"preds", "embedding" [B, 512], "dense",
+        "neck_feat", "middle"}."""
+        if vf is None:
+            vf, vc, vv = self.voxelize(points, points_valid)
         dense, middle = self.backbone(vf, vc, vv)
         neck = self.neck(dense)
         return {

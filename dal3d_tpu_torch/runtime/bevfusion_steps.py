@@ -5,8 +5,9 @@ BEVFusion training, ROADMAP A10).
 Batch contract (leading dim B): host voxels ``voxel_features`` [B, N, F],
 ``voxel_coords`` [B, N, 3] int (z, y, x), ``voxel_valid`` [B, N] (numpy
 arrays or tensors), as the dataset's ``ReformatFixedShape`` with
-``voxelize_host`` makes them. Raw ``points`` without host voxels need the
-device voxelizer (ROADMAP A9) and raise. Camera keys are ignored by the
+``voxelize_host`` makes them; or, without them, raw ``points`` [B, P, F] and
+``points_valid`` [B, P], voxelized on the device at the config's grid
+(``ops/voxelize.py::voxelize_mean_grid``). Camera keys are ignored by the
 lidar-only model.
 """
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Callable, Dict
 import torch
 
 from ..models.bevfusion.transfusion import transfusion_decode
-from .steps import _full_f32, _to_device
+from .steps import _full_f32, model_inputs
 
 CAMERA_KEYS = (
     "images", "depth_images", "camera2lidar_rots", "camera2lidar_trans",
@@ -49,16 +50,14 @@ def make_bevfusion_predict_step(bundle) -> Callable[[Dict], Dict[str, torch.Tens
 
     @torch.inference_mode()
     def predict_step(batch: Dict) -> Dict[str, torch.Tensor]:
-        if "voxel_features" not in batch:
-            raise NotImplementedError("the BEVFusion predict step takes host voxels "
-                                      "(voxel_features / voxel_coords / voxel_valid); raw "
-                                      "points need the device voxelizer: ROADMAP A9")
         if model.training:
             model.eval()
+        inputs = model_inputs(batch, dev)
         with autotuned_convs():
-            preds = model(_to_device(batch["voxel_features"], dev, torch.float32),
-                          _to_device(batch["voxel_coords"], dev, torch.int32),
-                          _to_device(batch["voxel_valid"], dev, torch.bool))
+            if "vf" in inputs:
+                preds = model(inputs["vf"].float(), inputs["vc"], inputs["vv"])
+            else:
+                preds = model(**inputs)
         out = transfusion_decode(preds, bundle.test_cfg)
         out["bev_feat"] = preds["bev_feat"]
         return out

@@ -9,10 +9,10 @@ kitti-style AP-40 sweep against the infos' gt boxes, which gives synthetic
 runs a detection-quality number to check.
 
 Where the port differs from the JAX module: the batches feed the predict
-step their host voxels alone (the port builds its sparse plans on the
-device, so there are no host plan keys), the batch size is the config's
-``samples_per_gpu`` on one card (multi-GPU is ROADMAP A11), and
-``--torch_init`` is refused (ROADMAP A8.f).
+step their host voxels, or their raw points when the config sets
+``voxelize_host = False`` (the port builds its sparse plans on the device,
+so there are no host plan keys), and the batch size is the config's
+``samples_per_gpu`` on one card (multi-GPU is ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -21,7 +21,6 @@ import os
 import pickle
 from typing import Callable, Dict, Optional
 
-FEED_KEYS = ("voxel_features", "voxel_coords", "voxel_valid")
 DET_KEYS = ("box3d_lidar", "scores", "label_preds", "det_valid")
 
 
@@ -34,10 +33,12 @@ def predict_dataset(
     """Run the predict step over a loader; returns token -> detections (host
     arrays). The padded repeats of a test-mode loader's last batch are
     dropped by token."""
+    from .steps import predict_feed
+
     detections: Dict[str, dict] = {}
     n_done = 0
     for batch in loader:
-        out = predict({k: batch[k] for k in FEED_KEYS})
+        out = predict(predict_feed(batch))
         out = {k: out[k].cpu().numpy() for k in DET_KEYS}
         for i, md in enumerate(batch["metadata"]):
             token = md.get("token", str(n_done))
@@ -99,7 +100,8 @@ def evaluate_dataset(
 
 
 def build_val_dataset(cfg):
-    """The config's ``data.val`` dataset in test mode, fed host voxels."""
+    """The config's ``data.val`` dataset in test mode, fed host voxels (raw
+    points under ``voxelize_host = False``)."""
     from ..data import NuScenesDataset
     from ..models.builder import loader_voxelize_cfg
 
@@ -121,7 +123,9 @@ def run_eval_cli(args) -> Dict:
     """Shared body of ``tools/test.py`` and ``tools/dist_test.py``. ``args``
     needs: config, checkpoint, torch_init (optional), out, work_dir,
     batch_size, testset, cpu. Runs on the CUDA card (raises without one)
-    unless ``args.cpu``."""
+    unless ``args.cpu``. The weights come from ``--torch_init`` (an npz of a
+    det3d checkpoint written by ``tools/convert_second.py``) when it is given,
+    else from ``--checkpoint``, as in JAX's CLI."""
     from ..data import DataLoader
     from ..device import resolve_device
     from ..models.builder import build_detector, eval_test_cfg
@@ -131,11 +135,9 @@ def run_eval_cli(args) -> Dict:
     from .steps import make_predict_step
 
     device = resolve_device("cpu" if args.cpu else None)  # raises here without a GPU
-    if getattr(args, "torch_init", None):
-        raise NotImplementedError("--torch_init: the port-side loader of converted det3d "
-                                  "checkpoints is not ported yet (ROADMAP A8.f)")
-    if not args.checkpoint:
-        raise SystemExit("--checkpoint is required")
+    torch_init = getattr(args, "torch_init", None)
+    if not (torch_init or args.checkpoint):
+        raise SystemExit("one of --checkpoint / --torch_init is required")
     cfg = Config.fromfile(args.config)
     work_dir = args.work_dir or cfg["work_dir"]
     os.makedirs(work_dir, exist_ok=True)
@@ -146,8 +148,14 @@ def run_eval_cli(args) -> Dict:
     dataset = build_val_dataset(cfg)
     batch_size = args.batch_size or cfg["data"].get("samples_per_gpu", 2)
     loader = DataLoader(dataset, batch_size, shuffle=False, drop_last=False)
-    _, meta = ckpt.load_checkpoint(args.checkpoint, bundle.model)
-    logger.info(f"loaded checkpoint epoch {meta.get('epoch')}")
+    if torch_init:
+        from ..models.convert_second import apply_torch_init
+
+        apply_torch_init(bundle.model, torch_init, logger=logger)
+        logger.info(f"initialized from converted torch checkpoint {torch_init}")
+    else:
+        _, meta = ckpt.load_checkpoint(args.checkpoint, bundle.model)
+        logger.info(f"loaded checkpoint epoch {meta.get('epoch')}")
 
     detections = predict_dataset(
         make_predict_step(bundle), loader, logger=logger,

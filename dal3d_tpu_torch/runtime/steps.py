@@ -1,14 +1,18 @@
 """Train and predict steps (port of ``dal3d_tpu/runtime/steps.py``).
 
-Predict: host voxels in; detections, the pooled neck embedding and the
-per-frame score entropy out: the fixed-shape dict the evaluation and the AL
-pool scoring consume. Train: host voxels and padded per-task GT boxes in; one
-forward in train mode, on-device target assignment, loss, backward, clip and
-AdamW update; five scalar logs out.
+Predict: host voxels (or raw points) in; detections, the pooled neck
+embedding and the per-frame score entropy out: the fixed-shape dict the
+evaluation and the AL pool scoring consume. Train: host voxels (or raw
+points) and padded per-task GT boxes in; one forward in train mode, on-device
+target assignment, loss, backward, clip and AdamW update; five scalar logs
+out.
 
 Batch dict contract (leading dim B):
   voxel_features [B, N, F] f32 or bf16, voxel_coords [B, N, 3] int (z, y, x),
   voxel_valid [B, N] bool
+  or, without voxel_features (a config with ``voxelize_host = False``):
+  points [B, P, F] f32 (padded), points_valid [B, P] bool, voxelized on the
+  device (``ops/voxelize.py``); with host voxels the points are not moved
   gt_boxes      list per task of [B, G, 9]            (train)
   gt_classes    list per task of [B, G] int32, task-local 1-based, 0 = pad
 """
@@ -25,6 +29,27 @@ from ..models.heads.mg_head import multi_group_loss, multi_group_predict
 def _to_device(x, device, dtype=None):
     t = torch.as_tensor(np.asarray(x)) if not isinstance(x, torch.Tensor) else x
     return t.to(device=device, dtype=dtype, non_blocking=True)
+
+
+VOXEL_KEYS = ("voxel_features", "voxel_coords", "voxel_valid")
+POINT_KEYS = ("points", "points_valid")
+
+
+def predict_feed(batch: Dict) -> Dict:
+    """What a loader's batch feeds the predict step: its host voxels, or its
+    raw points when the loader ships no voxels (``voxelize_host = False``)."""
+    return {k: batch[k] for k in (VOXEL_KEYS if "voxel_features" in batch else POINT_KEYS)}
+
+
+def model_inputs(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """The model's keyword inputs from a batch: its host voxels when it has
+    them, else its raw points (as JAX's steps choose)."""
+    if "voxel_features" in batch:
+        return {"vf": _to_device(batch["voxel_features"], device),
+                "vc": _to_device(batch["voxel_coords"], device, torch.int32),
+                "vv": _to_device(batch["voxel_valid"], device, torch.bool)}
+    return {"points": _to_device(batch["points"], device, torch.float32),
+            "points_valid": _to_device(batch["points_valid"], device, torch.bool)}
 
 
 def _full_f32() -> None:
@@ -49,13 +74,11 @@ def make_train_step(bundle, optimizer) -> Callable[[Dict], Dict[str, torch.Tenso
     def train_step(batch: Dict) -> Dict[str, torch.Tensor]:
         if not model.training:
             model.train()
-        vf = _to_device(batch["voxel_features"], dev)
-        vc = _to_device(batch["voxel_coords"], dev, torch.int32)
-        vv = _to_device(batch["voxel_valid"], dev, torch.bool)
+        inputs = model_inputs(batch, dev)
         gt_boxes = [_to_device(b, dev, torch.float32) for b in batch["gt_boxes"]]
         gt_classes = [_to_device(c, dev, torch.int32) for c in batch["gt_classes"]]
         optimizer.zero_grad()
-        out = model(vf, vc, vv)
+        out = model(**inputs)
         labels, targets, _ = bundle.assigner.assign_all(gt_boxes, gt_classes)
         logs = multi_group_loss(out["preds"], labels, targets, bundle.num_classes,
                                 bundle.loss_cfg)
@@ -77,7 +100,8 @@ def make_predict_step(bundle) -> Callable[[Dict], Dict[str, torch.Tensor]]:
 
     The step takes a batch dict with ``voxel_features`` [B, N, F] (f32 or
     bf16), ``voxel_coords`` [B, N, 3] int (z, y, x) and ``voxel_valid``
-    [B, N] (numpy arrays or tensors, moved to the model's device) and returns
+    [B, N], or without them ``points`` [B, P, F] and ``points_valid`` [B, P]
+    (numpy arrays or tensors, moved to the model's device) and returns
     box3d_lidar [B, D, 9], scores [B, D], label_preds [B, D], det_valid
     [B, D], embedding [B, 512] and score_entropy [B].
 
@@ -92,10 +116,7 @@ def make_predict_step(bundle) -> Callable[[Dict], Dict[str, torch.Tensor]]:
     def predict_step(batch: Dict) -> Dict[str, torch.Tensor]:
         if model.training:
             model.eval()
-        vf = _to_device(batch["voxel_features"], dev)
-        vc = _to_device(batch["voxel_coords"], dev, torch.int32)
-        vv = _to_device(batch["voxel_valid"], dev, torch.bool)
-        out = model(vf, vc, vv)
+        out = model(**model_inputs(batch, dev))
         dets = multi_group_predict(out["preds"], bundle.task_anchors, bundle.box_coder,
                                    bundle.test_cfg)
         dets["embedding"] = out["embedding"]

@@ -57,7 +57,7 @@ def build_pool_scoring(cfg, sel_cfg, device, checkpoint, batch_size=None, logger
     from ..data import DataLoader, NuScenesDataset
     from ..models.builder import build_detector, loader_voxelize_cfg
     from ..runtime import checkpoint as ckpt
-    from ..runtime.steps import make_predict_step
+    from ..runtime.steps import make_predict_step, predict_feed
 
     bundle = build_detector(cfg, device=device)
     # pool dataset: val pipeline, TRAIN pool infos
@@ -84,10 +84,9 @@ def build_pool_scoring(cfg, sel_cfg, device, checkpoint, batch_size=None, logger
     if logger is not None:
         logger.info(f"loaded checkpoint epoch {meta.get('epoch')}")
     predict = make_predict_step(bundle)
-    keys = ("voxel_features", "voxel_coords", "voxel_valid")
 
     def score_fn(batch):
-        return predict({k: batch[k] for k in keys})
+        return predict(predict_feed(batch))
 
     return score_fn, loader
 

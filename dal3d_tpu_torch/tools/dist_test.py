@@ -7,7 +7,8 @@
 One card, one process: the body is ``tools/test.py``'s
 (``runtime/evaluation.py::run_eval_cli``); frames sharded over several GPUs
 wait for ROADMAP A11. It runs on the CUDA card; ``--cpu`` is the only way
-onto the CPU.
+onto the CPU. Beyond the JAX CLI's flags it takes ``tools/test.py``'s
+``--torch_init`` (then ``--checkpoint`` may be left out).
 """
 import argparse
 
@@ -15,7 +16,9 @@ import argparse
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Evaluate a detector (distributed)")
     p.add_argument("config")
-    p.add_argument("--checkpoint", required=True, help="work_dir with checkpoints")
+    p.add_argument("--checkpoint", help="work_dir with checkpoints")
+    p.add_argument("--torch_init", help="npz of a converted det3d checkpoint "
+                   "(tools/convert_second.py); wins over --checkpoint")
     p.add_argument("--out", help="pkl file to dump raw detections")
     p.add_argument("--work_dir", default=None)
     p.add_argument("--batch_size", type=int, default=None)

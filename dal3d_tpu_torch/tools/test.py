@@ -9,8 +9,10 @@ the nuScenes submission json to the work dir (and runs the devkit when it is
 installed) and logs a kitti-style AP-40 sweep against the infos' gt boxes
 (``runtime/evaluation.py::run_eval_cli``, shared with ``tools/dist_test.py``).
 It runs on the CUDA card; ``--cpu`` is the only way onto the CPU (every
-kernel wrapper then takes its plain PyTorch version). ``--torch_init`` is
-not ported yet (ROADMAP A8.f).
+kernel wrapper then takes its plain PyTorch version). ``--torch_init NPZ``
+takes the weights of a det3d checkpoint converted by
+``python -m dal3d_tpu_torch.tools.convert_second`` in place of
+``--checkpoint`` (and wins over it, as in the JAX CLI).
 """
 import argparse
 
@@ -19,7 +21,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Evaluate a detector")
     p.add_argument("config")
     p.add_argument("--checkpoint", help="work_dir with checkpoints")
-    p.add_argument("--torch_init", help="npz of a converted reference checkpoint (not ported)")
+    p.add_argument("--torch_init", help="npz of a converted det3d checkpoint "
+                   "(tools/convert_second.py); wins over --checkpoint")
     p.add_argument("--out", help="pkl file to dump raw detections")
     p.add_argument("--work_dir", default=None)
     p.add_argument("--batch_size", type=int, default=None)

@@ -30,9 +30,13 @@ pipeline and loader themselves give equal batches after equal draws).
 It runs on the CUDA card; ``--cpu`` is the only way onto the CPU (every
 kernel wrapper then takes its plain PyTorch version).
 
+``--torch_init NPZ`` starts from the weights of a det3d checkpoint converted
+by ``python -m dal3d_tpu_torch.tools.convert_second``; ``--resume_from`` and
+``--load_from`` win over it, as in the JAX CLI.
+
 Not ported yet, each refused with the ROADMAP item it waits for:
-``estimator`` configs and the partial-label dataset (A9), ``--torch_init``
-(A1-5: the port-side det3d weights loader), ``--n_model > 1`` (A11).
+``estimator`` configs and the partial-label dataset (A9), ``--n_model > 1``
+(A11).
 """
 import argparse
 import os
@@ -49,7 +53,8 @@ def parse_args(argv=None):
     p.add_argument("--work_dir", help="the dir to save logs and checkpoints")
     p.add_argument("--resume_from", help="checkpoint dir to resume from")
     p.add_argument("--load_from", help="checkpoint dir to warm-start weights from")
-    p.add_argument("--torch_init", help="npz of a converted reference checkpoint (not ported)")
+    p.add_argument("--torch_init", help="npz of a converted det3d checkpoint "
+                   "(tools/convert_second.py)")
     p.add_argument("--budget", type=str, default=None, help="AL budget suffix for info paths")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--epochs", type=int, default=None, help="override total epochs")
@@ -62,9 +67,6 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args, cfg) -> None:
-    if args.torch_init:
-        raise NotImplementedError("--torch_init: the port-side loader of converted det3d "
-                                  "checkpoints is not ported yet (ROADMAP A1-5)")
     if args.n_model != 1:
         raise NotImplementedError("--n_model > 1: the device mesh is not ported yet "
                                   "(ROADMAP A11)")
@@ -162,6 +164,11 @@ def main(argv=None):
         trainer.resume(work_dir=rd)
     elif args.load_from:
         trainer.load_from(args.load_from)
+    elif args.torch_init:
+        from ..models.convert_second import apply_torch_init
+
+        apply_torch_init(bundle.model, args.torch_init, logger=logger)
+        logger.info(f"warm-started from converted torch checkpoint {args.torch_init}")
 
     # in-training val workflow [('train', N), ('val', 1)]: evaluate every N
     # train epochs and after the last

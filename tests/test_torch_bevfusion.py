@@ -211,9 +211,21 @@ def test_build_from_config_file_and_what_raises(tmp_path):
         with pytest.raises(NotImplementedError, match=item):
             build_bevfusion(tiny_cfg(**extra), device="cpu")
     step = make_bevfusion_predict_step(bundle)
-    pts = np.zeros((1, 10, 5), np.float32)
-    with pytest.raises(NotImplementedError, match="A9"):
-        step({"points": pts, "points_valid": np.ones((1, 10), bool)})
+    # raw points, refused before the device voxelizer, now run: voxelized at
+    # the config's grid, they give what their host-free grid voxels give
+    rng = np.random.RandomState(4)
+    pts = np.concatenate([rng.uniform(-6, 6, (1, 400, 2)), rng.uniform(-4, 2, (1, 400, 1)),
+                          rng.uniform(0, 1, (1, 400, 2))], -1).astype(np.float32)
+    raw = step({"points": pts, "points_valid": np.ones((1, 400), bool)})
+    from dal3d_tpu_torch.ops.voxelize import voxelize_mean_grid
+
+    vox = voxelize_mean_grid(torch.from_numpy(pts), torch.ones(1, 400, dtype=torch.bool),
+                             bundle.voxel_cfg)
+    fed = step({"voxel_features": vox["features"], "voxel_coords": vox["coordinates"],
+                "voxel_valid": vox["voxel_valid"]})
+    assert int(vox["num_voxels"][0]) > 300
+    for k in ("box3d_lidar", "scores", "label_preds", "det_valid"):
+        assert torch.equal(raw[k], fed[k]), k
     vf, vc, vv = small_voxels(1, B=1, N=200)
     bundle.model.train()
     with pytest.raises(NotImplementedError, match="A10"):

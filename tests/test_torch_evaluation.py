@@ -9,8 +9,9 @@ package's evaluation of the same detections:
 - ``dist_test --cpu`` on a tiny synthetic set writes ``--out`` and a
   ``results_nusc.json`` equal to JAX's conversion of the same detections,
   and ``test`` gives the same result;
-- ``--torch_init`` and an approximate top-k are refused with their ROADMAP
-  items; without ``--cpu`` the CLIs need a GPU."""
+- ``--torch_init`` gives both CLIs the result of the checkpoint whose
+  weights it holds; an approximate top-k is refused with its ROADMAP item;
+  without ``--cpu`` the CLIs need a GPU."""
 import json
 import os
 import pickle
@@ -148,10 +149,48 @@ def test_test_cli_gives_the_dist_test_result(evalset, cli_run):
         result, results={"nusc": result["results"]["nusc"].replace("work_dist", "work_test")})
 
 
+def test_torch_init_gives_the_checkpoint_result(evalset):
+    """``--torch_init`` (refused before the port's det3d loader): the
+    checkpoint's weights written as a det3d npz give both CLIs the
+    checkpoint's result, and win over a ``--checkpoint`` given beside them."""
+    from dal3d_tpu_torch.models.convert_second import (save_raw_state_dict_npz,
+                                                       to_det3d_state_dict)
+    from dal3d_tpu_torch.runtime.checkpoint import load_checkpoint
+
+    root, _, cfg, ckpt = evalset
+    np.random.seed(0)  # the sweep draw of a frame uses numpy's global generator
+    ref_out = str(root / "work_ti_ref.pkl")
+    result = dist_test.main([cfg, "--checkpoint", ckpt, "--work_dir", str(root / "work_ti_ref"),
+                             "--out", ref_out, "--cpu"])
+    with open(ref_out, "rb") as f:
+        dets = pickle.load(f)
+    model = build_detector(Config.fromfile(cfg), device="cpu").model
+    load_checkpoint(ckpt, model)
+    npz = str(root / "det3d.npz")
+    save_raw_state_dict_npz(to_det3d_state_dict(model.state_dict()), npz)
+    other = str(root / "other_ckpt")
+    save_checkpoint(other, build_detector(Config.fromfile(cfg), device="cpu", seed=5).model, 1)
+    for cli, extra, name in ((dist_test, [], "work_ti_dist"),
+                             (test_cli, ["--checkpoint", other], "work_ti_test")):
+        work, out = str(root / name), str(root / f"{name}.pkl")
+        np.random.seed(0)
+        got = cli.main([cfg, "--torch_init", npz, "--work_dir", work, "--out", out, "--cpu"]
+                       + extra)
+        assert got == dict(result, results={"nusc": result["results"]["nusc"].replace(
+            "work_ti_ref", name)})
+        with open(out, "rb") as f:
+            got_dets = pickle.load(f)
+        for token, d in dets.items():
+            for k, v in d.items():
+                np.testing.assert_array_equal(got_dets[token][k], v, err_msg=k)
+        log = open(os.path.join(work, "test.log")).read()
+        assert f"initialized from converted torch checkpoint {npz}" in log
+
+
 def test_unported_options_are_refused(evalset, monkeypatch):
     root, _, cfg, ckpt = evalset
-    with pytest.raises(NotImplementedError, match="ROADMAP A8.f"):
-        test_cli.main([cfg, "--torch_init", "weights.npz", "--cpu"])
+    with pytest.raises(SystemExit, match="one of --checkpoint / --torch_init"):
+        test_cli.main([cfg, "--cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP A9.i"):
         eval_test_cfg({"test_cfg": {"nms": {"use_approx_topk": True}}})
     assert eval_test_cfg({"test_cfg": {"nms": {}}})["nms"]["use_approx_topk"] is False

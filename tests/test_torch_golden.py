@@ -4,8 +4,9 @@ The fixture holds the det3d torch replica's neck / head activations and
 post-NMS detections for a fully dense scene, made with the seeded det3d-named
 weights of tests/oracle_utils.py. Those weights reach the port through both
 bridges (det3d -> flax: dal3d_tpu/models/convert_second.py; flax -> port:
-dal3d_tpu_torch/models/convert_flax.py), and the port's banded engine runs
-the scene at the oracle scale. Same tolerances as tests/test_golden_fixture.py.
+dal3d_tpu_torch/models/convert_flax.py), and again through the port's own
+det3d loader (dal3d_tpu_torch/models/convert_second.py), and the port's
+banded engine runs the scene at the oracle scale. Same tolerances as tests/test_golden_fixture.py.
 
 Part 2: the port's detections of the scene through the port's nuScenes
 conversion (``data/datasets/nusc_eval.py``) reproduce the frozen submission
@@ -22,6 +23,7 @@ from dal3d_tpu_torch.core.anchors import generate_task_anchors
 from dal3d_tpu_torch.core.box_coders import GroundBox3dCoder
 from dal3d_tpu_torch.data.datasets.nusc_eval import detections_to_nusc_boxes
 from dal3d_tpu_torch.models.convert_flax import load_flax_variables
+from dal3d_tpu_torch.models.convert_second import convert_second_state_dict as port_convert_second
 from dal3d_tpu_torch.models.detectors.voxelnet import FPNVoxelNet
 from dal3d_tpu_torch.models.heads.mg_head import TestConfig, multi_group_predict
 from oracle_utils import (DS_FILTERS, DS_STRIDES, GOLDEN_CLASS_NAMES, LAYER_NUMS, NUM_CLASSES,
@@ -31,18 +33,24 @@ from torch_port_utils import t
 FIXDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 
 
-@pytest.fixture(scope="module")
-def port_out():
+@pytest.fixture(scope="module", params=["two_bridges", "port_loader"])
+def port_out(request):
+    """The port's outputs on the fixture's scene, its det3d weights loaded
+    through both bridges (det3d -> flax -> port) or through the port's own
+    det3d loader (models/convert_second.py)."""
     rng = np.random.RandomState(0)
     sd = rnd_state_dict(rng, normalized=True)
     vf, vc, vv, _ = dense_voxels(rng)
-    params, stats = convert_second_state_dict(sd, nested_l0=True)
     model = FPNVoxelNet(
         VCFG.sparse_shape, num_classes=NUM_CLASSES, rpn_layer_nums=LAYER_NUMS,
         rpn_ds_strides=DS_STRIDES, rpn_ds_filters=DS_FILTERS, rpn_us_strides=US_STRIDES,
         rpn_us_filters=US_FILTERS, brick_widths=(16, 8, 4, 2, 2),
         banded_caps=(12032, 2048, 512, 256, 256)).eval()
-    load_flax_variables(model, {"params": params, "batch_stats": stats})
+    if request.param == "two_bridges":
+        params, stats = convert_second_state_dict(sd, nested_l0=True)
+        load_flax_variables(model, {"params": params, "batch_stats": stats})
+    else:
+        model.load_state_dict(port_convert_second(sd), strict=True)
     # the fixture's anchors / coder / test config (oracle_utils.golden_predict_setup)
     a = dict(type="anchor_generator_range", rotations=[0, 1.57], velocities=[0, 0])
     gens = [dict(**a, sizes=[1.97, 4.63, 1.74], anchor_ranges=[-8, -8, -0.95, 8, 8, -0.95]),

@@ -20,7 +20,8 @@ from dal3d_tpu_torch.ops import gather as tg
 from dal3d_tpu_torch.ops import iou_matrix as tiou
 from dal3d_tpu_torch.selectors import BaseSelector
 from dal3d_tpu_torch.selectors.maps import feature_map
-from dal3d_tpu_torch.tools import active_select
+from dal3d_tpu_torch.tools import (active_select, cald_ent, cald_pred_list, convert_second,
+                                   ppal_pred_list, ppal_unc)
 from dal3d_tpu_torch.utils.fileio import dump
 from torch_port_utils import mk_rulebook, small_cfg, t
 
@@ -183,3 +184,20 @@ def test_gather_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         tg.gather_rows(torch.zeros(4, 8, device="meta"),
                        torch.zeros(3, dtype=torch.int32, device="meta"))
+
+
+@pytest.mark.parametrize("cli,args", [
+    (ppal_pred_list, ["cfg.py", "--checkpoint", "work"]),
+    (cald_pred_list, ["cfg.py", "--checkpoint", "work", "--augment"]),
+    (ppal_unc, ["cfg.py"]),
+    (cald_ent, ["cfg.py"]),
+    (convert_second, ["det3d.pth", "out.npz"]),
+])
+def test_new_clis_without_cpu_flag_need_a_gpu(monkeypatch, tmp_path, cli, args):
+    """The prediction-list, PPAL / CALD pre-pass and checkpoint-conversion
+    CLIs raise on a box without a GPU before reading or writing anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(args)
+    assert os.listdir(tmp_path) == []

@@ -3,8 +3,9 @@ kernels): ``python -m dal3d_tpu_torch.tools.train`` on a small synthetic
 labeled set trains an epoch, writes a checkpoint, resumes from it with the
 step count and the schedule carried on, and the selection CLI loads the
 result; a workflow with a val phase evaluates after the epoch; a GT-AUG
-database that exists is pasted from (with ``--budget``, the subset's); every
-option that is not ported yet raises and names its ROADMAP item."""
+database that exists is pasted from (with ``--budget``, the subset's);
+``--torch_init`` starts from a converted det3d checkpoint; every option that
+is not ported yet raises and names its ROADMAP item."""
 import ast
 import os
 import re
@@ -134,14 +135,12 @@ def test_cli_without_cpu_flag_needs_a_gpu(labeled, monkeypatch):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("torch_init", "A1-5"), ("n_model", "A11"), ("estimator", "A9"), ("partial_dataset", "A9")])
+    ("n_model", "A11"), ("estimator", "A9"), ("partial_dataset", "A9")])
 def test_unported_options_raise_with_their_roadmap_item(labeled, case, item):
     root, info = labeled
     work = str(root / f"work_{case}")
     args, over = ["--cpu", "--no_validate"], {}
-    if case == "torch_init":
-        args += ["--torch_init", "weights.npz"]
-    elif case == "n_model":
+    if case == "n_model":
         args += ["--n_model", "2"]
     elif case == "estimator":
         over = dict(estimator=dict(type="Estimator"))
@@ -153,15 +152,37 @@ def test_unported_options_raise_with_their_roadmap_item(labeled, case, item):
     assert not os.path.exists(os.path.join(work, "checkpoints"))
 
 
-@pytest.mark.parametrize("case", ["val_workflow", "db_sampler"])
+@pytest.mark.parametrize("case", ["val_workflow", "db_sampler", "torch_init"])
 def test_options_that_were_refused_now_run(labeled, case):
-    """The two options the port refused before its evaluation and GT-AUG
-    slice: a workflow with a val phase (without --no_validate) returns the
-    kitti-style metrics after the last epoch; a GT-AUG database that exists
-    is built and pasted from, under --budget the subset's database."""
+    """The options the port refused before its evaluation, GT-AUG and det3d
+    loader slices: a workflow with a val phase (without --no_validate)
+    returns the kitti-style metrics after the last epoch; a GT-AUG database
+    that exists is built and pasted from, under --budget the subset's
+    database; ``--torch_init`` starts from a converted det3d checkpoint."""
     root, info = labeled
     work = str(root / f"work_ran_{case}")
-    if case == "val_workflow":
+    if case == "torch_init":
+        from dal3d_tpu_torch.models.builder import build_detector
+        from dal3d_tpu_torch.models.convert_second import (save_raw_state_dict_npz,
+                                                           to_det3d_state_dict)
+        from dal3d_tpu_torch.utils.config import Config
+
+        cfg = _write_cfg(root / f"cfg_ran_{case}.py", info, work)
+        npz = str(root / "det3d.npz")
+        src = build_detector(Config.fromfile(cfg), device="cpu", seed=4).model
+        save_raw_state_dict_npz(to_det3d_state_dict(src.state_dict()), npz)
+        tr = train.main([cfg, "--work_dir", work, "--epochs", "1", "--cpu", "--seed", "0",
+                         "--no_validate", "--torch_init", npz])
+        log = open(os.path.join(work, "train.log")).read()
+        assert f"warm-started from converted torch checkpoint {npz}" in log
+        # a few AdamW steps (lr <= 2e-3) moved the weights from the
+        # checkpoint's, far nearer to them than to the seed-0 model's
+        k = "neck.blocks.1.1.weight"
+        ran = tr.bundle.model.state_dict()[k]
+        seed0 = build_detector(Config.fromfile(cfg), device="cpu", seed=0).model.state_dict()[k]
+        assert float((ran - src.state_dict()[k]).abs().mean()) < 0.2 * float(
+            (ran - seed0).abs().mean())
+    elif case == "val_workflow":
         cfg = _write_cfg(root / f"cfg_ran_{case}.py", info, work)
         tr = train.main([cfg, "--work_dir", work, "--epochs", "1", "--cpu", "--seed", "0"])
         log = open(os.path.join(work, "train.log")).read()
