@@ -17,7 +17,10 @@ predict on the gather engine (host voxels -> SparseEncoder -> SECOND +
 SECONDFPN -> TransFusion head -> decoded boxes), and two active-learning
 rounds closed through the CLIs (data preparation and GT database -> seed
 selection -> the subset's GT database -> training with GT-AUG and its val
-phase -> evaluation -> model-based selection).
+phase -> evaluation -> model-based selection), raw points through the
+device voxelizer, and the partial-label round (detector and box-quality
+estimator trained side by side -> selection that skips the seed set -> the
+next round on the picks).
 Phases, each fatal on failure:
 
   1. versions of torch / CUDA / nvcc and the card (nvidia-smi);
@@ -123,7 +126,20 @@ Phases, each fatal on failure:
      .pth of seeded weights -> convert_second -> dist_test and an epoch of
      train, the loaded tensors equal to the written ones); the overfit twin
      (tests/test_torch_accuracy.py: 600 steps from raw points, mAP gates,
-     detections against the plain versions).
+     detections against the plain versions);
+ 17. the partial-label round through the port's CLIs (configs/cbgs_partial.py
+     at full width on phase 15's set, a quarter of it seeded, score threshold
+     0): ``train`` with the ActiveTrainer (a train step, then an estimator
+     step whose predict runs on the batch's raw points, per iteration), launch
+     counters held to those counts; the seed buffer, the checkpoint and
+     ``estimator.npz`` checked; the iteration split into train step and
+     estimator step (predict + targets, pool, update) and peak memory; the
+     capacity report's rows for the production caps; the estimator step from
+     the trained checkpoint in f32 with the kernels against the same step on
+     plain versions (det_valid and pool indices equal, targets and loss
+     within 1e-5); ``active_select --checkpoint`` with the EntropySelector and
+     ``exclude_buffer`` (no frame of ``partial_01`` picked); a second
+     ``train`` with ``active_flag`` set to the new budget key.
 
 Kernel times are device times per call (``cuda_time_ms``: the launches
 queued behind a device-side sleep, so that the host's enqueue is not timed);
@@ -649,6 +665,9 @@ def main() -> None:
                                {"CBGS": ms_med, "BEVFusion": gather["predict_ms"]}, loop,
                                bd, tiou, tg)
 
+        # 17. the partial-label round: ActiveTrainer, exclude_buffer, round 2
+        partial = partial_phase(tmp, dev, loop, counters, bd, tiou)
+
     # kernels line, card line, result -------------------------------------------
     kernels = [
         dict(name="banded_conv", route="cuda", source="dal3d_tpu_torch/ops/csrc/banded_conv.cu",
@@ -689,6 +708,7 @@ def main() -> None:
                             replaces=f"dal3d_tpu/ops/pallas_gather.py:{line}", **gather[name]))
     for k in kernels:
         k["launches_raw_points"] = raw["launches"][k["name"]]
+        k["launches_partial"] = partial["launches"][k["name"]]
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
@@ -3345,6 +3365,338 @@ def raw_points_phase(tmp: str, dev, Config, counters, host_fed_ms, loop, bd, tio
     prepass_card_vs_cpu(tmp, loop)
     print(f"phase 16 (raw points): {time.perf_counter() - t_phase:.1f} s; launches {total}")
     return dict(launches=total, voxelizer=vox, overfit_s=over_s)
+
+
+# ---------------------------------------------------------------------------
+# the partial-label round: ActiveTrainer (detector + estimator), selection
+# that excludes the seed set, the next round on the picks
+# ---------------------------------------------------------------------------
+# of phase 15's 16 frames: the config's 0.1 of a 28130-frame pool would seed
+# one frame here
+PARTIAL_RATIO = 0.25
+EST_MAX_PTS, EST_HIDDEN = 128, (64, 128)  # configs/cbgs_partial.py's Estimator
+
+
+def write_partial_config(path: str, loop: dict, base: str, work_dir: str,
+                         extra: str = "") -> None:
+    """configs/cbgs_partial.py (the production CBGS model at full width, its
+    GT-AUG sampler, the partial-label dataset, the Estimator) pointed at
+    phase 15's synthetic set the way write_loop_config points the base, its
+    seed buffer and its selection files under ``base``, and the score
+    threshold at 0: after one epoch from random weights no box clears the
+    config's 0.1, and an empty ``det_valid`` leaves every estimator gradient
+    zero."""
+    root = loop["root"]
+    info = os.path.join(root, "infos_{}_10sweeps_withvelo.pkl")
+    sel = dict(type="EntropySelector", budget=LOOP_BUDGET,
+               buffer_file=os.path.join(base, "partial.json"),
+               infos_origin=info.format("train"),
+               pred_store_file=os.path.join(base, "partial_pred.npz"),
+               exclude_buffer=os.path.join(base, "partial_buffer.json"))
+    with open(path, "w") as f:
+        f.write(f"import copy, sys\nsys.path.insert(0, {os.path.join(ROOT, 'configs')!r})\n"
+                "from cbgs_partial import *  # noqa: F401,F403\n"
+                "data = copy.deepcopy(data)\n"
+                f"data['train'].update(root_path={root!r}, info_path={info.format('train')!r})\n"
+                f"data['val'].update(root_path={root!r}, info_path={info.format('val')!r})\n"
+                "data['train']['pipeline'][2]['cfg']['db_sampler']['db_info_path'] = "
+                f"{os.path.join(root, 'dbinfos_train_10sweeps_withvelo.pkl')!r}\n"
+                f"work_dir = {work_dir!r}\n"
+                f"active_buffer = {sel['exclude_buffer']!r}\n"
+                f"sample_ratio = {PARTIAL_RATIO!r}\n"
+                f"selector = {sel!r}\n"
+                "test_cfg = copy.deepcopy(test_cfg)\ntest_cfg['score_threshold'] = 0.0\n"
+                + extra)
+
+
+def partial_dataset(cfg):
+    """The train set the CLI builds for a partial-label config."""
+    from dal3d_tpu_torch.data.datasets.nuscenes_partial import NuScenesPartialDataset
+    from dal3d_tpu_torch.models.builder import loader_voxelize_cfg
+
+    td = {k: v for k, v in dict(cfg["data"]["train"]).items() if k != "type"}
+    knobs = {k: cfg[k] for k in ("active_buffer", "active_flag", "sample_ratio",
+                                 "label_fraction") if cfg.get(k) is not None}
+    return NuScenesPartialDataset(**{**td, **knobs, "tasks": [dict(t) for t in cfg["tasks"]],
+                                     "pipeline": [dict(s) for s in td["pipeline"]],
+                                     "max_points": cfg.get("max_points", 300000),
+                                     "voxelize_host": loader_voxelize_cfg(cfg)})
+
+
+def estimator_card_vs_plain(cfg32, work: str, estimator, batch, bd, tiou) -> str:
+    """One estimator step's inputs and loss from the trained checkpoint in
+    f32 on the card, with the kernels and with every kernel swapped for its
+    plain version: as many valid slots; the valid detections paired by score
+    and box (candidates of equal score come out of the top-k in an order of
+    its own, so a slot may hold another box), and on every pair the pool
+    indices equal and the targets within 1e-5; the loss over all slots
+    within 1e-5."""
+    import copy
+
+    from dal3d_tpu_torch.models.builder import build_detector
+    from dal3d_tpu_torch.models.detectors import estimator as te
+    from dal3d_tpu_torch.runtime import active_trainer as ta
+    from dal3d_tpu_torch.runtime import checkpoint as ckpt
+
+    bundle = build_detector(cfg32, device="cuda")
+    ckpt.load_checkpoint(work, bundle.model)
+    bundle.model.train()
+    predict = ta.multi_group_predict
+
+    def step():
+        seen = {}
+
+        def spy(*a, **k):
+            seen.update(predict(*a, **k))
+            return seen
+
+        ta.multi_group_predict = spy
+        try:
+            inputs = ta.estimator_inputs(bundle, batch)
+        finally:
+            ta.multi_group_predict = predict
+        idx = [te.pool_index(inputs["points"][b], inputs["points_valid"][b], inputs["boxes"][b],
+                             EST_MAX_PTS) for b in range(B)]
+        est = copy.deepcopy(estimator)
+        loss = ta.estimator_loss(est, **inputs)
+        loss.backward()
+        grad = torch.cat([p.grad.flatten() for p in est.parameters()])
+        return inputs, idx, float(loss), grad, seen["scores"][:, :inputs["boxes"].shape[1]]
+
+    card = step()
+    k1, k2 = bd.banded_conv, tiou.iou_matrix
+    bd.banded_conv, tiou.iou_matrix = bd.banded_conv_plain, tiou.iou_matrix_plain
+    try:
+        plain = step()
+    finally:
+        bd.banded_conv, tiou.iou_matrix = k1, k2
+    (ci, cx, cl, cg, cs), (pi, px, pl, pg, ps) = card, plain
+    # each valid card slot paired with the valid plain slot of the same score
+    # (within 1e-5) and box (within 1e-3 of max(1, |box|)), greedily by score
+    pairs = []
+    for b in range(B):
+        cv = torch.nonzero(ci["det_valid"][b]).flatten().tolist()
+        pv = torch.nonzero(pi["det_valid"][b]).flatten().tolist()
+        used = set()
+        for k in sorted(cv, key=lambda k: -float(cs[b, k])):
+            for j in pv:
+                if j in used:
+                    continue
+                tol = 1e-3 * max(1.0, float(ci["boxes"][b, k].abs().max()))
+                if (abs(float(cs[b, k]) - float(ps[b, j])) <= 1e-5
+                        and float((ci["boxes"][b, k] - pi["boxes"][b, j]).abs().max()) <= tol):
+                    used.add(j)
+                    pairs.append((b, k, j))
+                    break
+    n_card, n_plain = int(ci["det_valid"].sum()), int(pi["det_valid"].sum())
+    idx_same = all(torch.equal(cx[b][0][k], px[b][0][j]) and torch.equal(cx[b][1][k], px[b][1][j])
+                   for b, k, j in pairs)
+    t_gap = max((abs(float(ci["target"][b, k]) - float(pi["target"][b, j])) for b, k, j in pairs),
+                default=0.0)
+    box_gap = max((float((ci["boxes"][b, k] - pi["boxes"][b, j]).abs().max())
+                   for b, k, j in pairs), default=0.0)
+    l_gap = abs(cl - pl) / max(abs(pl), 1e-30)
+    g_gap = float((cg - pg).abs().max() / pg.norm().clamp(min=1e-30))
+    interior = sum(int(cx[b][1][k].sum()) for b, k, _ in pairs)
+    msg = (f"valid slots {n_card} on the card, {n_plain} on plain versions; {len(pairs)} paired "
+           f"by score and box; on the pairs: pool indices and masks equal "
+           f"{idx_same} ({interior} interior points pooled), box gap {box_gap:.2e}, target gap "
+           f"{t_gap:.2e} (tol 1e-5; targets > 0: {int((ci['target'] > 0).sum())}); loss over "
+           f"every slot {cl:.6g} vs {pl:.6g} (rel {l_gap:.2e}, tol 1e-5), gradient gap "
+           f"{g_gap:.2e} of its norm")
+    if not (n_card == n_plain and pairs and idx_same and t_gap <= 1e-5 and l_gap <= 1e-5
+            and np.isfinite(cl)):
+        fail(f"estimator step, card vs plain versions: {msg}")
+    return msg
+
+
+def partial_phase(tmp: str, dev, loop: dict, counters, bd, tiou) -> dict:
+    """Phase 17: the partial-label round through the port's CLIs at full
+    width. Returns each kernel's launches over the phase."""
+    import re
+
+    from dal3d_tpu_torch.data import DataLoader
+    from dal3d_tpu_torch.models.convert_flax import estimator_to_flat
+    from dal3d_tpu_torch.runtime import active_trainer as ta
+    from dal3d_tpu_torch.runtime.capacity import brick_capacity_report
+    from dal3d_tpu_torch.tools import active_select, train
+    from dal3d_tpu_torch.utils.config import Config
+    from dal3d_tpu_torch.utils.fileio import load
+
+    t_phase = time.perf_counter()
+    base = os.path.join(tmp, "partial")
+    os.makedirs(base)
+    cfg_path, work = os.path.join(base, "partial.py"), os.path.join(base, "work")
+    write_partial_config(cfg_path, loop, base, work)
+    seed_file, sel_file = os.path.join(base, "partial_buffer.json"), os.path.join(base,
+                                                                                  "partial.json")
+    n_pool = len(load(loop["info_train"]))
+    seconds, launches = {}, {}
+
+    def counted(tag, fn, argv):
+        for c in counters:
+            c.launches = 0
+        np.random.seed(LOOP_SEED)
+        t0 = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        seconds[tag] = time.perf_counter() - t0
+        launches[tag] = {c.__name__: c.launches for c in counters}
+        return out
+
+    def expect(tag, predicts, steps):
+        want = {c.__name__: 0 for c in counters}
+        want.update(banded_conv=K1_PER_PREDICT * predicts + K1_PER_TRAIN_STEP * steps,
+                    iou_matrix=K2_PER_PREDICT * predicts, banded_dw=K3_PER_TRAIN_STEP * steps)
+        if launches[tag] != want:
+            fail(f"partial round, {tag}: launched {launches[tag]}, expected {want} ({predicts} "
+                 f"predicts, {steps} train steps)")
+
+    # 1. the ActiveTrainer epoch: a train step and an estimator step (one
+    # predict on the batch's raw points) per iteration
+    torch.cuda.reset_peak_memory_stats()
+    tr = counted("train (ActiveTrainer)", train.main,
+                 [cfg_path, "--epochs", "1", "--no_validate", "--seed", "0",
+                  "--load_from", loop["work"]])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = tr.step
+    if steps < 1 or tr.estimator_optimizer.count != steps:
+        fail(f"partial round: {steps} train steps, {tr.estimator_optimizer.count} estimator steps")
+    expect("train (ActiveTrainer)", steps, steps)
+    seed = load(seed_file)
+    with open(seed_file) as f:
+        seed_text = f.read()
+    ids = seed.get("partial_01", [])
+    if (list(seed) != ["partial_01"] or len(ids) != int(n_pool * PARTIAL_RATIO)
+            or len(set(ids)) != len(ids) or not seed_text.startswith('{\n    "partial_01"')):
+        fail(f"partial round: seed buffer {seed_text!r}")
+    est = dict(np.load(os.path.join(work, "estimator.npz")))
+    widths = (4,) + EST_HIDDEN + (128, 1)
+    ins = (4, EST_HIDDEN[0], EST_HIDDEN[1] + 5, 128)
+    want_shapes = {}
+    for i, (a, b) in enumerate(zip(ins, widths[1:])):
+        want_shapes.update({f"Dense_{i}/kernel": (a, b), f"Dense_{i}/bias": (b,)})
+    flat = estimator_to_flat(tr.estimator)
+    if ({k: v.shape for k, v in est.items()} != want_shapes
+            or not all(np.array_equal(est[k], flat[k]) for k in est)
+            or not os.path.exists(os.path.join(work, "checkpoints", "epoch_1.pth"))):
+        fail(f"partial round: estimator.npz {({k: v.shape for k, v in est.items()})}, expected "
+             f"{want_shapes} and the trainer's weights; or no checkpoint")
+    with open(os.path.join(work, "train.log")) as f:
+        log = f.read()
+    cap_line = re.findall(r"brick capacities \(active/cap, first batch\): ([^\n]*)", log)
+    active = re.findall(r"\[active\] epoch 1: loss ([^,]+), estimator_loss (\S+)", log)
+    it = re.findall(r"Epoch \[1\]\[\d+\] lr: [0-9.]+, time: ([0-9.]+) \(([0-9.]+) data\)", log)
+    if len(cap_line) != 1 or len(active) != 1:
+        fail(f"partial round: the train log has {len(cap_line)} capacity lines and "
+             f"{len(active)} [active] lines")
+    print(f"partial-label round through the CLIs (configs/cbgs_partial.py at full width, B={B}, "
+          f"bf16 backbone, Estimator max_pts {EST_MAX_PTS} hidden {EST_HIDDEN}; phase 15's "
+          f"{n_pool}-frame set, sample_ratio {PARTIAL_RATIO}):")
+    print(f"  train: {steps} iterations in {seconds['train (ActiveTrainer)']:.2f} s (model build "
+          f"and loader included); seed buffer partial_01 = {ids}; epoch means: detector loss "
+          f"{active[0][0]}, estimator loss {active[0][1]}; peak memory {peak_gb:.2f} GB; "
+          f"launches {launches['train (ActiveTrainer)']} (as expected: per iteration "
+          f"{K1_PER_TRAIN_STEP} + {K1_PER_PREDICT} K1, {K2_PER_PREDICT} K2, "
+          f"{K3_PER_TRAIN_STEP} K3); iterations as logged ("
+          + ", ".join(f"{float(a) * 1e3:.0f} ({float(b) * 1e3:.0f} data)" for a, b in it)
+          + " ms)")
+    print(f"  capacity report of the CLI's first batch: {cap_line[0]}")
+
+    # 2. per-iteration split on one batch of the partial set, and the
+    # capacity rows for the production caps
+    cfg = Config.fromfile(cfg_path)
+    loader = DataLoader(partial_dataset(cfg), B, shuffle=False)
+    np.random.seed(LOOP_SEED)
+    batch = {k: v for k, v in next(iter(loader)).items() if k != "metadata"}
+    rows = brick_capacity_report(tr.bundle, batch)
+    print("  capacity rows (production banded caps; level 0 uncapped demand, levels 1-4 after "
+          "compaction): " + ", ".join(
+              f"L{r['level']} {r['active']}/{r['cap']}{' SATURATED' if r['saturated'] else ''}"
+              for r in rows))
+    opt = tr.estimator_optimizer
+    parts = {"train step": [], "estimator predict + targets": [], "estimator pool": [],
+             "estimator update (forward, loss, backward, Adam)": []}
+
+    def timed(tag, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[tag].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def update(inputs):
+        opt.zero_grad()
+        loss = ta.estimator_loss(tr.estimator, **inputs)
+        loss.backward()
+        opt.step()
+        return loss
+
+    for i in range(6):
+        timed("train step", lambda: tr.train_step(batch))
+        inputs = timed("estimator predict + targets", lambda: ta.estimator_inputs(tr.bundle, batch))
+        with torch.no_grad():
+            timed("estimator pool", lambda: tr.estimator.pool(inputs["points"],
+                                                              inputs["points_valid"],
+                                                              inputs["boxes"]))
+        timed("estimator update (forward, loss, backward, Adam)", lambda: update(inputs))
+        if i == 0:
+            for v in parts.values():
+                v.clear()  # the first round warms up
+    med = {k: float(np.median(v)) for k, v in parts.items()}
+    est_ms = med["estimator predict + targets"] + med["estimator update (forward, loss, backward, Adam)"]
+    print(f"  one iteration, medians of 5 on a fixed batch (ms, synchronized): train step "
+          f"{med['train step']:.2f}; estimator step {est_ms:.2f} = predict + targets "
+          f"{med['estimator predict + targets']:.2f} + update {med['estimator update (forward, loss, backward, Adam)']:.2f} "
+          f"(of which the pool alone {med['estimator pool']:.2f}) -> {med['train step'] + est_ms:.2f} "
+          f"ms an iteration, the estimator {est_ms / (med['train step'] + est_ms):.3f} of it")
+
+    # 3. the estimator step on the card against the same step on plain
+    # versions, in f32
+    cfg32_path = os.path.join(base, "partial_f32.py")
+    write_partial_config(cfg32_path, loop, base, work, extra=(
+        "model = copy.deepcopy(model)\nmodel['backbone']['dtype'] = 'float32'\n"))
+    print("  estimator step from the trained checkpoint in f32, card vs plain versions: "
+          + estimator_card_vs_plain(Config.fromfile(cfg32_path), work, tr.estimator, batch, bd,
+                                    tiou))
+    del tr
+
+    # 4. selection on the trained checkpoint, never re-picking partial_01
+    for c in counters:
+        c.launches = 0
+    active_select.main([cfg_path])
+    counted("active_select --checkpoint", active_select.main,
+            [cfg_path, "--checkpoint", work, "--seed", "3407"])
+    expect("active_select --checkpoint", -(-n_pool // B), 0)
+    buf = load(sel_file)
+    key = str(LOOP_BUDGET)
+    picks = buf.get(key, [])
+    if sorted(buf) != ["0", key] or not picks or set(picks) & set(ids):
+        fail(f"partial round: selection {buf} (seed set {ids})")
+
+    # 5. the next round: the partial dataset on the new budget key
+    cfg2_path = os.path.join(base, "partial_round2.py")
+    write_partial_config(cfg2_path, loop, base, os.path.join(base, "work_round2"), extra=(
+        f"active_buffer = {sel_file!r}\nactive_flag = {key!r}\n"))
+    tr2 = counted(f"train (active_flag {key})", train.main,
+                  [cfg2_path, "--epochs", "1", "--no_validate", "--seed", "0"])
+    steps2 = tr2.step
+    del tr2
+    infos = load(loop["info_train"])
+    picked = {infos[i]["token"] for i in picks}
+    ds2 = partial_dataset(Config.fromfile(cfg2_path))
+    if steps2 < 1 or not {i["token"] for i in ds2.infos} <= picked:
+        fail(f"partial round 2: {steps2} steps on {len(ds2)} frames outside the picks")
+    expect(f"train (active_flag {key})", steps2, steps2)
+    total = {c.__name__: sum(v[c.__name__] for v in launches.values()) for c in counters}
+    print(f"  active_select (EntropySelector, exclude_buffer): picks {picks}, disjoint from "
+          f"partial_01; the next train on budget key {key}: {steps2} iterations; "
+          + "; ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
+    print(f"phase 17 (partial-label round): {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{total}")
+    return dict(launches=total, steps=steps, split_ms=med, peak_gb=peak_gb)
+
 
 if __name__ == "__main__":
     main()

@@ -1,4 +1,5 @@
-"""Weights bridge: the JAX package's flax variables -> the port's state_dict.
+"""Weights bridge: the JAX package's flax variables -> the port's state_dict
+(and, for the partial-label ``Estimator``, back).
 
 The inverse of ``dal3d_tpu/models/convert_second.py`` (which maps det3d
 torch checkpoints onto the flax trees): it takes the ``{"params",
@@ -18,6 +19,11 @@ Layouts:
     [out, in]; the attention projections' [d, heads, d/heads] (query, key,
     value) and [heads, d/heads, d] (out) kernels are flattened over
     (heads, d/heads) first.
+
+The estimator's weights also go the other way: ``estimator_to_flat`` gives
+the flat ``Dense_<i>/kernel`` / ``Dense_<i>/bias`` names and [in, out]
+layouts of JAX's ``estimator.npz`` (its ``convert_second.flatten_tree`` of
+the flax params), which ``estimator_flax_to_state_dict`` reads back.
 """
 from __future__ import annotations
 
@@ -213,3 +219,54 @@ def load_flax_bevfusion(model, variables: dict):
     (strict: every parameter and buffer must be covered)."""
     model.load_state_dict(bevfusion_flax_to_state_dict(variables, model), strict=True)
     return model
+
+
+def mg_head_flax_to_state_dict(variables: dict, head) -> Dict[str, torch.Tensor]:
+    """{"params", "batch_stats"} of a flax ``MultiGroupIoUHead`` or
+    ``MultiGroupLossHead`` -> state_dict of the port's head of the same kind
+    (``models/heads/mg_loss_head.py``)."""
+    params = _flatten(variables["params"])
+    stats = _flatten(variables.get("batch_stats", {}))
+    out: Dict[str, np.ndarray] = {}
+    hd = "MultiGroupHead_0"
+    for t in range(len(head.head.tasks)):
+        for conv, k in (("conv_box", 2 * t), ("conv_cls", 2 * t + 1)):
+            out[f"head.tasks.{t}.{conv}.weight"] = _conv2d(params[f"{hd}/Conv_{k}/kernel"])
+            out[f"head.tasks.{t}.{conv}.bias"] = params[f"{hd}/Conv_{k}/bias"]
+    branch = "iou" if hasattr(head, "iou") else "loss"
+    for t in range(len(getattr(head, branch))):
+        for j in (0, 1):
+            src, dst = f"{branch}_mlp{j}_{t}", f"{branch}.{t}.mlp{j}"
+            out[f"{dst}.weight"] = _conv2d(params[f"{src}/kernel"])
+            out[f"{dst}.bias"] = params[f"{src}/bias"]
+        _bn(params, stats, f"{branch}_bn_{t}", f"{branch}.{t}.bn", out)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def _estimator_names(est):
+    """(flax Dense name, port Linear name) pairs in flax's numbering."""
+    ports = [f"point_mlp.{i}" for i in range(len(est.point_mlp))] + ["fc", "out"]
+    return [(f"Dense_{i}", p) for i, p in enumerate(ports)]
+
+
+def estimator_flax_to_state_dict(params: dict, est) -> Dict[str, torch.Tensor]:
+    """An estimator's flax params, nested (``{"Dense_0": {"kernel", "bias"},
+    ...}``) or flat (``"Dense_0/kernel"``, as in ``estimator.npz``) ->
+    state_dict of the port's ``Estimator`` ``est``."""
+    flat = _flatten(params) if any(isinstance(v, dict) for v in params.values()) else {
+        k: np.asarray(v, np.float32) for k, v in params.items()}
+    out: Dict[str, np.ndarray] = {}
+    for src, dst in _estimator_names(est):
+        _dense(flat, src, dst, out)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def estimator_to_flat(est) -> Dict[str, np.ndarray]:
+    """The port's ``Estimator`` -> JAX's flat estimator names and layouts
+    (``Dense_<i>/kernel`` [in, out], ``Dense_<i>/bias`` [out]), f32 numpy."""
+    sd = {k: v.detach().cpu().float().numpy() for k, v in est.state_dict().items()}
+    out = {}
+    for flax_name, port in _estimator_names(est):
+        out[f"{flax_name}/bias"] = sd[f"{port}.bias"]
+        out[f"{flax_name}/kernel"] = np.ascontiguousarray(sd[f"{port}.weight"].T)
+    return out

@@ -108,24 +108,36 @@ class TestConfig:
     nms_iou_threshold: float = 0.2
     score_threshold: float = 0.1
     post_center_limit_range: Tuple[float, ...] = (-61.2, -61.2, -10.0, 61.2, 61.2, 10.0)
+    # predict-time decode of an IoU branch (``iou_preds``), matching its
+    # training loss: "smooth_l1" de-normalises and clamps, "sigmoid" squashes
+    iou_decode: str = "smooth_l1"
 
 
 def multi_group_predict(preds: List[Dict[str, torch.Tensor]],
                         task_anchors: List[TaskAnchors],
                         box_coder: GroundBox3dCoder,
-                        cfg: TestConfig = TestConfig()) -> Dict[str, torch.Tensor]:
+                        cfg: TestConfig = TestConfig(),
+                        iou_rescore_alpha: float = 0.0) -> Dict[str, torch.Tensor]:
     """Fixed-shape batched decode + NMS: per task, score threshold, exact
     top-k candidates (JAX's ``use_approx_topk=False`` branch) and decode;
     then one batched rotated-IoU matrix and greedy NMS over all (task, batch)
     sets; merge with label offsets.
 
+    When every task carries ``iou_preds`` (``heads/mg_loss_head.py::
+    MultiGroupIoUHead``), the decoded per-anchor IoU (``cfg.iou_decode``) is
+    threaded through candidate selection and returned per detection;
+    ``iou_rescore_alpha`` > 0 ranks by score^(1-a) * iou^a (0 is the
+    reference's effective behaviour: its rescoring line is commented out).
+
     Returns box3d_lidar [B, D, 9], scores [B, D], label_preds [B, D] (global
-    class ids), det_valid [B, D], D = num_tasks * nms_post_max_size."""
-    cand_boxes, cand_scores, cand_labels = [], [], []
+    class ids), det_valid [B, D], D = num_tasks * nms_post_max_size, and
+    iou_preds [B, D] with an IoU branch."""
+    cand_boxes, cand_scores, cand_labels, cand_ious = [], [], [], []
     label_offset = 0
     B = preds[0]["box_preds"].shape[0]
     pre = cfg.nms_pre_max_size
     code = box_coder.code_size
+    with_iou = all("iou_preds" in p for p in preds)
     for t, pred in enumerate(preds):
         ta = task_anchors[t]
         nc = ta.num_classes
@@ -139,6 +151,13 @@ def multi_group_predict(preds: List[Dict[str, torch.Tensor]],
         else:
             top_scores = scores[..., 0]
             top_labels = torch.zeros_like(top_scores, dtype=torch.long)
+        if with_iou:
+            from .mg_loss_head import decode_iou_preds
+
+            iou_dec = decode_iou_preds(pred["iou_preds"].reshape(B, -1), cfg.iou_decode)
+            if iou_rescore_alpha > 0.0:
+                top_scores = (torch.pow(top_scores, 1.0 - iou_rescore_alpha)
+                              * torch.pow(iou_dec, iou_rescore_alpha))
         masked = torch.where(top_scores >= cfg.score_threshold, top_scores,
                              torch.full_like(top_scores, float("-inf")))
         csc, cidx = torch.topk(masked, pre, dim=-1)  # [B, pre], descending
@@ -146,6 +165,8 @@ def multi_group_predict(preds: List[Dict[str, torch.Tensor]],
         cand_boxes.append(box_coder.decode(cand_bp, anchors[cidx]))
         cand_scores.append(csc)
         cand_labels.append(torch.gather(top_labels, 1, cidx) + label_offset)
+        if with_iou:
+            cand_ious.append(torch.gather(iou_dec, 1, cidx))
         label_offset += nc
 
     T = len(preds)
@@ -173,9 +194,13 @@ def multi_group_predict(preds: List[Dict[str, torch.Tensor]],
     def unfold(x):  # [T*B, post] -> [B, T*post], task-major within a sample
         return x.reshape(T, B, post, *x.shape[2:]).transpose(0, 1).reshape(B, T * post, *x.shape[2:])
 
-    return {
+    out = {
         "box3d_lidar": unfold(sel_boxes),
         "scores": unfold(torch.where(kv, sel_scores, torch.zeros_like(sel_scores))),
         "label_preds": unfold(sel_labels).to(torch.int32),
         "det_valid": unfold(kv),
     }
+    if with_iou:
+        sel_ious = torch.gather(torch.stack(cand_ious).reshape(T * B, pre), 1, sel)
+        out["iou_preds"] = unfold(torch.where(kv, sel_ious, torch.zeros_like(sel_ious)))
+    return out

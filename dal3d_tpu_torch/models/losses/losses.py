@@ -1,12 +1,15 @@
 """Training losses as plain tensor functions (port of
 ``dal3d_tpu/models/losses/losses.py``: the sigmoid focal loss, the weighted
-smooth-L1 loss and the loss-weight normalisation of the CBGS head).
+smooth-L1 loss and the loss-weight normalisation of the CBGS head; the
+softmax cross-entropy, balanced-L1, GHM classification and IoU regression
+losses of the partial-label heads).
 
 Parity note, as in the JAX module: the reference hard-disables per-code
 weights, so ``code_weights`` apply only with ``use_code_weights=True``.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -79,3 +82,51 @@ def prepare_loss_weights(labels: torch.Tensor, pos_cls_weight: float = 1.0,
     else:
         raise ValueError(f"unknown loss norm type {norm_type!r}")
     return cls_weights, reg_weights, cared
+
+
+def weighted_softmax_cross_entropy(logits: torch.Tensor, one_hot_targets: torch.Tensor,
+                                   weights: torch.Tensor, logit_scale: float = 1.0) -> torch.Tensor:
+    """Weighted softmax cross-entropy [B, A]: logits / one-hot targets
+    [B, A, C], weights [B, A]."""
+    logp = torch.log_softmax(logits / logit_scale, dim=-1)
+    return -(one_hot_targets * logp).sum(-1) * weights
+
+
+def balanced_l1_loss(preds: torch.Tensor, targets: torch.Tensor, weights: torch.Tensor,
+                     alpha: float = 0.5, gamma: float = 1.5, beta: float = 1.0) -> torch.Tensor:
+    """Balanced L1 (Libra R-CNN), per element [B, A, code]; weights [B, A]."""
+    diff = torch.abs(preds - targets)
+    b = math.e ** (gamma / alpha) - 1
+    loss = torch.where(
+        diff < beta,
+        alpha / b * (b * diff + 1) * torch.log(b * diff / beta + 1) - alpha * diff,
+        gamma * diff + gamma / b - alpha * beta)
+    return loss * weights[..., None]
+
+
+def ghm_classification_loss(logits: torch.Tensor, targets: torch.Tensor, weights: torch.Tensor,
+                            bins: int = 10, momentum: float = 0.0) -> torch.Tensor:
+    """Gradient-harmonised classification loss [B, A, C]: the per-element
+    sigmoid cross-entropy reweighted by tot / (elements in its gradient-norm
+    bin), over the elements of anchors with a positive weight. The last bin
+    is widened by 1e-6 to hold g = 1. ``momentum`` is accepted and unused,
+    as in JAX."""
+    g = torch.abs(torch.sigmoid(logits) - targets)
+    valid = (weights > 0)[..., None] & torch.ones_like(targets, dtype=torch.bool)
+    tot = torch.clamp(valid.sum(), min=1)
+    w = torch.zeros_like(g)
+    for i in range(bins):
+        lo, hi = i / bins, (i + 1) / bins + (1e-6 if i == bins - 1 else 0.0)
+        in_bin = (g >= lo) & (g < hi) & valid
+        num_in_bin = in_bin.sum()
+        density = torch.where(num_in_bin > 0, tot / torch.clamp(num_in_bin, min=1),
+                              torch.zeros((), dtype=g.dtype, device=g.device))
+        w = torch.where(in_bin, density.to(g.dtype), w)
+    return sigmoid_cross_entropy_with_logits(logits, targets) * w / tot
+
+
+def iou_regression_loss(pred_iou: torch.Tensor, target_iou: torch.Tensor,
+                        weights: torch.Tensor) -> torch.Tensor:
+    """Smooth-L1 (sigma 3) on predicted IoUs [B, A]; weights [B, A]."""
+    return weighted_smooth_l1(pred_iou[..., None], target_iou[..., None], weights,
+                              sigma=3.0)[..., 0]

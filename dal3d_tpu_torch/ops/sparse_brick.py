@@ -463,6 +463,17 @@ def _compact_cells_spatial(cells: torch.Tensor, nbc: int, cap: int,
 
 
 @torch.no_grad()
+def count_active_bricks(coords_zyx: torch.Tensor, valid: torch.Tensor, shape,
+                        bw: int) -> torch.Tensor:
+    """The true (uncapped) active-brick count [B] that ``from_voxels`` would
+    need: compared against ``mb_cap`` it shows a silent truncation."""
+    cand, _, _, nbc, _ = _brick_candidates(coords_zyx, valid.bool(), shape, bw)
+    occ = torch.zeros(cand.shape[0], nbc + 1, dtype=torch.bool, device=cand.device)
+    occ.scatter_(1, torch.clamp(cand, max=nbc), True)
+    return occ[:, :nbc].sum(-1)
+
+
+@torch.no_grad()
 def pack_plan_arrays(coords_zyx: torch.Tensor, valid: torch.Tensor, shape, bw: int,
                      mb_cap: int):
     """(brick_lin [B, Mb] int32, row [B, N] int32): the active bricks in

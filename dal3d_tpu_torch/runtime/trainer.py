@@ -1,11 +1,13 @@
 """Epoch-based trainer (port of ``dal3d_tpu/runtime/trainer.py``).
 
 The train step does the work; the trainer owns the epoch / iteration loop,
-LogBuffer-style averaged text logging every ``log_interval`` steps, per-epoch
-checkpointing, iteration timing, resume, and the val phases of the
-workflow (a ``val_fn`` every ``val_interval`` epochs and after the last). The
-capacity report and the tensorboard writer of the JAX trainer are not ported
-yet.
+LogBuffer-style averaged text logging every ``log_interval`` steps (also to
+tensorboard where it is installed, ``runtime/tb_logger.py``), the brick
+capacity report on the first batch (``runtime/capacity.py``), per-epoch
+checkpointing, iteration timing, resume, and the val phases of the workflow
+(a ``val_fn`` every ``val_interval`` epochs and after the last).
+``after_train_step`` is the hook a subclass runs after each train step
+(``runtime/active_trainer.py``: the estimator step).
 """
 from __future__ import annotations
 
@@ -56,6 +58,10 @@ class Trainer:
         self.initialized = False
         self.step = 0
         self.epoch = 0
+        self._capacity_checked = False
+        from .tb_logger import TensorboardLogger
+
+        self.tb = TensorboardLogger(work_dir)
 
     # ------------------------------------------------------------------
     def init_state(self):
@@ -92,13 +98,21 @@ class Trainer:
         for i, batch in enumerate(loader):
             data_time = time.perf_counter() - t_data
             batch = {k: v for k, v in batch.items() if k != "metadata"}
+            if not self._capacity_checked:
+                # one-shot: a saturated brick level drops voxels silently
+                self._capacity_checked = True
+                from .capacity import log_capacity_report
+
+                log_capacity_report(self, batch)
             logs = self.train_step(batch)
             self.step += 1
             logs = {k: float(v) for k, v in logs.items()}  # waits for the device
+            logs = self.after_train_step(batch, logs)
             iter_time = time.perf_counter() - t_data
             buf.update({**logs, "data_time": data_time, "time": iter_time})
             if (i + 1) % self.log_interval == 0:
                 avg = buf.average(self.log_interval)
+                self.tb.log(avg, self.step)
                 lr = float(self.lr_fn(self.step)) if self.lr_fn else float("nan")
                 self.logger.info(
                     f"Epoch [{self.epoch + 1}][{i + 1}] lr: {lr:.5f}, "
@@ -109,6 +123,11 @@ class Trainer:
             t_data = time.perf_counter()
         self.epoch += 1
         return buf.average()
+
+    def after_train_step(self, batch: Dict[str, Any], logs: Dict[str, float]) -> Dict[str, float]:
+        """Runs after each train step with its batch and float logs; returns
+        the logs to record."""
+        return logs
 
     def run(self, train_loader_fn: Callable[[int], Iterable], total_epochs: int,
             val_fn: Optional[Callable[["Trainer"], Dict]] = None,

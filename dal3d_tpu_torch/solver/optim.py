@@ -11,6 +11,9 @@ schedules. ``OneCycleAdamW`` writes that chain out:
   current ``b1`` and the incremented count; ``eps = 1e-8`` outside the root;
 - decoupled weight decay on every parameter, BN scale and bias included;
 - ``p <- p - lr * (mu_hat / (sqrt(nu_hat) + eps) + wd * p)``.
+
+``Adam`` is ``optax.adam`` with a constant learning rate (the estimator's
+optimizer of the partial-label trainer): no clip, no weight decay.
 """
 from __future__ import annotations
 
@@ -128,6 +131,42 @@ class OneCycleAdamW:
         for n in self.params:
             self.mu[n].copy_(state["mu"][n])
             self.nu[n].copy_(state["nu"][n])
+
+
+class Adam:
+    """``optax.adam(lr)`` over named parameters: ``mu <- b1 mu + (1 - b1) g``,
+    ``nu <- b2 nu + (1 - b2) g^2``, bias corrections at the incremented
+    count, ``p <- p - lr * mu_hat / (sqrt(nu_hat) + eps)``."""
+
+    def __init__(self, lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.count = 0
+        self.params: Dict[str, torch.Tensor] = {}
+        self.mu: Dict[str, torch.Tensor] = {}
+        self.nu: Dict[str, torch.Tensor] = {}
+
+    def init(self, named_params) -> "Adam":
+        self.params = {n: p for n, p in named_params if p.requires_grad}
+        self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+        self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+        self.count = 0
+        return self
+
+    def zero_grad(self) -> None:
+        for p in self.params.values():
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        self.count += 1
+        c1, c2 = 1 - self.b1 ** self.count, 1 - self.b2 ** self.count
+        for n, p in self.params.items():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            mu, nu = self.mu[n], self.nu[n]
+            mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
+            nu.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
+            p.sub_(self.lr * ((mu / c1) / (torch.sqrt(nu / c2) + self.eps)))
 
 
 def build_optimizer(one_cycle: OneCycleSchedule, weight_decay: float = 0.01,

@@ -34,9 +34,18 @@ kernel wrapper then takes its plain PyTorch version).
 by ``python -m dal3d_tpu_torch.tools.convert_second``; ``--resume_from`` and
 ``--load_from`` win over it, as in the JAX CLI.
 
-Not ported yet, each refused with the ROADMAP item it waits for:
-``estimator`` configs and the partial-label dataset (A9), ``--n_model > 1``
-(A11).
+A config with ``estimator`` (``configs/cbgs_partial.py``) trains the
+detector and the box-quality ``Estimator`` side by side
+(``runtime/active_trainer.py``): the estimator's weights start from ``seed +
+1`` and are written after the run to ``<work_dir>/estimator.npz`` with the
+JAX package's flat names and layouts (``Dense_<i>/kernel`` [in, out]). The
+train set comes from ``data/dataset_factory.py`` by ``dataset_type``; the
+partial-label dataset takes the config's top-level ``active_buffer``,
+``active_flag``, ``sample_ratio``, ``label_fraction`` and ``partial_seed``
+(with ``active_flag = "start"`` it writes the seed buffer ``partial_01``).
+
+Not ported yet, refused with the ROADMAP item it waits for: ``--n_model >
+1`` (A11), and the KITTI and Lyft datasets (A9.g, raised by the factory).
 """
 import argparse
 import os
@@ -66,16 +75,14 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args, cfg) -> None:
+def _refuse_unported(args) -> None:
     if args.n_model != 1:
         raise NotImplementedError("--n_model > 1: the device mesh is not ported yet "
                                   "(ROADMAP A11)")
-    if cfg.get("estimator"):
-        raise NotImplementedError("estimator configs (ActiveTrainer, Estimator) are not "
-                                  "ported yet (ROADMAP A9)")
-    if cfg.get("dataset_type", "NuScenesDataset") not in ("NuScenesDataset", "NUSC"):
-        raise NotImplementedError(f"dataset_type {cfg['dataset_type']!r} is not ported yet "
-                                  "(ROADMAP A9)")
+
+
+_PARTIAL_KNOBS = ("active_buffer", "active_flag", "sample_ratio", "label_fraction",
+                  "partial_seed")
 
 
 def _budget_path(path: str, budget: str) -> str:
@@ -88,10 +95,11 @@ def main(argv=None):
     from ..device import resolve_device
 
     device = resolve_device("cpu" if args.cpu else None)  # raises here without a GPU
+    _refuse_unported(args)
     cfg = Config.fromfile(args.config)
-    _refuse_unported(args, cfg)
 
-    from ..data import DataLoader, NuScenesDataset
+    from ..data import DataLoader
+    from ..data.dataset_factory import build_dataset
     from ..models.builder import build_detector, loader_voxelize_cfg
     from ..runtime.trainer import Trainer
     from ..solver.optim import OneCycleSchedule, build_optimizer
@@ -118,7 +126,17 @@ def main(argv=None):
                 logger.info(f"AL budget {args.budget}: GT-AUG database {db['db_info_path']}")
 
     bundle = build_detector(cfg, device=device, seed=args.seed or 0)
-    dataset = NuScenesDataset(
+    # the top-level dataset_type wins: configs set it after `from _base import
+    # *`, when data.train.type already holds the base's value
+    train_data.pop("type", None)
+    dataset_type = cfg.get("dataset_type", "NuScenesDataset")
+    if dataset_type in ("NUSC_PART", "NuScenesPartialDataset"):
+        for k in _PARTIAL_KNOBS:  # the partial-label knobs live at the top level
+            if cfg.get(k) is not None:
+                train_data.setdefault(k, cfg[k])
+    dataset = build_dataset(
+        train_data,
+        dataset_type=dataset_type,
         info_path=train_data["info_path"],
         root_path=train_data.get("root_path", ""),
         nsweeps=train_data.get("nsweeps", 10),
@@ -148,16 +166,37 @@ def main(argv=None):
         grad_clip_norm=(cfg.get("optimizer_config", {}) or {}).get("grad_clip", {}).get(
             "max_norm", 35.0),
     )
-    trainer = Trainer(
-        bundle, optimizer, work_dir, one_cycle_cfg=one_cycle, logger=logger,
+    trainer_kw = dict(
+        one_cycle_cfg=one_cycle, logger=logger,
         log_interval=(cfg.get("log_config", {}) or {}).get("interval", 5),
         checkpoint_interval=(cfg.get("checkpoint_config", {}) or {}).get("interval", 1),
     )
+    est_cfg = cfg.get("estimator")
+    if est_cfg:
+        # detector + box-quality estimator co-training
+        import torch
+
+        from ..models.detectors.estimator import Estimator, init_estimator_
+        from ..runtime.active_trainer import ActiveTrainer
+        from ..solver.optim import Adam
+
+        est_kw = {k: v for k, v in dict(est_cfg).items() if k != "type"}
+        estimator = init_estimator_(Estimator(**est_kw),
+                                    torch.Generator().manual_seed((args.seed or 0) + 1))
+        estimator.to(device)
+        trainer = ActiveTrainer(bundle, optimizer, estimator,
+                                Adam(float(cfg.get("estimator_lr", 1e-3))), work_dir,
+                                **trainer_kw)
+        logger.info("ActiveTrainer: detector + estimator co-training")
+    else:
+        trainer = Trainer(bundle, optimizer, work_dir, **trainer_kw)
 
     def loader_fn(epoch):
         return DataLoader(dataset, batch_size, shuffle=True, seed=epoch)
 
     trainer.init_state()
+    if est_cfg:
+        trainer.init_estimator()
     if args.resume_from:
         # the value may be a checkpoint dir; anything else resumes from work_dir
         rd = args.resume_from if os.path.isdir(str(args.resume_from)) else None
@@ -188,6 +227,13 @@ def main(argv=None):
             return result
 
     trainer.run(loader_fn, total_epochs, val_fn=val_fn, val_interval=val_interval)
+    if est_cfg:
+        # the estimator's own checkpoint: JAX's flat names and layouts
+        from ..models.convert_flax import estimator_to_flat
+
+        est_path = os.path.join(work_dir, "estimator.npz")
+        np.savez(est_path, **estimator_to_flat(trainer.estimator))
+        logger.info(f"saved estimator params -> {est_path}")
     logger.info("training done")
     return trainer
 
