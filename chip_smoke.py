@@ -18,9 +18,11 @@ SECONDFPN -> TransFusion head -> decoded boxes), and two active-learning
 rounds closed through the CLIs (data preparation and GT database -> seed
 selection -> the subset's GT database -> training with GT-AUG and its val
 phase -> evaluation -> model-based selection), raw points through the
-device voxelizer, and the partial-label round (detector and box-quality
+device voxelizer, the partial-label round (detector and box-quality
 estimator trained side by side -> selection that skips the seed set -> the
-next round on the picks).
+next round on the picks), and BEVFusion lidar-only training (train step with
+the Hungarian-matched loss -> the training CLI with resume, warm start and a
+converted reference checkpoint).
 Phases, each fatal on failure:
 
   1. versions of torch / CUDA / nvcc and the card (nvidia-smi);
@@ -139,7 +141,29 @@ Phases, each fatal on failure:
      plain versions (det_valid and pool indices equal, targets and loss
      within 1e-5); ``active_select --checkpoint`` with the EntropySelector and
      ``exclude_buffer`` (no frame of ``partial_01`` picked); a second
-     ``train`` with ``active_flag`` set to the new budget key.
+     ``train`` with ``active_flag`` set to the new budget key;
+ 18. BEVFusion lidar-only training (configs/bevfusion_lidar.py at full
+     width, f32, B=2, phase 14's clouds with 120 and 200 seeded GT boxes):
+     the step's gradient (forward, Hungarian-matched TransFusion loss,
+     backward) against the same step with every kernel swapped for its plain
+     version and the kernel run's queries and matching (the plain run's own
+     matching only a tie away: the same total cost; the gradient within
+     twice the gap that rounding
+     alone opens, the plain step on features moved by about one ulp, and at
+     least 1e-3 of its norm; the stem's too; logs within 1e-4, the same
+     matches); every K4 input-gradient launch and every K4-dW launch of one
+     step against its plain version over the same plan (dW bit-equal on a
+     repeat), with times, bounds and an index_select + bmm yardstick; the
+     Hungarian kernel against the plain version (col4row equal) and scipy
+     (total cost), the kernel beside the plain version on the card and
+     scipy on the host; the IoU cost's and K5's backward device times;
+     launch counters set to 0, a warm-up and 5 timed steps, counters read
+     (K4 21 + 20, K4-dW 21, K5 1, LSA 1 per step, nothing else); the step
+     split into forward, assignment + loss, backward and optimizer, peak
+     memory, device idle share; ``train_bevfusion`` on phase 15's set
+     (``--budget`` epoch and checkpoint, ``--resume_from``, ``--load_from``
+     into a model with another head width, ``convert_bevfusion`` ->
+     ``--torch_init`` of seeded mmdet3d-named weights).
 
 Kernel times are device times per call (``cuda_time_ms``: the launches
 queued behind a device-side sleep, so that the host's enqueue is not timed);
@@ -394,12 +418,12 @@ def iou_bound_ms(rows, cols, clips: int) -> tuple:
 
 
 def _clone(a):
-    """A copy of a captured argument: a tensor (strides kept), a tuple of
-    tensors (the gather-GEMM's plan), or None."""
+    """A copy of a captured argument: a tensor (strides kept), a tuple (the
+    gather-GEMM's plan: its tensors copied), or anything else as it is."""
     if isinstance(a, torch.Tensor):
         return a.clone()
     if isinstance(a, tuple):
-        return type(a)(*(x.clone() for x in a))
+        return type(a)(*(_clone(x) for x in a))
     return a
 
 
@@ -444,6 +468,7 @@ def main() -> None:
         from dal3d_tpu_torch.ops import distance as td
         from dal3d_tpu_torch.ops import gather as tg
         from dal3d_tpu_torch.ops import iou_matrix as tiou
+        from dal3d_tpu_torch.ops import lsa as tl
         from dal3d_tpu_torch.ops.nms import greedy_nms_from_iou
         from dal3d_tpu_torch.runtime.steps import make_predict_step
         from dal3d_tpu_torch.utils.config import Config
@@ -654,7 +679,8 @@ def main() -> None:
 
         # 12-14. BEVFusion lidar-only predict at full width (K4, K5) ------------------
         counters = (bd.banded_conv, bd.banded_dw, tiou.iou_matrix, td.pairwise_l1,
-                    td.pairwise_l2, tg.gather_gemm, tg.gather_rows)
+                    td.pairwise_l2, tg.gather_gemm, tg.gather_rows, tg.gather_dw,
+                    tl.linear_sum_assignment)
         gather = bevfusion_main_path(tmp, Config, counters, tg, bd)
 
         # 15. two AL rounds through the CLIs: data, GT-AUG, train + val, eval -------
@@ -667,6 +693,9 @@ def main() -> None:
 
         # 17. the partial-label round: ActiveTrainer, exclude_buffer, round 2
         partial = partial_phase(tmp, dev, loop, counters, bd, tiou)
+
+        # 18. BEVFusion training: K4 dX, K4-dW, K5's backward, LSA, the step, the CLI
+        bftrain = bevfusion_train_phase(tmp, Config, counters, loop, tg, tl)
 
     # kernels line, card line, result -------------------------------------------
     kernels = [
@@ -706,9 +735,22 @@ def main() -> None:
     for name, line in (("gather_gemm", 123), ("gather_rows", 76)):
         kernels.append(dict(name=name, route="cuda", source="dal3d_tpu_torch/ops/csrc/gather.cu",
                             replaces=f"dal3d_tpu/ops/pallas_gather.py:{line}", **gather[name]))
+    kernels.append(dict(
+        name="gather_dw", route="cuda", source="dal3d_tpu_torch/ops/csrc/gather.cu",
+        replaces="dal3d_tpu/ops/sparse.py:132 (XLA autodiff of gather_gemm: no Pallas kernel)",
+        launches=bftrain["launches"]["gather_dw"], **bftrain["gather_dw"]))
+    kernels.append(dict(
+        name="linear_sum_assignment", route="cuda", source="dal3d_tpu_torch/ops/csrc/lsa.cu",
+        replaces="dal3d_tpu/ops/lsa.py:39 (a lax.while_loop program: no Pallas kernel)",
+        launches=bftrain["launches"]["linear_sum_assignment"],
+        **bftrain["linear_sum_assignment"]))
     for k in kernels:
+        k.setdefault("launches_al_loop", loop_launches[k["name"]])
         k["launches_raw_points"] = raw["launches"][k["name"]]
         k["launches_partial"] = partial["launches"][k["name"]]
+        k["launches_bevfusion_train"] = bftrain["launches"][k["name"]]
+        k["launches_per_bevfusion_train_step"] = bftrain["launches"][k["name"]] // (
+            BF_TRAIN_ITERS + 1)
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
@@ -3696,6 +3738,610 @@ def partial_phase(tmp: str, dev, loop: dict, counters, bd, tiou) -> dict:
     print(f"phase 17 (partial-label round): {time.perf_counter() - t_phase:.1f} s; launches "
           f"{total}")
     return dict(launches=total, steps=steps, split_ms=med, peak_gb=peak_gb)
+
+
+# ---------------------------------------------------------------------------
+# phase 18: BEVFusion lidar-only training: K4 forward and input gradient,
+# K4-dW, K5 and its backward, the Hungarian kernel, the step, the CLI
+# ---------------------------------------------------------------------------
+K4_PER_BF_TRAIN_STEP = 21 + 20  # forward, and an input gradient for every conv but the stem
+K4_DW_PER_BF_TRAIN_STEP = 21  # every conv's weight trains
+K5_PER_BF_TRAIN_STEP = 1
+LSA_PER_BF_TRAIN_STEP = 1
+BF_TRAIN_ITERS = 5
+BF_GT = (120, 200)  # GT boxes of the two frames, of the config's max_gt = 200 slots
+DW_TOL = 1e-5  # of the result's scale: 3xTF32 products, f32 sums in another order
+# the whole gradient against plain versions, of its norm: at least 1e-3, and
+# twice the gap that rounding alone opens (the plain step, with the same
+# queries and matching, on voxel features moved by about one ulp: 1.7e-3 of
+# the norm at full width with random weights on an H100, where the
+# train-mode batch norms' backward cancels), that floor at most STEP_FLOOR_MAX
+STEP_TOL = 1e-3
+STEP_FLOOR_MAX = 1e-2
+# nuScenes class sizes (w, l, h) and box bottoms, for seeded GT
+BF_SIZES = ((1.95, 4.6, 1.7), (2.5, 6.9, 2.8), (2.8, 6.4, 3.2), (2.9, 11.0, 3.5),
+            (2.9, 12.3, 3.9), (2.5, 0.5, 1.0), (0.8, 2.1, 1.5), (0.6, 1.7, 1.3),
+            (0.7, 0.7, 1.8), (0.4, 0.4, 1.1))
+
+
+def bevfusion_gt(seed: int) -> tuple:
+    """Seeded GT of the two frames: [B, 200, 9] boxes (lidar frame, centre z)
+    of the nuScenes classes near their sizes over +-50 m, BF_GT of them, and
+    [B, 200] classes 1..10 (0 = padding)."""
+    rng = np.random.RandomState(seed)
+    boxes = np.zeros((B, 200, 9), np.float32)
+    boxes[..., 3:6] = 1.0
+    classes = np.zeros((B, 200), np.int32)
+    for b, n in enumerate(BF_GT):
+        c = rng.randint(0, 10, n)
+        size = np.asarray(BF_SIZES, np.float32)[c] * rng.uniform(0.9, 1.1, (n, 3))
+        boxes[b, :n, :2] = rng.uniform(-50, 50, (n, 2))
+        boxes[b, :n, 2] = -1.8 + size[:, 2] / 2
+        boxes[b, :n, 3:6] = size
+        boxes[b, :n, 6:8] = rng.uniform(-2, 2, (n, 2))
+        boxes[b, :n, 8] = rng.uniform(-np.pi, np.pi, n)
+        classes[b, :n] = c + 1
+    return boxes, classes
+
+
+def gemm_plain_over_plan(tg, features, plan, weights):
+    """What one K4 launch computes over its plan, in plain PyTorch: the rows
+    in plan order, written back to their rows through ``order``."""
+    rb = plan.rulebook
+    out = tg.gather_gemm_plain(features, rb.clamp(min=0), rb >= 0, weights)
+    if plan.order is not None:
+        out = torch.empty_like(out).scatter_(1, plan.order[..., None].expand_as(out), out)
+    return out
+
+
+def dw_plain_over_plan(tg, features, plan, g):
+    """What one K4-dW launch computes over its plan (g's rows taken in plan
+    order), in plain PyTorch."""
+    rb = plan.rulebook
+    if plan.order is not None:
+        g = torch.gather(g, 1, plan.order[..., None].expand_as(g))
+    return tg.gather_dw_plain(features, rb.clamp(min=0), rb >= 0, g)
+
+
+def library_gather_dw(features, plan, g):
+    """Yardstick the port never calls: one index_select of every (tap,
+    position) row, then one batched cuBLAS matmul [K, Cin, B*M] x [B*M,
+    Cout]."""
+    Bt, N, Cin = features.shape
+    rb = plan.rulebook
+    K, M = rb.shape[1], rb.shape[2]
+    flat = torch.cat([features.reshape(Bt * N, Cin), features.new_zeros(1, Cin)])
+    base = (torch.arange(Bt, device=rb.device) * N)[:, None, None]
+    sel = torch.where(rb >= 0, rb.long() + base, Bt * N).permute(1, 0, 2).reshape(-1)
+    if plan.order is not None:
+        g = torch.gather(g, 1, plan.order[..., None].expand_as(g))
+    gf = g.reshape(1, Bt * M, -1).expand(K, Bt * M, g.shape[-1])
+
+    def run():
+        gat = flat.index_select(0, sel).view(K, Bt * M, Cin)
+        return torch.bmm(gat.transpose(1, 2), gf)
+
+    return run
+
+
+def gather_dw_bound_ms(features, plan, g) -> dict:
+    """Least times (ms) of one K4-dW launch: bytes (features, rulebook, g read
+    once, dW written once), the f32 FMA route and the 3xTF32 route over
+    2 * hits * Cin * Cout operations; "bound" the larger of the bytes and the
+    lesser operation route."""
+    K, Cin, Cout = plan.rulebook.shape[1], features.shape[-1], g.shape[-1]
+    nbytes = (features.numel() + plan.rulebook.numel() + g.numel() + K * Cin * Cout) * 4
+    ops = 2.0 * int((plan.rulebook >= 0).sum()) * Cin * Cout
+    t = dict(bytes=nbytes / PEAK_BYTES * 1e3, fma=ops / PEAK_F32 * 1e3,
+             tc=3 * ops / PEAK_TF32 * 1e3)
+    t_ops = min(t["fma"], t["tc"])
+    t["bound"], t["by"] = (t["bytes"], "bytes") if t["bytes"] >= t_ops else (t_ops, "operations")
+    return t
+
+
+def reference_bevfusion_state_dict(rng) -> dict:
+    """Seeded mmdet3d-named TransFusion-L weights at the production config's
+    widths (configs/bevfusion_lidar.py), as tests/test_convert_bevfusion.py
+    builds them at small widths: spconv [kx, ky, kz, Cin, Cout], BEV convs
+    [Cout, Cin, kh, kw], Conv1d heads, torch attention in_proj."""
+    sd = {}
+
+    def w(name, *shape, fan):
+        sd[f"{name}.weight"] = (rng.randn(*shape) / np.sqrt(fan)).astype(np.float32)
+
+    def bias(name, n):
+        sd[f"{name}.bias"] = (0.05 * rng.randn(n)).astype(np.float32)
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = (1 + 0.2 * rng.randn(c)).astype(np.float32)
+        sd[f"{name}.bias"] = (0.1 * rng.randn(c)).astype(np.float32)
+        sd[f"{name}.running_mean"] = (0.1 * rng.randn(c)).astype(np.float32)
+        sd[f"{name}.running_var"] = (1 + 0.1 * rng.rand(c)).astype(np.float32)
+
+    enc = ((16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128))
+    eb = "encoders.lidar.backbone"
+    w(f"{eb}.conv_input.0", 3, 3, 3, 5, 16, fan=135)
+    bn(f"{eb}.conv_input.1", 16)
+    for i, ch in enumerate(enc):
+        layer = f"{eb}.encoder_layers.encoder_layer{i + 1}"
+        for j in (0, 1):
+            for n in (1, 2):
+                w(f"{layer}.{j}.conv{n}", 3, 3, 3, ch[0], ch[0], fan=27 * ch[0])
+                bn(f"{layer}.{j}.bn{n}", ch[0])
+        if i < 3:
+            w(f"{layer}.2.0", 3, 3, 3, ch[0], ch[-1], fan=27 * ch[0])
+            bn(f"{layer}.2.1", ch[-1])
+    w(f"{eb}.conv_out.0", 1, 1, 3, 128, 128, fan=384)
+    bn(f"{eb}.conv_out.1", 128)
+    cin = 256
+    for b, co in enumerate((128, 256)):
+        for j in range(6):  # the lead conv and 5 layer convs
+            w(f"decoder.backbone.blocks.{b}.{3 * j}", co, cin if j == 0 else co, 3, 3,
+              fan=9 * (cin if j == 0 else co))
+            bn(f"decoder.backbone.blocks.{b}.{3 * j + 1}", co)
+        cin = co
+    w("decoder.neck.deblocks.0.0", 256, 128, 1, 1, fan=128)
+    bn("decoder.neck.deblocks.0.1", 256)
+    w("decoder.neck.deblocks.1.0", 256, 256, 2, 2, fan=1024)
+    bn("decoder.neck.deblocks.1.1", 256)
+    hd, d = "heads.object", 128
+    w(f"{hd}.shared_conv", d, 512, 3, 3, fan=4608)
+    bias(f"{hd}.shared_conv", d)
+    w(f"{hd}.heatmap_head.0.conv", d, d, 3, 3, fan=9 * d)
+    bn(f"{hd}.heatmap_head.0.bn", d)
+    w(f"{hd}.heatmap_head.1", 10, d, 3, 3, fan=9 * d)
+    bias(f"{hd}.heatmap_head.1", 10)
+    w(f"{hd}.class_encoding", d, 10, 1, fan=10)
+    bias(f"{hd}.class_encoding", d)
+    for pe in ("self_posembed", "cross_posembed"):
+        pre = f"{hd}.decoder.0.{pe}.position_embedding_head"
+        w(f"{pre}.0", d, 2, 1, fan=2)
+        bias(f"{pre}.0", d)
+        bn(f"{pre}.1", d)
+        w(f"{pre}.3", d, d, 1, fan=d)
+        bias(f"{pre}.3", d)
+    dl = f"{hd}.decoder.0"
+    for att in ("self_attn", "multihead_attn"):
+        sd[f"{dl}.{att}.in_proj_weight"] = (rng.randn(3 * d, d) / np.sqrt(d)).astype(np.float32)
+        sd[f"{dl}.{att}.in_proj_bias"] = (0.05 * rng.randn(3 * d)).astype(np.float32)
+        w(f"{dl}.{att}.out_proj", d, d, fan=d)
+        bias(f"{dl}.{att}.out_proj", d)
+    w(f"{dl}.linear1", 256, d, fan=d)
+    bias(f"{dl}.linear1", 256)
+    w(f"{dl}.linear2", d, 256, fan=256)
+    bias(f"{dl}.linear2", d)
+    for i in (1, 2, 3):
+        sd[f"{dl}.norm{i}.weight"] = (1 + 0.1 * rng.randn(d)).astype(np.float32)
+        bias(f"{dl}.norm{i}", d)
+    for branch, out in (("center", 2), ("height", 1), ("dim", 3), ("rot", 2), ("vel", 2),
+                        ("heatmap", 10)):
+        pb = f"{hd}.prediction_heads.0.{branch}"
+        w(f"{pb}.0.conv", 64, d, 1, fan=d)
+        bn(f"{pb}.0.bn", 64)
+        w(f"{pb}.1", out, 64, 1, fan=64)
+        bias(f"{pb}.1", out)
+    return sd
+
+
+def step_gradients(bundle, inputs, gt, step_idx: int, plain: bool, tg, tl, queries=None,
+                   assignment=None):
+    """One train step's forward, loss and backward without the update (the
+    dropout masks of step ``step_idx``), with the kernels or with every
+    kernel swapped for its plain version. ``queries`` (top-k indices) and
+    ``assignment`` (col4row) of an earlier run make the head take those
+    queries and the loss that matching instead of its own. Returns (logs,
+    {name: grad}, {"queries", "cost", "col4row"} of this run). The running
+    statistics are put back afterwards."""
+    from dal3d_tpu_torch.models.bevfusion import transfusion as ttf
+    from dal3d_tpu_torch.models.bevfusion.transfusion import Dropout, transfusion_loss
+    from dal3d_tpu_torch.runtime.bevfusion_steps import (_forward, autotuned_convs,
+                                                         dropout_generator)
+
+    model = bundle.model
+    model.train()
+    stats = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+    gen = dropout_generator(bundle.device, step_idx)
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = gen
+    model.zero_grad(set_to_none=True)
+    taken = {}
+    top_k = ttf._top_k
+    solve = tl.linear_sum_assignment_plain if plain else tl.linear_sum_assignment
+
+    def recording_top_k(x, k):
+        vals, idx = top_k(x, k) if queries is None else (torch.gather(x, -1, queries), queries)
+        taken["queries"] = idx.clone()
+        return vals, idx
+
+    def recording_solve(cost):
+        taken["cost"] = cost.clone()
+        taken["col4row"] = solve(cost) if assignment is None else assignment
+        return taken["col4row"]
+
+    saved = tg.gather_gemm, tg.gather_rows, tl.linear_sum_assignment
+    recording_solve.launches = saved[2].launches  # the wrapper counts on this attribute
+    ttf._top_k, tl.linear_sum_assignment = recording_top_k, recording_solve
+    if plain:
+        tg.gather_gemm = lambda f, idx, hit, w, plan=None: tg.gather_gemm_plain(f, idx, hit, w)
+        tg.gather_rows = tg.gather_rows_plain
+    try:
+        with autotuned_convs():
+            logs = transfusion_loss(_forward(model, inputs), *gt, bundle.test_cfg)
+            logs["loss"].backward()
+        torch.cuda.synchronize()
+    finally:
+        tg.gather_gemm, tg.gather_rows, tl.linear_sum_assignment = saved
+        saved[2].launches = recording_solve.launches
+        ttf._top_k = top_k
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            if k in stats:
+                v.copy_(stats[k])
+    return {k: v.detach() for k, v in logs.items()}, grads, taken
+
+
+def _assignment_cost(cost: torch.Tensor, col4row: torch.Tensor) -> float:
+    """The total cost of an assignment (col4row [B, G], -1 unmatched) under
+    cost [B, G, P] over the valid GT rows (the padded ones cost 1e6 whatever
+    they take), in f64."""
+    c = cost.double()
+    rows = (col4row >= 0) & (c[:, :, 0] < 1e5)
+    got = torch.gather(c, 2, col4row.clamp(min=0).long()[..., None])[..., 0]
+    return float(torch.where(rows, got, torch.zeros_like(got)).sum())
+
+
+def _grad_gap(ref: dict, got: dict) -> float:
+    """|got - ref| / |ref| over all parameters."""
+    num = sum(float(((got[n] - g).double() ** 2).sum()) for n, g in ref.items())
+    den = sum(float((g.double() ** 2).sum()) for g in ref.values())
+    return (num / den) ** 0.5
+
+
+def bevfusion_train_split(bundle, opt, inputs, gt, iters: int) -> dict:
+    """Host-clock split of a train step with a synchronize after each part
+    (median of ``iters`` after one warm-up): forward, assignment + loss,
+    backward, optimizer."""
+    from dal3d_tpu_torch.models.bevfusion.transfusion import transfusion_loss
+    from dal3d_tpu_torch.runtime.bevfusion_steps import _forward, autotuned_convs
+
+    model = bundle.model
+    model.train()
+    names = ["forward", "assignment + loss", "backward", "optimizer"]
+    rec = {n: [] for n in names}
+    for _ in range(iters + 1):
+        opt.zero_grad()
+        marks = [time.perf_counter()]
+        with autotuned_convs():
+            preds = _forward(model, inputs)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            logs = transfusion_loss(preds, *gt, bundle.test_cfg)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            logs["loss"].backward()
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        opt.step()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        for n, a, b_ in zip(names, marks[:-1], marks[1:]):
+            rec[n].append((b_ - a) * 1e3)
+    return {n: float(np.median(v[1:])) for n, v in rec.items()}
+
+
+def write_bevfusion_cli_config(path: str, loop: dict, work_dir: str, extra: str = "") -> None:
+    """configs/bevfusion_lidar.py (full width) pointed at phase 15's
+    synthetic set, a log line every step."""
+    with open(path, "w") as f:
+        f.write(open(os.path.join(ROOT, "configs", "bevfusion_lidar.py")).read())
+        f.write(f"\ndata['train'].update(root_path={loop['root']!r}, "
+                f"info_path={loop['info_train']!r})\nwork_dir = {work_dir!r}\n"
+                "log_config = dict(interval=1)\n" + extra)
+
+
+def bevfusion_train_cli(tmp: str, loop: dict) -> dict:
+    """The training CLI on phase 15's synthetic set at full width: an epoch
+    with --budget and its checkpoint, --resume_from, --load_from into a model
+    with another head width, convert_bevfusion -> --torch_init. Returns
+    seconds per run."""
+    from dal3d_tpu_torch.models.bevfusion.convert_bevfusion import (
+        apply_torch_init_bevfusion, convert_bevfusion_state_dict)
+    from dal3d_tpu_torch.models.builder import build_bevfusion
+    from dal3d_tpu_torch.runtime import checkpoint as ckpt
+    from dal3d_tpu_torch.tools import convert_bevfusion, train_bevfusion
+    from dal3d_tpu_torch.utils.config import Config
+
+    base = os.path.join(tmp, "bevfusion_train")
+    os.makedirs(base)
+    cfg_path, work = os.path.join(base, "bevfusion.py"), os.path.join(base, "work")
+    write_bevfusion_cli_config(cfg_path, loop, work)
+    budget = ["--budget", loop["budget"]]
+    seconds = {}
+
+    def run(tag, argv):
+        t0 = time.perf_counter()
+        out = train_bevfusion.main(argv)
+        torch.cuda.synchronize()
+        seconds[tag] = time.perf_counter() - t0
+        return out
+
+    r1 = run("epoch (--budget)", [cfg_path, "--epochs", "1"] + budget)
+    n1 = r1["optimizer"].count
+    if ckpt.latest_epoch(work) != 1 or n1 < 1 or not all(
+            np.isfinite(v) for v in r1["logs"].values()):
+        fail(f"train_bevfusion --budget: epoch {ckpt.latest_epoch(work)}, {n1} steps, logs "
+             f"{r1['logs']}")
+    del r1
+    r2 = run("--resume_from", [cfg_path, "--epochs", "2", "--resume_from", work] + budget)
+    if ckpt.latest_epoch(work) != 2 or r2["optimizer"].count != 2 * n1:
+        fail(f"train_bevfusion --resume_from: epoch {ckpt.latest_epoch(work)}, step "
+             f"{r2['optimizer'].count} (expected {2 * n1})")
+    del r2
+    wide = os.path.join(base, "wide.py")
+    write_bevfusion_cli_config(wide, loop, os.path.join(base, "wide"),
+                               "model = dict(model, hidden_channel=64, ffn_channel=128)\n")
+    r3 = run("--load_from (head width 64)", [wide, "--epochs", "1", "--load_from", work] + budget)
+    log = open(os.path.join(base, "wide", "train.log")).read()
+    copied = int(log.split("partial warm-start from ")[1].split(": ")[1].split(" ")[0])
+    if copied <= 0 or r3["optimizer"].count != n1:
+        fail(f"train_bevfusion --load_from: {copied} tensors copied, {r3['optimizer'].count} "
+             "steps")
+    del r3
+    ref = reference_bevfusion_state_dict(np.random.RandomState(18))
+    pth, npz = os.path.join(base, "reference.pth"), os.path.join(base, "reference.npz")
+    torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in ref.items()}}, pth)
+    convert_bevfusion.main([pth, npz, "--config", cfg_path])
+    model = build_bevfusion(Config.fromfile(cfg_path), seed=3).model
+    apply_torch_init_bevfusion(model, npz)
+    want = convert_bevfusion_state_dict(ref, model)
+    if set(want) != set(model.state_dict()) or not all(
+            torch.equal(v.cpu(), want[k]) for k, v in model.state_dict().items()):
+        fail("convert_bevfusion -> apply_torch_init_bevfusion: loaded tensors differ from the "
+             "written ones")
+    del model
+    r4 = run("--torch_init", [cfg_path, "--epochs", "1", "--work_dir",
+                              os.path.join(base, "torch_init"), "--torch_init", npz] + budget)
+    if not all(np.isfinite(v) for v in r4["logs"].values()):
+        fail(f"train_bevfusion --torch_init: logs {r4['logs']}")
+    del r4
+    print(f"  train_bevfusion CLI ({n1} steps an epoch on the budget-{loop['budget']} subset): "
+          + "; ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+          + f"; --load_from copied {copied} tensors; --torch_init of {len(ref)} reference "
+          "tensors, the loaded ones equal to the written ones")
+    return seconds
+
+
+def bevfusion_train_phase(tmp: str, Config, counters, loop, tg, tl) -> dict:
+    """Phase 18. Returns the kernels-line numbers of K4-dW and LSA, and each
+    kernel's launches over the phase's main-path run."""
+    import contextlib
+
+    from dal3d_tpu_torch.models.bevfusion import transfusion as ttf
+    from dal3d_tpu_torch.models.builder import bevfusion_optimizer, build_bevfusion
+    from dal3d_tpu_torch.runtime.bevfusion_steps import make_bevfusion_train_step
+    from dal3d_tpu_torch.runtime.steps import _to_device, model_inputs
+    from scipy.optimize import linear_sum_assignment as scipy_lsa
+
+    t_phase = time.perf_counter()
+    cfg = Config.fromfile(os.path.join(ROOT, "configs", "bevfusion_lidar.py"))
+    batch, _, _ = bevfusion_batch(10, cfg)
+    batch["gt_boxes"], batch["gt_classes"] = bevfusion_gt(18)
+    bundle = build_bevfusion(cfg, seed=0)
+    dev = bundle.device
+    opt = bevfusion_optimizer(cfg, bundle, 100)
+    step = make_bevfusion_train_step(bundle, opt)
+    inputs = model_inputs(batch, dev)
+    gt = (_to_device(batch["gt_boxes"], dev, torch.float32),
+          _to_device(batch["gt_classes"], dev, torch.int32))
+
+    # 1. the whole step's gradient against the same step on plain versions;
+    # the plain run takes the kernel run's queries (top-k is discontinuous:
+    # rounding can swap a query at the 200th place), and the plain run again
+    # on features moved by about one ulp gives the floor rounding alone sets
+    logs_k, g_k, rk = step_gradients(bundle, inputs, gt, 0, False, tg, tl)
+    q_k, a_k = rk["queries"], rk["col4row"]
+    own = step_gradients(bundle, inputs, gt, 0, True, tg, tl, assignment=a_k)[2]["queries"]
+    a_own = step_gradients(bundle, inputs, gt, 0, True, tg, tl, queries=q_k)[2]["col4row"]
+    logs_p, g_p, _ = step_gradients(bundle, inputs, gt, 0, True, tg, tl, queries=q_k,
+                                    assignment=a_k)
+    noise = 1.0 + 1e-7 * torch.randn(inputs["vf"].shape, generator=torch.Generator().manual_seed(
+        18)).to(dev)
+    _, g_n, _ = step_gradients(bundle, dict(inputs, vf=inputs["vf"] * noise), gt, 0, True, tg,
+                               tl, queries=q_k, assignment=a_k)
+    # the plain run's own matching on its own cost may differ from the
+    # kernel's only by a tie: the same total cost under the kernel run's cost
+    tie_cost = (_assignment_cost(rk["cost"], a_k), _assignment_cost(rk["cost"], a_own))
+    a_flips = int((a_own != a_k).sum())
+    if abs(tie_cost[1] - tie_cost[0]) > 1e-5 * max(abs(tie_cost[0]), 1.0):
+        fail(f"BEVFusion train step: the plain run's own matching differs from the kernel "
+             f"run's in {a_flips} rows and costs {tie_cost[1]} against {tie_cost[0]}")
+    stem = "encoder.stem.weight"
+    gap, floor = _grad_gap(g_p, g_k), _grad_gap(g_p, g_n)
+    stem_gap = _grad_gap({stem: g_p[stem]}, {stem: g_k[stem]})
+    stem_floor = _grad_gap({stem: g_p[stem]}, {stem: g_n[stem]})
+    tol, stem_tol = max(STEP_TOL, 2 * floor), max(STEP_TOL, 2 * stem_floor)
+    log_gap = max(abs(float(logs_k[k]) - float(logs_p[k])) / max(abs(float(logs_p[k])), 1e-30)
+                  for k in ("loss", "cls_loss", "reg_loss", "heatmap_loss"))
+    flips = int((own != q_k).sum())
+    if not (gap <= tol and stem_gap <= stem_tol and max(floor, stem_floor) <= STEP_FLOOR_MAX
+            and float(g_k[stem].abs().max()) > 0
+            and int(logs_k["num_matched"]) == int(logs_p["num_matched"]) == sum(BF_GT)
+            and log_gap <= 1e-4):
+        fail(f"BEVFusion train step vs plain versions: gradient gap {gap:.2e} of its norm "
+             f"(tol {tol:.2e}; rounding floor {floor:.2e}), the stem's {stem_gap:.2e} (tol "
+             f"{stem_tol:.2e}), logs gap {log_gap:.2e}, matched {int(logs_k['num_matched'])} / "
+             f"{int(logs_p['num_matched'])}")
+    print(f"BEVFusion train step (B={B}, {BF_GT} GT boxes) vs the same step on plain versions "
+          f"with the kernel run's queries and matching ({flips} of {q_k.numel()} queries differ "
+          f"in the plain run's own top-k; with the kernel run's queries its own matching "
+          f"differs in {a_flips} of {a_k.numel()} rows, at the same total cost: "
+          f"{tie_cost[1]:.6f} against {tie_cost[0]:.6f}): gradient within {gap:.2e} of its norm (tol {tol:.2e}), the stem's within "
+          f"{stem_gap:.2e} (tol {stem_tol:.2e}, nonzero); rounding alone (the plain step on "
+          f"features moved by about one ulp) opens {floor:.2e} (the stem's {stem_floor:.2e}); "
+          f"loss and its parts within {log_gap:.1e}, the same {int(logs_k['num_matched'])} "
+          "matches")
+    dw_gap = dict(gap=gap, floor=floor, stem_gap=stem_gap, stem_floor=stem_floor,
+                  query_flips=flips, matching_flips=a_flips)
+    del g_k, g_p, g_n, logs_p
+
+    # 2. every launch of one step against its plain version
+    with Capture(tg, "_launch_gemm") as k4, Capture(tg, "_launch_dw") as kdw, \
+            Capture(tl, "linear_sum_assignment") as klsa, Capture(ttf, "boxes_iou3d") as kiou:
+        logs = {k: float(v) for k, v in step(batch).items()}
+        torch.cuda.synchronize()
+    if (len(k4.calls), len(kdw.calls), len(klsa.calls)) != (
+            K4_PER_BF_TRAIN_STEP, K4_DW_PER_BF_TRAIN_STEP, LSA_PER_BF_TRAIN_STEP):
+        fail(f"capture step launched K4 {len(k4.calls)}x, K4-dW {len(kdw.calls)}x, LSA "
+             f"{len(klsa.calls)}x")
+    dx_err = 0.0
+    for n, (f, plan, w) in enumerate(k4.calls[K4_PER_PREDICT:]):
+        got, ref = tg._launch_gemm(f, plan, w), gemm_plain_over_plan(tg, f, plan, w)
+        scale = max(float(ref.abs().max()), 1e-30)
+        err = float((got - ref).abs().max()) / scale
+        if not err <= K4_TOL:
+            fail(f"K4 input-gradient launch {n} {tuple(f.shape)} x {tuple(w.shape)} "
+                 f"({'symmetric plan' if plan.symmetric else 'inverse rulebook'}): error "
+                 f"{err:.2e} of scale > {K4_TOL:g}")
+        dx_err = max(dx_err, err)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0,
+               fma_ms=0.0, tc_ms=0.0, flops=0.0)
+    worst_abs = worst_rel = 0.0
+    print(f"K4-dW launches of one BEVFusion train step (kernel vs plain, f32; tol = {DW_TOL:g} "
+          "x max|plain|, bit-equal on a repeat; library = index_select + bmm):")
+    for n, (f, plan, g) in enumerate(kdw.calls):
+        got, ref = tg._launch_dw(f, plan, g), dw_plain_over_plan(tg, f, plan, g)
+        scale = max(float(ref.abs().max()), 1e-30)
+        err = float((got - ref).abs().max())
+        if not err <= DW_TOL * scale or float(ref.abs().max()) == 0.0:
+            fail(f"K4-dW launch {n} {tuple(f.shape)} g {tuple(g.shape)}: max_abs_err {err:.3e} "
+                 f"> {DW_TOL * scale:.3e}")
+        if not torch.equal(got, tg._launch_dw(f, plan, g)):
+            fail(f"K4-dW launch {n}: a second call on the same inputs differs")
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, err / scale)
+        ms = cuda_time_ms(lambda: tg._launch_dw(f, plan, g), 5)
+        pms = cuda_time_ms(lambda: dw_plain_over_plan(tg, f, plan, g), 2)
+        lms = cuda_time_ms(library_gather_dw(f, plan, g), 2)
+        bnd = gather_dw_bound_ms(f, plan, g)
+        hits = int((plan.rulebook >= 0).sum())
+        flops = 2.0 * hits * f.shape[-1] * g.shape[-1]
+        for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("bound_ms", bnd["bound"]),
+                     ("fma_ms", bnd["fma"]), ("tc_ms", bnd["tc"]), ("flops", flops)):
+            tot[k] += v
+        tot["t_" + ("bytes" if bnd["by"] == "bytes" else "ops")] += bnd["bound"]
+        print(f"  #{n:2d} features {tuple(f.shape)} taps {plan.rulebook.shape[1]} M "
+              f"{plan.rulebook.shape[2]} Cout {g.shape[-1]} hits {hits} "
+              f"({'sorted' if plan.order is not None else 'in order'}): err {err / scale:.1e} of "
+              f"scale; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s) plain {pms:.3f} "
+              f"library {lms:.4f}; bound {bnd['bound']:.4f} ms ({bnd['by']})")
+    print(f"K4-dW per train step: kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
+          f"library {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms (FMA "
+          f"{tot['fma_ms']:.3f}, 3xTF32 {tot['tc_ms']:.3f}); {tot['flops'] / tot['ms'] / 1e9:.1f} "
+          f"TFLOP/s; max_abs_err {worst_abs:.3e} ({worst_rel:.2e} of scale); K4 input-gradient "
+          f"launches within {dx_err:.2e} of scale")
+    dw = dict(max_abs_err=worst_abs, ms=tot["ms"], plain_ms=tot["plain_ms"],
+              bound_ms=tot["bound_ms"],
+              bound_by="bytes" if tot["t_bytes"] >= tot["t_ops"] else "operations",
+              library_ms=tot["library_ms"], bound_fma_ms=tot["fma_ms"],
+              bound_3xtf32_ms=tot["tc_ms"], dx_max_rel_err=dx_err)
+
+    # the Hungarian kernel on the step's cost
+    (cost,) = klsa.calls[0]
+    got = tl.linear_sum_assignment(cost)
+    steps0 = tl.linear_sum_assignment_plain.relax_steps
+    t0 = time.perf_counter()
+    twin = tl.linear_sum_assignment_plain(cost)
+    torch.cuda.synchronize()
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    relax = tl.linear_sum_assignment_plain.relax_steps - steps0
+    cost_np = cost.cpu().numpy().astype(np.float64)
+    t0 = time.perf_counter()
+    sci = [scipy_lsa(c) for c in cost_np]
+    scipy_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(got, twin):
+        fail(f"LSA kernel vs plain: col4row differs at {(got != twin).nonzero().tolist()[:5]}")
+    Gc, Pc = cost.shape[1], cost.shape[2]
+    for b_, (r, c) in enumerate(sci):
+        have = float(cost_np[b_][np.arange(Gc), got[b_].cpu().numpy()].sum())
+        want = float(cost_np[b_][r, c].sum())
+        if not abs(have - want) <= 1e-5 * max(abs(want), 1.0):
+            fail(f"LSA kernel: total cost {have} against scipy's {want}")
+    lsa_ms = cuda_time_ms(lambda: tl.linear_sum_assignment(cost), 5)
+    nbytes = cost.numel() * 4 + got.numel() * 4
+    lsa_ops = relax * (Pc + 1) * 8.0  # relax, mask, argmin and update: about 8 per column
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, lsa_ops / PEAK_F32 * 1e3
+    lsa = dict(max_abs_err=0.0, ms=lsa_ms, plain_ms=twin_ms, library_ms=None, scipy_ms=scipy_ms,
+               bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations",
+               relax_steps=relax)
+    print(f"LSA cost {tuple(cost.shape)} ({int((cost[:, :, 0] < 1e5).sum())} valid GT rows): "
+          f"col4row equal to the plain version's, total cost equal to scipy's; kernel "
+          f"{lsa_ms:.4f} ms, plain on the card {twin_ms:.1f} ms ({relax} relax steps, a host "
+          f"sync each), scipy on the host {scipy_ms:.2f} ms; bound {lsa['bound_ms']:.5f} ms "
+          f"({lsa['bound_by']})")
+    iou_ms = sum(cuda_time_ms(lambda a=a, b_=b_: ttf.boxes_iou3d(a, b_), 3) for a, b_ in kiou.calls)
+    print(f"boxes_iou3d of the IoU cost: {len(kiou.calls)} calls of "
+          f"{tuple(kiou.calls[0][0].shape)} x {tuple(kiou.calls[0][1].shape)}, {iou_ms:.2f} ms "
+          "of device time a step (plain PyTorch, launch-bound)")
+    # K5's backward: the rows' scatter-add (index_add_, not a kernel of the port)
+    with torch.enable_grad():
+        tbl = torch.randn(B, 180 * 180, 128, device=dev, requires_grad=True)
+        rows = torch.randint(0, B * 180 * 180, (B * 200,), dtype=torch.int32, device=dev)
+        q = tg.gather_rows(tbl, rows)
+        gq = torch.randn_like(q)
+        k5b_ms = cuda_time_ms(lambda: torch.autograd.grad(q, tbl, gq, retain_graph=True), 5)
+    print(f"K5 backward (index_add_ of {B * 200} rows into a zero [{B}, 32400, 128] table, "
+          f"float atomics): {k5b_ms:.4f} ms")
+    del k4, kdw, klsa, kiou
+
+    # 3. the main path: counters at 0, a warm-up and timed steps
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step(batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(BF_TRAIN_ITERS):
+        t0 = time.perf_counter()
+        out = {k: float(v) for k, v in step(batch).items()}
+        times.append((time.perf_counter() - t0) * 1e3)
+    n_steps = BF_TRAIN_ITERS + 1
+    launches = {c.__name__: c.launches for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {n: 0 for n in launches}
+    want.update(gather_gemm=K4_PER_BF_TRAIN_STEP * n_steps,
+                gather_dw=K4_DW_PER_BF_TRAIN_STEP * n_steps,
+                gather_rows=K5_PER_BF_TRAIN_STEP * n_steps,
+                linear_sum_assignment=LSA_PER_BF_TRAIN_STEP * n_steps)
+    if launches != want:
+        fail(f"BEVFusion train main path launched {launches} in {n_steps} steps; expected {want}")
+    if not all(np.isfinite(v) for v in out.values()) or out["num_matched"] != sum(BF_GT):
+        fail(f"BEVFusion train step logs {out}")
+    ms_med = float(np.median(times))
+    print(f"BEVFusion train step (B={B}, f32): median {ms_med:.2f} ms, mean {np.mean(times):.2f} "
+          f"ms, min {min(times):.2f} ms over {BF_TRAIN_ITERS} steps; peak memory {peak_gb:.2f} "
+          f"GB; launches per step: gather_gemm {launches['gather_gemm'] // n_steps} (21 "
+          f"forward + 20 input gradients), gather_dw {launches['gather_dw'] // n_steps}, "
+          f"gather_rows {launches['gather_rows'] // n_steps}, linear_sum_assignment "
+          f"{launches['linear_sum_assignment'] // n_steps}, no other kernel; logs {out} "
+          f"(first step {logs})")
+    split = bevfusion_train_split(bundle, opt, inputs, gt, 3)
+    print("BEVFusion train step split (ms, median of 3, synchronized per part): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    prof = device_profile(lambda: step(batch), "BEVFusion train step", ms_med)
+    for tag, key in (("K4", "gather_gemm_kernel"), ("K4-dW", "gather_dw"),
+                     ("LSA", "lsa_kernel"), ("K5", "gather_rows_kernel")):
+        ms_, n_ = (sum(v[0] for k, v in prof.items() if key in k),
+                   sum(v[1] for k, v in prof.items() if key in k))
+        print(f"  profile: {tag} {ms_:.3f} ms a step over {n_:.0f} kernels")
+
+    # 4. the CLI on phase 15's synthetic set
+    cli_s = bevfusion_train_cli(tmp, loop)
+    print(f"phase 18 (BEVFusion training): {time.perf_counter() - t_phase:.1f} s; launches of "
+          f"the main path {launches}")
+    return dict(launches=launches, gather_dw=dw, linear_sum_assignment=lsa, step_ms=ms_med,
+                step_gap=dw_gap,
+                split_ms=split, peak_gb=peak_gb, cli_s=cli_s)
 
 
 if __name__ == "__main__":

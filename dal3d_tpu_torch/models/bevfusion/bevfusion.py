@@ -3,9 +3,12 @@ TransFusion head of ``dal3d_tpu/models/bevfusion/bevfusion.py``).
 
 Host voxels, or raw points voxelized on the device (``voxelize_mean_grid``
 at the config's grid) -> SparseEncoder (gather engine) -> dense BEV map ->
-SECOND + SECONDFPN -> TransFusionHead. The camera branch (Swin, LSS FPN, view
-transforms, fusers), the CenterPoint head, map segmentation and training
-are not ported: each raises with its ROADMAP item (A10).
+SECOND + SECONDFPN -> TransFusionHead. Train mode runs every batch norm on
+batch statistics (moving the running ones as JAX's momenta do) and the
+decoder's dropout; the loss is ``transfusion.py::transfusion_loss``. The
+camera branch (Swin, LSS FPN, view transforms, fusers) is not ported and
+raises with its ROADMAP item (A10.b); the CenterPoint head and map
+segmentation raise in ``models/builder.py`` (A10.c).
 """
 from __future__ import annotations
 
@@ -40,16 +43,17 @@ class BEVFusion(nn.Module):
                  decoder_layer_nums: Sequence[int] = (5, 5),
                  neck_out_channels: Sequence[int] = (256, 256),
                  voxel_caps: Sequence[int] = VOXEL_CAPS,
+                 encoder_channels: Sequence[Sequence[int]] = ENCODER_CHANNELS,
                  hidden_channel: int = 128, num_heads: int = 8, ffn_channel: int = 256):
         super().__init__()
         if with_camera:
             raise NotImplementedError("BEVFusion's camera branch (Swin, LSS FPN, view "
-                                      "transforms, fusers) is not ported: ROADMAP A10")
+                                      "transforms, fusers) is not ported: ROADMAP A10.b")
         self.voxel_cfg = voxel_cfg
         self.sparse_shape: Tuple[int, int, int] = voxel_cfg.sparse_shape
-        self.encoder = SparseEncoder(voxel_caps=voxel_caps)
-        bev_channels = ENCODER_CHANNELS[-1][-1] * _encoder_out_depth(
-            self.sparse_shape[0], len(ENCODER_CHANNELS) - 1)
+        self.encoder = SparseEncoder(encoder_channels=encoder_channels, voxel_caps=voxel_caps)
+        bev_channels = int(encoder_channels[-1][-1]) * _encoder_out_depth(
+            self.sparse_shape[0], len(encoder_channels) - 1)
         self.decoder = SECOND(bev_channels, decoder_channels, decoder_layer_nums)
         self.neck = SECONDFPN(decoder_channels, neck_out_channels)
         self.head = TransFusionHead(int(np.sum(neck_out_channels)), num_classes, num_proposals,
@@ -67,10 +71,6 @@ class BEVFusion(nn.Module):
         ``bev_feat`` (the neck's map [B, H, W, 512]). Fed voxels must lie in
         the grid. ``stop_at`` cuts the forward for the stage split: "lidar" ->
         {"lidar": encoder map}, "decoder" -> {"decoder": neck map}."""
-        if self.training:
-            raise NotImplementedError("BEVFusion training (Hungarian assignment on the "
-                                      "device, gaussian heatmaps, 3D-IoU cost) is not "
-                                      "ported: ROADMAP A10; call .eval()")
         if stop_at not in STOP_AT:
             raise ValueError(f"stop_at={stop_at!r}: the lidar-only model stops at {STOP_AT}")
         if voxel_features is None:

@@ -1,7 +1,5 @@
-"""TransFusion detection head, inference half (port of
-``dal3d_tpu/models/bevfusion/transfusion.py``; ``transfusion_loss`` with its
-Hungarian assignment, gaussian heatmaps and 3D-IoU cost waits for BEVFusion
-training, ROADMAP A10).
+"""TransFusion detection head and its loss (port of
+``dal3d_tpu/models/bevfusion/transfusion.py``).
 
 Dense heatmap on the BEV map; class-aware local-maximum NMS (3x3 max-pool
 equality, the padding ring excluded, nuScenes classes 8 and 9 raw) and the
@@ -16,6 +14,13 @@ attention keeps flax's query / key / value / out projections (each head's
 d/heads slice side by side) and scales by 1/sqrt(d/heads); LayerNorm eps is
 flax's 1e-6; BN eps 1e-5 and momentum 0.1 (flax 0.9). The query features are
 gathered with the row-gather kernel (``ops/gather.py::gather_rows``).
+
+Training: the decoder's dropout (0.1, as JAX's) draws its masks from the
+generator a train step hands it (``Dropout.generator``), seeded from the step
+as JAX's ``fold_in(PRNGKey(0), step)``, so a resumed run draws the same
+masks again (JAX's own bits cannot be matched). ``transfusion_loss`` is the
+Hungarian-matched loss: its matching is ``ops/lsa.py`` (a kernel on the
+card), its IoU cost ``ops/rotated_iou.py::boxes_iou3d`` (plain PyTorch).
 """
 from __future__ import annotations
 
@@ -28,7 +33,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops import gather as _gather
+from ...ops import lsa as _lsa
+from ...ops.rotated_iou import boxes_iou3d
 from ..layers import BatchNorm2d, BatchNormLast
+from ..losses.losses import sigmoid_focal_loss
+from .gaussian import draw_gaussian_heatmap, gaussian_focal_loss, gaussian_radius
 
 
 class PositionEmbeddingLearned(nn.Module):
@@ -82,6 +91,25 @@ class MultiHeadAttention(nn.Module):
         return self.out(torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, P, d))
 
 
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout`` in train mode: keep with probability 1 - p and
+    scale the kept values by 1 / (1 - p); the identity in eval mode. The
+    masks come from ``generator`` when one is set (the train step's), else
+    from torch's default generator."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
+                                                                device=x.device))
+
+
 class DecoderLayer(nn.Module):
     """Post-norm transformer decoder layer; positional encodings are added to
     q, k and v in both attentions."""
@@ -96,7 +124,7 @@ class DecoderLayer(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-6)
         self.ffn1 = nn.Linear(dim, ffn_dim)
         self.ffn2 = nn.Linear(ffn_dim, dim)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, q, q_pos, kv, kv_pos):
         """q [B, P, C], kv [B, HW, C] with their positional encodings."""
@@ -217,3 +245,99 @@ def transfusion_decode(preds: Dict[str, torch.Tensor], cfg: TransFusionTestCfg):
     scores = torch.gather(probs, -1, labels[..., None].long())[..., 0] * preds["query_score"]
     return {"box3d_lidar": boxes, "scores": scores, "label_preds": labels,
             "det_valid": scores > cfg.score_threshold}
+
+
+def transfusion_loss(preds: Dict[str, torch.Tensor], gt_boxes: torch.Tensor,
+                     gt_classes: torch.Tensor, cfg: TransFusionTestCfg,
+                     cls_weight: float = 1.0, bbox_weight: float = 0.25,
+                     heatmap_weight: float = 1.0,
+                     code_weights: Tuple[float, ...] = (1.0,) * 8 + (0.2, 0.2),
+                     gaussian_overlap: float = 0.1, min_radius: int = 2,
+                     cost_cls_weight: float = 0.15, cost_reg_weight: float = 0.25,
+                     cost_iou_weight: float = 0.25) -> Dict[str, torch.Tensor]:
+    """Hungarian-matched TransFusion losses (JAX's ``transfusion_loss``):
+    preds of ``TransFusionHead``, gt_boxes [B, G, 9] (lidar frame, padded),
+    gt_classes [B, G] global 1-based (0 = padding).
+
+    Matching cost FocalLossCost x 0.15 + BEV-L1 x 0.25 - IoU3D x 0.25 (BEV
+    centres normalised by each axis's own extent, taken from the heatmap
+    grid; the IoU on bottom-centred boxes), 1e6 on padded GT, solved without
+    a gradient; then the focal classification loss (matched proposals to
+    their GT class, the others to background), the code-weighted L1 on the
+    matched proposals' raw regression targets, and the gaussian focal
+    heatmap loss. Returns loss, cls_loss, reg_loss, heatmap_loss and
+    num_matched."""
+    B, P = preds["center"].shape[:2]
+    G = gt_boxes.shape[1]
+    nc = preds["cls_logits"].shape[-1]
+    dev = gt_boxes.device
+    gt_valid = gt_classes > 0
+    gcls = torch.clamp(gt_classes.long() - 1, 0, nc - 1)
+    pc_range = torch.tensor(cfg.pc_range, dtype=torch.float32, device=dev)
+    voxel = torch.tensor(cfg.voxel_size, dtype=torch.float32, device=dev)
+    f = cfg.out_size_factor
+
+    with torch.no_grad():  # the assignment's cost is a stopped gradient
+        boxes = transfusion_decode(preds, cfg)["box3d_lidar"]
+        probs = torch.sigmoid(preds["cls_logits"])
+        eps, alpha, gamma = 1e-8, 0.25, 2.0
+        pos_cost = -torch.log(probs + eps) * alpha * torch.pow(1 - probs, gamma)
+        neg_cost = -torch.log(1 - probs + eps) * (1 - alpha) * torch.pow(probs, gamma)
+        focal_tbl = pos_cost - neg_cost  # [B, P, nc]
+        cls_cost = torch.gather(focal_tbl, 2, gcls[:, None, :].expand(B, P, G))
+        hm_h, hm_w = preds["heatmap"].shape[1:3]
+        span = torch.tensor([hm_w * f * cfg.voxel_size[0], hm_h * f * cfg.voxel_size[1]],
+                            dtype=torch.float32, device=dev)
+        nb = (boxes[..., :2] - pc_range) / span
+        ng = (gt_boxes[..., :2] - pc_range) / span
+        reg_cost = (nb[:, :, None] - ng[:, None, :]).abs().sum(-1)
+
+        def to_bottom(b):
+            return torch.cat([b[..., :2], b[..., 2:3] - b[..., 5:6] / 2, b[..., 3:]], -1)
+
+        iou = torch.stack([boxes_iou3d(to_bottom(boxes[b]), to_bottom(gt_boxes[b]))
+                           for b in range(B)])  # [B, P, G]
+        cost = cost_cls_weight * cls_cost + cost_reg_weight * reg_cost - cost_iou_weight * iou
+        cost = torch.where(gt_valid[:, None, :], cost, torch.full((), 1e6, device=dev))
+        col4row = _lsa.linear_sum_assignment(cost.transpose(1, 2))  # [B, G]
+        gidx = torch.where(gt_valid, torch.arange(G, device=dev)[None], -1)
+        # col4row may be -1 (more GT rows than proposals): that write is dropped
+        assign = torch.full((B, P + 1), -1, dtype=torch.long, device=dev)
+        assign.scatter_(1, torch.where(col4row >= 0, col4row.long(), P), gidx)
+        assign = assign[:, :P]
+    matched = assign >= 0
+    n_matched = matched.sum()
+    norm = torch.clamp(n_matched, min=1).float()
+    safe = torch.clamp(assign, min=0)
+    tgt_boxes = torch.gather(gt_boxes, 1, safe[..., None].expand(B, P, gt_boxes.shape[-1]))
+    tgt_cls = torch.gather(gt_classes.long(), 1, safe)
+
+    one_hot = F.one_hot(torch.where(matched, tgt_cls - 1, nc), nc + 1)[..., :nc].float()
+    cls_loss = sigmoid_focal_loss(preds["cls_logits"], one_hot,
+                                  torch.ones(B, P, device=dev), gamma=2.0,
+                                  alpha=0.25).sum() / norm
+
+    tgt = torch.cat([(tgt_boxes[..., :2] - pc_range) / (f * voxel), tgt_boxes[..., 2:3],
+                     torch.log(torch.clamp(tgt_boxes[..., 3:6], min=1e-3)),
+                     torch.cos(tgt_boxes[..., 8:9]), torch.sin(tgt_boxes[..., 8:9]),
+                     tgt_boxes[..., 6:8]], -1)
+    pred_vec = torch.cat([preds["center"], preds["height"], preds["dim"], preds["rot"],
+                          preds["vel"]], -1)
+    cw = torch.tensor(code_weights, dtype=pred_vec.dtype, device=dev)
+    reg_loss = ((pred_vec - tgt).abs() * cw * matched[..., None]).sum() / norm
+
+    hm = preds["heatmap"]
+    Hh, Wh = hm.shape[1:3]
+    gx = (gt_boxes[..., 0] - cfg.pc_range[0]) / (f * cfg.voxel_size[0])
+    gy = (gt_boxes[..., 1] - cfg.pc_range[1]) / (f * cfg.voxel_size[1])
+    w_cells = gt_boxes[..., 3] / cfg.voxel_size[0] / f
+    l_cells = gt_boxes[..., 4] / cfg.voxel_size[1] / f
+    radius = torch.clamp(torch.floor(gaussian_radius(l_cells, w_cells, gaussian_overlap)).int(),
+                         min=min_radius)
+    inb = gt_valid & (gx >= 0) & (gx < Wh) & (gy >= 0) & (gy < Hh) & (w_cells > 0) & (l_cells > 0)
+    target_hm = draw_gaussian_heatmap(torch.stack([gx, gy], -1), radius, gcls, inb, Hh, Wh, nc)
+    hm_loss = gaussian_focal_loss(hm, target_hm).sum() / torch.clamp(inb.sum(), min=1).float()
+
+    total = cls_weight * cls_loss + bbox_weight * reg_loss + heatmap_weight * hm_loss
+    return {"loss": total, "cls_loss": cls_loss, "reg_loss": reg_loss, "heatmap_loss": hm_loss,
+            "num_matched": n_matched, "assign": assign}

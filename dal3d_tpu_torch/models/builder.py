@@ -19,7 +19,7 @@ from ..device import resolve_device
 from ..ops.voxelize import VoxelConfig
 from .backbones.scn import BANDED_CAPS_DEFAULT, BRICK_WIDTHS_DEFAULT
 from .bevfusion import BEVFusion, TransFusionTestCfg
-from .bevfusion.sparse_encoder import VOXEL_CAPS
+from .bevfusion.sparse_encoder import ENCODER_CHANNELS, VOXEL_CAPS
 from .detectors.voxelnet import FPNVoxelNet
 from .heads.mg_head import LossConfig, TestConfig
 from .layers import BatchNorm2d, MaskedBatchNorm, SparseConvDown, SubMConv
@@ -214,16 +214,18 @@ def build_bevfusion(cfg, device=None, seed: int = 0) -> BEVFusionBundle:
     ``device=None`` means the CUDA card and raises when there is none.
 
     Raises NotImplementedError, naming its ROADMAP item, for what is not
-    ported: ``with_camera`` (A10), ``head="centerpoint"`` (A10),
-    ``with_map_seg`` (A10)."""
+    ported: ``with_camera`` (A10.b), ``head="centerpoint"`` (A10.c),
+    ``with_map_seg`` (A10.c). ``bevfusion_optimizer`` builds the training
+    optimizer of the same config."""
     mc = dict(cfg["model"])
     if mc.get("type") != "BEVFusion":
         raise KeyError(f"build_bevfusion: model type {mc.get('type')!r} is not BEVFusion")
     if mc.get("head", "transfusion") != "transfusion":
         raise NotImplementedError(f"BEVFusion head {mc.get('head')!r}: only the TransFusion "
-                                  "head is ported; the CenterPoint head waits for ROADMAP A10")
+                                  "head is ported; the CenterPoint head waits for ROADMAP "
+                                  "A10.c")
     if mc.get("with_map_seg", False):
-        raise NotImplementedError("BEVFusion map segmentation is not ported: ROADMAP A10")
+        raise NotImplementedError("BEVFusion map segmentation is not ported: ROADMAP A10.c")
     dev = resolve_device(device)
     vg = cfg["voxel_generator"]
     voxel_cfg = VoxelConfig(tuple(vg["range"]), tuple(vg["voxel_size"]),
@@ -236,6 +238,7 @@ def build_bevfusion(cfg, device=None, seed: int = 0) -> BEVFusionBundle:
         decoder_layer_nums=tuple(mc.get("decoder_layer_nums", (5, 5))),
         neck_out_channels=tuple(mc.get("neck_out_channels", (256, 256))),
         voxel_caps=tuple(mc.get("voxel_caps", VOXEL_CAPS)),
+        encoder_channels=tuple(tuple(c) for c in mc.get("encoder_channels", ENCODER_CHANNELS)),
         hidden_channel=int(mc.get("hidden_channel", 128)),
         num_heads=int(mc.get("num_heads", 8)),
         ffn_channel=int(mc.get("ffn_channel", 256)),
@@ -250,6 +253,20 @@ def build_bevfusion(cfg, device=None, seed: int = 0) -> BEVFusionBundle:
     )
     return BEVFusionBundle(model=model.to(dev).eval(), test_cfg=test_cfg,
                            voxel_cfg=voxel_cfg, device=dev)
+
+
+def bevfusion_optimizer(cfg, bundle, total_steps: int):
+    """The BEVFusion CLI's optimizer (JAX's ``tools/train_bevfusion.py``):
+    OneCycle AdamW with the config's ``lr_config.lr_max`` (default 1e-4)
+    over ``total_steps``, weight decay ``optimizer.VALUE.wd`` (0.01), global
+    norm clip 35, bound to the bundle's model."""
+    from ..solver.optim import OneCycleSchedule, build_optimizer
+
+    lr = dict(cfg.get("lr_config", {}) or {})
+    wd = dict(dict(cfg.get("optimizer", {}) or {}).get("VALUE", {}) or {}).get("wd", 0.01)
+    opt = build_optimizer(OneCycleSchedule(lr_max=lr.get("lr_max", 1e-4),
+                                           total_steps=total_steps), weight_decay=wd)
+    return opt.init(bundle.model.named_parameters())
 
 
 def eval_test_cfg(cfg, logger=None) -> dict:

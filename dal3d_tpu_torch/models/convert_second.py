@@ -174,11 +174,18 @@ def load_raw_state_dict_npz(path: str) -> Dict[str, np.ndarray]:
 
 def apply_torch_init(model: torch.nn.Module, npz_path: str, logger=None) -> torch.nn.Module:
     """Load a converted reference checkpoint (an npz of
-    ``tools/convert_second.py``) into ``model`` (an FPNVoxelNet) in place.
-    Every converted tensor must name a tensor of the model (KeyError) of the
-    same shape (ValueError); the model's tensors the checkpoint does not
-    cover keep their values and are logged."""
-    conv = convert_second_state_dict(load_raw_state_dict_npz(npz_path))
+    ``tools/convert_second.py``) into ``model`` (an FPNVoxelNet) in place
+    (``copy_converted``)."""
+    return copy_converted(model, convert_second_state_dict(load_raw_state_dict_npz(npz_path)),
+                          logger)
+
+
+def copy_converted(model: torch.nn.Module, conv: Dict[str, torch.Tensor],
+                   logger=None) -> torch.nn.Module:
+    """Copy converted tensors into ``model`` in place. Every converted tensor
+    must name a tensor of the model (KeyError) of the same shape
+    (ValueError); the model's tensors the checkpoint does not cover keep
+    their values and are logged."""
     own = model.state_dict()
     unknown = sorted(set(conv) - set(own))
     if unknown:

@@ -30,12 +30,14 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMMON_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                 "-Xptxas=-v")
 # per-kernel extra flags: the IoU clip's eps branches compare against 1e-4
-# and must see the same rounding as the plain version, so no FMA contraction
+# and must see the same rounding as the plain version, so no FMA contraction;
+# the assignment's arithmetic is JAX's, operation for operation
 KERNELS = {
     "banded_conv": (),
     "banded_dw": (),
     "gather": (),
     "iou_matrix": ("-fmad=false",),
+    "lsa": ("-fmad=false",),
     "pairwise_distance": (),
     "pairwise_l2_tf32": (),
 }

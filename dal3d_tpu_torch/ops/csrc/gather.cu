@@ -84,6 +84,34 @@
 // few hundred KB on the path, so it is bound by the launch, not the bytes.
 // An index outside [0, B * R) gives a zero row (never an out-of-bounds read).
 //
+// gather_dw_f32: the weight gradient of gather_gemm_f32 for an output
+// gradient g [B, M, Cout] (rows in output order), over the same plan:
+//   dw[k] = sum_{b, p : rb[b, k, p] >= 0} feat[b, rb[b, k, p], :]^T g[b, order[b, p], :]
+// JAX has no Pallas kernel here (XLA differentiates its gather_gemm); this is
+// the port's own. Bound on the card: 2 * hits * Cin * Cout f32-accurate
+// operations (in 3xTF32 on the tensor cores, or the FMA units' 67 TFLOP/s),
+// or the bytes of the features, rulebook, g and dw; the L0 and L1 convs of the
+// BEVFusion encoder (Cin, Cout <= 32) are bound by the bytes of their gathers.
+//
+// Design (simple first; wgmma and a deeper pipeline are later work):
+//   - one block of 8 warps per (share of the plan's 32-position chunks, tap,
+//     16/32/64 x 16/32/64 tile of dw); the block first ballots which chunks of
+//     its share hit its tap and keeps their list in shared memory, so a chunk
+//     without a hit costs one read of its 32 rulebook entries and nothing else
+//     (a sorted plan leaves most chunks of a tap empty);
+//   - per step, cp.async gathers (zero fill for misses and the Cin / Cout
+//     edge) of the chunk's 32 feature rows and 32 g rows into shared memory,
+//     then mma.sync m16n8k8 in 3xTF32 with the positions as the reduction
+//     axis (A = the gathered features transposed, read from [position][cin]
+//     by 32-bit loads; row pitches of tile + 8 floats keep both fragments on
+//     32 banks), each 8-position step added to f32 sums in fresh
+//     accumulators as in the forward; a tile of few mma tiles (Cin and Cout
+//     of 16) splits its 8 warps into groups that take consecutive chunks of
+//     the list and are summed in group order at the end;
+//   - each block writes its partial tile to scratch [shares, K, Cin, Cout];
+//     gather_dw_reduce_kernel adds a tap's partials in share order. No float
+//     atomics: a repeat gives the same bits.
+//
 // Alignment contract of gather_gemm_f32 (checked by the Python wrapper):
 // Cin % 4 == 0, Cout is 16, 32, 64 or a multiple of 128, K <= 32, pointers
 // 16-byte aligned, contiguous.
@@ -380,6 +408,219 @@ int launch_gather_rows(const void* table, const int* idx, void* out, int M, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- gather_dw_f32 -----------------------------------------------------------
+
+constexpr int DW_CH = 32;             // plan positions of a chunk (one reduction step)
+constexpr int DW_MAX_CHUNKS = 1024;   // chunks of a share
+
+template <int TI, int TO>
+struct DwTile {
+  static constexpr int MT = TI / 16, NT = TO / 8, TILES = MT * NT;  // mma tiles
+  static constexpr int WG = TILES < 8 ? TILES : 8;  // warps of a group
+  static constexpr int GROUPS = 8 / WG;             // groups: chunks in flight
+  static constexpr int TPW = TILES / WG;            // mma tiles of a warp
+  static constexpr int LDA = TI + 8, LDG = TO + 8;  // floats: fragments on 32 banks
+  static constexpr int A_FLOATS = DW_CH * LDA;
+  static constexpr int STAGE = A_FLOATS + DW_CH * LDG;
+  static constexpr int SMEM = (GROUPS * STAGE + (GROUPS > 1 ? GROUPS * TI * TO : 0)) * 4;
+  static_assert(TILES % WG == 0 && 8 % WG == 0, "dw tile");
+};
+
+template <int TI, int TO>
+__global__ void __launch_bounds__(THREADS)
+gather_dw_kernel(const float* __restrict__ feat, const int* __restrict__ rb,
+                 const long long* __restrict__ order, const float* __restrict__ g,
+                 float* __restrict__ part, int N, int Cin, int K, int M, int Cout, int chunks,
+                 int cps, int tiles_o) {
+  using T = DwTile<TI, TO>;
+  extern __shared__ __align__(16) float dsm[];
+  __shared__ unsigned char flag[DW_MAX_CHUNKS];
+  __shared__ unsigned short clist[DW_MAX_CHUNKS];
+  __shared__ int count;
+  __shared__ int srow[T::GROUPS][DW_CH];  // feature row (batch-major), -1: miss
+  __shared__ int grow[T::GROUPS][DW_CH];  // g row (batch-major)
+
+  const int s = blockIdx.x, k = blockIdx.y;
+  const int i0 = (blockIdx.z / tiles_o) * TI, o0 = (blockIdx.z % tiles_o) * TO;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tc = (M + DW_CH - 1) / DW_CH;  // chunks of one batch element
+  const int c_begin = s * cps;
+  const int n_ch = min(c_begin + cps, chunks) - c_begin;
+
+  // the chunks of the share that hit tap k, in order
+  for (int c = warp; c < n_ch; c += THREADS / 32) {
+    const int cc = c_begin + c, b = cc / tc, p = (cc - b * tc) * DW_CH + lane;
+    const bool h = p < M && rb[((size_t)b * K + k) * M + p] >= 0;
+    const unsigned m = __ballot_sync(0xffffffffu, h);
+    if (lane == 0) flag[c] = m != 0u;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int base = 0; base < n_ch; base += 32) {
+      const bool f = base + lane < n_ch && flag[base + lane];
+      const unsigned m = __ballot_sync(0xffffffffu, f);
+      if (f) clist[n + __popc(m & ((1u << lane) - 1u))] = static_cast<unsigned short>(base + lane);
+      n += __popc(m);
+    }
+    if (lane == 0) count = n;
+  }
+  __syncthreads();
+  const int nh = count;
+
+  const int grp = warp / T::WG, wg = warp % T::WG;
+  const int gq = lane / 4, t = lane % 4;
+  float acc[T::TPW][4];
+#pragma unroll
+  for (int q = 0; q < T::TPW; ++q)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[q][r] = 0.0f;
+
+  constexpr int PA = TI / 4, PG = TO / 4;  // 16-byte pieces of a feature row, of a g row
+#pragma unroll 1
+  for (int j0 = 0; j0 < nh; j0 += T::GROUPS) {
+    for (int e = tid; e < T::GROUPS * DW_CH; e += THREADS) {
+      const int gi = e / DW_CH, r = e - gi * DW_CH;
+      int src = -1, gr = -1;
+      if (j0 + gi < nh) {
+        const int cc = c_begin + clist[j0 + gi], b = cc / tc, p = (cc - b * tc) * DW_CH + r;
+        if (p < M) {
+          const int v = rb[((size_t)b * K + k) * M + p];
+          if (v >= 0) {
+            src = b * N + v;
+            gr = b * M + (order ? static_cast<int>(order[(size_t)b * M + p]) : p);
+          }
+        }
+      }
+      srow[gi][r] = src;
+      grow[gi][r] = gr;
+    }
+    __syncthreads();
+    for (int e = tid; e < T::GROUPS * DW_CH * (PA + PG); e += THREADS) {
+      const int gi = e / (DW_CH * (PA + PG));
+      const int rem = e - gi * (DW_CH * (PA + PG));
+      const int r = rem / (PA + PG), q = rem - r * (PA + PG);
+      float* st = dsm + gi * T::STAGE;
+      if (q < PA) {
+        const int c = i0 + q * 4, src = srow[gi][r];
+        const bool ok = src >= 0 && c < Cin;
+        cp_async16(st + r * T::LDA + q * 4, ok ? feat + (size_t)src * Cin + c : feat, ok);
+      } else {
+        const int c = o0 + (q - PA) * 4, gr = grow[gi][r];
+        const bool ok = gr >= 0 && c < Cout;
+        cp_async16(st + T::A_FLOATS + r * T::LDG + (q - PA) * 4,
+                   ok ? g + (size_t)gr * Cout + c : g, ok);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (j0 + grp < nh) {
+      const float* a = dsm + grp * T::STAGE;
+      const float* gg = a + T::A_FLOATS;
+#pragma unroll
+      for (int kk = 0; kk < DW_CH; kk += 8) {
+#pragma unroll
+        for (int q = 0; q < T::TPW; ++q) {
+          const int tile = wg + T::WG * q, mi = tile / T::NT, ni = tile - mi * T::NT;
+          const int ia = mi * 16 + gq, n = ni * 8 + gq;
+          // A[i][j] = features of position j, channel i: a0 (g, t), a1 (g + 8, t),
+          // a2 (g, t + 4), a3 (g + 8, t + 4); B[j][n] = g: b0 (t, g), b1 (t + 4, g)
+          uint32_t ab[4], as[4], bb0, bs0, bb1, bs1;
+          split_tf32(a[(kk + t) * T::LDA + ia], ab[0], as[0]);
+          split_tf32(a[(kk + t) * T::LDA + ia + 8], ab[1], as[1]);
+          split_tf32(a[(kk + t + 4) * T::LDA + ia], ab[2], as[2]);
+          split_tf32(a[(kk + t + 4) * T::LDA + ia + 8], ab[3], as[3]);
+          split_tf32(gg[(kk + t) * T::LDG + n], bb0, bs0);
+          split_tf32(gg[(kk + t + 4) * T::LDG + n], bb1, bs1);
+          float p4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_tf32_1688(p4, as, bb0, bb1);
+          mma_tf32_1688(p4, ab, bs0, bs1);
+          mma_tf32_1688(p4, ab, bb0, bb1);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[q][r] += p4[r];
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // the block's partial tile: each group's sums, added in group order
+  float* out = part + ((size_t)s * K + k) * Cin * Cout;
+  float* red = dsm + T::GROUPS * T::STAGE;  // [GROUPS][TI][TO] (GROUPS > 1)
+#pragma unroll
+  for (int q = 0; q < T::TPW; ++q) {
+    const int tile = wg + T::WG * q, mi = tile / T::NT, ni = tile - mi * T::NT;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = mi * 16 + gq + (r >= 2 ? 8 : 0), o = ni * 8 + 2 * t + (r & 1);
+      if constexpr (T::GROUPS > 1) {
+        red[(grp * TI + i) * TO + o] = acc[q][r];
+      } else if (i0 + i < Cin && o0 + o < Cout) {
+        out[(size_t)(i0 + i) * Cout + o0 + o] = acc[q][r];
+      }
+    }
+  }
+  if constexpr (T::GROUPS > 1) {
+    __syncthreads();
+    for (int e = tid; e < TI * TO; e += THREADS) {
+      const int i = e / TO, o = e - i * TO;
+      float sum = red[e];
+#pragma unroll
+      for (int gi = 1; gi < T::GROUPS; ++gi) sum += red[gi * TI * TO + e];
+      if (i0 + i < Cin && o0 + o < Cout) out[(size_t)(i0 + i) * Cout + o0 + o] = sum;
+    }
+  }
+}
+
+// dw[e] = sum over shares s, in order, of part[s][e]
+__global__ void gather_dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
+                                        int shares, long long per) {
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < per;
+       e += (long long)gridDim.x * blockDim.x) {
+    float sum = part[e];
+    for (int s = 1; s < shares; ++s) sum += part[(size_t)s * per + e];
+    dw[e] = sum;
+  }
+}
+
+template <int TI, int TO>
+int launch_gather_dw(const float* feat, const int* rb, const long long* order, const float* g,
+                     float* dw, float* part, int B, int N, int Cin, int K, int M, int Cout,
+                     int shares, int cps, cudaStream_t stream) {
+  using T = DwTile<TI, TO>;
+  const int tiles_i = (Cin + TI - 1) / TI, tiles_o = (Cout + TO - 1) / TO;
+  const int chunks = B * ((M + DW_CH - 1) / DW_CH);
+  cudaError_t e = cudaFuncSetAttribute(gather_dw_kernel<TI, TO>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(shares, K, tiles_i * tiles_o);
+  gather_dw_kernel<TI, TO><<<grid, THREADS, T::SMEM, stream>>>(
+      feat, rb, order, g, part, N, Cin, K, M, Cout, chunks, cps, tiles_o);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long per = (long long)K * Cin * Cout;
+  const long long blocks = (per + THREADS - 1) / THREADS;
+  gather_dw_reduce_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), THREADS, 0,
+                            stream>>>(part, dw, shares, per);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TI>
+int dispatch_dw_to(const float* feat, const int* rb, const long long* order, const float* g,
+                   float* dw, float* part, int B, int N, int Cin, int K, int M, int Cout,
+                   int shares, int cps, cudaStream_t stream) {
+  if (Cout <= 16)
+    return launch_gather_dw<TI, 16>(feat, rb, order, g, dw, part, B, N, Cin, K, M, Cout, shares,
+                                    cps, stream);
+  if (Cout <= 32)
+    return launch_gather_dw<TI, 32>(feat, rb, order, g, dw, part, B, N, Cin, K, M, Cout, shares,
+                                    cps, stream);
+  return launch_gather_dw<TI, 64>(feat, rb, order, g, dw, part, B, N, Cin, K, M, Cout, shares,
+                                  cps, stream);
+}
+
 }  // namespace
 
 extern "C" int gather_gemm_f32(const void* feat, const void* rb, const void* order,
@@ -423,4 +664,27 @@ extern "C" int gather_rows(const void* table, const void* idx, void* out, int M,
     case 1: return launch_gather_rows<uint8_t>(table, i, out, M, pieces, rows, R, sb, sr, sp, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// dw [K, Cin, Cout]; part: scratch of shares * K * Cin * Cout floats; the
+// plan's B * ceil(M / 32) chunks of positions in shares of cps chunks
+// (ops/gather.py::_dw_chunk_shares).
+extern "C" int gather_dw_f32(const void* feat, const void* rb, const void* order, const void* g,
+                             void* dw, void* part, int B, int N, int Cin, int K, int M, int Cout,
+                             int shares, int cps, void* stream) {
+  if (K == 0 || Cin == 0 || Cout == 0) return 0;
+  const long long chunks = (long long)B * ((M + DW_CH - 1) / DW_CH);
+  if (Cin % 4 != 0 || Cout % 4 != 0 || cps <= 0 || cps > DW_MAX_CHUNKS || shares <= 0 ||
+      (long long)shares * cps < chunks || (long long)(shares - 1) * cps >= (chunks > 0 ? chunks : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* f = static_cast<const float*>(feat);
+  const int* r = static_cast<const int*>(rb);
+  const long long* o = static_cast<const long long*>(order);
+  const float* gg = static_cast<const float*>(g);
+  float* d = static_cast<float*>(dw);
+  float* p = static_cast<float*>(part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Cin <= 16) return dispatch_dw_to<16>(f, r, o, gg, d, p, B, N, Cin, K, M, Cout, shares, cps, s);
+  if (Cin <= 32) return dispatch_dw_to<32>(f, r, o, gg, d, p, B, N, Cin, K, M, Cout, shares, cps, s);
+  return dispatch_dw_to<64>(f, r, o, gg, d, p, B, N, Cin, K, M, Cout, shares, cps, s);
 }

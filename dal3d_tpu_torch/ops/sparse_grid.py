@@ -129,11 +129,12 @@ def downsample_plan(sb: SparseBatch, kernel_size, stride, padding, out_cap: int,
 
 
 def with_plan(rulebook):
-    """(idx, hit) -> (idx, hit, plan): a rulebook shared by several convs,
-    with the gather-GEMM kernel's walk plan (``ops/gather.py::gather_plan``)
-    made once for all of them."""
+    """(idx, hit) -> (idx, hit, plan): a submanifold rulebook shared by
+    several convs, with the gather-GEMM kernel's walk plan
+    (``ops/gather.py::gather_plan``, sorted and symmetric: the input
+    gradients walk it too) made once for all of them."""
     idx, hit = rulebook
-    return idx, hit, gather_plan(idx, hit)
+    return idx, hit, gather_plan(idx, hit, symmetric=True)
 
 
 def subm_conv(sb: SparseBatch, weights: torch.Tensor, rulebook=None,
@@ -143,7 +144,9 @@ def subm_conv(sb: SparseBatch, weights: torch.Tensor, rulebook=None,
     if rulebook is None:
         rulebook = subm_rulebook(sb, kernel_size)
     idx, hit = rulebook[:2]
-    out = gather_gemm(sb.features, idx, hit, weights, rulebook[2] if len(rulebook) > 2 else None)
+    plan = (rulebook[2] if len(rulebook) > 2
+            else gather_plan(idx, hit, sort=False, symmetric=True))
+    out = gather_gemm(sb.features, idx, hit, weights, plan)
     out = torch.where(sb.valid[..., None], out, torch.zeros((), dtype=out.dtype,
                                                             device=out.device))
     return SparseBatch(features=out, lin=sb.lin, shape=sb.shape)

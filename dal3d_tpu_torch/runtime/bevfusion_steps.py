@@ -1,6 +1,5 @@
-"""BEVFusion predict step (port of the predict half of
-``dal3d_tpu/runtime/bevfusion_steps.py``; the train step waits for
-BEVFusion training, ROADMAP A10).
+"""BEVFusion train and predict steps (port of
+``dal3d_tpu/runtime/bevfusion_steps.py``, lidar-only).
 
 Batch contract (leading dim B): host voxels ``voxel_features`` [B, N, F],
 ``voxel_coords`` [B, N, 3] int (z, y, x), ``voxel_valid`` [B, N] (numpy
@@ -8,7 +7,8 @@ arrays or tensors), as the dataset's ``ReformatFixedShape`` with
 ``voxelize_host`` makes them; or, without them, raw ``points`` [B, P, F] and
 ``points_valid`` [B, P], voxelized on the device at the config's grid
 (``ops/voxelize.py::voxelize_mean_grid``). Camera keys are ignored by the
-lidar-only model.
+lidar-only model. The train step also takes ``gt_boxes`` [B, G, 9] (lidar
+frame) and ``gt_classes`` [B, G] global 1-based classes (0 = padding).
 """
 from __future__ import annotations
 
@@ -16,8 +16,8 @@ from typing import Callable, Dict
 
 import torch
 
-from ..models.bevfusion.transfusion import transfusion_decode
-from .steps import _full_f32, model_inputs
+from ..models.bevfusion.transfusion import Dropout, transfusion_decode, transfusion_loss
+from .steps import _full_f32, _to_device, model_inputs
 
 CAMERA_KEYS = (
     "images", "depth_images", "camera2lidar_rots", "camera2lidar_trans",
@@ -30,6 +30,59 @@ def autotuned_convs():
     (see ``make_bevfusion_predict_step``)."""
     return torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=False,
                                       allow_tf32=False)
+
+
+def _forward(model, inputs: Dict):
+    if "vf" in inputs:
+        return model(inputs["vf"].float(), inputs["vc"], inputs["vv"])
+    return model(**inputs)
+
+
+def dropout_generator(device, step: int) -> torch.Generator:
+    """The generator of a train step's dropout masks: seeded from (key 0,
+    step), as JAX's ``fold_in(PRNGKey(0), step)``, so that a resumed run
+    draws the masks of the step it resumes at."""
+    return torch.Generator(device=device).manual_seed(step)
+
+
+def make_bevfusion_train_step(bundle, optimizer) -> Callable[[Dict], Dict[str, torch.Tensor]]:
+    """Train step of a ``models.builder.BEVFusionBundle`` and a
+    ``solver.optim.OneCycleAdamW`` bound to its model's parameters (JAX's
+    ``make_bevfusion_train_step``): the model in train mode (batch
+    statistics in every batch norm, the decoder's dropout drawn from
+    ``dropout_generator(device, optimizer.count)``), the Hungarian-matched
+    ``transfusion_loss``, the backward and the clipped AdamW update. Returns
+    0-d tensors ``loss``, ``cls_loss``, ``reg_loss``, ``heatmap_loss``,
+    ``seg_loss`` (0: no map segmentation), ``num_matched`` and ``grad_norm``
+    (before the clip).
+
+    f32 throughout (TF32 off for cuDNN and matmuls), with cuDNN's autotuner
+    on for the forward and the backward (``autotuned_convs``)."""
+    _full_f32()
+    model, dev = bundle.model, bundle.device
+    drops = [m for m in model.modules() if isinstance(m, Dropout)]
+
+    def train_step(batch: Dict) -> Dict[str, torch.Tensor]:
+        if not model.training:
+            model.train()
+        inputs = model_inputs(batch, dev)
+        gt_boxes = _to_device(batch["gt_boxes"], dev, torch.float32)
+        gt_classes = _to_device(batch["gt_classes"], dev, torch.int32)
+        gen = dropout_generator(dev, optimizer.count)
+        for d in drops:
+            d.generator = gen
+        optimizer.zero_grad()
+        with autotuned_convs():
+            logs = transfusion_loss(_forward(model, inputs), gt_boxes, gt_classes,
+                                    bundle.test_cfg)
+            logs["loss"].backward()
+        grad_norm = optimizer.step()
+        out = {k: logs[k].detach() for k in ("loss", "cls_loss", "reg_loss", "heatmap_loss",
+                                              "num_matched")}
+        out.update(seg_loss=torch.zeros((), device=dev), grad_norm=grad_norm)
+        return out
+
+    return train_step
 
 
 def make_bevfusion_predict_step(bundle) -> Callable[[Dict], Dict[str, torch.Tensor]]:
@@ -52,12 +105,8 @@ def make_bevfusion_predict_step(bundle) -> Callable[[Dict], Dict[str, torch.Tens
     def predict_step(batch: Dict) -> Dict[str, torch.Tensor]:
         if model.training:
             model.eval()
-        inputs = model_inputs(batch, dev)
         with autotuned_convs():
-            if "vf" in inputs:
-                preds = model(inputs["vf"].float(), inputs["vc"], inputs["vv"])
-            else:
-                preds = model(**inputs)
+            preds = _forward(model, model_inputs(batch, dev))
         out = transfusion_decode(preds, bundle.test_cfg)
         out["bev_feat"] = preds["bev_feat"]
         return out

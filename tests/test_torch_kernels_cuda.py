@@ -595,3 +595,160 @@ def test_iou_kernel_cull_is_exact(cuda, kind):  # noqa: F811
         assert not bool(cull.any())
     if kind == "zero_padded":
         assert bool(cull[:, 200:].all()) and float(got[:, :, 200:].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the gather engine's gradients (K4 dX, K4-dW, K5's backward) and the
+# Hungarian assignment kernel
+# ---------------------------------------------------------------------------
+
+# (Cin, Cout) of every conv of the BEVFusion encoder (the stem's Cin 5 padded
+# to 8), and a width of no tile
+DW_WIDTHS = [(8, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64), (64, 128), (128, 128),
+             (12, 20)]
+
+
+@pytest.mark.parametrize("Cin,Cout", DW_WIDTHS)
+def test_gather_dw_kernel_matches_plain(cuda, Cin, Cout):  # noqa: F811
+    """K4-dW on random rows with 19 % hits and 500 positions without one,
+    on the rows-in-order plan and on the sorted plan: within 1e-5 of the
+    result's scale (3xTF32 products, f32 sums in another order than the
+    plain einsum), the same bits on a repeat; a tap without a hit gives
+    exact zeros."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    rng = np.random.RandomState(Cin * 100 + Cout)
+    B, N, K, M = 2, 3000, 27, 2500
+    feats = t(rng.randn(B, N, Cin).astype(np.float32)).to(cuda)
+    idx = t(rng.randint(0, N, (B, K, M)).astype(np.int32)).to(cuda)
+    hit = t(rng.rand(B, K, M) < 0.19).to(cuda)
+    hit[:, :, 1000:1500] = False
+    hit[:, 5] = False
+    g = t(rng.randn(B, M, Cout).astype(np.float32)).to(cuda)
+    ref = tg.gather_dw_plain(feats, idx, hit, g)
+    before = tg.gather_dw.launches
+    for plan in (None, tg.gather_plan(idx, hit)):
+        got = tg.gather_dw(feats, idx, hit, g, plan)
+        torch.cuda.synchronize()
+        assert got.shape == (K, Cin, Cout) and got.dtype == torch.float32
+        scale = float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= 1e-5 * scale
+        assert float(got[5].abs().max()) == 0.0
+        assert torch.equal(got, tg.gather_dw(feats, idx, hit, g, plan))
+    assert tg.gather_dw.launches == before + 4
+
+
+def _encoder_like(dev, Cin, seed=0):
+    """A level of sparse voxels (tests' clustered scenes on a (41, 64, 64)
+    grid) with Cin features on ``dev``, its shared subm rulebook with the
+    sorted symmetric plan, and its index grid."""
+    from dal3d_tpu_torch.ops import sparse_backend as sp
+
+    vf, vc, vv = small_voxels(seed, N=1500)
+    rng = np.random.RandomState(seed + 1)
+    f = np.where(vv[..., None], rng.randn(*vv.shape, Cin), 0.0).astype(np.float32)
+    sb = sp.from_voxels(t(f).to(dev), t(vc).to(dev), t(vv).to(dev), (41, 64, 64))
+    grid = sp.build_index_grid(sb)
+    return sb, sp.with_plan(sp.subm_rulebook(sb, 3, grid)), grid
+
+
+@pytest.mark.parametrize("kind,Cin,Cout", [("subm", 16, 16), ("subm", 32, 64), ("stem", 5, 16),
+                                           ("down", 16, 32), ("conv_out", 64, 64),
+                                           ("subm_unplanned", 16, 32)])
+def test_gather_gemm_backward_on_card_matches_plain(cuda, kind, Cin, Cout):  # noqa: F811
+    """The gradients of a subm conv (dX through K4 on the same sorted plan
+    with the taps reversed), of the stem with a feature gradient (Cin 5: the
+    dX launch's Cout 5 padded to a column tile and cut back), of strided
+    convs (dX through K4 on the scatter-built inverse rulebook) and of a
+    subm conv without a shared plan, against autograd through the plain
+    version on the CPU: within 1e-5 of each gradient's scale, with one K4
+    forward, one K4 dX and one dW launch."""
+    from dal3d_tpu_torch.ops import gather as tg
+    from dal3d_tpu_torch.ops import sparse_backend as sp
+
+    out = {}
+    for dev in ("cpu", cuda):
+        sb, rb, grid = _encoder_like(dev, Cin)
+        rng = np.random.RandomState(Cin + Cout)
+        K = 3 if kind == "conv_out" else 27
+        w = t((rng.randn(K, Cin, Cout) * 0.1).astype(np.float32)).to(dev).requires_grad_(True)
+        x = sb.features.clone().requires_grad_(True)
+        sbx = sb.replace(features=x)
+        launches = (tg.gather_gemm.launches, tg.gather_dw.launches)
+        if kind in ("subm", "stem"):
+            y = sp.subm_conv(sbx, w, rb).features
+        elif kind == "subm_unplanned":
+            y = sp.subm_conv(sbx, w, rb[:2]).features
+        elif kind == "down":
+            y = sp.sparse_conv_downsample(sbx, w, 3, 2, 1, 1000, grid).features
+        else:
+            y = sp.sparse_conv_downsample(sbx, w, (3, 1, 1), (2, 1, 1), 0, 1500, grid).features
+        gy = t(rng.randn(*y.shape).astype(np.float32)).to(dev)
+        (y * gy).sum().backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert tg.gather_gemm.launches - launches[0] == 2
+            assert tg.gather_dw.launches - launches[1] == 1
+        out[str(dev)] = (y.detach().cpu(), x.grad.cpu(), w.grad.cpu())
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+    assert float(out["cpu"][1].abs().max()) > 0 and float(out["cpu"][2].abs().max()) > 0
+
+
+def test_gather_rows_backward_on_card_matches_plain(cuda):  # noqa: F811
+    """The query gather's backward from the strided [B, H*W, C] view of an
+    NCHW map with repeated rows (a pixel picked for two classes): the rows'
+    gradients summed, within 1e-6 of scale of autograd through advanced
+    indexing on the CPU."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    rng = np.random.RandomState(3)
+    B, C, H, W, P = 2, 128, 20, 20, 200
+    x = rng.randn(B, C, H, W).astype(np.float32)
+    pix = rng.randint(0, H * W, (B, P))
+    pix[:, 1::2] = pix[:, ::2]  # every pixel twice
+    rows = (pix + np.arange(B)[:, None] * H * W).reshape(-1).astype(np.int32)
+    g = rng.randn(B * P, C).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        xt = t(x).to(dev).requires_grad_(True)
+        flat = xt.permute(0, 2, 3, 1).reshape(B, H * W, C)
+        before = tg.gather_rows.launches
+        q = tg.gather_rows(flat, t(rows).to(dev))
+        (q * t(g).to(dev)).sum().backward()
+        if dev != "cpu":
+            assert tg.gather_rows.launches == before + 1
+        grads[str(dev)] = xt.grad.cpu()
+    a, b = grads["cpu"], grads[str(cuda)]
+    assert float((a - b).abs().max()) <= 1e-6 * float(a.abs().max())
+
+
+@pytest.mark.parametrize("B,G,P,pad", [(2, 200, 200, 180), (3, 7, 30, 0), (2, 40, 12, 5),
+                                       (1, 1, 1, 0), (2, 64, 300, 50)])
+def test_lsa_kernel_matches_plain(cuda, B, G, P, pad):  # noqa: F811
+    """The Hungarian kernel against the plain version on seeded tie-free
+    costs, with the last ``pad`` rows at the loss's 1e6 padding: col4row
+    equal; the total cost equal to scipy's within 1e-5 of its scale."""
+    from scipy.optimize import linear_sum_assignment as scipy_lsa
+
+    from dal3d_tpu_torch.ops import lsa as tl
+
+    rng = np.random.RandomState(G * 1000 + P)
+    cost = (rng.rand(B, G, P) * 2 - 0.5).astype(np.float32)
+    if pad:
+        cost[:, G - pad:] = 1e6
+    before = tl.linear_sum_assignment.launches
+    got = tl.linear_sum_assignment(t(cost).to(cuda))
+    torch.cuda.synchronize()
+    assert tl.linear_sum_assignment.launches == before + 1
+    ref = tl.linear_sum_assignment_plain(t(cost))
+    assert torch.equal(got.cpu(), ref)
+    for b in range(B):
+        c4r = got[b].cpu().numpy()
+        m = c4r >= 0
+        assert len(set(c4r[m].tolist())) == int(m.sum()) == min(G, P)
+        r, c = scipy_lsa(cost[b].astype(np.float64))
+        want = float(cost[b][r, c].sum(dtype=np.float64))
+        have = float(cost[b][np.arange(G)[m], c4r[m]].sum(dtype=np.float64))
+        assert abs(have - want) <= 1e-5 * max(abs(want), 1.0)
