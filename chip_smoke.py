@@ -4208,6 +4208,7 @@ def bevfusion_train_phase(tmp: str, Config, counters, loop, tg, tl) -> dict:
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0,
                fma_ms=0.0, tc_ms=0.0, flops=0.0)
     worst_abs = worst_rel = 0.0
+    routes = []
     print(f"K4-dW launches of one BEVFusion train step (kernel vs plain, f32; tol = {DW_TOL:g} "
           "x max|plain|, bit-equal on a repeat; library = index_select + bmm):")
     for n, (f, plan, g) in enumerate(kdw.calls):
@@ -4230,11 +4231,14 @@ def bevfusion_train_phase(tmp: str, Config, counters, loop, tg, tl) -> dict:
                      ("fma_ms", bnd["fma"]), ("tc_ms", bnd["tc"]), ("flops", flops)):
             tot[k] += v
         tot["t_" + ("bytes" if bnd["by"] == "bytes" else "ops")] += bnd["bound"]
+        ti, to = tg._dw_tiles(f.shape[-1], g.shape[-1])
+        routes.append(f"wgmma m64n{to}k8, tile {ti}x{to}")
         print(f"  #{n:2d} features {tuple(f.shape)} taps {plan.rulebook.shape[1]} M "
               f"{plan.rulebook.shape[2]} Cout {g.shape[-1]} hits {hits} "
-              f"({'sorted' if plan.order is not None else 'in order'}): err {err / scale:.1e} of "
-              f"scale; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s) plain {pms:.3f} "
-              f"library {lms:.4f}; bound {bnd['bound']:.4f} ms ({bnd['by']})")
+              f"({'sorted' if plan.order is not None else 'in order'}): route {routes[-1]}; "
+              f"err {err / scale:.1e} of scale; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s) plain {pms:.3f} library {lms:.4f}; bound {bnd['bound']:.4f} ms "
+              f"({bnd['by']})")
     print(f"K4-dW per train step: kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
           f"library {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms (FMA "
           f"{tot['fma_ms']:.3f}, 3xTF32 {tot['tc_ms']:.3f}); {tot['flops'] / tot['ms'] / 1e9:.1f} "
@@ -4244,7 +4248,8 @@ def bevfusion_train_phase(tmp: str, Config, counters, loop, tg, tl) -> dict:
               bound_ms=tot["bound_ms"],
               bound_by="bytes" if tot["t_bytes"] >= tot["t_ops"] else "operations",
               library_ms=tot["library_ms"], bound_fma_ms=tot["fma_ms"],
-              bound_3xtf32_ms=tot["tc_ms"], dx_max_rel_err=dx_err)
+              bound_3xtf32_ms=tot["tc_ms"], dx_max_rel_err=dx_err,
+              wgmma_launches=sum(r.startswith("wgmma") for r in routes))
 
     # the Hungarian kernel on the step's cost
     (cost,) = klsa.calls[0]
@@ -4255,6 +4260,11 @@ def bevfusion_train_phase(tmp: str, Config, counters, loop, tg, tl) -> dict:
     torch.cuda.synchronize()
     twin_ms = (time.perf_counter() - t0) * 1e3
     relax = tl.linear_sum_assignment_plain.relax_steps - steps0
+    per_problem = []
+    for b_ in range(cost.shape[0]):
+        s0 = tl.linear_sum_assignment_plain.relax_steps
+        tl.linear_sum_assignment_plain(cost[b_:b_ + 1].cpu())
+        per_problem.append(tl.linear_sum_assignment_plain.relax_steps - s0)
     cost_np = cost.cpu().numpy().astype(np.float64)
     t0 = time.perf_counter()
     sci = [scipy_lsa(c) for c in cost_np]
@@ -4273,12 +4283,15 @@ def bevfusion_train_phase(tmp: str, Config, counters, loop, tg, tl) -> dict:
     t_b, t_o = nbytes / PEAK_BYTES * 1e3, lsa_ops / PEAK_F32 * 1e3
     lsa = dict(max_abs_err=0.0, ms=lsa_ms, plain_ms=twin_ms, library_ms=None, scipy_ms=scipy_ms,
                bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations",
-               relax_steps=relax)
+               relax_steps=relax, relax_steps_per_problem=per_problem,
+               us_per_relax_step=lsa_ms / relax * 1e3)
     print(f"LSA cost {tuple(cost.shape)} ({int((cost[:, :, 0] < 1e5).sum())} valid GT rows): "
           f"col4row equal to the plain version's, total cost equal to scipy's; kernel "
-          f"{lsa_ms:.4f} ms, plain on the card {twin_ms:.1f} ms ({relax} relax steps, a host "
-          f"sync each), scipy on the host {scipy_ms:.2f} ms; bound {lsa['bound_ms']:.5f} ms "
-          f"({lsa['bound_by']})")
+          f"{lsa_ms:.4f} ms ({lsa_ms / relax * 1e3:.4f} us a relax step over the {relax} "
+          f"steps of both problems; the longer problem's {max(per_problem)} steps run one after "
+          f"another: {lsa_ms / max(per_problem) * 1e3:.4f} us each), plain on the card "
+          f"{twin_ms:.1f} ms (a host sync a step), scipy on the host {scipy_ms:.2f} ms; bound "
+          f"{lsa['bound_ms']:.5f} ms ({lsa['bound_by']})")
     iou_ms = sum(cuda_time_ms(lambda a=a, b_=b_: ttf.boxes_iou3d(a, b_), 3) for a, b_ in kiou.calls)
     print(f"boxes_iou3d of the IoU cost: {len(kiou.calls)} calls of "
           f"{tuple(kiou.calls[0][0].shape)} x {tuple(kiou.calls[0][1].shape)}, {iou_ms:.2f} ms "

@@ -89,29 +89,52 @@
 //   dw[k] = sum_{b, p : rb[b, k, p] >= 0} feat[b, rb[b, k, p], :]^T g[b, order[b, p], :]
 // JAX has no Pallas kernel here (XLA differentiates its gather_gemm); this is
 // the port's own. Bound on the card: 2 * hits * Cin * Cout f32-accurate
-// operations (in 3xTF32 on the tensor cores, or the FMA units' 67 TFLOP/s),
-// or the bytes of the features, rulebook, g and dw; the L0 and L1 convs of the
-// BEVFusion encoder (Cin, Cout <= 32) are bound by the bytes of their gathers.
+// operations (3xTF32 on the tensor cores at 495 TFLOP/s, or the FMA units'
+// 67 TFLOP/s), or the bytes of the features, rulebook, g and dw; the L2 and
+// L3 convs of the BEVFusion encoder (Cin 64, 128) are bound by operations,
+// the stem, L0 and L1 (Cin, Cout <= 32) by bytes. What held the first
+// version (mma.sync, 16x its bound on a train step) was latency, not either
+// bound: every 32-position step waited for its own gathers behind two
+// barriers, and each warp split its operands again in registers.
 //
-// Design (simple first; wgmma and a deeper pipeline are later work):
-//   - one block of 8 warps per (share of the plan's 32-position chunks, tap,
-//     16/32/64 x 16/32/64 tile of dw); the block first ballots which chunks of
-//     its share hit its tap and keeps their list in shared memory, so a chunk
-//     without a hit costs one read of its 32 rulebook entries and nothing else
-//     (a sorted plan leaves most chunks of a tap empty);
-//   - per step, cp.async gathers (zero fill for misses and the Cin / Cout
-//     edge) of the chunk's 32 feature rows and 32 g rows into shared memory,
-//     then mma.sync m16n8k8 in 3xTF32 with the positions as the reduction
-//     axis (A = the gathered features transposed, read from [position][cin]
-//     by 32-bit loads; row pitches of tile + 8 floats keep both fragments on
-//     32 banks), each 8-position step added to f32 sums in fresh
-//     accumulators as in the forward; a tile of few mma tiles (Cin and Cout
-//     of 16) splits its 8 warps into groups that take consecutive chunks of
-//     the list and are summed in group order at the end;
+// Design:
+//   - one block per (share of the plan's 32-position chunks, tap, TI x TO
+//     tile of dw; TI 16/32/64/128 of Cin, TO 16/32/64/128 of Cout); the block
+//     first ballots which chunks of its share hit its tap (eight chunks a
+//     warp in flight) and keeps their list in shared memory, so a chunk
+//     without a hit costs one read of its 32 rulebook entries;
+//   - products on TF32 wgmma, m64nNk8 with dw's Cin rows as M (two
+//     warpgroups of 64 at TI = 128), its Cout columns as N (two warpgroups of
+//     TO / 2 at TI <= 64, TO >= 64) and the plan positions as the reduction
+//     axis; A (features) from registers, B (g) from shared memory, which TF32
+//     wgmma takes K-major only: [channel][position], a chunk of 32 positions
+//     one 128-byte row of the 128-byte swizzle (common.cuh::wgmma_desc_sw128),
+//     written by the threads (TMA has no row gather);
+//   - the gathers: 16-byte cp.async of the chunk's feature rows and g rows
+//     (g through the plan's order; zero fill for misses and the Cin / Cout
+//     edge) into a ring of 4 stages in [position][channel] order, issued 3
+//     chunks ahead; the rulebook entries and output rows they need come into
+//     an index ring by 4- and 8-byte cp.async 3 steps before that, so no
+//     thread waits on a global load in the loop;
+//   - B: one pass transposes the landed g chunk into the K-major planes and
+//     splits each element there, once per block, into big = tf32(x) and
+//     small = tf32(x - big) (round to nearest, as the forward); the planes
+//     are double buffered, so this pass for chunk j runs while the tensor
+//     cores take chunk j - 1, with one barrier a chunk. A: each thread reads
+//     its m16n8k8 fragments of the chunk straight from the stage (a padded
+//     row pitch keeps the reads on 32 banks) and splits them in registers.
+//     Transposing A through shared memory too (and, in a later draft,
+//     gathering both operands into K-major planes by 4-byte copies) left
+//     the pass or the copies the longest part of a step;
+//   - 3xTF32: small*big, big*small, big*big over the chunk's four k8 steps,
+//     twelve wgmma into fresh accumulators, added to the block's f32 sums
+//     with round-to-nearest adds: the tensor cores' own sum truncates, and a
+//     tap's reduction can run to tens of thousands of positions, so no chain
+//     through the tensor cores is longer than one chunk;
 //   - each block writes its partial tile to scratch [shares, K, Cin, Cout];
 //     gather_dw_reduce_kernel adds a tap's partials in share order. No float
 //     atomics: a repeat gives the same bits.
-//
+
 // Alignment contract of gather_gemm_f32 (checked by the Python wrapper):
 // Cin % 4 == 0, Cout is 16, 32, 64 or a multiple of 128, K <= 32, pointers
 // 16-byte aligned, contiguous.
@@ -411,35 +434,71 @@ int launch_gather_rows(const void* table, const int* idx, void* out, int M, int 
 
 // ---- gather_dw_f32 -----------------------------------------------------------
 
-constexpr int DW_CH = 32;             // plan positions of a chunk (one reduction step)
-constexpr int DW_MAX_CHUNKS = 1024;   // chunks of a share
+constexpr int DW_CH = 32;             // plan positions of a chunk: one 128-byte K-major row
+constexpr int DW_MAX_CHUNKS = 256;    // chunks of a share
+constexpr int DW_STAGES = 4;          // cp.async ring of gathered chunks
+constexpr int DW_AHEAD = DW_STAGES - 1;  // a slot's gathers are issued this many steps ahead
+constexpr int DW_LEAD = DW_AHEAD;     // and its rulebook entries this many steps before that
+constexpr int DW_IDX = 8;             // ring of rulebook entries and output rows
+// static shared memory of a dW block: the chunk list, the index ring, the count
+constexpr int DW_STATIC = DW_MAX_CHUNKS * 8 + DW_IDX * DW_CH * 12 + 16;
 
+// A block's (TI x TO) tile of dw: TI rows of Cin (16, 32, 64 or 128) by TO
+// columns of Cout (16, 32, 64 or 128). Warpgroups: two along Cin at TI =
+// 128 (64 rows each, wgmma's M), two along Cout from TO = 64 on below that
+// (TO / 2 columns each, wgmma's N), else one. Dynamic shared memory,
+// 1024-byte aligned: two buffers of B's big and small TF32 planes ([TO][32
+// positions], 128-byte K-major rows in the swizzle of wgmma_desc_sw128),
+// then the ring of DW_STAGES gathered chunks, [32 positions][TI + 4]
+// features (the pitch keeps the A fragments' loads on 32 banks) and [32][TO]
+// g. ops/gather.py::_dw_blocks_per_sm mirrors SMEM + DW_STATIC.
 template <int TI, int TO>
 struct DwTile {
-  static constexpr int MT = TI / 16, NT = TO / 8, TILES = MT * NT;  // mma tiles
-  static constexpr int WG = TILES < 8 ? TILES : 8;  // warps of a group
-  static constexpr int GROUPS = 8 / WG;             // groups: chunks in flight
-  static constexpr int TPW = TILES / WG;            // mma tiles of a warp
-  static constexpr int LDA = TI + 8, LDG = TO + 8;  // floats: fragments on 32 banks
-  static constexpr int A_FLOATS = DW_CH * LDA;
-  static constexpr int STAGE = A_FLOATS + DW_CH * LDG;
-  static constexpr int SMEM = (GROUPS * STAGE + (GROUPS > 1 ? GROUPS * TI * TO : 0)) * 4;
-  static_assert(TILES % WG == 0 && 8 % WG == 0, "dw tile");
+  static constexpr int WGM = TI == 128 ? 2 : 1;
+  static constexpr int WGN = TI <= 64 && TO >= 64 ? 2 : 1;
+  static constexpr int THREADS = 128 * WGM * WGN;
+  static constexpr int WARPS = THREADS / 32;
+  static constexpr int NW = TO / WGN;  // columns of a warpgroup
+  static constexpr int LDA = TI + 4;   // floats: a feature row of a stage
+  static constexpr int B_BYTES = TO * 128, BUF = 2 * B_BYTES;
+  static constexpr int RAW = DW_CH * (LDA + TO) * 4;  // bytes of a ring stage
+  static constexpr int REGION = 2 * BUF + DW_STAGES * RAW;
+  static constexpr int SMEM = 1024 + REGION;  // + the alignment slack
+  // blocks a multiprocessor holds (232448 bytes, 1 KB reserved a block)
+  static constexpr int FIT = 232448 / (SMEM + DW_STATIC + 1024);
+  static constexpr int MIN_BLOCKS = FIT < 1 ? 1 : (FIT > 2048 / THREADS ? 2048 / THREADS : FIT);
+  static constexpr int PIECES = (TI + TO) / 4;  // 16-byte pieces of a position's two rows
+  static constexpr int TPP = THREADS / DW_CH;   // threads of a position's gathers
+  static constexpr int GROUPS = TO * 8;         // (row, 4 positions) groups of B in a chunk
+  static constexpr int SPLITS = (GROUPS + THREADS - 1) / THREADS;  // groups a thread
+  static_assert(TI % 16 == 0 && TO % 16 == 0 && TI <= 128 && TO <= 128, "dw tile");
+  static_assert(DW_IDX >= DW_AHEAD + DW_LEAD, "index ring");
 };
 
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  if constexpr (N == 128) wgmma_m64n128k8_tf32_rs(d, a, b, scale_d);
+  else if constexpr (N == 64) wgmma_m64n64k8_tf32_rs(d, a, b, scale_d);
+  else if constexpr (N == 32) wgmma_m64n32k8_tf32_rs(d, a, b, scale_d);
+  else wgmma_m64n16k8_tf32_rs(d, a, b, scale_d);
+}
+
 template <int TI, int TO>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(DwTile<TI, TO>::THREADS, DwTile<TI, TO>::MIN_BLOCKS)
 gather_dw_kernel(const float* __restrict__ feat, const int* __restrict__ rb,
                  const long long* __restrict__ order, const float* __restrict__ g,
                  float* __restrict__ part, int N, int Cin, int K, int M, int Cout, int chunks,
                  int cps, int tiles_o) {
   using T = DwTile<TI, TO>;
-  extern __shared__ __align__(16) float dsm[];
-  __shared__ unsigned char flag[DW_MAX_CHUNKS];
-  __shared__ unsigned short clist[DW_MAX_CHUNKS];
+  constexpr int PA = TI / 4;  // 16-byte pieces of a feature row
+  extern __shared__ unsigned char dsm_raw[];
+  unsigned char* sm = dsm_raw + ((1024u - (smem_u32(dsm_raw) & 1023u)) & 1023u);
+  float* ring = reinterpret_cast<float*>(sm + 2 * T::BUF);
+  __shared__ int2 clist[DW_MAX_CHUNKS];      // listed chunks: (batch element, first position)
+  __shared__ int ridx[DW_IDX][DW_CH];        // rulebook entries of a slot's positions
+  __shared__ long long oidx[DW_IDX][DW_CH];  // their output rows (order)
   __shared__ int count;
-  __shared__ int srow[T::GROUPS][DW_CH];  // feature row (batch-major), -1: miss
-  __shared__ int grow[T::GROUPS][DW_CH];  // g row (batch-major)
 
   const int s = blockIdx.x, k = blockIdx.y;
   const int i0 = (blockIdx.z / tiles_o) * TI, o0 = (blockIdx.z % tiles_o) * TO;
@@ -448,12 +507,21 @@ gather_dw_kernel(const float* __restrict__ feat, const int* __restrict__ rb,
   const int c_begin = s * cps;
   const int n_ch = min(c_begin + cps, chunks) - c_begin;
 
-  // the chunks of the share that hit tap k, in order
-  for (int c = warp; c < n_ch; c += THREADS / 32) {
-    const int cc = c_begin + c, b = cc / tc, p = (cc - b * tc) * DW_CH + lane;
-    const bool h = p < M && rb[((size_t)b * K + k) * M + p] >= 0;
-    const unsigned m = __ballot_sync(0xffffffffu, h);
-    if (lane == 0) flag[c] = m != 0u;
+  // the chunks of the share that hit tap k, in order: 8 chunks a warp a
+  // round (their rulebook reads in flight together), flags in the ring
+  unsigned char* flag = reinterpret_cast<unsigned char*>(ring);
+  for (int c0 = warp * 8; c0 < n_ch; c0 += T::WARPS * 8) {
+    int v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int cc = c_begin + c0 + u, b = cc / tc, p = (cc - b * tc) * DW_CH + lane;
+      v[u] = c0 + u < n_ch && p < M ? __ldg(rb + ((size_t)b * K + k) * M + p) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const unsigned m = __ballot_sync(0xffffffffu, v[u] >= 0);
+      if (lane == 0 && c0 + u < n_ch) flag[c0 + u] = m != 0u;
+    }
   }
   __syncthreads();
   if (warp == 0) {
@@ -461,7 +529,10 @@ gather_dw_kernel(const float* __restrict__ feat, const int* __restrict__ rb,
     for (int base = 0; base < n_ch; base += 32) {
       const bool f = base + lane < n_ch && flag[base + lane];
       const unsigned m = __ballot_sync(0xffffffffu, f);
-      if (f) clist[n + __popc(m & ((1u << lane) - 1u))] = static_cast<unsigned short>(base + lane);
+      if (f) {
+        const int cc = c_begin + base + lane, b = cc / tc;
+        clist[n + __popc(m & ((1u << lane) - 1u))] = make_int2(b, (cc - b * tc) * DW_CH);
+      }
       n += __popc(m);
     }
     if (lane == 0) count = n;
@@ -469,107 +540,172 @@ gather_dw_kernel(const float* __restrict__ feat, const int* __restrict__ rb,
   __syncthreads();
   const int nh = count;
 
-  const int grp = warp / T::WG, wg = warp % T::WG;
-  const int gq = lane / 4, t = lane % 4;
-  float acc[T::TPW][4];
+  // slot j's rulebook entries (warp 0) and output rows (warp 1) into the
+  // index ring by 4- and 8-byte cp.async: no thread waits on them
+  auto fetch = [&](int j) {
+    if (j >= nh || warp > 1) return;
+    const int2 c = clist[j];
+    const int pos = c.y + lane;
+    const bool ok = pos < M;
+    if (warp == 0)
+      cp_async4(&ridx[j % DW_IDX][lane], ok ? rb + ((size_t)c.x * K + k) * M + pos : rb, ok);
+    else if (order != nullptr)
+      cp_async8(&oidx[j % DW_IDX][lane], ok ? order + (size_t)c.x * M + pos : order, ok);
+  };
+  // the gathers of slot j into ring stage `stage`, 16-byte cp.async: thread
+  // tid takes position p = tid / TPP, pieces sub, sub + TPP, ... of its
+  // feature row then its g row; zero fill for misses and the Cin / Cout edge
+  const int p = tid / T::TPP, sub = tid % T::TPP;
+  auto load = [&](int j, int stage) {
+    const int2 c = clist[j];
+    const int pos = c.y + p;
+    const int v = pos < M ? ridx[j % DW_IDX][p] : -1;
+    const int o = order != nullptr ? static_cast<int>(oidx[j % DW_IDX][p]) : pos;
+    float* ra = ring + stage * (T::RAW / 4);
+    const bool h = v >= 0;
+    const float* fr = feat + ((size_t)c.x * N + (h ? v : 0)) * Cin + i0;
+    const float* gr = g + ((size_t)c.x * M + (h ? o : 0)) * Cout + o0;
 #pragma unroll
-  for (int q = 0; q < T::TPW; ++q)
+    for (int q = sub; q < T::PIECES; q += T::TPP) {
+      const bool is_a = q < PA;
+      const int cc = 4 * (is_a ? q : q - PA);
+      const bool ok = h && (is_a ? i0 + cc < Cin : o0 + cc < Cout);
+      float* dst = is_a ? ra + p * T::LDA + cc : ra + DW_CH * T::LDA + p * TO + cc;
+      cp_async16(dst, ok ? (is_a ? fr : gr) + cc : feat, ok);
+    }
+  };
+  // B: the staged g chunk transposed into the K-major planes of buffer bf
+  // and split there, once for the block, into big = tf32(x) and small =
+  // tf32(x - big) (round to nearest, ties away, as the forward); a thread
+  // takes (row, 4 positions) groups, consecutive lanes consecutive rows
+  // (conflict-free reads of the [position][row] stage, 16-byte swizzled
+  // writes). All of a thread's reads come before its writes: the compiler
+  // cannot tell the planes from the stage.
+  auto split_b = [&](int stage, int bf) {
+    const float* rg = ring + stage * (T::RAW / 4) + DW_CH * T::LDA;
+    unsigned char* tb = sm + bf * T::BUF;
+    float x[T::SPLITS][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) acc[q][r] = 0.0f;
+    for (int it = 0; it < T::SPLITS; ++it) {
+      const int e = tid + it * T::THREADS, pq = e / TO, row = e - pq * TO;
+      if (T::GROUPS % T::THREADS != 0 && e >= T::GROUPS) break;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) x[it][r] = rg[(4 * pq + r) * TO + row];
+    }
+#pragma unroll
+    for (int it = 0; it < T::SPLITS; ++it) {
+      const int e = tid + it * T::THREADS, pq = e / TO, row = e - pq * TO;
+      if (T::GROUPS % T::THREADS != 0 && e >= T::GROUPS) break;
+      uint4 big, small;
+      split_tf32(x[it][0], big.x, small.x);
+      split_tf32(x[it][1], big.y, small.y);
+      split_tf32(x[it][2], big.z, small.z);
+      split_tf32(x[it][3], big.w, small.w);
+      const int off = row * 128 + ((pq ^ (row & 7)) << 4);
+      *reinterpret_cast<uint4*>(tb + off) = big;
+      *reinterpret_cast<uint4*>(tb + T::B_BYTES + off) = small;
+    }
+  };
 
-  constexpr int PA = TI / 4, PG = TO / 4;  // 16-byte pieces of a feature row, of a g row
+  // warpgroup (wm, wn): rows wm * 64 .. of A, columns wn * NW .. of B
+  const int wgi = tid / 128, wm = wgi / T::WGN, wn = wgi % T::WGN, t = tid % 128;
+  // A in registers, the m16n8k8 fragment of each of the chunk's four k8
+  // steps: rows r0 = wm 64 + 16 (t / 32) + (t % 32) / 4 and r0 + 8,
+  // positions 8 kk + t % 4 and + 4, read from the stage and split there
+  // (rows past TI are zeros)
+  const int r0 = wm * 64 + (t / 32) * 16 + (t % 32) / 4, pa = t % 4;
+  uint32_t ab[4][4], as[4][4];
+  auto load_a = [&](int stage) {
+    const float* ra = ring + stage * (T::RAW / 4);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = r0 + 8 * (q % 2), pos = 8 * kk + pa + 4 * (q / 2);
+        const float x = row < TI ? ra[pos * T::LDA + row] : 0.0f;
+        split_tf32(x, ab[kk][q], as[kk][q]);
+      }
+  };
+
+  float acc[T::NW / 2], pr[T::NW / 2];
+#pragma unroll
+  for (int q = 0; q < T::NW / 2; ++q) acc[q] = pr[q] = 0.0f;
+  // 3xTF32 over one chunk into fresh accumulators: small*big, big*small,
+  // big*big, each over the chunk's four k8 steps (B's 32 bytes apart)
+  auto products = [&](int bf) {
+    const unsigned char* tb = sm + bf * T::BUF + wn * T::NW * 128;
+    const uint64_t bb = wgmma_desc_sw128(tb), bs = wgmma_desc_sw128(tb + T::B_BYTES);
+    wgmma_fence_operands(pr);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_tf32_rs<T::NW>(pr, as[kk], bb + 2 * kk, kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_tf32_rs<T::NW>(pr, ab[kk], bs + 2 * kk, 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_tf32_rs<T::NW>(pr, ab[kk], bb + 2 * kk, 1);
+    wgmma_commit();
+  };
+  // the tensor cores' sum truncates: each chunk's products are added to the
+  // sums in f32 (nearest), so no chain grows with the reduction's length
+  auto accumulate = [&]() {
+    wgmma_wait<0>();
+    wgmma_fence_operands(pr);
+#pragma unroll
+    for (int q = 0; q < T::NW / 2; ++q) acc[q] = __fadd_rn(acc[q], pr[q]);
+  };
+
+  // the ring: slot j's gathers are issued AHEAD steps before its own, its
+  // rulebook entries LEAD steps before that; B's split of slot j overlaps
+  // the products of slot j - 1, A's fragments are read once those are done
+  // (their registers are the products' operands); one barrier a step.
+  // Commit groups in order: the entries of slots 0 .. AHEAD + LEAD - 1,
+  // the gathers of slots 0 .. AHEAD - 1, then one a step (the gathers of
+  // slot j + AHEAD and the entries of slot j + AHEAD + LEAD): after the
+  // wait at the end of step j every group but the last AHEAD - 1 has
+  // landed, slot j + 1's gathers and slot j + 1 + AHEAD's entries among them.
 #pragma unroll 1
-  for (int j0 = 0; j0 < nh; j0 += T::GROUPS) {
-    for (int e = tid; e < T::GROUPS * DW_CH; e += THREADS) {
-      const int gi = e / DW_CH, r = e - gi * DW_CH;
-      int src = -1, gr = -1;
-      if (j0 + gi < nh) {
-        const int cc = c_begin + clist[j0 + gi], b = cc / tc, p = (cc - b * tc) * DW_CH + r;
-        if (p < M) {
-          const int v = rb[((size_t)b * K + k) * M + p];
-          if (v >= 0) {
-            src = b * N + v;
-            gr = b * M + (order ? static_cast<int>(order[(size_t)b * M + p]) : p);
-          }
-        }
-      }
-      srow[gi][r] = src;
-      grow[gi][r] = gr;
-    }
-    __syncthreads();
-    for (int e = tid; e < T::GROUPS * DW_CH * (PA + PG); e += THREADS) {
-      const int gi = e / (DW_CH * (PA + PG));
-      const int rem = e - gi * (DW_CH * (PA + PG));
-      const int r = rem / (PA + PG), q = rem - r * (PA + PG);
-      float* st = dsm + gi * T::STAGE;
-      if (q < PA) {
-        const int c = i0 + q * 4, src = srow[gi][r];
-        const bool ok = src >= 0 && c < Cin;
-        cp_async16(st + r * T::LDA + q * 4, ok ? feat + (size_t)src * Cin + c : feat, ok);
-      } else {
-        const int c = o0 + (q - PA) * 4, gr = grow[gi][r];
-        const bool ok = gr >= 0 && c < Cout;
-        cp_async16(st + T::A_FLOATS + r * T::LDG + (q - PA) * 4,
-                   ok ? g + (size_t)gr * Cout + c : g, ok);
-      }
-    }
+  for (int j = 0; j < DW_AHEAD + DW_LEAD; ++j) fetch(j);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll 1
+  for (int j = 0; j < DW_AHEAD; ++j) {
+    if (j < nh) load(j, j);
     cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    if (j0 + grp < nh) {
-      const float* a = dsm + grp * T::STAGE;
-      const float* gg = a + T::A_FLOATS;
-#pragma unroll
-      for (int kk = 0; kk < DW_CH; kk += 8) {
-#pragma unroll
-        for (int q = 0; q < T::TPW; ++q) {
-          const int tile = wg + T::WG * q, mi = tile / T::NT, ni = tile - mi * T::NT;
-          const int ia = mi * 16 + gq, n = ni * 8 + gq;
-          // A[i][j] = features of position j, channel i: a0 (g, t), a1 (g + 8, t),
-          // a2 (g, t + 4), a3 (g + 8, t + 4); B[j][n] = g: b0 (t, g), b1 (t + 4, g)
-          uint32_t ab[4], as[4], bb0, bs0, bb1, bs1;
-          split_tf32(a[(kk + t) * T::LDA + ia], ab[0], as[0]);
-          split_tf32(a[(kk + t) * T::LDA + ia + 8], ab[1], as[1]);
-          split_tf32(a[(kk + t + 4) * T::LDA + ia], ab[2], as[2]);
-          split_tf32(a[(kk + t + 4) * T::LDA + ia + 8], ab[3], as[3]);
-          split_tf32(gg[(kk + t) * T::LDG + n], bb0, bs0);
-          split_tf32(gg[(kk + t + 4) * T::LDG + n], bb1, bs1);
-          float p4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          mma_tf32_1688(p4, as, bb0, bb1);
-          mma_tf32_1688(p4, ab, bs0, bs1);
-          mma_tf32_1688(p4, ab, bb0, bb1);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[q][r] += p4[r];
-        }
-      }
-    }
-    __syncthreads();
   }
+  cp_async_wait<DW_AHEAD - 1>();
+  __syncthreads();
+#pragma unroll 1
+  for (int j = 0; j < nh; ++j) {
+    // the stage of slot j - 1, read before the last barrier, takes slot j + AHEAD
+    if (j + DW_AHEAD < nh) load(j + DW_AHEAD, (j + DW_AHEAD) % DW_STAGES);
+    fetch(j + DW_AHEAD + DW_LEAD);
+    cp_async_commit();
+    split_b(j % DW_STAGES, j & 1);  // buffer j & 1 was last read by the products of j - 2
+    accumulate();  // slot j - 1's products (at j = 0: nothing pending, zeros added)
+    load_a(j % DW_STAGES);
+    cp_async_wait<DW_AHEAD - 1>();  // slot j + 1 has landed (this thread's copies)
+    fence_proxy_async();            // B's planes, to the tensor cores
+    __syncthreads();                // ... everyone's
+    products(j & 1);
+  }
+  accumulate();  // the last slot's products
+  cp_async_wait<0>();
 
-  // the block's partial tile: each group's sums, added in group order
+  // the block's partial tile; thread t of warpgroup (wm, wn) holds rows
+  // wm 64 + 16 (t / 32) + (t % 32) / 4 (+ 8), columns wn NW + 8 j + 2 (t %
+  // 4) (+ 1); rows from TI on are not dw's
   float* out = part + ((size_t)s * K + k) * Cin * Cout;
-  float* red = dsm + T::GROUPS * T::STAGE;  // [GROUPS][TI][TO] (GROUPS > 1)
 #pragma unroll
-  for (int q = 0; q < T::TPW; ++q) {
-    const int tile = wg + T::WG * q, mi = tile / T::NT, ni = tile - mi * T::NT;
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    if (row >= TI || i0 + row >= Cin) continue;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = mi * 16 + gq + (r >= 2 ? 8 : 0), o = ni * 8 + 2 * t + (r & 1);
-      if constexpr (T::GROUPS > 1) {
-        red[(grp * TI + i) * TO + o] = acc[q][r];
-      } else if (i0 + i < Cin && o0 + o < Cout) {
-        out[(size_t)(i0 + i) * Cout + o0 + o] = acc[q][r];
-      }
-    }
-  }
-  if constexpr (T::GROUPS > 1) {
-    __syncthreads();
-    for (int e = tid; e < TI * TO; e += THREADS) {
-      const int i = e / TO, o = e - i * TO;
-      float sum = red[e];
-#pragma unroll
-      for (int gi = 1; gi < T::GROUPS; ++gi) sum += red[gi * TI * TO + e];
-      if (i0 + i < Cin && o0 + o < Cout) out[(size_t)(i0 + i) * Cout + o0 + o] = sum;
+    for (int jn = 0; jn < T::NW / 8; ++jn) {
+      const int col = o0 + wn * T::NW + 8 * jn + 2 * (t % 4);
+      if (col < Cout)
+        *reinterpret_cast<float2*>(out + (size_t)(i0 + row) * Cout + col) =
+            make_float2(acc[4 * jn + 2 * h], acc[4 * jn + 2 * h + 1]);
     }
   }
 }
@@ -596,7 +732,7 @@ int launch_gather_dw(const float* feat, const int* rb, const long long* order, c
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(shares, K, tiles_i * tiles_o);
-  gather_dw_kernel<TI, TO><<<grid, THREADS, T::SMEM, stream>>>(
+  gather_dw_kernel<TI, TO><<<grid, T::THREADS, T::SMEM, stream>>>(
       feat, rb, order, g, part, N, Cin, K, M, Cout, chunks, cps, tiles_o);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -617,8 +753,11 @@ int dispatch_dw_to(const float* feat, const int* rb, const long long* order, con
   if (Cout <= 32)
     return launch_gather_dw<TI, 32>(feat, rb, order, g, dw, part, B, N, Cin, K, M, Cout, shares,
                                     cps, stream);
-  return launch_gather_dw<TI, 64>(feat, rb, order, g, dw, part, B, N, Cin, K, M, Cout, shares,
-                                  cps, stream);
+  if (Cout <= 64)
+    return launch_gather_dw<TI, 64>(feat, rb, order, g, dw, part, B, N, Cin, K, M, Cout, shares,
+                                    cps, stream);
+  return launch_gather_dw<TI, 128>(feat, rb, order, g, dw, part, B, N, Cin, K, M, Cout, shares,
+                                   cps, stream);
 }
 
 }  // namespace
@@ -686,5 +825,6 @@ extern "C" int gather_dw_f32(const void* feat, const void* rb, const void* order
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Cin <= 16) return dispatch_dw_to<16>(f, r, o, gg, d, p, B, N, Cin, K, M, Cout, shares, cps, s);
   if (Cin <= 32) return dispatch_dw_to<32>(f, r, o, gg, d, p, B, N, Cin, K, M, Cout, shares, cps, s);
-  return dispatch_dw_to<64>(f, r, o, gg, d, p, B, N, Cin, K, M, Cout, shares, cps, s);
+  if (Cin <= 64) return dispatch_dw_to<64>(f, r, o, gg, d, p, B, N, Cin, K, M, Cout, shares, cps, s);
+  return dispatch_dw_to<128>(f, r, o, gg, d, p, B, N, Cin, K, M, Cout, shares, cps, s);
 }

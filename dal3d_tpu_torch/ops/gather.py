@@ -54,8 +54,9 @@ _GEMM_ARGS = [_P] * 5 + [_I] * 6
 _ROWS_ARGS = [_P] * 3 + [_I] + [_L] * 5 + [_I] * 2
 _DW_ARGS = [_P] * 6 + [_I] * 8
 DW_CHUNK = 32  # plan positions of one reduction step of the dW kernel
-DW_MAX_CHUNKS = 1024  # chunks of one share (the kernel's shared-memory lists)
-_DW_BLOCKS = 528  # blocks a dW launch aims at: four per multiprocessor of an H100
+DW_MAX_CHUNKS = 256  # chunks of one share (the kernel's shared-memory list)
+_SMS = 132  # multiprocessors of an H100
+_DW_WAVES = 8  # a dW launch's blocks: this many times what the card holds at once
 
 
 def _cout_pad(cout: int) -> int:
@@ -301,19 +302,38 @@ def gather_gemm(features: torch.Tensor, idx: torch.Tensor, hit: torch.Tensor,
 
 gather_gemm.launches = 0
 
-def _dw_tile(c: int) -> int:
-    """The dW kernel's tile along Cin or Cout: 16, 32 or 64."""
-    return 16 if c <= 16 else (32 if c <= 32 else 64)
+def _dw_tiles(Cin: int, Cout: int) -> tuple:
+    """The dW kernel's tile of dW (csrc/gather.cu ``DwTile``): TI rows of
+    Cin (16, 32, 64 or 128; two warpgroups of wgmma's 64 rows at 128) by TO
+    columns of Cout (16, 32, 64 or 128)."""
+    ti = next((c for c in (16, 32, 64) if Cin <= c), 128)
+    to = next((c for c in (16, 32, 64) if Cout <= c), 128)
+    return ti, to
+
+
+def _dw_blocks_per_sm(ti: int, to: int) -> int:
+    """Blocks of one tile shape a multiprocessor holds (csrc/gather.cu
+    ``DwTile``): shared memory ``SMEM`` (two buffers of B's big and small
+    planes, four ring stages of gathered features and g, 1 KB of alignment
+    slack) + ``DW_STATIC`` (the chunk list, the index ring) + the 1 KB the
+    card reserves, within 2048 threads."""
+    smem = 1024 + 2 * 2 * to * 128 + 4 * DW_CHUNK * (ti + 4 + to) * 4
+    threads = 128 * (2 if ti == 128 else 1) * (2 if ti <= 64 and to >= 64 else 1)
+    fixed = DW_MAX_CHUNKS * 8 + 8 * DW_CHUNK * 12 + 16 + 1024
+    return max(1, min(2048 // threads, 232448 // (smem + fixed)))
 
 
 def _dw_chunk_shares(B: int, M: int, K: int, Cin: int, Cout: int) -> tuple:
     """(shares, chunks per share) of a dW launch: the B * ceil(M / 32)
     chunks of plan positions cut into equal runs, so that shares x taps x
-    tiles is about ``_DW_BLOCKS`` blocks, each run at most ``DW_MAX_CHUNKS``
-    chunks."""
+    tiles is about ``_DW_WAVES`` times the blocks the card holds at once
+    (one to six a multiprocessor by tile), each run at most
+    ``DW_MAX_CHUNKS`` chunks."""
     chunks = B * -(-M // DW_CHUNK)
-    tiles = -(-Cin // _dw_tile(Cin)) * -(-Cout // _dw_tile(Cout))
-    shares = max(1, min(chunks, -(-_DW_BLOCKS // (K * tiles))))
+    ti, to = _dw_tiles(Cin, Cout)
+    tiles = -(-Cin // ti) * -(-Cout // to)
+    blocks = _DW_WAVES * _SMS * _dw_blocks_per_sm(ti, to)
+    shares = max(1, min(chunks, -(-blocks // (K * tiles))))
     cps = min(-(-chunks // shares), DW_MAX_CHUNKS)
     return -(-chunks // cps), cps
 
@@ -349,7 +369,7 @@ def gather_dw(features: torch.Tensor, idx: torch.Tensor, hit: torch.Tensor,
     hit [B, K, M], g [B, M, Cout] f32 -> dW [K, Cin, Cout] f32 (the weight
     gradient of ``gather_gemm`` for an output gradient g). ``plan`` as for
     ``gather_gemm``. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (3xTF32 on ``mma.sync``, f32 sums) or raise; Cin and Cout are
+    the kernel (3xTF32 on TF32 ``wgmma``, f32 sums) or raise; Cin and Cout are
     zero-padded to multiples of 4 where needed. ``gather_dw.launches``
     counts launches (in a train step they come from ``gather_gemm``'s
     backward)."""

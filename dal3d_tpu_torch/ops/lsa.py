@@ -11,8 +11,9 @@ finite stand-in ``_BIG`` for infinity, the ``it <= i + 1`` guard of each
 row's search, and the transposed problem when G > P. Its loop is data
 dependent, so on the card every augmenting step of the plain version waits
 for the host; the kernel (``csrc/lsa.cu``) runs the whole solve of one
-batch element in one block, with the same arithmetic in the same order, so
-that kernel and plain version give the same ``col4row``.
+batch element in one warp, from a copy of its cost in shared memory, with
+the same arithmetic in the same order, so that kernel and plain version give
+the same ``col4row``.
 
 Padded rows (constant cost) are solved like any other, as JAX does: a
 constant row cannot change the optimal cost of the others, but in f32 it can
@@ -29,6 +30,7 @@ from . import _build
 _BIG = 1e30  # finite stand-in for +inf (keeps f32 arithmetic well-defined)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LSA_ARGS = [_P, _P, _I, _I, _I]
+LSA_MAX_COLUMNS = 1023  # the kernel's columns: a warp's 32 lanes hold at most 32 each
 
 
 def _solve_plain(cost: torch.Tensor) -> torch.Tensor:
@@ -106,8 +108,9 @@ def linear_sum_assignment(cost: torch.Tensor) -> torch.Tensor:
     row unmatched.
 
     CPU tensors take the plain version. CUDA tensors launch
-    ``csrc/lsa.cu`` (one block per problem) or raise. The cost is not
-    differentiated (the caller's cost is a stopped gradient).
+    ``csrc/lsa.cu`` (one warp per problem) or raise; there the larger side
+    is at most ``LSA_MAX_COLUMNS``. The cost is not differentiated (the
+    caller's cost is a stopped gradient).
     ``linear_sum_assignment.launches`` counts kernel launches."""
     if cost.dim() == 2:
         return linear_sum_assignment(cost[None])[0]
@@ -121,6 +124,9 @@ def linear_sum_assignment(cost: torch.Tensor) -> torch.Tensor:
     B, G, P = cost.shape
     if G > P:
         return _invert(linear_sum_assignment(cost.transpose(1, 2)), G)
+    if P > LSA_MAX_COLUMNS:
+        raise ValueError(f"linear_sum_assignment: {P} columns; the kernel takes at most "
+                         f"{LSA_MAX_COLUMNS}")
     cost = cost.detach().float().contiguous()
     col4row = torch.empty(B, G, dtype=torch.int32, device=dev)
     if B * G == 0:

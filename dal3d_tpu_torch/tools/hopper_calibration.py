@@ -26,7 +26,14 @@ and together:
     or global loads through registers), for row pieces of 64-512 bytes;
   - a K1-shaped main loop (128 x 64 tile, 8 warps of 32 x 32, the port's
     ``cp_async_pipeline``): compute alone, the pipeline without copies, and
-    with copies of random rows from a 2.3 MB and a 115 MB table.
+    with copies of random rows from a 2.3 MB and a 115 MB table;
+  - the assignment kernel's dependent step (``ops/csrc/lsa.cu``) alone:
+    one warp, 7 columns a lane (201 columns), each step reading the row
+    that the previous step's argmin chose from shared memory, relaxing and
+    masking by selects, taking the warp's argmin (``redux.sync.min`` on an
+    order key, a ballot, four shuffles), updating, and reading the next
+    row's index and u from shared memory: the latency floor of a relax
+    step, in ns a step.
 
 Each line gives TFLOP/s of bf16 work or TB/s of gathered bytes, from CUDA
 events around one launch. Needs the CUDA card and nvcc; exits nonzero
@@ -330,6 +337,76 @@ k1_loop(const __nv_bfloat16* __restrict__ src, int nrows, float* out, int iters)
   out[blockIdx.x * 256 + tid] = s;
 }
 
+// the assignment kernel's relax step as a chain (ops/csrc/lsa.cu's body):
+// R cost values a lane from a [ROWS][R][32] shared table at the row the
+// previous step chose, relax / mask / first least by selects, the warp's
+// argmin (redux.sync.min on an order key, a ballot, four shuffles), the
+// updates by selects, then the next row's index and u from shared memory
+template <int R>
+__global__ void __launch_bounds__(32) lsa_chain(float* out, int steps) {
+  constexpr int ROWS = 32;
+  __shared__ float tbl[ROWS * R * 32];
+  __shared__ float u[ROWS + 1];
+  __shared__ int pcol[R * 32];
+  const int lane = threadIdx.x, jl = lane * R;
+  for (int e = lane; e < ROWS * R * 32; e += 32) tbl[e] = (e * 2654435761u % 1000) * 1e-3f;
+  for (int e = lane; e <= ROWS; e += 32) u[e] = 0.0f;
+  for (int e = lane; e < R * 32; e += 32) pcol[e] = 1 + (e * 7 + 3) % ROWS;
+  __syncwarp();
+  float v[R], minv[R], uc[R];
+  int way[R];
+  for (int r = 0; r < R; ++r) {
+    v[r] = uc[r] = 0.0f;
+    minv[r] = 1e30f;
+    way[r] = 0;
+  }
+  unsigned used = 0;
+  int i0 = 1, j0 = 0;
+  float ui0 = 0.0f;
+  for (int s = 0; s < steps; ++s) {
+    float cv[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) cv[r] = tbl[((i0 - 1) * R + r) * 32 + lane];
+    float best = __int_as_float(0x7f800000), bu = 0.0f;
+    int br = 0, bused = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool now = j0 == jl + r;
+      uc[r] = now ? ui0 : uc[r];
+      const bool fr = !((used >> r) & 1u);
+      const float cur = cv[r] - ui0 - v[r];
+      const bool upd = fr && cur < minv[r];
+      minv[r] = upd ? cur : minv[r];
+      way[r] = upd ? j0 : way[r];
+      const float masked = fr ? minv[r] : 1e30f;
+      const bool take = masked < best;
+      best = take ? masked : best;
+      br = take ? r : br;
+      bused = take ? !fr : bused;
+      bu = take ? uc[r] : bu;
+    }
+    const unsigned b = __float_as_uint(best == 0.0f ? 0.0f : best);
+    const unsigned key = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+    const unsigned least = __reduce_min_sync(0xffffffffu, key);
+    const int win = __ffs(__ballot_sync(0xffffffffu, key == least)) - 1;
+    const int j1 = __shfl_sync(0xffffffffu, jl + br, win);
+    const float delta = __shfl_sync(0xffffffffu, best, win);
+    const int wused = __shfl_sync(0xffffffffu, bused, win);
+    const float wu = __shfl_sync(0xffffffffu, bu, win);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool ur = (used >> r) & 1u;
+      uc[r] = ur ? uc[r] + delta : uc[r];
+      v[r] = ur ? v[r] - delta : v[r];
+      minv[r] = ur ? minv[r] : minv[r] - delta + 1e-3f;
+    }
+    j0 = j1;
+    i0 = pcol[j1];
+    ui0 = wused ? wu + delta : u[i0];
+  }
+  out[lane] = minv[0] + v[0] + uc[0] + way[0] + i0;
+}
+
 int main() {
   const int sms = 132;
   float* out;
@@ -437,6 +514,15 @@ int main() {
   LOOP(1, 4000, "pipeline without copies")
   LOOP(2, 4000, "pipeline, copies from 2.3 MB")
   LOOP(2, 200000, "pipeline, copies from 115 MB")
+  {
+    const int steps = 200000;
+    lsa_chain<7><<<1, 32>>>(out, 100);
+    cudaEventRecord(a);
+    lsa_chain<7><<<1, 32>>>(out, steps);
+    cudaEventRecord(b);
+    printf("assignment relax step, one warp, 7 columns a lane, as a dependent chain: %.1f ns a "
+           "step\n", elapsed(a, b) * 1e6 / steps);
+  }
   const cudaError_t e = cudaDeviceSynchronize();
   printf("status: %s\n", cudaGetErrorString(e));
   return e == cudaSuccess ? 0 : 1;

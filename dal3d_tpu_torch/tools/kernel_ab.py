@@ -1,0 +1,128 @@
+#!/usr/bin/env python
+"""This tree's weight-gradient kernel (K4-dW) and assignment kernel (LSA)
+against another tree's, on the inputs of one full-width BEVFusion train
+step, timed in turns on the card.
+
+    python -m dal3d_tpu_torch.tools.kernel_ab --other <dir> [--rounds 1]
+
+``<dir>`` holds another tree's ``dal3d_tpu_torch`` package, for example a
+parent commit unpacked by ``git archive <commit> dal3d_tpu_torch | tar -x
+-C <dir>``. It is imported under another name and its kernels are built
+from its own sources into a temporary directory; its wrappers keep their
+own launch parameters (the dW kernel's chunk shares).
+
+The inputs are those of phase 18 of ``chip_smoke.py``: configs/bevfusion_lidar.py
+at full width, that phase's seeded clouds and GT boxes, weights from seed
+0; one train step runs with the 21 dW launches and the assignment's cost
+captured. Each round times other, this, this, other: per turn the sum of
+the 21 launches' device times and the assignment's (``chip_smoke.cuda_time_ms``).
+The two trees' results are held against each other: dW within 1e-5 of
+each launch's scale, ``col4row`` equal. Prints the card's name and power
+limit, a line per turn, a line per dW launch (the mean of each side's
+turns) and a JSON summary as the last line. Needs the card.
+"""
+import argparse
+import importlib
+import importlib.util
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[2]
+
+
+def load_other(root: Path, build_dir: Path):
+    """(gather, lsa) modules of the package under ``root``, imported as
+    ``other_port``, its kernels built into ``build_dir``."""
+    pkg = root / "dal3d_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "other_port", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["other_port"] = mod
+    spec.loader.exec_module(mod)
+    importlib.import_module("other_port.ops._build").BUILD_DIR = build_dir
+    return (importlib.import_module("other_port.ops.gather"),
+            importlib.import_module("other_port.ops.lsa"))
+
+
+def captured_step(cs):
+    """The dW launches' (features, plan, g) and the assignment's cost of one
+    full-width BEVFusion train step (phase 18's inputs)."""
+    from dal3d_tpu_torch.models.builder import bevfusion_optimizer, build_bevfusion
+    from dal3d_tpu_torch.ops import gather as tg
+    from dal3d_tpu_torch.ops import lsa as tl
+    from dal3d_tpu_torch.runtime.bevfusion_steps import make_bevfusion_train_step
+    from dal3d_tpu_torch.utils.config import Config
+
+    cfg = Config.fromfile(str(ROOT / "configs" / "bevfusion_lidar.py"))
+    batch, _, _ = cs.bevfusion_batch(10, cfg)
+    batch["gt_boxes"], batch["gt_classes"] = cs.bevfusion_gt(18)
+    bundle = build_bevfusion(cfg, seed=0)
+    step = make_bevfusion_train_step(bundle, bevfusion_optimizer(cfg, bundle, 100))
+    with cs.Capture(tg, "_launch_dw") as kdw, cs.Capture(tl, "linear_sum_assignment") as klsa:
+        step(batch)
+        torch.cuda.synchronize()
+    return kdw.calls, klsa.calls[0][0]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", required=True, help="directory holding the other dal3d_tpu_torch")
+    ap.add_argument("--rounds", type=int, default=1, help="rounds of other, this, this, other")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs the CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+
+    from dal3d_tpu_torch.ops import gather as tg
+    from dal3d_tpu_torch.ops import lsa as tl
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(f"card: {torch.cuda.get_device_name(0)} | {smi}")
+    with tempfile.TemporaryDirectory() as tmp:
+        og, ol = load_other(Path(args.other).resolve(), Path(tmp))
+        dw_calls, cost = captured_step(cs)
+        sides = {"this": (tg, tl), "other": (og, ol)}
+        for n, (f, plan, g) in enumerate(dw_calls):
+            a, b = tg._launch_dw(f, plan, g), og._launch_dw(f, plan, g)
+            scale = max(float(b.abs().max()), 1e-30)
+            if not float((a - b).abs().max()) <= 1e-5 * scale:
+                print(f"kernel_ab: dW launch {n} differs between the trees", file=sys.stderr)
+                return 1
+        if not torch.equal(tl.linear_sum_assignment(cost), ol.linear_sum_assignment(cost)):
+            print("kernel_ab: col4row differs between the trees", file=sys.stderr)
+            return 1
+        turns = {"this": [], "other": []}
+        per_launch = {"this": [], "other": []}
+        for r in range(args.rounds):
+            for side in ("other", "this", "this", "other"):
+                gm, lm = sides[side]
+                ms = [cs.cuda_time_ms(lambda f=f, p=p, g=g: gm._launch_dw(f, p, g), 5)
+                      for f, p, g in dw_calls]
+                lsa_ms = cs.cuda_time_ms(lambda: lm.linear_sum_assignment(cost), 5)
+                turns[side].append((sum(ms), lsa_ms))
+                per_launch[side].append(ms)
+                print(f"round {r} {side:5s}: K4-dW {sum(ms):.3f} ms over {len(ms)} launches, "
+                      f"LSA {lsa_ms:.4f} ms")
+    mean = {s: np.mean(per_launch[s], axis=0) for s in per_launch}
+    for n, (f, plan, g) in enumerate(dw_calls):
+        print(f"  dW #{n:2d} Cin {f.shape[-1]:3d} Cout {g.shape[-1]:3d} taps "
+              f"{plan.rulebook.shape[1]:2d} hits {int((plan.rulebook >= 0).sum()):8d}: this "
+              f"{mean['this'][n]:.4f} ms, other {mean['other'][n]:.4f} ms")
+    summary = {s: {"dw_ms": [t[0] for t in turns[s]], "lsa_ms": [t[1] for t in turns[s]]}
+               for s in turns}
+    summary["card"] = smi
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

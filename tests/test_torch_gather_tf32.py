@@ -19,6 +19,16 @@ kernels cannot run.
   on a sorted plan and on one that keeps the rows' order, equals
   gather_gemm_plain; the row gather on the strided [B, H*W, C] view of
   an NCHW map is bit-equal to table[idx] on a contiguous copy.
+- The weight-gradient kernel (K4-dW, TF32 wgmma): a model of its sum (the
+  tensor cores' accumulator truncating after every k8 product, fresh for
+  each 32-position chunk, chunks added to f32 sums to nearest) stays within
+  1e-5 of scale over one tap hit by 20480 positions, where one truncating
+  accumulator over the whole reduction drifts past it; the layout its
+  split pass writes (row r, positions 4q..4q+3 at byte r * 128 + (q ^ (r %
+  8)) * 16) is the 128-byte swizzle the wgmma descriptor reads, and each
+  8-lane phase of its 16-byte stores covers 8 distinct bank groups; the
+  chunk shares of every launch of the path cover the plan as the C entry
+  checks.
 """
 import numpy as np
 import pytest
@@ -275,3 +285,91 @@ def test_row_gather_reads_the_strided_view(dtype):
     assert torch.equal(tg.gather_rows_plain(view, rows), ref)
     assert torch.equal(tg.gather_rows(view, rows), ref)
     assert torch.equal(tg.gather_rows(view[0], rows[rows < 42]), view[0][rows[rows < 42].long()])
+
+
+def _trunc32(x: np.ndarray) -> np.ndarray:
+    """f64 -> f32 rounded toward zero (the tensor cores' accumulator)."""
+    r = x.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(x)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def emulated_dw(f: np.ndarray, g: np.ndarray, fresh_per_chunk: bool) -> np.ndarray:
+    """One tap's f^T g [Cin, Cout] over positions as K4-dW sums it: per
+    32-position chunk small*big, big*small, big*big, each over four k8
+    steps, every product added to an accumulator that truncates; the
+    accumulator fresh per chunk and added to f32 sums to nearest, or one
+    accumulator over the whole reduction."""
+    fb, gb = tf32_rna(f), tf32_rna(g)
+    fs, gs = tf32_rna(f - fb), tf32_rna(g - gb)
+    sums = np.zeros((f.shape[1], g.shape[1]), np.float32)
+    acc = np.zeros_like(sums)
+    for c0 in range(0, f.shape[0], tg.DW_CHUNK):
+        if fresh_per_chunk:
+            acc = np.zeros_like(sums)
+        for a, b in ((fs, gb), (fb, gs), (fb, gb)):
+            for k in range(c0, c0 + tg.DW_CHUNK, 8):
+                acc = _trunc32(acc.astype(np.float64) + a[k:k + 8].T.astype(np.float64) @ b[k:k + 8])
+        if fresh_per_chunk:
+            sums = (sums + acc).astype(np.float32)
+    return sums if fresh_per_chunk else acc
+
+
+def test_dw_chunked_sums_hold_a_long_reduction():
+    rng = np.random.RandomState(0)
+    P = 20480
+    f = rng.rand(P, 16).astype(np.float32)
+    g = rng.rand(P, 16).astype(np.float32)
+    ref = f.T.astype(np.float64) @ g
+    scale = float(np.abs(ref).max())
+    chunked = float(np.abs(emulated_dw(f, g, True) - ref).max()) / scale
+    one_chain = float(np.abs(emulated_dw(f, g, False) - ref).max()) / scale
+    assert chunked <= K4_TOL / 5, chunked
+    assert one_chain > K4_TOL, one_chain
+
+
+@pytest.mark.parametrize("rows", [8, 16, 32, 64, 128])
+def test_dw_split_layout_is_the_wgmma_swizzle(rows):
+    """The split pass's store offset of (row, positions 4q..4q+3) against
+    the 128-byte swizzle on byte addresses (bits 4-6 XOR bits 7-9) that the
+    wgmma descriptor reads, for every element of a [rows][32] plane; and
+    its 16-byte stores by 8 consecutive rows at one q hit 8 distinct
+    16-byte bank groups."""
+    r = np.arange(rows)[:, None]
+    pos = np.arange(32)[None, :]
+    written = r * 128 + ((pos // 4) ^ (r & 7)) * 16 + (pos % 4) * 4
+    linear = r * 128 + pos * 4
+    read = linear ^ (((linear >> 7) & 7) << 4)
+    np.testing.assert_array_equal(written, read)
+    assert len(np.unique(written)) == rows * 32
+    for r0 in range(0, rows, 8):
+        for q in range(8):
+            groups = {((rr * 128 + ((q ^ (rr & 7)) * 16)) % 128) // 16 for rr in range(r0, r0 + 8)}
+            assert len(groups) == 8
+
+
+# (Cin, Cout, M) of the BEVFusion encoder's launches (the stem's Cin 5
+# padded to 8), a width of no tile, a plan of one chunk, and Cout 200
+DW_LAUNCHES = [(8, 16, 120000), (16, 16, 120000), (16, 32, 60000), (32, 32, 60000),
+               (32, 64, 30000), (64, 64, 30000), (64, 128, 30000), (128, 128, 30000),
+               (12, 20, 2500), (64, 128, 32), (128, 200, 70000)]
+
+
+@pytest.mark.parametrize("Cin,Cout,M", DW_LAUNCHES)
+def test_dw_chunk_shares_cover_the_plan(Cin, Cout, M):
+    """The shares a dW launch gets satisfy the C entry's check (every chunk
+    in exactly one share, runs of at most DW_MAX_CHUNKS) and come near
+    the waves of blocks the tile's occupancy asks for."""
+    for B, K in ((2, 27), (2, 3), (1, 1)):
+        chunks = B * -(-M // tg.DW_CHUNK)
+        shares, cps = tg._dw_chunk_shares(B, M, K, Cin, Cout)
+        assert 0 < cps <= tg.DW_MAX_CHUNKS
+        assert shares * cps >= chunks and (shares - 1) * cps < chunks
+        ti, to = tg._dw_tiles(Cin, Cout)
+        assert ti >= min(Cin, 64) and to >= min(Cout, 128)
+        per_share = K * -(-Cin // ti) * -(-Cout // to)
+        want = tg._DW_WAVES * tg._SMS * tg._dw_blocks_per_sm(ti, to)
+        if cps < tg.DW_MAX_CHUNKS:
+            assert shares * per_share <= want + per_share
+        assert 2 * shares * per_share >= min(want, chunks * per_share)

@@ -638,6 +638,77 @@ def test_gather_dw_kernel_matches_plain(cuda, Cin, Cout):  # noqa: F811
     assert tg.gather_dw.launches == before + 4
 
 
+def _dw_direct(tg, feats, rb, g, shares, cps):
+    """One launch of the dW kernel's C entry with the chunk shares given
+    (the wrapper chooses its own): features [B, N, Cin], rulebook [B, K, M]
+    (-1 = miss, rows in order), g [B, M, Cout] -> dW [K, Cin, Cout]."""
+    from dal3d_tpu_torch.ops import _build
+
+    B, N, Cin = feats.shape
+    K, M, Cout = rb.shape[1], rb.shape[2], g.shape[-1]
+    dw = torch.empty(K, Cin, Cout, dtype=torch.float32, device=feats.device)
+    part = torch.empty(shares * K * Cin * Cout, dtype=torch.float32, device=feats.device)
+    _build.function("gather", "gather_dw_f32", tg._DW_ARGS, "gather_dw")(
+        feats.device, feats.data_ptr(), rb.data_ptr(), 0, g.data_ptr(), dw.data_ptr(),
+        part.data_ptr(), B, N, Cin, K, M, Cout, shares, cps)
+    return dw
+
+
+@pytest.mark.parametrize("Cin,Cout", [(64, 128), (64, 64), (128, 128), (16, 16), (32, 64)])
+@pytest.mark.parametrize("kind", ["one_chunk", "long_tap", "lists_of_1", "lists_of_2"])
+def test_gather_dw_kernel_long_reduction_and_short_lists(cuda, kind, Cin, Cout):  # noqa: F811
+    """K4-dW where its ring and its sums are stressed, within the same 1e-5
+    of scale as above and bit-equal on a repeat: one chunk (the transpose
+    and split into the swizzled K-major tiles read back by one wgmma
+    chunk); one tap hit by every one of 20480 positions with positive
+    features and g, where a sum through the tensor cores' truncating
+    accumulator would drift; and shares whose lists of hit chunks are
+    shorter than the ring's stages (1 and 2 of each share's 10 chunks hit
+    tap 0, none hits tap 1)."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    rng = np.random.RandomState(Cin + Cout + len(kind))
+    B, N = 1, 4000
+    if kind == "one_chunk":
+        K, M, shares, cps = 1, 32, 1, 1
+        hit = rng.rand(B, K, M) < 0.7
+    elif kind == "long_tap":
+        K, M, shares, cps = 2, 20480, 4, 160
+        hit = np.zeros((B, K, M), bool)
+        hit[:, 0] = True
+        hit[:, 1] = rng.rand(B, M) < 0.1
+    else:
+        n = int(kind[-1])
+        K, M, shares, cps = 2, 32 * 40, 4, 10
+        hit = np.zeros((B, K, M), bool)
+        for s in range(shares):
+            for c in range(n):
+                first = (s * cps + 3 * c + 1) * 32
+                hit[:, 0, first:first + 32] = rng.rand(B, 32) < 0.5
+    idx = rng.randint(0, N, (B, K, M)).astype(np.int32)
+    if kind == "long_tap":
+        f = rng.rand(B, N, Cin).astype(np.float32)
+        gg = rng.rand(B, M, Cout).astype(np.float32)
+    else:
+        f = rng.randn(B, N, Cin).astype(np.float32)
+        gg = rng.randn(B, M, Cout).astype(np.float32)
+    feats, g = t(f).to(cuda), t(gg).to(cuda)
+    idx_t, hit_t = t(idx).to(cuda), t(hit).to(cuda)
+    rb = torch.where(hit_t, idx_t, -1)
+    got = _dw_direct(tg, feats, rb, g, shares, cps)
+    torch.cuda.synchronize()
+    ref = tg.gather_dw_plain(feats, idx_t, hit_t, g)
+    scale = float(ref.abs().max())
+    assert scale > 0
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+    for k in range(K):
+        if not hit[:, k].any():
+            assert float(got[k].abs().max()) == 0.0
+    assert torch.equal(got, _dw_direct(tg, feats, rb, g, shares, cps))
+    wrapped = tg.gather_dw(feats, idx_t, hit_t, g)
+    assert float((wrapped - ref).abs().max()) <= 1e-5 * scale
+
+
 def _encoder_like(dev, Cin, seed=0):
     """A level of sparse voxels (tests' clustered scenes on a (41, 64, 64)
     grid) with Cin features on ``dev``, its shared subm rulebook with the
@@ -752,3 +823,51 @@ def test_lsa_kernel_matches_plain(cuda, B, G, P, pad):  # noqa: F811
         want = float(cost[b][r, c].sum(dtype=np.float64))
         have = float(cost[b][np.arange(G)[m], c4r[m]].sum(dtype=np.float64))
         assert abs(have - want) <= 1e-5 * max(abs(want), 1.0)
+
+
+@pytest.mark.parametrize("B,G,P,pad,ints", [(2, 200, 200, 80, 4), (2, 200, 200, 0, 2),
+                                            (1, 256, 256, 0, 0), (1, 256, 256, 56, 3),
+                                            (3, 33, 95, 0, 1)])
+def test_lsa_kernel_ties_and_global_rows(cuda, B, G, P, pad, ints):  # noqa: F811
+    """The Hungarian kernel where its argmin's tie rule and its row source
+    matter: integer costs in [0, ints] (many equal values, so the first
+    least column must win as in the plain version; ints 0: seeded tie-free
+    costs) at the loss's [2, 200, 200] (cost in shared memory) and at
+    [1, 256, 256], whose cost does not fit shared memory (rows read from
+    global memory by the same loop): col4row equal to the plain version's,
+    the total cost equal to scipy's."""
+    from scipy.optimize import linear_sum_assignment as scipy_lsa
+
+    from dal3d_tpu_torch.ops import lsa as tl
+
+    rng = np.random.RandomState(G * 10 + P + ints)
+    if ints:
+        cost = rng.randint(0, ints + 1, (B, G, P)).astype(np.float32)
+    else:
+        cost = (rng.rand(B, G, P) * 2 - 0.5).astype(np.float32)
+    if pad:
+        cost[:, G - pad:] = 1e6
+    before = tl.linear_sum_assignment.launches
+    got = tl.linear_sum_assignment(t(cost).to(cuda))
+    torch.cuda.synchronize()
+    assert tl.linear_sum_assignment.launches == before + 1
+    assert torch.equal(got.cpu(), tl.linear_sum_assignment_plain(t(cost)))
+    for b in range(B):
+        c4r = got[b].cpu().numpy()
+        assert len(set(c4r.tolist())) == G and c4r.min() >= 0
+        r, c = scipy_lsa(cost[b].astype(np.float64))
+        want = float(cost[b][r, c].sum(dtype=np.float64))
+        have = float(cost[b][np.arange(G), c4r].sum(dtype=np.float64))
+        assert abs(have - want) <= 1e-5 * max(abs(want), 1.0)
+
+
+def test_lsa_kernel_refuses_more_columns_than_a_warp_holds(cuda):  # noqa: F811
+    """More than 1023 columns (32 lanes of at most 32) raise before any
+    launch, either way round."""
+    from dal3d_tpu_torch.ops import lsa as tl
+
+    before = tl.linear_sum_assignment.launches
+    for shape in ((1, 3, 1100), (1, 1100, 3)):
+        with pytest.raises(ValueError, match="columns"):
+            tl.linear_sum_assignment(torch.rand(*shape, device=cuda))
+    assert tl.linear_sum_assignment.launches == before

@@ -5,7 +5,8 @@ The plain version is JAX's algorithm in the same f32 arithmetic, so on
 seeded tie-free costs its ``col4row`` equals JAX's, padded rows (the loss's
 1e6 constant rows) included; its total cost equals scipy's optimum within
 1e-5 of scale. Shapes: square, G < P, G > P (the transposed problem, rows
-left at -1), and a batch. The kernel is held to this plain version on the
+left at -1), and a batch; and integer costs full of ties, where the
+argmin's tie rule decides. The kernel is held to this plain version on the
 card (tests/test_torch_kernels_cuda.py)."""
 import jax
 import jax.numpy as jnp
@@ -39,6 +40,24 @@ def test_plain_matches_jax_and_scipy(B, G, P, pad):
         want = float(cost[b][r, c].sum(dtype=np.float64))
         have = float(cost[b][np.arange(G)[m], c4r[m]].sum(dtype=np.float64))
         assert abs(have - want) <= 1e-5 * max(abs(want), 1.0)
+
+
+def test_plain_matches_jax_on_tied_integer_costs():
+    """Integer costs in [0, 3] (most rows hold several equal least values,
+    so the argmin's tie rule, the first least column, decides the matching)
+    with 5 padded rows: col4row equal to JAX's, the total cost equal to
+    scipy's (the card kernel is held to this plain version on the same kind
+    of cost)."""
+    rng = np.random.RandomState(7)
+    cost = rng.randint(0, 4, (2, 16, 18)).astype(np.float32)
+    cost[:, 11:] = 1e6
+    got = tl.linear_sum_assignment(t(cost))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(_jax(jnp.asarray(cost))))
+    for b in range(2):
+        c4r = got[b].numpy()
+        assert len(set(c4r.tolist())) == 16
+        r, c = scipy_lsa(cost[b].astype(np.float64))
+        assert float(cost[b][np.arange(16), c4r].sum()) == float(cost[b][r, c].sum())
 
 
 def test_padding_rows_leave_the_valid_rows_optimal():
