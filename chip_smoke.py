@@ -20,9 +20,13 @@ selection -> the subset's GT database -> training with GT-AUG and its val
 phase -> evaluation -> model-based selection), raw points through the
 device voxelizer, the partial-label round (detector and box-quality
 estimator trained side by side -> selection that skips the seed set -> the
-next round on the picks), and BEVFusion lidar-only training (train step with
+next round on the picks), BEVFusion lidar-only training (train step with
 the Hungarian-matched loss -> the training CLI with resume, warm start and a
-converted reference checkpoint).
+converted reference checkpoint), and BEVFusion stage 2, camera + lidar (six
+camera images -> Swin-T -> LSS FPN -> depth-aware view transform -> camera
+BEV map, fused with the lidar map -> the same decoder and head; its train
+step, and the training CLI warm-started from the stage-1 run with a
+converted Swin).
 Phases, each fatal on failure:
 
   1. versions of torch / CUDA / nvcc and the card (nvidia-smi);
@@ -163,7 +167,25 @@ Phases, each fatal on failure:
      memory, device idle share; ``train_bevfusion`` on phase 15's set
      (``--budget`` epoch and checkpoint, ``--resume_from``, ``--load_from``
      into a model with another head width, ``convert_bevfusion`` ->
-     ``--torch_init`` of seeded mmdet3d-named weights).
+     ``--torch_init`` of seeded mmdet3d-named weights);
+ 19. BEVFusion stage 2, camera + lidar (configs/bevfusion_cl.py at full
+     width: Swin-T on 6 ring cameras at 256 x 704, DepthLSSTransform with 118
+     depth bins x 80 channels, ConvFuser, f32, B=2, phase 14's clouds, depth
+     images rasterised from them by ReformatCamera): launch counters set to 0,
+     a warm-up and 5 timed predicts, counters read (21 and 1 per predict,
+     nothing else); the predict split stage by stage (lidar, Swin, FPN, depth
+     branch + depthnet, splat, BEV downsample, fuser, decoder, head), peak
+     memory, device idle share; bev_pool's device ms against its bytes bound,
+     card against the CPU and a repeat; the window attentions' share of the
+     Swin with scaled_dot_product_attention on the same bias + mask as a
+     yardstick; the camera, fused and neck maps and the matched queries
+     against the same forward on plain versions; the camera branch on the
+     card against the CPU; the train step's camera gradient against plain
+     versions within twice the rounding floor, a warm-up and 3 timed steps
+     with their launches (41 / 21 / 1 / 1 per step), split, peak memory and
+     idle share; ``train_bevfusion`` with a stage-2 config on a synthetic
+     camera set (``--load_from`` phase 18's work dir, ``--swin_init`` of
+     seeded Swin-T weights through ``convert_swin``, then ``--resume_from``).
 
 Kernel times are device times per call (``cuda_time_ms``: the launches
 queued behind a device-side sleep, so that the host's enqueue is not timed);
@@ -697,6 +719,9 @@ def main() -> None:
         # 18. BEVFusion training: K4 dX, K4-dW, K5's backward, LSA, the step, the CLI
         bftrain = bevfusion_train_phase(tmp, Config, counters, loop, tg, tl)
 
+        # 19. BEVFusion stage 2 (camera + lidar): predict, train step, the CLI
+        stage2 = camera_lidar_phase(tmp, Config, counters, tg, tl, bftrain["work_dir"])
+
     # kernels line, card line, result -------------------------------------------
     kernels = [
         dict(name="banded_conv", route="cuda", source="dal3d_tpu_torch/ops/csrc/banded_conv.cu",
@@ -751,6 +776,8 @@ def main() -> None:
         k["launches_bevfusion_train"] = bftrain["launches"][k["name"]]
         k["launches_per_bevfusion_train_step"] = bftrain["launches"][k["name"]] // (
             BF_TRAIN_ITERS + 1)
+        k["launches_stage2_predict"] = stage2["launches_predict"][k["name"]]
+        k["launches_stage2_train"] = stage2["launches_train"][k["name"]]
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
@@ -2349,19 +2376,15 @@ def bevfusion_forward(bundle, batch, tg, k4, k5, stop_at=""):
     """One forward (and decode) with the K4 / K5 wrappers set to k4 / k5;
     returns (preds, decoded, query rows)."""
     from dal3d_tpu_torch.models.bevfusion import transfusion_decode
-    from dal3d_tpu_torch.runtime.bevfusion_steps import autotuned_convs
-    from dal3d_tpu_torch.runtime.steps import model_inputs
+    from dal3d_tpu_torch.runtime.bevfusion_steps import (_forward, autotuned_convs,
+                                                         bevfusion_inputs)
 
-    inputs = model_inputs(batch, bundle.device)
-    if "vf" in inputs:  # host voxels, positional; raw points by keyword
-        args, kw = (inputs["vf"].float(), inputs["vc"], inputs["vv"]), {}
-    else:
-        args, kw = (), inputs
+    inputs = bevfusion_inputs(bundle.model, batch, bundle.device)
     saved = tg.gather_gemm, tg.gather_rows
     tg.gather_gemm, tg.gather_rows = k4, k5
     try:
         with Capture(tg, "gather_rows") as rec, torch.inference_mode(), autotuned_convs():
-            preds = bundle.model(*args, stop_at=stop_at, **kw)
+            preds = _forward(bundle.model, inputs, stop_at)
             dec = transfusion_decode(preds, bundle.test_cfg) if not stop_at else None
         torch.cuda.synchronize()
     finally:
@@ -2369,30 +2392,31 @@ def bevfusion_forward(bundle, batch, tg, k4, k5, stop_at=""):
     return preds, dec, (rec.calls[0][1] if rec.calls else None)
 
 
-def bevfusion_plain_check(bundle, batch, tg) -> str:
+def bevfusion_plain_check(bundle, batch, tg, maps=("lidar",)) -> str:
     """The main path once more with both kernels swapped for their plain
-    versions (same weights, same inputs): the lidar BEV map, the neck map and
-    the heatmap within BF_TOL of their scale; the queries matched by (pixel,
-    class), their boxes and scores within BF_TOL of max(1, |x|). A query
-    present on one side only must sit at the top-200 boundary: its score
-    within 1e-5 of the other side's 200th."""
+    versions (same weights, same inputs): the maps of the ``maps`` cuts
+    (``stop_at``), the neck map and the heatmap within BF_TOL of their
+    scale; the queries matched by (pixel, class), their boxes, scores and
+    class logits within BF_TOL of max(1, |x|). A query present on one side
+    only must sit at the top-200 boundary: its score within 1e-5 of the
+    other side's 200th."""
     kern = (tg.gather_gemm, tg.gather_rows)
     plain = (lambda f, idx, hit, w, plan=None: tg.gather_gemm_plain(f, idx, hit, w),
              tg.gather_rows_plain)
-    lk = bevfusion_forward(bundle, batch, tg, *kern, stop_at="lidar")[0]["lidar"]
-    lp = bevfusion_forward(bundle, batch, tg, *plain, stop_at="lidar")[0]["lidar"]
+    cuts = [(f"{m} map", bevfusion_forward(bundle, batch, tg, *kern, stop_at=m)[0][m],
+             bevfusion_forward(bundle, batch, tg, *plain, stop_at=m)[0][m]) for m in maps]
     pk, dk, rk = bevfusion_forward(bundle, batch, tg, *kern)
     pp, dp, rp = bevfusion_forward(bundle, batch, tg, *plain)
     report = []
-    for name, a, b in (("lidar map", lk, lp), ("neck map", pk["bev_feat"], pp["bev_feat"]),
-                       ("heatmap", pk["heatmap"], pp["heatmap"])):
+    for name, a, b in cuts + [("neck map", pk["bev_feat"], pp["bev_feat"]),
+                              ("heatmap", pk["heatmap"], pp["heatmap"])]:
         rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
         if not rel <= BF_TOL:
             fail(f"BEVFusion main path vs plain: {name} error {rel:.3e} of scale > {BF_TOL:g}")
         report.append(f"{name} {rel:.1e}")
     P = pk["query_score"].shape[1]
     HW = pk["heatmap"].shape[1] * pk["heatmap"].shape[2]
-    box_err = sc_err = 0.0
+    box_err = sc_err = logit_err = 0.0
     flips = 0
     for b in range(pk["query_score"].shape[0]):
         key_k = (pk["query_labels"][b].long() * HW + rk.view(-1, P)[b] - b * HW).tolist()
@@ -2410,12 +2434,14 @@ def bevfusion_plain_check(bundle, batch, tg) -> str:
             ba, bb_ = dk["box3d_lidar"][b, i].double(), dp["box3d_lidar"][b, j].double()
             box_err = max(box_err, float(((ba - bb_).abs() / bb_.abs().clamp(min=1.0)).max()))
             sc_err = max(sc_err, abs(float(dk["scores"][b, i] - dp["scores"][b, j])))
-    if box_err > BF_TOL or sc_err > BF_TOL:
+            la, lb = pk["cls_logits"][b, i].double(), pp["cls_logits"][b, j].double()
+            logit_err = max(logit_err, float(((la - lb).abs() / lb.abs().clamp(min=1.0)).max()))
+    if box_err > BF_TOL or sc_err > BF_TOL or logit_err > BF_TOL:
         fail(f"BEVFusion main path vs plain: matched detections box err {box_err:.2e}, score "
-             f"err {sc_err:.2e} (tol {BF_TOL:g})")
+             f"err {sc_err:.2e}, cls_logits err {logit_err:.2e} (tol {BF_TOL:g})")
     return (f"{', '.join(report)} of scale; {2 * P - flips} of {2 * P} queries matched by (pixel, "
             f"class) (flips at the top-{P} boundary: {flips}), box err {box_err:.1e}, score "
-            f"err {sc_err:.1e}")
+            f"err {sc_err:.1e}, cls_logits err {logit_err:.1e}")
 
 
 def bevfusion_stage_split(bundle, batch, k4_ms: float) -> None:
@@ -3933,17 +3959,16 @@ def step_gradients(bundle, inputs, gt, step_idx: int, plain: bool, tg, tl, queri
     {name: grad}, {"queries", "cost", "col4row"} of this run). The running
     statistics are put back afterwards."""
     from dal3d_tpu_torch.models.bevfusion import transfusion as ttf
-    from dal3d_tpu_torch.models.bevfusion.transfusion import Dropout, transfusion_loss
+    from dal3d_tpu_torch.models.bevfusion.transfusion import transfusion_loss
     from dal3d_tpu_torch.runtime.bevfusion_steps import (_forward, autotuned_convs,
-                                                         dropout_generator)
+                                                         dropout_generator, random_modules)
 
     model = bundle.model
     model.train()
     stats = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
     gen = dropout_generator(bundle.device, step_idx)
-    for m in model.modules():
-        if isinstance(m, Dropout):
-            m.generator = gen
+    for m in random_modules(model):
+        m.generator = gen
     model.zero_grad(set_to_none=True)
     taken = {}
     top_k = ttf._top_k
@@ -4353,8 +4378,502 @@ def bevfusion_train_phase(tmp: str, Config, counters, loop, tg, tl) -> dict:
     print(f"phase 18 (BEVFusion training): {time.perf_counter() - t_phase:.1f} s; launches of "
           f"the main path {launches}")
     return dict(launches=launches, gather_dw=dw, linear_sum_assignment=lsa, step_ms=ms_med,
-                step_gap=dw_gap,
-                split_ms=split, peak_gb=peak_gb, cli_s=cli_s)
+                step_gap=dw_gap, split_ms=split, peak_gb=peak_gb, cli_s=cli_s,
+                work_dir=os.path.join(tmp, "bevfusion_train", "work"))
+
+
+# ---------------------------------------------------------------------------
+# BEVFusion stage 2: camera + lidar at full width (configs/bevfusion_cl.py)
+# ---------------------------------------------------------------------------
+CAMS, IMG_HW = 6, (256, 704)
+CL_PREDICT_ITERS = 5
+CL_TRAIN_ITERS = 3
+CAMERA_TOL = 1e-4  # the camera map, card against the CPU on one geometry, of its scale: f32
+# Swin, convs and bev_pool summed in other orders (cuDNN, cuBLAS, float atomics)
+# the camera gradient's rounding floor may reach this share of its norm (8.95e-3 at full
+# width on an H100: bev_pool's float atomics sum every run's camera map in another order,
+# and the train-mode batch norms of the depth branch and the BEV downsample amplify it);
+# the gradient against plain versions is held within twice the floor, as phase 18 does
+CAMERA_FLOOR_MAX = 3e-2
+
+
+def ring_camera_batch(clouds, seed: int) -> dict:
+    """The camera keys of B frames as ReformatCamera makes them: the
+    synthetic writer's 6 ring cameras (data/datasets/synthetic.py: at the ego
+    origin, 1.6 m up), its 64 x 96 camera's intrinsics scaled to 704 wide
+    (469 x 704 frames, bottom-cropped to 256 x 704 as ImageAug3D's val crop
+    does), seeded images normalised as ImageNormalize does, and depth images
+    rasterised from the B clouds by the port's ReformatCamera."""
+    from dal3d_tpu_torch.data.pipelines.camera import ReformatCamera
+
+    rng = np.random.RandomState(seed)
+    s = IMG_HW[1] / 96.0
+    crop = round(64 * s) - IMG_HW[0]
+    K = np.array([[50 * s, 0.0, 48 * s], [0.0, 50 * s, 32 * s], [0.0, 0.0, 1.0]], np.float32)
+    base = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    rots = []
+    for ci in range(CAMS):
+        c, sn = np.cos(2 * np.pi * ci / CAMS), np.sin(2 * np.pi * ci / CAMS)
+        rots.append(np.array([[c, -sn, 0.0], [sn, c, 0.0], [0.0, 0.0, 1.0]]) @ base)
+    mean = np.asarray((0.485, 0.456, 0.406), np.float32)
+    std = np.asarray((0.229, 0.224, 0.225), np.float32)
+    out = []
+    for cloud in clouds:
+        imgs = rng.randint(0, 256, (CAMS, *IMG_HW, 3)).astype(np.float32)
+        cam = {"np_images": [((im / 255.0) - mean) / std for im in imgs],
+               "camera_intrinsics": np.stack([K] * CAMS),
+               "camera2lidar_rots": np.stack(rots).astype(np.float32),
+               "camera2lidar_trans": np.tile(np.float32([0.0, 0.0, 1.6]), (CAMS, 1)),
+               "aug_rots": [np.eye(2)] * CAMS, "aug_trans": [np.array([0.0, -crop])] * CAMS}
+        res, _ = ReformatCamera(IMG_HW)({"camera": cam, "lidar": {"points": cloud}}, {})
+        out.append(res["camera"]["batch"])
+    return {k: np.stack([o[k] for o in out]) for k in out[0]}
+
+
+def camera_stage_split(bundle, inputs, iters: int = 5) -> dict:
+    """Host-clock split of one stage-2 predict with a synchronize after each
+    stage (median of ``iters`` after one warm-up), the model's forward taken
+    apart: lidar branch, Swin, FPN, depth branch + depthnet (with the depth x
+    context outer product), splat (geometry + bev_pool), BEV downsample,
+    fuser, decoder, head + decode."""
+    from dal3d_tpu_torch.models.bevfusion import transfusion_decode
+    from dal3d_tpu_torch.models.bevfusion.bevfusion import CAMERA_TRANSFORMS
+    from dal3d_tpu_torch.models.bevfusion.vtransforms import depth_context, splat
+    from dal3d_tpu_torch.ops.resize import resize_bilinear
+    from dal3d_tpu_torch.runtime.bevfusion_steps import autotuned_convs
+
+    model = bundle.model
+    vt = model.camera_vtransform
+    names = ["lidar", "Swin", "FPN", "depth branch + depthnet", "splat", "BEV downsample",
+             "fuser", "decoder", "head + decode"]
+    rec = {n: [] for n in names}
+    imgs, dimg = inputs["images"], inputs["depth_images"]
+    Bc, N = imgs.shape[:2]
+    cam_args = [inputs[k] for k in CAMERA_TRANSFORMS]
+    with torch.inference_mode(), autotuned_convs():
+        for _ in range(iters + 1):
+            marks = [time.perf_counter()]
+
+            def mark():
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+
+            lidar = model(inputs["vf"], inputs["vc"], inputs["vv"], "lidar")["lidar"]
+            mark()
+            stages = model.camera_backbone(imgs.reshape(Bc * N, *imgs.shape[2:]))
+            mark()
+            feat = model.camera_neck(stages)[0]
+            mark()
+            fH, fW = feat.shape[1:3]
+            d = vt.dtransform(dimg.reshape(Bc * N, *dimg.shape[2:]).permute(0, 3, 1, 2))
+            x = torch.cat([d, feat.permute(0, 3, 1, 2)], dim=1)
+            ctx = depth_context(vt.depth_out(vt.depthnet(x)), vt.D).reshape(Bc, N, fH, fW, vt.D,
+                                                                             vt.C)
+            mark()
+            bev = splat(ctx, cam_args, vt.image_size, *vt.bounds)
+            del ctx
+            mark()
+            cam = vt.downsample(bev.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            if cam.shape[1:3] != lidar.shape[1:3]:  # not at full width: 180 x 180 both
+                cam = resize_bilinear(cam, lidar.shape[1:3])
+            mark()
+            fused = model.fuser([cam, lidar])
+            mark()
+            dec = model.neck(model.decoder(fused))
+            mark()
+            transfusion_decode(model.head(dec), bundle.test_cfg)
+            mark()
+            for n, a, b_ in zip(names, marks[:-1], marks[1:]):
+                rec[n].append((b_ - a) * 1e3)
+    return {n: float(np.median(v[1:])) for n, v in rec.items()}
+
+
+def window_attention_share(model, images, swin_ms: float) -> str:
+    """Every window attention of one Swin forward (captured inputs): the
+    modules' device ms (qkv, core, projection) against the whole Swin, and
+    their cores beside ``scaled_dot_product_attention`` with the same bias +
+    mask as its float mask (a yardstick only; the path runs the core)."""
+    import torch.nn.functional as F
+
+    from dal3d_tpu_torch.models.bevfusion.swin import WindowAttention
+
+    calls = []
+    mods = [m for m in model.camera_backbone.modules() if isinstance(m, WindowAttention)]
+    hooks = [m.register_forward_hook(lambda mod, args, out: calls.append((mod, *args)))
+             for m in mods]
+    x = images.reshape(-1, *images.shape[2:])
+    try:
+        with torch.inference_mode():
+            model.camera_backbone(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    attn_ms = core_ms = sdpa_ms = err = 0.0
+    with torch.inference_mode():
+        for mod, a, mask in calls:
+            attn_ms += cuda_time_ms(lambda: mod(a, mask), 3)
+            nW, L, C = a.shape
+            h = mod.num_heads
+            qkv = mod.qkv(a).reshape(nW, L, 3, h, C // h).permute(2, 0, 3, 1, 4)
+            q, k, v = (t.contiguous() for t in qkv)
+            full = mod.bias()[None].expand(nW, h, L, L)
+            if mask is not None:
+                full = (full.reshape(-1, mask.shape[0], h, L, L) + mask[None, :, None]).reshape(
+                    nW, h, L, L)
+            full = full.contiguous()
+            core_ms += cuda_time_ms(lambda: mod.core(q, k, v, mask), 3)
+            sdpa_ms += cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v, full), 3)
+            ref = mod.core(q, k, v, mask)
+            got = F.scaled_dot_product_attention(q, k, v, full)
+            err = max(err, float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30))
+    return (f"{len(calls)} window attentions: {attn_ms:.2f} ms of the Swin's {swin_ms:.2f} ms "
+            f"(share {attn_ms / swin_ms:.3f}); their cores (matmul + bias + mask + softmax + "
+            f"matmul) {core_ms:.2f} ms, scaled_dot_product_attention with the same bias + mask "
+            f"{sdpa_ms:.2f} ms (yardstick; within {err:.1e} of scale)")
+
+
+def bev_pool_check(model, inputs) -> dict:
+    """bev_pool's inputs captured from one camera forward: device ms against
+    its bytes bound (features, coordinates and validity read once, the map
+    written once), the card's map against the CPU's on the same
+    coordinates, and the cells that differ on a repeat (float atomics)."""
+    from dal3d_tpu_torch.models.bevfusion.bevfusion import CAMERA_TRANSFORMS
+    from dal3d_tpu_torch.models.bevfusion import vtransforms as tvt
+    from dal3d_tpu_torch.ops.bev_pool import bev_pool_batched
+
+    with Capture(tvt, "bev_pool_batched") as cap, torch.inference_mode():
+        model._camera(inputs["images"], inputs["depth_images"],
+                      [inputs[k] for k in CAMERA_TRANSFORMS])
+    feats, coords, valid, nx, ny, nz = cap.calls[0]
+    with torch.inference_mode():
+        a = bev_pool_batched(feats, coords, valid, nx, ny, nz)
+        b_ = bev_pool_batched(feats, coords, valid, nx, ny, nz)
+        ms = cuda_time_ms(lambda: bev_pool_batched(feats, coords, valid, nx, ny, nz), 5)
+    repeat_cells = int((a != b_).any(-1).sum())
+    cpu = bev_pool_batched(feats.cpu(), coords.cpu(), valid.cpu(), nx, ny, nz)
+    rel = float((a.cpu() - cpu).abs().max()) / max(float(cpu.abs().max()), 1e-30)
+    nbytes = (feats.numel() * feats.element_size() + coords.numel() * coords.element_size()
+              + valid.numel() * valid.element_size() + a.numel() * a.element_size())
+    bound = nbytes / PEAK_BYTES * 1e3
+    if not rel <= 1e-5:
+        fail(f"bev_pool card vs CPU: {rel:.2e} of scale > 1e-5")
+    print(f"splat (bev_pool): features {tuple(feats.shape)} ({feats.numel() * 4 / 1e9:.3f} GB) "
+          f"into [{B}, {ny}, {nx}, {nz * feats.shape[-1]}], {int(valid.sum())} of {valid.numel()} "
+          f"points in the grid: {ms:.3f} ms on the card against its bytes bound {bound:.3f} ms "
+          f"({nbytes / 1e9:.3f} GB at {PEAK_BYTES / 1e12:.2f} TB/s; {bound / ms:.2f} of it); card "
+          f"vs CPU on the same coordinates {rel:.1e} of scale (tol 1e-5); a repeat on the card "
+          f"differs in {repeat_cells} of {ny * nx * B} cells (float atomics)")
+    return dict(ms=ms, bound_ms=bound, repeat_cells=repeat_cells, cpu_rel=rel)
+
+
+def camera_card_vs_cpu(bundle, inputs) -> str:
+    """The camera branch (Swin -> FPN -> DepthLSSTransform) on the card
+    against a CPU copy of it on the same inputs, f32. The frustum geometry
+    is counted apart (the points whose cell differs between the card's and
+    the CPU's: cuSOLVER's and LAPACK's 3x3 inverses round differently), then
+    both run on the card's geometry, held within CAMERA_TOL of the map's
+    scale."""
+    from dal3d_tpu_torch.models.bevfusion.bevfusion import CAMERA_TRANSFORMS
+    import copy
+
+    from dal3d_tpu_torch.models.bevfusion import vtransforms as tvt
+
+    model = bundle.model
+    vt = model.camera_vtransform
+    cpu = copy.deepcopy(model.camera_backbone).cpu(), copy.deepcopy(
+        model.camera_neck).cpu(), copy.deepcopy(vt).cpu()
+    cam_args = [inputs[k] for k in CAMERA_TRANSFORMS]
+    fH, fW = IMG_HW[0] // 8, IMG_HW[1] // 8
+    fr = torch.from_numpy(tvt.create_frustum(IMG_HW, (fH, fW), vt.bounds[0])).permute(1, 2, 0, 3)
+    geom = tvt.get_geometry(fr.to(bundle.device), *cam_args)
+    geom_cpu = tvt.get_geometry(fr, *[a.cpu() for a in cam_args])
+    dx, bx, _ = tvt.gen_dx_bx(*vt.bounds[1:])
+    lo, step = torch.from_numpy(bx - dx / 2), torch.from_numpy(dx)
+    flips = int((torch.floor((geom.cpu() - lo) / step) != torch.floor((geom_cpu - lo) / step))
+                .any(-1).sum())
+
+    def branch(mods, imgs, dimg, args):
+        backbone, neck, vtr = mods
+        Bc, N = imgs.shape[:2]
+        f = neck(backbone(imgs.reshape(Bc * N, *imgs.shape[2:])))[0]
+        return vtr(f.reshape(Bc, N, *f.shape[1:]), dimg, *args)
+
+    with mock.patch.object(tvt, "get_geometry", lambda frustum, *a: geom.to(frustum.device)), \
+            torch.inference_mode():
+        card = branch((model.camera_backbone, model.camera_neck, vt), inputs["images"],
+                      inputs["depth_images"], cam_args).cpu()
+        t0 = time.perf_counter()
+        ref = branch(cpu, inputs["images"].cpu(), inputs["depth_images"].cpu(),
+                     [a.cpu() for a in cam_args])
+        cpu_s = time.perf_counter() - t0
+    rel = float((card - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+    if not rel <= CAMERA_TOL:
+        fail(f"camera branch card vs CPU: {rel:.2e} of scale > {CAMERA_TOL:g}")
+    return (f"camera map {tuple(card.shape)} within {rel:.1e} of scale (tol {CAMERA_TOL:g}) on "
+            f"the card's geometry ({cpu_s:.1f} s on the CPU); the two geometries put {flips} of "
+            f"{geom.shape[:-1].numel()} frustum points in another cell")
+
+
+def swin_t_state_dict(rng) -> dict:
+    """Seeded microsoft / timm-named Swin-T weights (the pretrained
+    swint-nuimages checkpoint's names and shapes), as
+    tests/test_swin_convert.py builds them."""
+    def r(*shape):
+        return (0.05 * rng.randn(*shape)).astype(np.float32)
+
+    sd = {"patch_embed.proj.weight": r(96, 3, 4, 4), "patch_embed.proj.bias": r(96),
+          "patch_embed.norm.weight": 1 + r(96), "patch_embed.norm.bias": r(96)}
+    dim = 96
+    for i, (depth, heads) in enumerate(zip((2, 2, 6, 2), (3, 6, 12, 24))):
+        for j in range(depth):
+            t = f"layers.{i}.blocks.{j}."
+            sd.update({t + "norm1.weight": 1 + r(dim), t + "norm1.bias": r(dim),
+                       t + "attn.qkv.weight": r(3 * dim, dim), t + "attn.qkv.bias": r(3 * dim),
+                       t + "attn.relative_position_bias_table": r(169, heads),
+                       t + "attn.relative_position_index": np.zeros((49, 49), np.int64),
+                       t + "attn.proj.weight": r(dim, dim), t + "attn.proj.bias": r(dim),
+                       t + "norm2.weight": 1 + r(dim), t + "norm2.bias": r(dim),
+                       t + "mlp.fc1.weight": r(4 * dim, dim), t + "mlp.fc1.bias": r(4 * dim),
+                       t + "mlp.fc2.weight": r(dim, 4 * dim), t + "mlp.fc2.bias": r(dim)})
+        if i < 3:
+            t = f"layers.{i}.downsample."
+            sd.update({t + "norm.weight": 1 + r(4 * dim), t + "norm.bias": r(4 * dim),
+                       t + "reduction.weight": r(2 * dim, 4 * dim)})
+        if i > 0:
+            sd.update({f"norm{i}.weight": 1 + r(dim), f"norm{i}.bias": r(dim)})
+        dim *= 2
+    return sd
+
+
+def write_stage2_config(path: str, root: str, info: str, work_dir: str) -> None:
+    """configs/bevfusion_cl.py with its stage-1 base (configs/bevfusion_lidar.py)
+    written in place of the import, pointed at a synthetic camera set, a log
+    line every step."""
+    base = open(os.path.join(ROOT, "configs", "bevfusion_lidar.py")).read()
+    cl = open(os.path.join(ROOT, "configs", "bevfusion_cl.py")).read()
+    line = "from bevfusion_lidar import *  # noqa: F401,F403"
+    if line not in cl:
+        fail(f"configs/bevfusion_cl.py no longer imports its base as {line!r}")
+    with open(path, "w") as f:
+        f.write(cl.replace(line, base))
+        f.write(f"\ndata['train'].update(root_path={root!r}, info_path={info!r})\n"
+                f"work_dir = {work_dir!r}\nlog_config = dict(interval=1)\n")
+
+
+def camera_train_cli(tmp: str, stage1_work: str) -> dict:
+    """train_bevfusion with the stage-2 config on a synthetic camera set
+    (4 frames, 6 ring cameras of 900 x 1600 JPEGs each) through the port's
+    camera pipeline: --load_from the stage-1 work dir and --swin_init of a
+    seeded torch-named Swin-T through tools/convert_swin.py, an epoch, then
+    --resume_from for a second. Returns seconds per run."""
+    from dal3d_tpu_torch.data.datasets.synthetic import make_synthetic_nuscenes
+    from dal3d_tpu_torch.runtime import checkpoint as ckpt
+    from dal3d_tpu_torch.tools import convert_swin, train_bevfusion
+
+    base = os.path.join(tmp, "stage2_cli")
+    os.makedirs(base)
+    t0 = time.perf_counter()
+    info = make_synthetic_nuscenes(os.path.join(base, "data"), n_frames=4, n_logs=1,
+                                   points_per_frame=20000, seed=19, with_camera=True,
+                                   image_hw=(900, 1600))
+    data_s = time.perf_counter() - t0
+    cfg, work = os.path.join(base, "bevfusion_cl.py"), os.path.join(base, "work")
+    write_stage2_config(cfg, os.path.join(base, "data"), info, work)
+    pth, npz = os.path.join(base, "swint.pth"), os.path.join(base, "swint.npz")
+    torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in
+                               swin_t_state_dict(np.random.RandomState(19)).items()}}, pth)
+    t0 = time.perf_counter()
+    flat = convert_swin.main([pth, npz])
+    seconds = {"convert_swin": time.perf_counter() - t0}
+
+    def run(tag, argv):
+        t0 = time.perf_counter()
+        out = train_bevfusion.main(argv)
+        torch.cuda.synchronize()
+        seconds[tag] = time.perf_counter() - t0
+        return out
+
+    r1 = run("epoch (--load_from, --swin_init)",
+             [cfg, "--epochs", "1", "--load_from", stage1_work, "--swin_init", npz])
+    n1 = r1["optimizer"].count
+    log = open(os.path.join(work, "train.log")).read()
+    copied = int(log.split("partial warm-start from ")[1].split(": ")[1].split(" ")[0])
+    if (ckpt.latest_epoch(work) != 1 or n1 < 1 or copied <= 0
+            or f"camera backbone initialised from {npz} ({len(flat)} tensors)" not in log
+            or not all(np.isfinite(v) for v in r1["logs"].values())):
+        fail(f"train_bevfusion stage 2: epoch {ckpt.latest_epoch(work)}, {n1} steps, {copied} "
+             f"tensors from stage 1, logs {r1['logs']}")
+    del r1
+    r2 = run("--resume_from", [cfg, "--epochs", "2", "--resume_from", work])
+    if ckpt.latest_epoch(work) != 2 or r2["optimizer"].count != 2 * n1:
+        fail(f"train_bevfusion stage 2 --resume_from: epoch {ckpt.latest_epoch(work)}, step "
+             f"{r2['optimizer'].count} (expected {2 * n1})")
+    del r2
+    print(f"  train_bevfusion stage 2 CLI ({n1} steps an epoch on 4 synthetic camera frames, "
+          f"written in {data_s:.1f} s): " + "; ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+          + f"; --load_from copied {copied} tensors of the stage-1 work dir, --swin_init "
+          f"{len(flat)} converted Swin-T arrays")
+    return seconds
+
+
+def camera_lidar_phase(tmp: str, Config, counters, tg, tl, stage1_work: str) -> dict:
+    """Phase 19: BEVFusion stage 2 (configs/bevfusion_cl.py) at full width.
+    Returns each kernel's launches over the predict and the train step main
+    paths, and the phase's numbers."""
+    from dal3d_tpu_torch.models.builder import bevfusion_optimizer, build_bevfusion
+    from dal3d_tpu_torch.runtime.bevfusion_steps import (bevfusion_inputs,
+                                                         make_bevfusion_predict_step,
+                                                         make_bevfusion_train_step)
+    from dal3d_tpu_torch.runtime.steps import _to_device
+
+    t_phase = time.perf_counter()
+    cfg = Config.fromfile(os.path.join(ROOT, "configs", "bevfusion_cl.py"))
+    batch, occupied, _ = bevfusion_batch(10, cfg)
+    t0 = time.perf_counter()
+    batch.update(ring_camera_batch(bevfusion_clouds(10), 19))
+    cam_s = time.perf_counter() - t0
+    bundle = build_bevfusion(cfg, seed=0)
+    model, dev = bundle.model, bundle.device
+    n_cam = sum(p.numel() for n, p in model.named_parameters() if n.startswith("camera_"))
+    print(f"stage-2 inputs: phase 14's clouds ({occupied} occupied voxels), {CAMS} ring cameras "
+          f"at {IMG_HW[0]}x{IMG_HW[1]} per frame, depth images rasterised from the clouds "
+          f"({int((batch['depth_images'] > 0).sum())} pixels hit; {cam_s:.1f} s on the host); "
+          f"model {sum(p.numel() for p in model.parameters())} parameters, {n_cam} in the camera "
+          f"branch (Swin-T, LSS FPN, DepthLSSTransform D {model.camera_vtransform.D} C "
+          f"{model.camera_vtransform.C}), fuser {tuple(model.fuser.fuse.conv.weight.shape)}")
+
+    # the predict main path
+    predict = make_bevfusion_predict_step(bundle)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = predict(batch)  # warm-up: cuDNN's autotuner tries its algorithms
+    torch.cuda.synchronize()
+    peak_first = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(CL_PREDICT_ITERS):
+        t0 = time.perf_counter()
+        out = predict(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    n_runs = CL_PREDICT_ITERS + 1
+    launches_p = {c.__name__: c.launches for c in counters}
+    peak_p = torch.cuda.max_memory_allocated() / 1e9
+    want = {n: 0 for n in launches_p}
+    want.update(gather_gemm=K4_PER_PREDICT * n_runs, gather_rows=K5_PER_PREDICT * n_runs)
+    if launches_p != want:
+        fail(f"stage-2 predict launched {launches_p} in {n_runs} predicts; expected {want}")
+    for k, shp in {"box3d_lidar": (B, 200, 9), "scores": (B, 200), "bev_feat": (B, 180, 180, 512)
+                   }.items():
+        if tuple(out[k].shape) != shp or not bool(torch.isfinite(out[k]).all()):
+            fail(f"stage-2 predict output {k}: shape {tuple(out[k].shape)}, finite "
+                 f"{bool(torch.isfinite(out[k]).all())}")
+    n_det = [int(x) for x in out["det_valid"].sum(1)]
+    if min(n_det) == 0:
+        fail(f"stage-2 predict: no detections {n_det}")
+    pred_ms = float(np.median(times))
+    print(f"stage-2 predict (B={B}, {CAMS} cameras): median {pred_ms:.2f} ms, mean "
+          f"{np.mean(times):.2f} ms, min {min(times):.2f} ms over {CL_PREDICT_ITERS}; peak memory "
+          f"{peak_p:.2f} GB ({peak_first:.2f} GB in the first predict, cuDNN's autotuner "
+          f"included); detections {n_det}; launches gather_gemm "
+          f"{launches_p['gather_gemm']} gather_rows {launches_p['gather_rows']} in {n_runs} "
+          "predicts, no other kernel")
+    inputs = bevfusion_inputs(model, batch, dev)
+    split = camera_stage_split(bundle, inputs)
+    print("stage-2 predict split (ms, median of 5, synchronized per stage): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    prof_p = device_profile(lambda: predict(batch), "stage-2 predict", pred_ms)
+    for tag, key in (("K4", "gather_gemm_kernel"), ("K5", "gather_rows_kernel")):
+        print(f"  profile: {tag} {sum(v[0] for k, v in prof_p.items() if key in k):.3f} ms a "
+              "predict")
+    pool = bev_pool_check(model, inputs)
+    print(f"window attention: {window_attention_share(model, inputs['images'], split['Swin'])}")
+    print(f"stage-2 main path vs the same path on plain versions: "
+          f"{bevfusion_plain_check(bundle, batch, tg, maps=('camera', 'fused', 'decoder'))}")
+    print(f"stage-2 camera branch, card vs CPU: {camera_card_vs_cpu(bundle, inputs)}")
+
+    # the train step: the camera parameters' gradient against plain versions
+    gt = (_to_device(bevfusion_gt(18)[0], dev, torch.float32),
+          _to_device(bevfusion_gt(18)[1], dev, torch.int32))
+    logs_k, g_k, rk = step_gradients(bundle, inputs, gt, 0, False, tg, tl)
+    logs_p, g_p, _ = step_gradients(bundle, inputs, gt, 0, True, tg, tl, queries=rk["queries"],
+                                    assignment=rk["col4row"])
+    gen = torch.Generator().manual_seed(19)
+    moved = dict(inputs, vf=inputs["vf"] * (1.0 + 1e-7 * torch.randn(
+        inputs["vf"].shape, generator=gen)).to(dev), images=inputs["images"] * (
+        1.0 + 1e-7 * torch.randn(inputs["images"].shape, generator=gen)).to(dev))
+    _, g_n, _ = step_gradients(bundle, moved, gt, 0, True, tg, tl, queries=rk["queries"],
+                               assignment=rk["col4row"])
+    cam_names = [n for n in g_k if n.startswith("camera_")]
+    gap = _grad_gap({n: g_p[n] for n in cam_names}, {n: g_k[n] for n in cam_names})
+    floor = _grad_gap({n: g_p[n] for n in cam_names}, {n: g_n[n] for n in cam_names})
+    all_gap = _grad_gap(g_p, g_k)
+    tol = max(STEP_TOL, 2 * floor)
+    log_gap = max(abs(float(logs_k[k]) - float(logs_p[k])) / max(abs(float(logs_p[k])), 1e-30)
+                  for k in ("loss", "cls_loss", "reg_loss", "heatmap_loss"))
+    swin_g = float(g_k["camera_backbone.patch_embed.proj.weight"].abs().max())
+    if not (gap <= tol and floor <= CAMERA_FLOOR_MAX and swin_g > 0 and log_gap <= 1e-4):
+        fail(f"stage-2 train step vs plain versions: camera gradient gap {gap:.2e} (tol "
+             f"{tol:.2e}; rounding floor {floor:.2e}), Swin's first gradient max {swin_g:.2e}, "
+             f"logs gap {log_gap:.2e}")
+    print(f"stage-2 train step vs the same step on plain versions (the kernel run's queries and "
+          f"matching, the same stochastic depth): the camera branch's gradient ({len(cam_names)} "
+          f"tensors) within {gap:.2e} of its norm (tol {tol:.2e}; rounding alone, the plain step "
+          f"on voxel features and images moved by about one ulp, opens {floor:.2e}); the whole "
+          f"gradient within {all_gap:.2e}; loss and its parts within {log_gap:.1e}")
+    del g_k, g_p, g_n
+
+    # the train step main path
+    train = dict(batch, gt_boxes=bevfusion_gt(18)[0], gt_classes=bevfusion_gt(18)[1])
+    opt = bevfusion_optimizer(cfg, bundle, 100)
+    step = make_bevfusion_train_step(bundle, opt)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step(train)
+    torch.cuda.synchronize()
+    peak_first_t = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(CL_TRAIN_ITERS):
+        t0 = time.perf_counter()
+        logs = {k: float(v) for k, v in step(train).items()}
+        times.append((time.perf_counter() - t0) * 1e3)
+    n_steps = CL_TRAIN_ITERS + 1
+    launches_t = {c.__name__: c.launches for c in counters}
+    peak_t = torch.cuda.max_memory_allocated() / 1e9
+    want = {n: 0 for n in launches_t}
+    want.update(gather_gemm=K4_PER_BF_TRAIN_STEP * n_steps,
+                gather_dw=K4_DW_PER_BF_TRAIN_STEP * n_steps,
+                gather_rows=K5_PER_BF_TRAIN_STEP * n_steps,
+                linear_sum_assignment=LSA_PER_BF_TRAIN_STEP * n_steps)
+    if launches_t != want:
+        fail(f"stage-2 train main path launched {launches_t} in {n_steps} steps; expected {want}")
+    if not all(np.isfinite(v) for v in logs.values()) or logs["num_matched"] != sum(BF_GT):
+        fail(f"stage-2 train step logs {logs}")
+    step_ms = float(np.median(times))
+    print(f"stage-2 train step (B={B}, f32): median {step_ms:.2f} ms, mean {np.mean(times):.2f} "
+          f"ms over {CL_TRAIN_ITERS} steps; peak memory {peak_t:.2f} GB ({peak_first_t:.2f} GB in "
+          f"the first step, cuDNN's autotuner included); launches per step: "
+          f"gather_gemm {launches_t['gather_gemm'] // n_steps}, gather_dw "
+          f"{launches_t['gather_dw'] // n_steps}, gather_rows "
+          f"{launches_t['gather_rows'] // n_steps}, linear_sum_assignment "
+          f"{launches_t['linear_sum_assignment'] // n_steps}, no other kernel; logs {logs}")
+    tsplit = bevfusion_train_split(bundle, opt, inputs, gt, 3)
+    print("stage-2 train step split (ms, median of 3, synchronized per part): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in tsplit.items()))
+    device_profile(lambda: step(train), "stage-2 train step", step_ms)
+    del step, opt, predict, bundle, model, inputs
+    torch.cuda.empty_cache()
+
+    # the CLI: stage 2 from phase 18's stage-1 work dir
+    cli_s = camera_train_cli(tmp, stage1_work)
+    print(f"phase 19 (BEVFusion stage 2): {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches_predict=launches_p, launches_train=launches_t, predict_ms=pred_ms,
+                step_ms=step_ms, split_ms=split, peak_gb=(peak_p, peak_t),
+                train_split_ms=tsplit, bev_pool=pool,
+                camera_gap=gap, camera_floor=floor, cli_s=cli_s)
 
 
 if __name__ == "__main__":

@@ -17,6 +17,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ...utils.fileio import dump
+from ..pipelines import camera
 from ..pipelines.loading import LoadPointCloudAnnotations, LoadPointCloudFromFile
 from ..pipelines.preprocess import Preprocess, ReformatFixedShape
 
@@ -40,15 +41,29 @@ def build_pipeline(pipeline_cfgs: List[dict], tasks=None, max_points=300000,
             # not host stages here: voxels come from ReformatFixedShape,
             # targets are assigned on the device
             continue
+        elif t in ("LoadMultiViewImages", "LoadMultiViewImageFromFiles"):
+            stages.append(camera.LoadMultiViewImages(**cfg))
+        elif t == "ImageAug3D":
+            cfg.pop("is_train", None)  # train / val picked from res["mode"]
+            stages.append(camera.ImageAug3D(**cfg))
+        elif t == "GridMask":
+            stages.append(camera.GridMask(**{k: v for k, v in cfg.items() if k in (
+                "prob", "ratio", "rotate", "use_h", "use_w", "mode")}))
+        elif t == "ImageNormalize":
+            stages.append(camera.ImageNormalize(**cfg))
+        elif t == "ReformatCamera":
+            stages.append(camera.ReformatCamera(**cfg))
         else:
             raise KeyError(f"unknown pipeline stage {t}")
     # val-mode sweep-read cap: when every stage between the lidar load and the
     # fixed-shape reformat preserves point order (no shuffle/subsample), the
     # reformat keeps the first max_points rows — so reading past the cap is
     # wasted IO. Only the stage set below is provably order-preserving in val
-    # mode; anything else disables the cap.
+    # mode (the camera stages leave the points alone); anything else disables
+    # the cap.
     _order_preserving = (LoadPointCloudFromFile, LoadPointCloudAnnotations,
-                         ReformatFixedShape)
+                         ReformatFixedShape, camera.LoadMultiViewImages, camera.ImageAug3D,
+                         camera.GridMask, camera.ImageNormalize, camera.ReformatCamera)
     safe = all(
         isinstance(s, _order_preserving)
         or (isinstance(s, Preprocess) and not s.shuffle_points)

@@ -1,13 +1,15 @@
-"""Synthetic nuScenes-schema data generator, lidar only (port of
+"""Synthetic nuScenes-schema data generator (port of
 ``dal3d_tpu/data/datasets/synthetic.py``: the same seed writes the same
-points and infos).
+points, infos and camera frames).
 
 Writes lidar .bin files + an infos .pkl with the exact reference info schema
 (SURVEY.md A.1 / det3d/datasets/nuscenes/nusc_common.py:372-535): lidar_path,
 cam_front_path (with the logfile name the selectors parse), token, sweeps,
 ref_from_car, car_from_global, timestamp, gt_boxes [N,9], gt_names,
 gt_boxes_velocity, gt_boxes_token — so the dataset / pipeline / selector
-stack can be driven end-to-end without the real dataset.
+stack can be driven end-to-end without the real dataset. ``with_camera``
+adds six ring cameras per frame ("cams": a JPEG each, written by PIL, with
+its intrinsics and camera-to-lidar extrinsics).
 """
 from __future__ import annotations
 
@@ -41,12 +43,47 @@ def make_synthetic_nuscenes(
     seed: int = 0,
     split: str = "train",
     range_xy: float = 45.0,
+    with_camera: bool = False,
+    image_hw: tuple = (64, 96),
+    cam_names: tuple = (
+        "CAM_FRONT_LEFT", "CAM_FRONT", "CAM_FRONT_RIGHT",
+        "CAM_BACK_LEFT", "CAM_BACK", "CAM_BACK_RIGHT",
+    ),
 ) -> str:
     """Returns the written infos pkl path."""
     rng = np.random.RandomState(seed)
     classes = classes or DEFAULT_CLASSES
     lidar_dir = os.path.join(root, "samples", "LIDAR_TOP")
     os.makedirs(lidar_dir, exist_ok=True)
+
+    def _make_cams(token: str) -> dict:
+        """The ring cameras at the ego origin (nuScenes infos "cams" schema:
+        data_path, camera_intrinsics, sensor2lidar_rotation / translation)."""
+        from PIL import Image
+
+        iH, iW = image_hw
+        cams = {}
+        for ci, name in enumerate(cam_names):
+            cdir = os.path.join(root, "samples", name)
+            os.makedirs(cdir, exist_ok=True)
+            path = os.path.join(cdir, f"{token}_{name}.jpg")
+            img = (rng.rand(iH, iW, 3) * 80 + 80).astype(np.uint8)
+            img[:, :, 0] = np.linspace(0, 255, iW, dtype=np.uint8)[None, :]
+            Image.fromarray(img).save(path)
+            yaw = 2 * np.pi * ci / len(cam_names)
+            c, s = np.cos(yaw), np.sin(yaw)
+            # camera optical frame (x right, y down, z forward) -> lidar:
+            # base (yaw 0, looking along lidar +x), then a rotation about z
+            base = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+            rz = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+            cams[name] = {
+                "data_path": path,
+                "camera_intrinsics": np.array(
+                    [[50.0, 0.0, iW / 2], [0.0, 50.0, iH / 2], [0.0, 0.0, 1.0]]),
+                "sensor2lidar_rotation": rz @ base,
+                "sensor2lidar_translation": np.array([0.0, 0.0, 1.6]),
+            }
+        return cams
 
     infos = []
     logs = [f"n008-2018-0{i+1}-01-00-00-00-0400" for i in range(n_logs)]
@@ -116,6 +153,7 @@ def make_synthetic_nuscenes(
             ),
             "gt_names": np.asarray(names),
             "gt_boxes_token": np.asarray([f"{token}_gt{b}" for b in range(n_box)]),
+            **({"cams": _make_cams(token)} if with_camera else {}),
         })
 
     info_path = os.path.join(root, f"infos_{split}_10sweeps_withvelo.pkl")

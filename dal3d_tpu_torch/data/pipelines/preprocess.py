@@ -131,7 +131,8 @@ class Preprocess:
 
 class ReformatFixedShape:
     """Produce the fixed-shape example dict the steps consume: padded points
-    [P_max, 5] + validity, with ``voxelize_host`` the mean voxel tensors
+    [P_max, 5] + validity, the camera keys of ``ReformatCamera`` when the
+    pipeline has a camera branch, with ``voxelize_host`` the mean voxel tensors
     (features [M, 5], coords [M, 3] (z, y, x), valid [M]), and in train mode
     per task ``gt_boxes`` [max_gt, 9] (yaw limited to [-pi, pi)) and
     ``gt_classes`` [max_gt] (task-local 1-based, 0 = pad)."""
@@ -156,6 +157,8 @@ class ReformatFixedShape:
             "points_valid": valid,
             "metadata": res.get("metadata", {}),
         }
+        # the camera branch's stacked multi-view arrays (ReformatCamera)
+        example.update(res.get("camera", {}).get("batch") or {})
         if self.voxelize_host is not None:
             vh = self.voxelize_host
             M = int(vh["max_voxel_num"])

@@ -1,19 +1,23 @@
-"""Reference BEVFusion checkpoint -> the port's lidar-only BEVFusion (port of
-the lidar half of ``dal3d_tpu/models/bevfusion/convert_bevfusion.py``).
+"""Reference BEVFusion checkpoint -> the port's BEVFusion (port of
+``dal3d_tpu/models/bevfusion/convert_bevfusion.py``).
 
 Maps the reference's torch ``state_dict`` (the mmdet3d module tree:
-``encoders.lidar.backbone``, ``decoder.{backbone,neck}``, ``heads.object``)
-onto the flax names and layouts of the JAX package's BEVFusion, then onto
-the port's ``state_dict`` through the weights bridge
-(``models/convert_flax.py::bevfusion_flax_to_state_dict``), so the port's
-result equals the route through JAX's converter bit for bit (pure copies and
-transposes). A checkpoint with camera keys (``encoders.camera.*``,
-``fuser.*``) raises: the camera branch waits for ROADMAP A10.b.
+``encoders.lidar.backbone``, ``decoder.{backbone,neck}``, ``heads.object``,
+and in a camera + lidar checkpoint ``encoders.camera.{backbone,neck,
+vtransform}`` and ``fuser.{0,1}``) onto the flax names and layouts of the
+JAX package's BEVFusion, then onto the port's ``state_dict`` through the
+weights bridge (``models/convert_flax.py::bevfusion_flax_to_state_dict``),
+so the port's result equals the route through JAX's converter bit for bit
+(pure copies and transposes). The Swin sub-tree goes through
+``convert_swin.py`` on the ``encoders.camera.backbone.`` slice.
 
 Layout rules:
 - the reference's BEV maps are [B, C, X, Y] (its voxelizer emits (x, y, z)
   over a [1440, 1440, 41] grid); the port's are [B, Y, X, C]. Every BEV conv
-  therefore converts with its two spatial kernel axes swapped;
+  (the fuser, the decoder, the head, the view transform's downsample)
+  therefore converts with its two spatial kernel axes swapped; image-space
+  convs (Swin, the LSS FPN, the depth branch and depthnet) take the plain
+  [Cout, Cin, kh, kw] -> [kh, kw, Cin, Cout] transpose;
 - the reference's spconv weights are [kx, ky, kz, Cin, Cout]; the port's
   sparse convs take z-major flat taps [kz * ky * kx, Cin, Cout];
 - torch ``MultiheadAttention``'s in_proj [3d, d] splits into query / key /
@@ -30,11 +34,13 @@ import torch
 from ..convert_flax import bevfusion_flax_to_state_dict
 from ..convert_second import copy_converted, load_raw_state_dict_npz
 
-CAMERA_PREFIXES = ("encoders.camera.", "fuser.")
-
-
 def _f32(v):
     return np.asarray(v, np.float32)
+
+
+def _img_conv_w(w):
+    """torch [Cout, Cin, kh, kw] in image space -> flax [kh, kw, Cin, Cout]."""
+    return np.ascontiguousarray(np.transpose(_f32(w), (2, 3, 1, 0)))
 
 
 def _bev_conv_w(w):
@@ -186,31 +192,78 @@ def _transfusion_head(c: _Ctx, src: str, dst: str, heads: int) -> None:
         c.params[f"{ours}/out/bias"] = _f32(sd[f"{pb}.1.bias"])
 
 
+def _lss_fpn(c: _Ctx, src: str, dst: str) -> None:
+    """encoders.camera.neck (GeneralizedLSSFPN). flax creates the levels
+    coarse to fine: Conv_{2m} is lateral_convs[L - 1 - m], Conv_{2m+1}
+    fpn_convs[L - 1 - m]."""
+    L = sum(1 for k in c.sd if k.startswith(f"{src}.lateral_convs.")
+            and k.endswith(".conv.weight"))
+    if L == 0:
+        raise KeyError(f"no {src}.lateral_convs.* keys")
+    for m in range(L):
+        lvl = L - 1 - m
+        c.conv(f"{src}.lateral_convs.{lvl}.conv", f"{dst}/Conv_{2 * m}", _img_conv_w)
+        c.bn(f"{src}.lateral_convs.{lvl}.bn", f"{dst}/BatchNorm2d_{2 * m}/BatchNorm_0")
+        c.conv(f"{src}.fpn_convs.{lvl}.conv", f"{dst}/Conv_{2 * m + 1}", _img_conv_w)
+        c.bn(f"{src}.fpn_convs.{lvl}.bn", f"{dst}/BatchNorm2d_{2 * m + 1}/BatchNorm_0")
+
+
+def _depth_lss(c: _Ctx, src: str, dst: str) -> None:
+    """encoders.camera.vtransform (DepthLSSTransform): dtransform convs 0 / 3
+    / 6 (BN 1 / 4 / 7), depthnet convs 0 / 3 (BN 1 / 4) and the 1x1 conv 6,
+    the BEV downsample's convs 0 / 3 / 6 (BN 1 / 4 / 7)."""
+    for i, t in enumerate((0, 3, 6)):
+        c.conv(f"{src}.dtransform.{t}", f"{dst}/Conv_{i}", _img_conv_w)
+        c.bn(f"{src}.dtransform.{t + 1}", f"{dst}/BatchNorm2d_{i}/BatchNorm_0")
+    for i, t in enumerate((0, 3)):
+        c.conv(f"{src}.depthnet.{t}", f"{dst}/Conv_{3 + i}", _img_conv_w)
+        c.bn(f"{src}.depthnet.{t + 1}", f"{dst}/BatchNorm2d_{3 + i}/BatchNorm_0")
+    c.conv(f"{src}.depthnet.6", f"{dst}/Conv_5", _img_conv_w)
+    if f"{src}.downsample.0.weight" in c.sd:
+        for i, t in enumerate((0, 3, 6)):
+            c.conv(f"{src}.downsample.{t}", f"{dst}/Conv_{6 + i}", _bev_conv_w)
+            c.bn(f"{src}.downsample.{t + 1}", f"{dst}/BatchNorm2d_{5 + i}/BatchNorm_0")
+
+
 def reference_to_flax(state_dict: Dict[str, np.ndarray], num_heads: int = 8) -> dict:
-    """A reference TransFusion-L ``state_dict`` (numpy arrays or tensors,
-    ``module.`` prefixes allowed) -> ``{"params", "batch_stats"}`` with the
-    JAX package's flat flax names. Raises NotImplementedError for camera
-    keys, KeyError for a missing one."""
+    """A reference TransFusion-L or camera + lidar BEVFusion ``state_dict``
+    (numpy arrays or tensors, ``module.`` prefixes allowed) -> ``{"params",
+    "batch_stats"}`` with the JAX package's flat flax names. Raises KeyError
+    for a missing key."""
+    from .convert_swin import convert_swin_state_dict
+
     sd = {(k[len("module."):] if k.startswith("module.") else k): np.asarray(v)
           for k, v in state_dict.items()}
-    camera = sorted(k for k in sd if k.startswith(CAMERA_PREFIXES))
-    if camera:
-        raise NotImplementedError(f"camera keys in the checkpoint ({camera[0]}, ...): the "
-                                  "camera branch is not ported, ROADMAP A10.b")
     c = _Ctx(sd)
     _sparse_encoder(c, "encoders.lidar.backbone", "SparseEncoder_0")
     _second(c, "decoder.backbone", "SECOND_0")
     _secondfpn(c, "decoder.neck", "SECONDFPN_0")
     _transfusion_head(c, "heads.object", "TransFusionHead_0", num_heads)
+    if any(k.startswith("encoders.camera.") for k in sd):
+        pre = "encoders.camera.backbone."
+        swin = convert_swin_state_dict({k[len(pre):]: v for k, v in sd.items()
+                                        if k.startswith(pre)})
+        c.params.update({f"SwinTransformer_0/{k}": v for k, v in swin.items()})
+        _lss_fpn(c, "encoders.camera.neck", "GeneralizedLSSFPN_0")
+        _depth_lss(c, "encoders.camera.vtransform", "DepthLSSTransform_0")
+        c.conv("fuser.0", "ConvFuser_0/Conv_0", _bev_conv_w)
+        c.bn("fuser.1", "ConvFuser_0/BatchNorm2d_0/BatchNorm_0")
     return {"params": c.params, "batch_stats": c.stats}
 
 
 def convert_bevfusion_state_dict(state_dict: Dict[str, np.ndarray],
                                  model) -> Dict[str, torch.Tensor]:
-    """A reference TransFusion-L ``state_dict`` -> the ``state_dict`` of the
-    port's ``model`` (a lidar-only BEVFusion, whose layers give the layout
-    and the attention heads), through ``reference_to_flax`` and the weights
-    bridge."""
+    """A reference BEVFusion ``state_dict`` -> the ``state_dict`` of the
+    port's ``model`` (a BEVFusion, whose layers give the layout and the
+    attention heads), through ``reference_to_flax`` and the weights
+    bridge. Camera keys into a model without the camera branch raise
+    KeyError (JAX's ``apply_torch_init_bevfusion`` refuses keys its tree
+    lacks)."""
+    camera = sorted(k for k in state_dict if k.split("module.", 1)[-1].startswith(
+        ("encoders.camera.", "fuser.")))
+    if camera and not model.with_camera:
+        raise KeyError(f"camera keys in the checkpoint ({camera[0]}, ...): the model has no "
+                       "camera branch")
     heads = model.head.decoder0.self_attn.heads
     return bevfusion_flax_to_state_dict(reference_to_flax(state_dict, heads), model)
 

@@ -1,6 +1,6 @@
-"""Dense SECOND BEV decoder and SECONDFPN neck (port of the lidar-only part
-of ``dal3d_tpu/models/bevfusion/second.py``; ``ConvFuser`` and ``AddFuser``
-wait for the camera branch, ROADMAP A10).
+"""Dense SECOND BEV decoder, SECONDFPN neck and the camera + lidar fusers
+``ConvFuser`` and ``AddFuser`` (port of
+``dal3d_tpu/models/bevfusion/second.py``).
 
 NHWC in and out, as the JAX modules; inside, the convs run on the NCHW view
 of the same memory through cuDNN (which JAX also leaves to its compiler: no
@@ -14,6 +14,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..layers import Conv2dBN
 from ..necks.rpn import ConvBN
 
 
@@ -56,3 +57,43 @@ class SECONDFPN(nn.Module):
     def forward(self, xs) -> torch.Tensor:
         ups = [deblock(x) for deblock, x in zip(self.deblocks, xs)]
         return torch.cat(ups, dim=1).permute(0, 2, 3, 1)
+
+
+class ConvFuser(nn.Module):
+    """concat(camera, lidar) on channels -> bias-free 3x3 conv -> BN -> ReLU;
+    NHWC maps in and out."""
+
+    def __init__(self, in_channels: Sequence[int], out_channels: int = 256):
+        super().__init__()
+        self.fuse = Conv2dBN(int(sum(in_channels)), out_channels, 3, padding=1)
+
+    def forward(self, feats) -> torch.Tensor:
+        x = torch.cat(list(feats), dim=-1).permute(0, 3, 1, 2)
+        return self.fuse(x).permute(0, 2, 3, 1)
+
+
+class AddFuser(nn.Module):
+    """Per modality a bias-free 3x3 conv + BN + ReLU, then the mean over the
+    modalities. In train mode with ``dropout`` > 0, one modality drawn at
+    random is zeroed with that probability and the mean is taken over the
+    others; the draws come from ``self.generator`` (set by the train step;
+    None draws from the device's default generator). NHWC in and out."""
+
+    def __init__(self, in_channels: Sequence[int], out_channels: int = 256,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.convs = nn.ModuleList(Conv2dBN(c, out_channels, 3, padding=1) for c in in_channels)
+        self.dropout = float(dropout)
+        self.generator = None
+
+    def forward(self, feats) -> torch.Tensor:
+        outs = torch.stack([conv(f.permute(0, 3, 1, 2)) for conv, f in zip(self.convs, feats)])
+        n = outs.shape[0]
+        weights = torch.ones(n, device=outs.device)
+        if self.training and self.dropout > 0 and n > 1:
+            drop = torch.rand((), generator=self.generator, device=outs.device) < self.dropout
+            victim = torch.randint(n, (), generator=self.generator, device=outs.device)
+            hit = drop & (torch.arange(n, device=outs.device) == victim)
+            weights = torch.where(hit, torch.zeros_like(weights), weights)
+        out = (outs * weights.view(n, 1, 1, 1, 1)).sum(0) / weights.sum()
+        return out.permute(0, 2, 3, 1)

@@ -20,6 +20,7 @@ from ..ops.voxelize import VoxelConfig
 from .backbones.scn import BANDED_CAPS_DEFAULT, BRICK_WIDTHS_DEFAULT
 from .bevfusion import BEVFusion, TransFusionTestCfg
 from .bevfusion.sparse_encoder import ENCODER_CHANNELS, VOXEL_CAPS
+from .bevfusion.swin import WindowAttention
 from .detectors.voxelnet import FPNVoxelNet
 from .heads.mg_head import LossConfig, TestConfig
 from .layers import BatchNorm2d, MaskedBatchNorm, SparseConvDown, SubMConv
@@ -57,7 +58,8 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     convs ~ N(0, 2/fan_in) (a ReLU follows), linear layers ~ N(0, 1/fan_in)
     (attention logits and the prediction FFNs' outputs stay O(1), so box
     sizes exp(dim) stay finite), biases ~ 0.05 N(0, 1), BN and LayerNorm
-    affine and BN running statistics near the identity with 10-20 % spread.
+    affine and BN running statistics near the identity with 10-20 % spread,
+    Swin's relative position bias tables ~ 0.02 N(0, 1).
     Draws on the CPU from ``generator``, so one seed gives the same weights
     on every device."""
     with torch.no_grad():
@@ -89,6 +91,9 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.bias.copy_(0.05 * torch.randn(C, generator=generator))
             elif isinstance(m, (nn.Conv2d, nn.Linear)) and m.bias is not None:
                 m.bias.copy_(0.05 * torch.randn(m.bias.shape, generator=generator))
+            elif isinstance(m, WindowAttention):
+                t = m.relative_position_bias_table
+                t.copy_(0.02 * torch.randn(t.shape, generator=generator))
     return model
 
 
@@ -208,15 +213,19 @@ class BEVFusionBundle:
 
 def build_bevfusion(cfg, device=None, seed: int = 0) -> BEVFusionBundle:
     """cfg: a BEVFusion experiment Config (model / voxel_generator /
-    test_cfg, as ``configs/bevfusion_lidar.py``). The lidar-only model gets
-    seeded random weights (``init_random_``); load trained ones with
-    ``models/convert_flax.py::load_flax_bevfusion`` or ``load_state_dict``.
-    ``device=None`` means the CUDA card and raises when there is none.
+    test_cfg, as ``configs/bevfusion_lidar.py`` or the camera + lidar
+    ``configs/bevfusion_cl.py``: ``with_camera``, ``with_lidar``,
+    ``vtransform`` ("depth_lss" | "lss"), ``image_size`` and
+    ``camera_out_channels`` are read as JAX's ``tools/train_bevfusion.py``
+    reads them). The model gets seeded random weights (``init_random_``);
+    load trained ones with ``models/convert_flax.py::load_flax_bevfusion``
+    or ``load_state_dict``. ``device=None`` means the CUDA card and raises
+    when there is none.
 
     Raises NotImplementedError, naming its ROADMAP item, for what is not
-    ported: ``with_camera`` (A10.b), ``head="centerpoint"`` (A10.c),
-    ``with_map_seg`` (A10.c). ``bevfusion_optimizer`` builds the training
-    optimizer of the same config."""
+    ported: ``head="centerpoint"`` (A10.c), ``with_map_seg`` (A10.c).
+    ``bevfusion_optimizer`` builds the training optimizer of the same
+    config."""
     mc = dict(cfg["model"])
     if mc.get("type") != "BEVFusion":
         raise KeyError(f"build_bevfusion: model type {mc.get('type')!r} is not BEVFusion")
@@ -242,6 +251,10 @@ def build_bevfusion(cfg, device=None, seed: int = 0) -> BEVFusionBundle:
         hidden_channel=int(mc.get("hidden_channel", 128)),
         num_heads=int(mc.get("num_heads", 8)),
         ffn_channel=int(mc.get("ffn_channel", 256)),
+        with_lidar=bool(mc.get("with_lidar", True)),
+        vtransform=str(mc.get("vtransform", "depth_lss")),
+        image_size=tuple(mc.get("image_size", (256, 704))),
+        camera_out_channels=int(mc.get("camera_out_channels", 80)),
     )
     init_random_(model, torch.Generator().manual_seed(seed))
     tc = dict(cfg.get("test_cfg", {}) or {})

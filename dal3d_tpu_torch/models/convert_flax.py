@@ -146,15 +146,123 @@ def _attention(params, src: str, dst: str, out: dict) -> None:
     out[f"{dst}.out.bias"] = params[f"{src}/out/bias"]
 
 
+def _ln(params, src: str, dst: str, out: dict) -> None:
+    out[f"{dst}.weight"] = params[f"{src}/scale"]
+    out[f"{dst}.bias"] = params[f"{src}/bias"]
+
+
+def _conv_bn(params, stats, conv: str, bn: str, dst: str, out: dict) -> None:
+    """A flax Conv (bias if it has one) + BatchNorm2d -> a ``Conv2dBN``."""
+    out[f"{dst}.conv.weight"] = _conv2d(params[f"{conv}/kernel"])
+    if f"{conv}/bias" in params:
+        out[f"{dst}.conv.bias"] = params[f"{conv}/bias"]
+    _bn(params, stats, f"{bn}/BatchNorm_0", f"{dst}.bn", out)
+
+
+def swin_flax_to_state_dict(params: Dict[str, np.ndarray], swin, src: str = "",
+                            dst: str = "") -> Dict[str, np.ndarray]:
+    """Flat flax params of a ``SwinTransformer`` (names prefixed by ``src``,
+    e.g. ``"SwinTransformer_0/"``) -> the port's names prefixed by ``dst``
+    (``swin``, the port's module, gives the depths and output stages). flax
+    numbers its modules in creation order: ``Conv_0`` / ``LayerNorm_0`` the
+    patch embed, ``SwinBlock_<n>`` over all stages, ``PatchMerging_<i>``
+    before stage i + 1, ``LayerNorm_<1..>`` the output norms in order."""
+    out: Dict[str, np.ndarray] = {}
+    out[f"{dst}patch_embed.proj.weight"] = _conv2d(params[f"{src}Conv_0/kernel"])
+    out[f"{dst}patch_embed.proj.bias"] = params[f"{src}Conv_0/bias"]
+    _ln(params, f"{src}LayerNorm_0", f"{dst}patch_embed.norm", out)
+    n_block, n_norm = 0, 1
+    for i, stage in enumerate(swin.layers):
+        for j in range(len(stage.blocks)):
+            b, t = f"{src}SwinBlock_{n_block}", f"{dst}layers.{i}.blocks.{j}"
+            _ln(params, f"{b}/LayerNorm_0", f"{t}.norm1", out)
+            _dense(params, f"{b}/WindowAttention_0/Dense_0", f"{t}.attn.qkv", out)
+            _dense(params, f"{b}/WindowAttention_0/Dense_1", f"{t}.attn.proj", out)
+            out[f"{t}.attn.relative_position_bias_table"] = params[
+                f"{b}/WindowAttention_0/relative_position_bias_table"]
+            _ln(params, f"{b}/LayerNorm_1", f"{t}.norm2", out)
+            _dense(params, f"{b}/Dense_0", f"{t}.mlp.fc1", out)
+            _dense(params, f"{b}/Dense_1", f"{t}.mlp.fc2", out)
+            n_block += 1
+        if stage.downsample is not None:
+            m, d = f"{src}PatchMerging_{i}", f"{dst}layers.{i}.downsample"
+            _ln(params, f"{m}/LayerNorm_0", f"{d}.norm", out)
+            _dense(params, f"{m}/Dense_0", f"{d}.reduction", out)
+        if i in swin.out_indices:
+            _ln(params, f"{src}LayerNorm_{n_norm}", f"{dst}norm{i}", out)
+            n_norm += 1
+    return out
+
+
+def lss_fpn_flax_to_state_dict(params, stats, neck, src: str = "",
+                               dst: str = "") -> Dict[str, np.ndarray]:
+    """A flax ``GeneralizedLSSFPN`` (names prefixed by ``src``) -> the port's
+    ``neck`` (prefixed by ``dst``). flax creates the levels coarse to fine:
+    ``Conv_{2m}`` / ``Conv_{2m+1}`` serve level n - 1 - m."""
+    out: Dict[str, np.ndarray] = {}
+    n = len(neck.lateral_convs)
+    for m in range(n):
+        lvl = n - 1 - m
+        for k, name in ((2 * m, "lateral_convs"), (2 * m + 1, "fpn_convs")):
+            _conv_bn(params, stats, f"{src}Conv_{k}", f"{src}BatchNorm2d_{k}",
+                     f"{dst}{name}.{lvl}", out)
+    return out
+
+
+def vtransform_flax_to_state_dict(params, stats, vt, src: str = "",
+                                  dst: str = "") -> Dict[str, np.ndarray]:
+    """A flax ``DepthLSSTransform`` or ``LSSTransform`` -> the port's ``vt``
+    of the same kind. flax numbers the depth branch's convs first
+    (``Conv_0..2``), then the depthnet's (``Conv_3, 4``), the 1x1 output
+    conv, and last the BEV downsample's three."""
+    out: Dict[str, np.ndarray] = {}
+    names = ([f"dtransform.{i}" for i in range(3)] + [f"depthnet.{i}" for i in range(2)]
+             if hasattr(vt, "dtransform") else [])
+    for k, name in enumerate(names):
+        _conv_bn(params, stats, f"{src}Conv_{k}", f"{src}BatchNorm2d_{k}", f"{dst}{name}", out)
+    k = len(names)
+    out[f"{dst}depth_out.weight"] = _conv2d(params[f"{src}Conv_{k}/kernel"])
+    out[f"{dst}depth_out.bias"] = params[f"{src}Conv_{k}/bias"]
+    if vt.downsample is not None:
+        for i in range(3):
+            _conv_bn(params, stats, f"{src}Conv_{k + 1 + i}", f"{src}BatchNorm2d_{k + i}",
+                     f"{dst}downsample.{i}", out)
+    return out
+
+
+def _camera_flax_to_state_dict(params, stats, model, out: dict) -> None:
+    """The camera branch and the fuser of a flax BEVFusion -> the port's
+    ``camera_backbone`` / ``camera_neck`` / ``camera_vtransform`` /
+    ``fuser``."""
+    out.update(swin_flax_to_state_dict(params, model.camera_backbone, "SwinTransformer_0/",
+                                       "camera_backbone."))
+    out.update(lss_fpn_flax_to_state_dict(params, stats, model.camera_neck,
+                                          "GeneralizedLSSFPN_0/", "camera_neck."))
+    vt = model.camera_vtransform
+    src = "DepthLSSTransform_0/" if hasattr(vt, "dtransform") else "LSSTransform_0/"
+    out.update(vtransform_flax_to_state_dict(params, stats, vt, src, "camera_vtransform."))
+    if model.fuser is not None:
+        _conv_bn(params, stats, "ConvFuser_0/Conv_0", "ConvFuser_0/BatchNorm2d_0", "fuser.fuse",
+                 out)
+
+
 def bevfusion_flax_to_state_dict(variables: dict, model) -> Dict[str, torch.Tensor]:
-    """{"params", "batch_stats"} of a lidar-only flax BEVFusion -> state_dict
-    of the port's ``model`` (a BEVFusion; its stages give the layout)."""
+    """{"params", "batch_stats"} of a flax BEVFusion -> state_dict of the
+    port's ``model`` (a BEVFusion; its stages give the layout)."""
     params = _flatten(variables["params"])
     stats = _flatten(variables.get("batch_stats", {}))
     out: Dict[str, np.ndarray] = {}
+    if model.with_camera:
+        _camera_flax_to_state_dict(params, stats, model, out)
+    if model.with_lidar:
+        _lidar_encoder(params, stats, model.encoder, out)
+    _decoder_and_head(params, stats, model, out)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
 
-    # encoder: flax numbers blocks, downsamples and norms in traversal order
-    se, enc = "SparseEncoder_0", model.encoder
+
+def _lidar_encoder(params, stats, enc, out: dict) -> None:
+    # flax numbers blocks, downsamples and norms in traversal order
+    se = "SparseEncoder_0"
     out["encoder.stem.weight"] = params[f"{se}/SubMConv_0/kernel"]
     _bn(params, stats, f"{se}/MaskedBatchNorm_0", "encoder.stem_bn", out)
     n_block = n_down = 0
@@ -171,6 +279,8 @@ def bevfusion_flax_to_state_dict(variables: dict, model) -> Dict[str, torch.Tens
     out["encoder.conv_out.weight"] = params[f"{se}/SparseConvDown_{n_down}/kernel"]
     _bn(params, stats, f"{se}/MaskedBatchNorm_{n_down + 1}", "encoder.conv_out_bn", out)
 
+
+def _decoder_and_head(params, stats, model, out: dict) -> None:
     for b, block in enumerate(model.decoder.blocks):
         for j in range(len(block)):
             n = sum(len(blk) for blk in model.decoder.blocks[:b]) + j
@@ -211,12 +321,10 @@ def bevfusion_flax_to_state_dict(variables: dict, model) -> Dict[str, torch.Tens
         _bn(params, stats, f"{src}/bn0/BatchNorm_0", f"{dst}.bn0", out)
         _dense(params, f"{src}/out", f"{dst}.out", out)
 
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
-
 
 def load_flax_bevfusion(model, variables: dict):
-    """Load a lidar-only flax BEVFusion's variables into the port's BEVFusion
-    (strict: every parameter and buffer must be covered)."""
+    """Load a flax BEVFusion's variables into the port's BEVFusion (strict:
+    every parameter and buffer must be covered)."""
     model.load_state_dict(bevfusion_flax_to_state_dict(variables, model), strict=True)
     return model
 

@@ -97,6 +97,21 @@ class BatchNorm2d(nn.Module):
         return y.to(x.dtype)
 
 
+class Conv2dBN(nn.Module):
+    """NCHW conv (``nn.Conv2d``, with or without bias) + ``BatchNorm2d`` +
+    ReLU: the conv / BN pairs of the camera branch and the fusers (flax
+    ``nn.Conv`` + ``BatchNorm2d`` there, with the JAX module's bias)."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
+                 bias: bool = False):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, k, stride=stride, padding=padding, bias=bias)
+        self.bn = BatchNorm2d(cout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.bn(self.conv(x)))
+
+
 class BatchNormLast(BatchNorm2d):
     """``BatchNorm2d``'s arithmetic over a channel-last input [..., C]
     (flax's ``BatchNorm`` normalises over every axis but the last), as

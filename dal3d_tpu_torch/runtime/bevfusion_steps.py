@@ -1,14 +1,17 @@
 """BEVFusion train and predict steps (port of
-``dal3d_tpu/runtime/bevfusion_steps.py``, lidar-only).
+``dal3d_tpu/runtime/bevfusion_steps.py``).
 
 Batch contract (leading dim B): host voxels ``voxel_features`` [B, N, F],
 ``voxel_coords`` [B, N, 3] int (z, y, x), ``voxel_valid`` [B, N] (numpy
 arrays or tensors), as the dataset's ``ReformatFixedShape`` with
 ``voxelize_host`` makes them; or, without them, raw ``points`` [B, P, F] and
 ``points_valid`` [B, P], voxelized on the device at the config's grid
-(``ops/voxelize.py::voxelize_mean_grid``). Camera keys are ignored by the
-lidar-only model. The train step also takes ``gt_boxes`` [B, G, 9] (lidar
-frame) and ``gt_classes`` [B, G] global 1-based classes (0 = padding).
+(``ops/voxelize.py::voxelize_mean_grid``). A model with the camera branch
+also takes the ``CAMERA_KEYS`` of ``ReformatCamera``: images [B, Nc, iH,
+iW, 3], depth_images [B, Nc, iH, iW, 1], camera2lidar_rots / trans,
+camera_intrinsics, img_aug_rots / trans (a lidar-only model ignores them).
+The train step also takes ``gt_boxes`` [B, G, 9] (lidar frame) and
+``gt_classes`` [B, G] global 1-based classes (0 = padding).
 """
 from __future__ import annotations
 
@@ -16,13 +19,13 @@ from typing import Callable, Dict
 
 import torch
 
+from ..models.bevfusion.bevfusion import CAMERA_TRANSFORMS
+from ..models.bevfusion.second import AddFuser
+from ..models.bevfusion.swin import DropPath
 from ..models.bevfusion.transfusion import Dropout, transfusion_decode, transfusion_loss
 from .steps import _full_f32, _to_device, model_inputs
 
-CAMERA_KEYS = (
-    "images", "depth_images", "camera2lidar_rots", "camera2lidar_trans",
-    "camera_intrinsics", "img_aug_rots", "img_aug_trans",
-)
+CAMERA_KEYS = ("images", "depth_images") + CAMERA_TRANSFORMS
 
 
 def autotuned_convs():
@@ -32,10 +35,29 @@ def autotuned_convs():
                                       allow_tf32=False)
 
 
-def _forward(model, inputs: Dict):
+def bevfusion_inputs(model, batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """The model's inputs from a batch: ``steps.model_inputs`` (host voxels
+    or raw points), and with a camera branch the batch's ``CAMERA_KEYS`` as
+    f32 tensors on ``device`` (``depth_images`` may be absent for the
+    ``lss`` view transform)."""
+    inputs = model_inputs(batch, device)
+    if model.with_camera:
+        inputs.update({k: _to_device(batch[k], device, torch.float32)
+                       for k in CAMERA_KEYS if k in batch})
+    return inputs
+
+
+def _forward(model, inputs: Dict, stop_at: str = ""):
     if "vf" in inputs:
-        return model(inputs["vf"].float(), inputs["vc"], inputs["vv"])
-    return model(**inputs)
+        rest = {k: v for k, v in inputs.items() if k not in ("vf", "vc", "vv")}
+        return model(inputs["vf"].float(), inputs["vc"], inputs["vv"], stop_at, **rest)
+    return model(stop_at=stop_at, **inputs)
+
+
+def random_modules(model):
+    """The modules that draw random masks in train mode: the decoder's
+    dropout, Swin's stochastic depth, an AddFuser's modality dropout."""
+    return [m for m in model.modules() if isinstance(m, (Dropout, DropPath, AddFuser))]
 
 
 def dropout_generator(device, step: int) -> torch.Generator:
@@ -49,8 +71,9 @@ def make_bevfusion_train_step(bundle, optimizer) -> Callable[[Dict], Dict[str, t
     """Train step of a ``models.builder.BEVFusionBundle`` and a
     ``solver.optim.OneCycleAdamW`` bound to its model's parameters (JAX's
     ``make_bevfusion_train_step``): the model in train mode (batch
-    statistics in every batch norm, the decoder's dropout drawn from
-    ``dropout_generator(device, optimizer.count)``), the Hungarian-matched
+    statistics in every batch norm; the decoder's dropout and Swin's
+    stochastic depth drawn from ``dropout_generator(device,
+    optimizer.count)``), the Hungarian-matched
     ``transfusion_loss``, the backward and the clipped AdamW update. Returns
     0-d tensors ``loss``, ``cls_loss``, ``reg_loss``, ``heatmap_loss``,
     ``seg_loss`` (0: no map segmentation), ``num_matched`` and ``grad_norm``
@@ -60,12 +83,12 @@ def make_bevfusion_train_step(bundle, optimizer) -> Callable[[Dict], Dict[str, t
     on for the forward and the backward (``autotuned_convs``)."""
     _full_f32()
     model, dev = bundle.model, bundle.device
-    drops = [m for m in model.modules() if isinstance(m, Dropout)]
+    drops = random_modules(model)
 
     def train_step(batch: Dict) -> Dict[str, torch.Tensor]:
         if not model.training:
             model.train()
-        inputs = model_inputs(batch, dev)
+        inputs = bevfusion_inputs(model, batch, dev)
         gt_boxes = _to_device(batch["gt_boxes"], dev, torch.float32)
         gt_classes = _to_device(batch["gt_classes"], dev, torch.int32)
         gen = dropout_generator(dev, optimizer.count)
@@ -106,7 +129,7 @@ def make_bevfusion_predict_step(bundle) -> Callable[[Dict], Dict[str, torch.Tens
         if model.training:
             model.eval()
         with autotuned_convs():
-            preds = _forward(model, model_inputs(batch, dev))
+            preds = _forward(model, bevfusion_inputs(model, batch, dev))
         out = transfusion_decode(preds, bundle.test_cfg)
         out["bev_feat"] = preds["bev_feat"]
         return out

@@ -1,6 +1,7 @@
 #!/usr/bin/env python
-"""Convert a reference BEVFusion / TransFusion-L checkpoint (.pth) to the npz
-that ``--torch_init`` of the port's ``tools/train_bevfusion.py`` reads.
+"""Convert a reference BEVFusion checkpoint (.pth; TransFusion-L or camera +
+lidar) to the npz that ``--torch_init`` of the port's
+``tools/train_bevfusion.py`` reads.
 
     python -m dal3d_tpu_torch.tools.convert_bevfusion ckpt.pth out.npz [--config CONFIG]
 
@@ -8,7 +9,7 @@ The npz holds the raw ``state_dict`` (mmcv's format: the dict itself, or
 under ``state_dict`` / ``model``) in the JAX package's format, so either
 package reads it. The mapping onto the flax names
 (``models/bevfusion/convert_bevfusion.py::reference_to_flax``) runs here once
-to validate the layout (a camera checkpoint raises: ROADMAP A10.b); with
+to validate the layout (the camera keys included); with
 ``--config`` the converted tensors are also loaded into the config's
 BEVFusion, which checks every name and shape. It runs on the CUDA card;
 ``--cpu`` is the only way onto the CPU.
@@ -42,7 +43,7 @@ def main(argv=None):
     ckpt = torch.load(args.torch_ckpt, map_location="cpu", weights_only=False)
     sd = ckpt.get("state_dict", ckpt.get("model", ckpt))
     sd = {k: v.numpy() if hasattr(v, "numpy") else np.asarray(v) for k, v in sd.items()}
-    flax = reference_to_flax(sd)  # raises on an unknown layout or a camera key
+    flax = reference_to_flax(sd)  # raises on an unknown layout
     save_raw_state_dict_npz(sd, args.out_npz)
     msg = (f"wrote {args.out_npz}: {len(sd)} torch tensors -> {len(flax['params'])} params + "
            f"{len(flax['batch_stats'])} batch statistics")

@@ -1,12 +1,14 @@
 #!/usr/bin/env python
-"""BEVFusion training CLI of the PyTorch port, lidar-only stage 1.
+"""BEVFusion training CLI of the PyTorch port: lidar-only stage 1, and
+camera + lidar stage 2 (``configs/bevfusion_cl.py``, ``--load_from`` the
+stage-1 work dir).
 
     python -m dal3d_tpu_torch.tools.train_bevfusion CONFIG [--work_dir DIR] [--budget B]
         [--epochs N] [--batch_size B] [--load_from DIR] [--resume_from DIR]
-        [--torch_init NPZ] [--cpu]
+        [--torch_init NPZ] [--swin_init NPZ] [--cpu]
 
 Flow and flags of the JAX package's ``tools/train_bevfusion.py``: build the
-lidar-only BEVFusion from the config (``models/builder.py::build_bevfusion``),
+BEVFusion of the config (``models/builder.py::build_bevfusion``),
 the train set (``--budget B`` reads the ``_B`` infos that ``create_data
 nuscenes_data_prep --suffix`` writes), the OneCycle AdamW over
 ``max(len // batch, 1) * epochs`` steps, then per batch: the per-task GT
@@ -22,7 +24,9 @@ model and starts a fresh optimizer (stage 2's warm start from stage 1; it
 exits when nothing matches); ``--torch_init`` loads a reference checkpoint
 converted by ``python -m dal3d_tpu_torch.tools.convert_bevfusion``. Resume
 wins over the other two, and ``--load_from`` over ``--torch_init``, as in the
-JAX CLI.
+JAX CLI. ``--swin_init`` then loads a pretrained Swin converted by ``python
+-m dal3d_tpu_torch.tools.convert_swin`` into the camera backbone (a config
+without the camera branch raises).
 
 One difference: the JAX CLI's epoch loop starts at epoch 0 after a resume
 (it reruns every epoch with the resumed step count); the port continues at
@@ -31,22 +35,24 @@ runner do.
 
 It runs on the CUDA card; ``--cpu`` is the only way onto the CPU (every
 kernel wrapper then takes its plain PyTorch version). Not ported yet,
-refused with the ROADMAP item it waits for: ``--swin_init`` and a camera
-config (A10.b), ``--n_model > 1`` (A11).
+refused with the ROADMAP item it waits for: ``--n_model > 1`` (A11); the
+builder refuses the CenterPoint head and map segmentation (A10.c).
 """
 import argparse
 import os
 
 import numpy as np
 
+from ..runtime.bevfusion_steps import CAMERA_KEYS
 from ..utils.config import Config
 from ..utils.log import get_root_logger
 
-BATCH_KEYS = ("points", "points_valid", "voxel_features", "voxel_coords", "voxel_valid")
+BATCH_KEYS = ("points", "points_valid", "voxel_features", "voxel_coords",
+              "voxel_valid") + CAMERA_KEYS
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="Train BEVFusion (lidar-only)")
+    p = argparse.ArgumentParser(description="Train BEVFusion (lidar-only or camera + lidar)")
     p.add_argument("config")
     p.add_argument("--work_dir", default=None)
     p.add_argument("--epochs", type=int, default=None)
@@ -54,7 +60,8 @@ def parse_args(argv=None):
     p.add_argument("--load_from", default=None,
                    help="checkpoint dir: copy the tensors whose name and shape match")
     p.add_argument("--resume_from", default=None)
-    p.add_argument("--swin_init", default=None, help="not ported (ROADMAP A10.b)")
+    p.add_argument("--swin_init", default=None,
+                   help="npz of tools/convert_swin.py: a pretrained camera backbone")
     p.add_argument("--torch_init", default=None,
                    help="npz of tools/convert_bevfusion.py: a converted reference checkpoint")
     p.add_argument("--budget", type=str, default=None,
@@ -65,7 +72,7 @@ def parse_args(argv=None):
 
 
 def fusion_batch(batch, tasks) -> dict:
-    """A loader batch -> the train step's: the lidar inputs, and the per-task
+    """A loader batch -> the train step's: the lidar and camera inputs, and the per-task
     GT lists folded into [B, sum G_t, 9] boxes and [B, sum G_t] global
     1-based classes (task t's class c becomes c + the classes of the tasks
     before it; 0 stays padding)."""
@@ -84,9 +91,6 @@ def main(argv=None):
     from ..device import resolve_device
 
     device = resolve_device("cpu" if args.cpu else None)  # raises here without a GPU
-    if args.swin_init:
-        raise NotImplementedError("--swin_init: the camera branch is not ported (ROADMAP "
-                                  "A10.b)")
     if args.n_model != 1:
         raise NotImplementedError("--n_model > 1: the device mesh is not ported yet "
                                   "(ROADMAP A11)")
@@ -141,6 +145,13 @@ def main(argv=None):
 
         apply_torch_init_bevfusion(bundle.model, args.torch_init, logger)
         logger.info(f"warm-started from converted torch checkpoint {args.torch_init}")
+    if args.swin_init:
+        from ..models.bevfusion.convert_swin import load_swin_npz
+
+        if not bundle.model.with_camera:
+            raise SystemExit(f"--swin_init {args.swin_init}: the model has no camera branch")
+        n = load_swin_npz(bundle.model.camera_backbone, args.swin_init)
+        logger.info(f"camera backbone initialised from {args.swin_init} ({n} tensors)")
 
     interval = (cfg.get("log_config", {}) or {}).get("interval", 5)
     logs = {}

@@ -206,8 +206,10 @@ def test_build_from_config_file_and_what_raises(tmp_path):
     assert bundle.voxel_cfg.sparse_shape == (41, 64, 64)
     assert bundle.test_cfg.voxel_size == (0.2, 0.2) and bundle.test_cfg.out_size_factor == 8
     assert not bundle.model.training
-    for extra, item in ((dict(with_camera=True), "A10.b"), (dict(head="centerpoint"), "A10.c"),
-                        (dict(with_map_seg=True), "A10.c")):
+    camera = build_bevfusion(tiny_cfg(with_camera=True, image_size=(32, 48)), device="cpu")
+    assert camera.model.with_camera and camera.model.fuser is not None
+    assert type(camera.model.camera_vtransform).__name__ == "DepthLSSTransform"
+    for extra, item in ((dict(head="centerpoint"), "A10.c"), (dict(with_map_seg=True), "A10.c")):
         with pytest.raises(NotImplementedError, match=item):
             build_bevfusion(tiny_cfg(**extra), device="cpu")
     step = make_bevfusion_predict_step(bundle)

@@ -7,8 +7,10 @@ On seeded mmdet3d-named weights built as tests/test_convert_bevfusion.py
 builds them (a lidar-only TransFusion-L tree at small widths), the port's
 converter is bit-equal to JAX's ``convert_bevfusion_state_dict`` followed by
 the weights bridge ``bevfusion_flax_to_state_dict``, tensor for tensor, and
-covers every parameter and buffer of the port's model. Camera keys raise
-(ROADMAP A10.b). The npz of the conversion CLI loads into the config's
+covers every parameter and buffer of the port's model. Camera keys into a
+model without the camera branch raise, as JAX's ``apply_torch_init`` does
+for keys its tree lacks; a camera + lidar checkpoint converts bit-equal to
+JAX's route (tests/test_torch_convert_swin.py). The npz of the conversion CLI loads into the config's
 model with the written values; an unknown key or a shape mismatch raises;
 without --cpu on a box with no GPU the CLI raises."""
 import numpy as np
@@ -57,11 +59,12 @@ def test_converter_bit_equal_to_the_jax_route(reference):
 
 
 def test_camera_keys_are_refused(reference):
+    """...by a lidar-only model, whose tree has no place for them."""
     model = build_bevfusion(_cfg(), device="cpu").model
     for key in ("encoders.camera.backbone.patch_embed.proj.weight", "fuser.0.weight"):
         sd = dict(reference)
         sd[key] = np.zeros((4, 4), np.float32)
-        with pytest.raises(NotImplementedError, match="A10.b"):
+        with pytest.raises(KeyError, match="no camera branch"):
             convert_bevfusion_state_dict(sd, model)
 
 

@@ -156,10 +156,12 @@ def test_bf16_batches_stack_as_tensors(pool):
 
 
 def test_train_mode_is_not_ported(pool):
-    """What train mode still refuses: the camera stages. A GT-AUG database
-    that exists builds the sampler, a missing file means none, as in the JAX
-    package (tests/test_torch_gt_aug.py holds the sampler against JAX's). The
-    train-mode dataset and Preprocess themselves are ported
+    """Train mode's stages build: a GT-AUG database that exists builds the
+    sampler, a missing file means none, as in the JAX package
+    (tests/test_torch_gt_aug.py holds the sampler against JAX's); the camera
+    stages build in the config's order (tests/test_torch_camera_pipeline.py
+    holds them against JAX's), and a stage the port does not know still
+    raises. The train-mode dataset and Preprocess themselves are ported
     (tests/test_torch_train_data.py)."""
     train = dict(mode="train", class_names=["car"])
     db = pool.replace(".pkl", "_dbinfos.pkl")
@@ -173,8 +175,14 @@ def test_train_mode_is_not_ported(pool):
     assert stages[0].mode == "train" and stages[0].db_sampler is None
     ds = NuScenesDataset(info_path=pool, class_names=["car"], pipeline=PIPELINE, tasks=TASKS)
     assert not ds.test_mode and len(ds) > 0
+    cam = [dict(type="LoadMultiViewImages"), dict(type="ImageAug3D", final_dim=(32, 48),
+                                                  resize_lim=(0.4, 0.5), is_train=True),
+           dict(type="GridMask", prob=0.0, ratio=0.5, fill_value=0),
+           dict(type="ImageNormalize"), dict(type="ReformatCamera", final_dim=(32, 48))]
+    stages = build_pipeline(cam, tasks=TASKS)
+    assert [type(st).__name__ for st in stages] == [c["type"] for c in cam]
     with pytest.raises(KeyError):
-        build_pipeline([dict(type="LoadMultiViewImages")], tasks=TASKS)
+        build_pipeline([dict(type="LoadBEVSegmentation")], tasks=TASKS)
 
 
 def test_voxelize_cfg_has_no_host_plans():

@@ -871,3 +871,67 @@ def test_lsa_kernel_refuses_more_columns_than_a_warp_holds(cuda):  # noqa: F811
         with pytest.raises(ValueError, match="columns"):
             tl.linear_sum_assignment(torch.rand(*shape, device=cuda))
     assert tl.linear_sum_assignment.launches == before
+
+
+def test_bev_pool_on_card_matches_cpu(cuda):  # noqa: F811
+    """The camera branch's splat (plain PyTorch, float atomics on the card):
+    the card's map within 1e-6 of the CPU's on the same coordinates, invalid
+    points dropped whatever their rows hold."""
+    from dal3d_tpu_torch.ops.bev_pool import bev_pool_batched
+
+    rng = np.random.RandomState(0)
+    B, Np, C, nx, ny, nz = 2, 200000, 16, 90, 80, 2
+    feats = torch.from_numpy(rng.randn(B, Np, C).astype(np.float32))
+    coords = torch.from_numpy(np.stack([rng.randint(-3, nx + 3, (B, Np)),
+                                        rng.randint(-3, ny + 3, (B, Np)),
+                                        rng.randint(-1, nz + 1, (B, Np))], -1).astype(np.int32))
+    valid = ((coords >= 0) & (coords < torch.tensor([nx, ny, nz], dtype=torch.int32))).all(-1)
+    feats[~valid] = float("nan")
+    ref = bev_pool_batched(feats, coords, valid, nx, ny, nz)
+    got = bev_pool_batched(feats.cuda(), coords.cuda(), valid.cuda(), nx, ny, nz).cpu()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+def test_camera_branch_on_card_matches_cpu(cuda):  # noqa: F811
+    """A narrow Swin, the LSS FPN and DepthLSSTransform (seeded weights) on
+    the card against the CPU, f32, on one geometry: within 1e-4 of scale."""
+    from unittest import mock
+
+    from dal3d_tpu_torch.models.bevfusion import vtransforms as tvt
+    from dal3d_tpu_torch.models.bevfusion.lss_fpn import GeneralizedLSSFPN
+    from dal3d_tpu_torch.models.bevfusion.swin import SwinTransformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    swin = SwinTransformer(embed_dim=24, depths=(2, 2, 2, 2), num_heads=(1, 2, 2, 4))
+    neck = GeneralizedLSSFPN(swin.out_channels, 32, 1)
+    vt = tvt.DepthLSSTransform(32, 16, (64, 96), xbound=(-20.0, 20.0, 0.4),
+                               ybound=(-20.0, 20.0, 0.4))
+    mods = [m.eval() for m in (swin, neck, vt)]
+    with torch.no_grad():
+        for m in mods:
+            for p in m.parameters():
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    imgs = torch.randn(2, 3, 64, 96, 3, generator=gen)
+    depth = torch.rand(2, 3, 64, 96, 1, generator=gen) * 20
+    eye = torch.eye(3).expand(2, 3, 3, 3).contiguous()
+    base = torch.tensor([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    args = [base.expand(2, 3, 3, 3).contiguous(), torch.zeros(2, 3, 3),
+            torch.tensor([[50.0, 0, 48], [0, 50, 32], [0, 0, 1]]).expand(2, 3, 3, 3).contiguous(),
+            eye, torch.zeros(2, 3, 3)]
+    fr = torch.from_numpy(tvt.create_frustum((64, 96), (8, 12), tvt.DBOUND)).permute(1, 2, 0, 3)
+    geom = tvt.get_geometry(fr, *args)
+
+    def run(dev):
+        ms = [m.to(dev) for m in mods]
+        f = ms[1](ms[0](imgs.to(dev).reshape(6, 64, 96, 3)))[0]
+        return ms[2](f.reshape(2, 3, *f.shape[1:]), depth.to(dev),
+                     *[a.to(dev) for a in args]).cpu()
+
+    with mock.patch.object(tvt, "get_geometry", lambda frustum, *a: geom.to(frustum.device)), \
+            torch.no_grad():
+        ref, got = run("cpu"), run("cuda")
+    assert tuple(got.shape) == (2, 50, 50, 16)
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())

@@ -79,6 +79,9 @@ def test_entry_point_without_device_needs_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_bevfusion(bev)
     assert build_bevfusion(bev, device="cpu").device.type == "cpu"
+    camera = dict(bev, model=dict(bev["model"], with_camera=True, image_size=(32, 48)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_bevfusion(camera)
 
 
 def test_kernel_wrappers_count_and_take_plain_on_cpu():
