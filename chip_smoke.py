@@ -22,11 +22,14 @@ device voxelizer, the partial-label round (detector and box-quality
 estimator trained side by side -> selection that skips the seed set -> the
 next round on the picks), BEVFusion lidar-only training (train step with
 the Hungarian-matched loss -> the training CLI with resume, warm start and a
-converted reference checkpoint), and BEVFusion stage 2, camera + lidar (six
+converted reference checkpoint), BEVFusion stage 2, camera + lidar (six
 camera images -> Swin-T -> LSS FPN -> depth-aware view transform -> camera
 BEV map, fused with the lidar map -> the same decoder and head; its train
 step, and the training CLI warm-started from the stage-1 run with a
-converted Swin).
+converted Swin), BEVFusion's other heads (map segmentation on the fused map,
+trained beside the detector; the CenterPoint head's decode and loss), and
+the CBGS model on the gather engine (predict, train step, the synthetic
+configs through the CLIs).
 Phases, each fatal on failure:
 
   1. versions of torch / CUDA / nvcc and the card (nvidia-smi);
@@ -185,7 +188,37 @@ Phases, each fatal on failure:
      with their launches (41 / 21 / 1 / 1 per step), split, peak memory and
      idle share; ``train_bevfusion`` with a stage-2 config on a synthetic
      camera set (``--load_from`` phase 18's work dir, ``--swin_init`` of
-     seeded Swin-T weights through ``convert_swin``, then ``--resume_from``).
+     seeded Swin-T weights through ``convert_swin``, then ``--resume_from``);
+ 20. BEVFusion's other heads at full width, B=2: configs/bevfusion_cl.py
+     with ``with_map_seg`` (the 180 x 180 fused map, 6 classes) on phase
+     19's inputs, its targets from the port's LoadBEVSegmentation on the
+     reference's 200 x 200 map grid (so the train step resizes the logits):
+     launch counters set to 0, a warm-up and 3 timed predicts (21 K4, 1 K5
+     each), seg_logits and the neck map against the same forward on plain
+     versions; the train step's gradient against plain versions within
+     twice its rounding floor (the seg head's too), every K4 / K4-dW / K5 /
+     LSA launch of one step against its plain version, a warm-up and 3
+     timed steps (41 / 21 / 1 / 1 each) with the split (the seg loss and its
+     share), peak memory and idle share; configs/bevfusion_lidar.py with
+     ``head="centerpoint"`` on phase 14's clouds and GT: the forward, its
+     decode and center_head_loss with its backward against plain versions
+     (heatmaps within 1e-5 of scale, the decoded picks equal but at the
+     top-k boundary, the loss within 1e-5, the gradient within twice its
+     floor), every K4 / K4-dW launch; ``train_bevfusion`` on
+     configs/bevfusion_cl_synthetic.py as written (an epoch, then
+     ``--resume_from``; seg losses logged finite and above 0);
+ 21. the CBGS model on the gather engine at full width, B=2
+     (configs/cbgs_spatial_temporal.py with ``impl="gather"``, f32, voxel
+     caps (60000, 60000, 30000, 30000)) on phase 3's voxels: every K4 and
+     K2 launch of a predict against its plain version, launch counters set
+     to 0, a warm-up and 5 timed predicts (21 K4, 1 K2 each), the maps and
+     detections against plain versions, stage split, idle share; a train
+     step's gradient against plain versions within twice its floor, every
+     K4 (21 + 20 input gradients) and K4-dW (21) launch, a warm-up and 3
+     timed steps, split; the capacity report empty, as JAX's; then
+     configs/cbgs_synthetic.py, cbgs_entropy_synthetic.py and
+     cbgs_partial_synthetic.py as written through ``train``,
+     ``active_select`` and ``train`` (ActiveTrainer) on 8 synthetic frames.
 
 Kernel times are device times per call (``cuda_time_ms``: the launches
 queued behind a device-side sleep, so that the host's enqueue is not timed);
@@ -722,6 +755,12 @@ def main() -> None:
         # 19. BEVFusion stage 2 (camera + lidar): predict, train step, the CLI
         stage2 = camera_lidar_phase(tmp, Config, counters, tg, tl, bftrain["work_dir"])
 
+        # 20. BEVFusion's map segmentation and CenterPoint heads, the map-seg CLI
+        heads = other_heads_phase(tmp, Config, counters, tg, tl)
+
+        # 21. the CBGS backbone on the gather engine: predict, train step, the CLIs
+        cbgs_g = cbgs_gather_phase(tmp, Config, counters, tg, tiou)
+
     # kernels line, card line, result -------------------------------------------
     kernels = [
         dict(name="banded_conv", route="cuda", source="dal3d_tpu_torch/ops/csrc/banded_conv.cu",
@@ -778,6 +817,11 @@ def main() -> None:
             BF_TRAIN_ITERS + 1)
         k["launches_stage2_predict"] = stage2["launches_predict"][k["name"]]
         k["launches_stage2_train"] = stage2["launches_train"][k["name"]]
+        k["launches_map_seg_predict"] = heads["launches_seg_predict"][k["name"]]
+        k["launches_map_seg_train"] = heads["launches_seg_train"][k["name"]]
+        k["launches_centerpoint"] = heads["launches_centerpoint"][k["name"]]
+        k["launches_cbgs_gather_predict"] = cbgs_g["launches_predict"][k["name"]]
+        k["launches_cbgs_gather_train"] = cbgs_g["launches_train"][k["name"]]
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
@@ -858,10 +902,10 @@ def plain_reference_check(bd, tiou, bundle, predict, batch, out) -> str:
     label, center within 0.1 m, score within 0.02): with random weights the
     1000-candidate top-k sits among near-equal scores, so a last-bit
     difference reorders candidates and NMS."""
-    from dal3d_tpu_torch.runtime.steps import model_inputs
+    from dal3d_tpu_torch.runtime.steps import autotuned_convs, model_inputs
 
     def forward():
-        with torch.inference_mode():
+        with torch.inference_mode(), autotuned_convs():
             return bundle.model(**model_inputs(batch, bundle.device))
 
     mk = forward()
@@ -903,11 +947,13 @@ def plain_reference_check(bd, tiou, bundle, predict, batch, out) -> str:
 def stage_split(bundle, batch, multi_group_predict, greedy_nms_from_iou, tiou) -> None:
     """Host-clock split of one predict with a synchronize after each stage
     (median of 5), plus the IoU kernel and the NMS fixpoint loop alone."""
+    from dal3d_tpu_torch.runtime.steps import autotuned_convs
+
     model, dev = bundle.model, bundle.device
     names = ["h2d", "backbone", "neck", "head", "decode+iou+nms"]
     rec = {n: [] for n in names}
     iou_in = None
-    with torch.inference_mode():
+    with torch.inference_mode(), autotuned_convs():
         for _ in range(6):
             marks = [time.perf_counter()]
             vf = batch["voxel_features"].to(dev)
@@ -1975,7 +2021,7 @@ def train_step_split(bundle, opt, batch) -> dict:
     (median of 5): host-to-device copies, forward (with target assignment and
     loss), backward, optimizer (clip + AdamW)."""
     from dal3d_tpu_torch.models.heads.mg_head import multi_group_loss
-    from dal3d_tpu_torch.runtime.steps import _to_device
+    from dal3d_tpu_torch.runtime.steps import _to_device, autotuned_convs
 
     model, dev = bundle.model, bundle.device
     names = ["h2d", "forward+assign+loss", "backward", "optimizer"]
@@ -1991,13 +2037,15 @@ def train_step_split(bundle, opt, batch) -> dict:
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
         opt.zero_grad()
-        out = model(vf, vc, vv)
-        labels, targets, _ = bundle.assigner.assign_all(gt_boxes, gt_classes)
-        logs = multi_group_loss(out["preds"], labels, targets, bundle.num_classes, bundle.loss_cfg)
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        logs["loss"].backward()
-        torch.cuda.synchronize()
+        with autotuned_convs():
+            out = model(vf, vc, vv)
+            labels, targets, _ = bundle.assigner.assign_all(gt_boxes, gt_classes)
+            logs = multi_group_loss(out["preds"], labels, targets, bundle.num_classes,
+                                    bundle.loss_cfg)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            logs["loss"].backward()
+            torch.cuda.synchronize()
         marks.append(time.perf_counter())
         opt.step()
         torch.cuda.synchronize()
@@ -3950,18 +3998,20 @@ def reference_bevfusion_state_dict(rng) -> dict:
 
 
 def step_gradients(bundle, inputs, gt, step_idx: int, plain: bool, tg, tl, queries=None,
-                   assignment=None):
+                   assignment=None, seg=None):
     """One train step's forward, loss and backward without the update (the
     dropout masks of step ``step_idx``), with the kernels or with every
     kernel swapped for its plain version. ``queries`` (top-k indices) and
     ``assignment`` (col4row) of an earlier run make the head take those
-    queries and the loss that matching instead of its own. Returns (logs,
-    {name: grad}, {"queries", "cost", "col4row"} of this run). The running
-    statistics are put back afterwards."""
+    queries and the loss that matching instead of its own; ``seg`` (map
+    targets [B, Hc, Wc, C] on the device) adds the step's map-segmentation
+    loss. Returns (logs, {name: grad}, {"queries", "cost", "col4row"} of this
+    run). The running statistics are put back afterwards."""
     from dal3d_tpu_torch.models.bevfusion import transfusion as ttf
     from dal3d_tpu_torch.models.bevfusion.transfusion import transfusion_loss
     from dal3d_tpu_torch.runtime.bevfusion_steps import (_forward, autotuned_convs,
-                                                         dropout_generator, random_modules)
+                                                         dropout_generator, random_modules,
+                                                         seg_loss_of)
 
     model = bundle.model
     model.train()
@@ -3992,7 +4042,11 @@ def step_gradients(bundle, inputs, gt, step_idx: int, plain: bool, tg, tl, queri
         tg.gather_rows = tg.gather_rows_plain
     try:
         with autotuned_convs():
-            logs = transfusion_loss(_forward(model, inputs), *gt, bundle.test_cfg)
+            preds = _forward(model, inputs)
+            logs = transfusion_loss(preds, *gt, bundle.test_cfg)
+            if seg is not None:
+                logs["seg_loss"] = seg_loss_of(preds, {"gt_masks_bev": seg}, bundle.device)
+                logs["loss"] = logs["loss"] + logs["seg_loss"]
             logs["loss"].backward()
         torch.cuda.synchronize()
     finally:
@@ -4024,16 +4078,18 @@ def _grad_gap(ref: dict, got: dict) -> float:
     return (num / den) ** 0.5
 
 
-def bevfusion_train_split(bundle, opt, inputs, gt, iters: int) -> dict:
+def bevfusion_train_split(bundle, opt, inputs, gt, iters: int, seg=None) -> dict:
     """Host-clock split of a train step with a synchronize after each part
     (median of ``iters`` after one warm-up): forward, assignment + loss,
-    backward, optimizer."""
+    with ``seg`` (map targets on the device) the seg loss (its resize
+    included), backward, optimizer."""
     from dal3d_tpu_torch.models.bevfusion.transfusion import transfusion_loss
-    from dal3d_tpu_torch.runtime.bevfusion_steps import _forward, autotuned_convs
+    from dal3d_tpu_torch.runtime.bevfusion_steps import _forward, autotuned_convs, seg_loss_of
 
     model = bundle.model
     model.train()
-    names = ["forward", "assignment + loss", "backward", "optimizer"]
+    names = ["forward", "assignment + loss"] + (["seg loss"] if seg is not None else []) + [
+        "backward", "optimizer"]
     rec = {n: [] for n in names}
     for _ in range(iters + 1):
         opt.zero_grad()
@@ -4045,6 +4101,11 @@ def bevfusion_train_split(bundle, opt, inputs, gt, iters: int) -> dict:
             logs = transfusion_loss(preds, *gt, bundle.test_cfg)
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
+            if seg is not None:
+                logs["loss"] = logs["loss"] + seg_loss_of(preds, {"gt_masks_bev": seg},
+                                                          bundle.device)
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
             logs["loss"].backward()
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
@@ -4874,6 +4935,712 @@ def camera_lidar_phase(tmp: str, Config, counters, tg, tl, stage1_work: str) -> 
                 step_ms=step_ms, split_ms=split, peak_gb=(peak_p, peak_t),
                 train_split_ms=tsplit, bev_pool=pool,
                 camera_gap=gap, camera_floor=floor, cli_s=cli_s)
+
+
+# ---------------------------------------------------------------------------
+# launches of a path, each against its kernel's plain version
+# ---------------------------------------------------------------------------
+def hold_launches(tag: str, k4=(), dw=(), k5=(), lsa=(), k2=()) -> dict:
+    """Every captured launch of a path against its kernel's plain version on
+    the same inputs: K4 (``_launch_gemm``: forward and input gradient) within
+    K4_TOL of scale over its plan, K4-dW within DW_TOL, K5 and LSA bit-equal,
+    K2 within 1e-5. Returns {kernel: (launches, max error relative to
+    scale)}."""
+    from dal3d_tpu_torch.ops import gather as tg
+    from dal3d_tpu_torch.ops import iou_matrix as tiou
+    from dal3d_tpu_torch.ops import lsa as tl
+
+    def rel(got, ref):
+        return float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+    out = {}
+    with torch.no_grad():
+        errs = [rel(tg._launch_gemm(f, p, w), gemm_plain_over_plan(tg, f, p, w))
+                for f, p, w in k4]
+        if max(errs, default=0.0) > K4_TOL:
+            fail(f"{tag}: a K4 launch {max(errs):.2e} of scale from its plain version")
+        out["gather_gemm"] = (len(errs), max(errs, default=0.0))
+        errs = [rel(tg._launch_dw(f, p, g), dw_plain_over_plan(tg, f, p, g)) for f, p, g in dw]
+        if max(errs, default=0.0) > DW_TOL:
+            fail(f"{tag}: a K4-dW launch {max(errs):.2e} of scale from its plain version")
+        out["gather_dw"] = (len(errs), max(errs, default=0.0))
+        for table, idx in k5:
+            if not torch.equal(tg.gather_rows(table, idx), tg.gather_rows_plain(table, idx)):
+                fail(f"{tag}: a K5 launch differs from its plain version")
+        out["gather_rows"] = (len(k5), 0.0)
+        for (cost,) in lsa:
+            if not torch.equal(tl.linear_sum_assignment(cost),
+                               tl.linear_sum_assignment_plain(cost)):
+                fail(f"{tag}: an LSA launch's col4row differs from its plain version's")
+        out["linear_sum_assignment"] = (len(lsa), 0.0)
+        errs = [float((tiou.iou_matrix(r, c) - tiou.iou_matrix_plain(r, c)).abs().max())
+                for r, c in k2]
+        if max(errs, default=0.0) > 1e-5:
+            fail(f"{tag}: a K2 launch {max(errs):.2e} from its plain version")
+        out["iou_matrix"] = (len(errs), max(errs, default=0.0))
+    print(f"{tag}: every launch against its plain version: "
+          + ", ".join(f"{k} {n} within {e:.1e}" for k, (n, e) in out.items() if n))
+    return out
+
+
+def main_path_launches(counters, tag: str, runs: int, per_run: dict) -> dict:
+    """The counters after ``runs`` runs of a main path, held to ``per_run``
+    launches of each kernel a run (every other kernel none)."""
+    launches = {c.__name__: c.launches for c in counters}
+    want = {n: per_run.get(n, 0) * runs for n in launches}
+    if launches != want:
+        fail(f"{tag} launched {launches} in {runs} runs; expected {want}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 20: BEVFusion's map segmentation and CenterPoint heads (A10.c)
+# ---------------------------------------------------------------------------
+SEG_BOUND = (-50.0, 50.0, 0.5)  # the reference's map grid: 200 x 200 cells
+SEG_ITERS = 3
+CENTER_TOL = 1e-5  # the centre heatmaps, of their scale; the centre loss, relative
+CENTER_ITERS = 3
+# nuScenes classes 1..10 -> (task, task-local 1-based class) of the CenterPoint
+# task groups (car), (truck, construction_vehicle), (bus, trailer), (barrier),
+# (motorcycle, bicycle), (pedestrian, traffic_cone)
+CENTER_TASKS = (1, 2, 2, 1, 2, 2)
+
+
+def map_targets(n: int) -> np.ndarray:
+    """[n, 200, 200, 6] f32 map targets from the port's LoadBEVSegmentation
+    on the reference's grid (the synthetic map, at n ego poses), transposed
+    as ReformatFixedShape does."""
+    from dal3d_tpu_torch.data.pipelines.bev_seg import LoadBEVSegmentation
+
+    stage = LoadBEVSegmentation(SEG_BOUND, SEG_BOUND)
+    out = []
+    for b in range(n):
+        car_from_global = np.eye(4)
+        car_from_global[:3, 3] = [-7.0 - 30.0 * b, -13.0 - 100.0 * b, 0.0]
+        res, _ = stage({"lidar": {"aug_matrix": np.eye(3, dtype=np.float32)}},
+                       {"car_from_global": car_from_global, "ref_from_car": np.eye(4)})
+        out.append(res["gt_masks_bev"].transpose(2, 1, 0))
+    return np.stack(out).astype(np.float32)
+
+
+def center_gt(seed: int, dev) -> tuple:
+    """bevfusion_gt's boxes split into the CenterPoint task groups: lists
+    per task of [B, 200, 9] boxes and [B, 200] task-local 1-based classes."""
+    boxes, classes = bevfusion_gt(seed)
+    first = np.cumsum((0,) + CENTER_TASKS)
+    gb, gc = [], []
+    for t, nc in enumerate(CENTER_TASKS):
+        keep = (classes > first[t]) & (classes <= first[t] + nc)
+        gc.append(torch.from_numpy(np.where(keep, classes - first[t], 0).astype(np.int32)).to(dev))
+        gb.append(torch.from_numpy(boxes).to(dev))
+    return gb, gc
+
+
+def center_topk(preds, cfg) -> list:
+    """The flat (pixel, class) indices center_head_decode takes per task, in
+    its order ([B, max_per_task] each)."""
+    import torch.nn.functional as F
+
+    from dal3d_tpu_torch.models.bevfusion.transfusion import _top_k
+
+    out = []
+    for p in preds:
+        Bp, H, W, nc = p["heatmap"].shape
+        prob = torch.sigmoid(p["heatmap"].permute(0, 3, 1, 2))
+        peaks = torch.where(prob == F.max_pool2d(prob, 3, 1, 1), prob, torch.zeros_like(prob))
+        out.append(_top_k(peaks.permute(0, 2, 3, 1).reshape(Bp, -1), cfg.max_per_task)[1])
+    return out
+
+
+def center_gradients(bundle, inputs, gt, plain: bool, tg) -> tuple:
+    """The CenterPoint model's train-mode forward, center_head_loss and
+    backward, with the kernels or on plain versions; the running statistics
+    are put back. Returns (loss, {name: grad})."""
+    from dal3d_tpu_torch.models.bevfusion.centerpoint import center_head_loss
+    from dal3d_tpu_torch.runtime.bevfusion_steps import autotuned_convs
+
+    model = bundle.model
+    model.train()
+    stats = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+    model.zero_grad(set_to_none=True)
+    saved = tg.gather_gemm
+    if plain:
+        tg.gather_gemm = lambda f, idx, hit, w, plan=None: tg.gather_gemm_plain(f, idx, hit, w)
+    try:
+        with autotuned_convs():
+            preds = model(inputs["vf"].float(), inputs["vc"], inputs["vv"])["center_preds"]
+            loss = center_head_loss(preds, *gt, bundle.test_cfg)["loss"]
+            loss.backward()
+        torch.cuda.synchronize()
+    finally:
+        tg.gather_gemm = saved
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            if k in stats:
+                v.copy_(stats[k])
+    model.eval()
+    return float(loss.detach()), grads
+
+
+def map_seg_cli(tmp: str) -> dict:
+    """train_bevfusion on configs/bevfusion_cl_synthetic.py as written (map
+    segmentation, camera + lidar) in a directory holding a 4-frame synthetic
+    camera set at the config's relative paths: an epoch, then --resume_from
+    for a second. Returns seconds per run and the logged seg losses."""
+    import re
+
+    from dal3d_tpu_torch.data.datasets.synthetic import make_synthetic_nuscenes
+    from dal3d_tpu_torch.runtime import checkpoint as ckpt
+    from dal3d_tpu_torch.tools import train_bevfusion
+
+    base = os.path.join(tmp, "map_seg_cli")
+    os.makedirs(base)
+    cfg = os.path.join(ROOT, "configs", "bevfusion_cl_synthetic.py")
+    cwd = os.getcwd()
+    os.chdir(base)
+    try:
+        make_synthetic_nuscenes("data/synthetic_cam", n_frames=4, n_logs=1,
+                                points_per_frame=3000, range_xy=7.0, max_boxes=6, seed=20,
+                                with_camera=True, image_hw=(64, 96),
+                                classes=["car", "pedestrian", "traffic_cone"])
+        seconds = {}
+        t0 = time.perf_counter()
+        r1 = train_bevfusion.main([cfg])
+        seconds["epoch"] = time.perf_counter() - t0
+        n1, work = r1["optimizer"].count, "work_dirs/bevfusion_cl_synthetic"
+        t0 = time.perf_counter()
+        r2 = train_bevfusion.main([cfg, "--epochs", "2", "--resume_from", work])
+        seconds["--resume_from"] = time.perf_counter() - t0
+        log = open(os.path.join(work, "train.log")).read()
+    finally:
+        os.chdir(cwd)
+    seg = [float(x) for x in re.findall(r" seg ([0-9.naif]+)\)", log)]
+    if (r1["bundle"].model.seg_head is None or r2["optimizer"].count != 2 * n1
+            or ckpt.latest_epoch(os.path.join(base, work)) != 2 or not seg
+            or not all(np.isfinite(x) and x > 0 for x in seg)
+            or not np.isfinite(r2["logs"]["seg_loss"]) or not r2["logs"]["seg_loss"] > 0):
+        fail(f"train_bevfusion on bevfusion_cl_synthetic.py: steps {n1} / "
+             f"{r2['optimizer'].count}, logged seg losses {seg}, last logs {r2['logs']}")
+    print(f"  train_bevfusion on configs/bevfusion_cl_synthetic.py as written ({n1} steps an "
+          f"epoch on 4 synthetic camera frames): " + "; ".join(
+              f"{k} {v:.1f} s" for k, v in seconds.items())
+          + f"; seg losses logged {', '.join(f'{x:.4f}' for x in seg)}")
+    return dict(seconds=seconds, seg_losses=seg)
+
+
+def other_heads_phase(tmp: str, Config, counters, tg, tl) -> dict:
+    """Phase 20: the map-segmentation head on the stage-2 model and the
+    CenterPoint head on the lidar-only model, at full width, B=2, and the
+    map-segmentation CLI. Returns each kernel's launches over the three main
+    paths (seg predict, seg train step, CenterPoint) and the numbers."""
+    from dal3d_tpu_torch.models.bevfusion.centerpoint import center_head_decode
+    from dal3d_tpu_torch.models.builder import bevfusion_optimizer, build_bevfusion
+    from dal3d_tpu_torch.runtime.bevfusion_steps import (autotuned_convs, bevfusion_inputs,
+                                                         make_bevfusion_predict_step,
+                                                         make_bevfusion_train_step)
+    from dal3d_tpu_torch.runtime.steps import _to_device
+
+    t_phase = time.perf_counter()
+    # -- map segmentation: configs/bevfusion_cl.py with with_map_seg
+    cfg = Config.fromfile(os.path.join(ROOT, "configs", "bevfusion_cl.py"))
+    cfg["model"] = dict(cfg["model"], with_map_seg=True)
+    batch, _, _ = bevfusion_batch(10, cfg)
+    batch.update(ring_camera_batch(bevfusion_clouds(10), 19))
+    masks = map_targets(B)
+    bundle = build_bevfusion(cfg, seed=0)
+    model, dev = bundle.model, bundle.device
+    print(f"map segmentation: stage-2 model + BEVSegmentationHead ({len(model.seg_head.classes)} "
+          f"classes, {sum(p.numel() for p in model.seg_head.parameters())} parameters) on the "
+          f"180 x 180 neck map; targets from LoadBEVSegmentation on the {masks.shape[1]} x "
+          f"{masks.shape[2]} reference grid (cells set per class "
+          f"{masks.reshape(-1, masks.shape[-1]).mean(0).round(3).tolist()})")
+    predict = make_bevfusion_predict_step(bundle)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = predict(batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(SEG_ITERS):
+        t0 = time.perf_counter()
+        out = predict(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches_sp = main_path_launches(counters, "map-seg predict", SEG_ITERS + 1,
+                                     dict(gather_gemm=K4_PER_PREDICT, gather_rows=K5_PER_PREDICT))
+    peak_sp = torch.cuda.max_memory_allocated() / 1e9
+    seg = out["seg_logits"]
+    if tuple(seg.shape) != (B, 180, 180, 6) or not bool(torch.isfinite(seg).all()):
+        fail(f"map-seg predict: seg_logits {tuple(seg.shape)}, finite "
+             f"{bool(torch.isfinite(seg).all())}")
+    sp_ms = float(np.median(times))
+    kern = (tg.gather_gemm, tg.gather_rows)
+    plain = (lambda f, idx, hit, w, plan=None: tg.gather_gemm_plain(f, idx, hit, w),
+             tg.gather_rows_plain)
+    pk, pp = (bevfusion_forward(bundle, batch, tg, *w)[0] for w in (kern, plain))
+    seg_err = {k: float((pk[k] - pp[k]).abs().max()) / max(float(pp[k].abs().max()), 1e-30)
+               for k in ("seg_logits", "bev_feat")}
+    if max(seg_err.values()) > BF_TOL:
+        fail(f"map-seg predict vs plain versions: {seg_err} of scale > {BF_TOL:g}")
+    del pk, pp
+    print(f"map-seg predict (B={B}): median {sp_ms:.2f} ms over {SEG_ITERS}; peak memory "
+          f"{peak_sp:.2f} GB; launches {launches_sp['gather_gemm']} K4, "
+          f"{launches_sp['gather_rows']} K5 in {SEG_ITERS + 1} predicts; seg_logits "
+          f"{seg_err['seg_logits']:.1e} and the neck map {seg_err['bev_feat']:.1e} of scale from "
+          f"the same forward on plain versions (tol {BF_TOL:g})")
+    device_profile(lambda: predict(batch), "map-seg predict", sp_ms)
+
+    inputs = bevfusion_inputs(model, batch, dev)
+    gt = (_to_device(bevfusion_gt(18)[0], dev, torch.float32),
+          _to_device(bevfusion_gt(18)[1], dev, torch.int32))
+    seg_t = _to_device(masks, dev, torch.float32)
+    logs_k, g_k, rk = step_gradients(bundle, inputs, gt, 0, False, tg, tl, seg=seg_t)
+    logs_p, g_p, _ = step_gradients(bundle, inputs, gt, 0, True, tg, tl, queries=rk["queries"],
+                                    assignment=rk["col4row"], seg=seg_t)
+    gen = torch.Generator().manual_seed(20)
+    moved = dict(inputs, vf=inputs["vf"] * (1.0 + 1e-7 * torch.randn(
+        inputs["vf"].shape, generator=gen)).to(dev), images=inputs["images"] * (
+        1.0 + 1e-7 * torch.randn(inputs["images"].shape, generator=gen)).to(dev))
+    _, g_n, _ = step_gradients(bundle, moved, gt, 0, True, tg, tl, queries=rk["queries"],
+                               assignment=rk["col4row"], seg=seg_t)
+    gap, floor = _grad_gap(g_p, g_k), _grad_gap(g_p, g_n)
+    names = [n for n in g_k if n.startswith("seg_head.")]
+    seg_gap = _grad_gap({n: g_p[n] for n in names}, {n: g_k[n] for n in names})
+    seg_floor = _grad_gap({n: g_p[n] for n in names}, {n: g_n[n] for n in names})
+    tol, seg_tol = max(STEP_TOL, 2 * floor), max(STEP_TOL, 2 * seg_floor)
+    log_gap = max(abs(float(logs_k[k]) - float(logs_p[k])) / max(abs(float(logs_p[k])), 1e-30)
+                  for k in ("loss", "seg_loss", "cls_loss", "reg_loss", "heatmap_loss"))
+    if not (gap <= tol and seg_gap <= seg_tol and max(floor, seg_floor) <= CAMERA_FLOOR_MAX
+            and log_gap <= 1e-4 and float(logs_k["seg_loss"]) > 0
+            and float(g_k["seg_head.out.weight"].abs().max()) > 0):
+        fail(f"map-seg train step vs plain versions: gradient gap {gap:.2e} (tol {tol:.2e}), "
+             f"the seg head's {seg_gap:.2e} (tol {seg_tol:.2e}), logs gap {log_gap:.2e}, "
+             f"seg_loss {float(logs_k['seg_loss'])}")
+    print(f"map-seg train step vs the same step on plain versions (the kernel run's queries and "
+          f"matching): gradient within {gap:.2e} of its norm (tol {tol:.2e}; rounding alone "
+          f"opens {floor:.2e}), the seg head's within {seg_gap:.2e} (tol {seg_tol:.2e}); loss "
+          f"and seg_loss within {log_gap:.1e} (seg_loss {float(logs_k['seg_loss']):.4f}, the "
+          f"180 x 180 logits resized to the 200 x 200 targets)")
+    del g_k, g_p, g_n
+
+    train = dict(batch, gt_boxes=bevfusion_gt(18)[0], gt_classes=bevfusion_gt(18)[1],
+                 gt_masks_bev=masks)
+    opt = bevfusion_optimizer(cfg, bundle, 100)
+    step = make_bevfusion_train_step(bundle, opt)
+    with Capture(tg, "_launch_gemm") as k4, Capture(tg, "_launch_dw") as kdw, \
+            Capture(tg, "gather_rows") as k5, Capture(tl, "linear_sum_assignment") as klsa:
+        step(train)
+        torch.cuda.synchronize()
+    held_st = hold_launches("map-seg train step", k4.calls, kdw.calls, k5.calls, klsa.calls)
+    del k4, kdw, k5, klsa
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step(train)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(CL_TRAIN_ITERS):
+        t0 = time.perf_counter()
+        logs = {k: float(v) for k, v in step(train).items()}
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches_st = main_path_launches(counters, "map-seg train step", CL_TRAIN_ITERS + 1, dict(
+        gather_gemm=K4_PER_BF_TRAIN_STEP, gather_dw=K4_DW_PER_BF_TRAIN_STEP,
+        gather_rows=K5_PER_BF_TRAIN_STEP, linear_sum_assignment=LSA_PER_BF_TRAIN_STEP))
+    peak_st = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(v) for v in logs.values()) or not logs["seg_loss"] > 0:
+        fail(f"map-seg train step logs {logs}")
+    st_ms = float(np.median(times))
+    split = bevfusion_train_split(bundle, opt, inputs, gt, 3, seg=seg_t)
+    seg_share = split["seg loss"] / sum(split.values())
+    print(f"map-seg train step (B={B}, f32): median {st_ms:.2f} ms over {CL_TRAIN_ITERS}; peak "
+          f"memory {peak_st:.2f} GB; launches per step: K4 "
+          f"{launches_st['gather_gemm'] // (CL_TRAIN_ITERS + 1)}, K4-dW "
+          f"{launches_st['gather_dw'] // (CL_TRAIN_ITERS + 1)}, K5 "
+          f"{launches_st['gather_rows'] // (CL_TRAIN_ITERS + 1)}, LSA "
+          f"{launches_st['linear_sum_assignment'] // (CL_TRAIN_ITERS + 1)}; seg_loss "
+          f"{logs['seg_loss']:.4f} of loss {logs['loss']:.4f}; split (ms, median of 3): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+          + f"; the seg loss's share {seg_share:.3f}")
+    device_profile(lambda: step(train), "map-seg train step", st_ms)
+    del step, opt, predict, bundle, model, inputs, seg_t, out, seg
+    torch.cuda.empty_cache()
+
+    # -- CenterPoint: configs/bevfusion_lidar.py with head="centerpoint"
+    cfg_c = Config.fromfile(os.path.join(ROOT, "configs", "bevfusion_lidar.py"))
+    cfg_c["model"] = dict(cfg_c["model"], head="centerpoint")
+    bundle = build_bevfusion(cfg_c, seed=0)
+    model, tcfg = bundle.model, bundle.test_cfg
+    inputs = bevfusion_inputs(model, {k: batch[k] for k in ("voxel_features", "voxel_coords",
+                                                            "voxel_valid")}, dev)
+    print(f"CenterPoint: lidar-only model + CenterHead (task groups {model.head.num_classes}, "
+          f"shared conv {model.head.shared.conv.out_channels}; "
+          f"{sum(p.numel() for p in model.head.parameters())} parameters) on the 180 x 180 neck "
+          f"map; decode {tcfg}")
+
+    def forward(k4):
+        saved = tg.gather_gemm
+        tg.gather_gemm = k4
+        try:
+            with torch.inference_mode(), autotuned_convs():
+                preds = model(inputs["vf"].float(), inputs["vc"], inputs["vv"])["center_preds"]
+                dec = center_head_decode(preds, tcfg)
+            torch.cuda.synchronize()
+        finally:
+            tg.gather_gemm = saved
+        return preds, dec
+
+    gt_c = center_gt(18, dev)
+    for c in counters:
+        c.launches = 0
+    forward(tg.gather_gemm)
+    times, dec_ms = [], []
+    for _ in range(CENTER_ITERS):
+        t0 = time.perf_counter()
+        pk, dk = forward(tg.gather_gemm)
+        times.append((time.perf_counter() - t0) * 1e3)
+    with torch.inference_mode():
+        dec_ms = cuda_time_ms(lambda: center_head_decode(pk, tcfg), 5)
+    loss_k, g_k = center_gradients(bundle, inputs, gt_c, False, tg)
+    t0 = time.perf_counter()
+    center_gradients(bundle, inputs, gt_c, False, tg)
+    lb_ms = (time.perf_counter() - t0) * 1e3
+    launches_c = main_path_launches(counters, "CenterPoint", 1, dict(
+        gather_gemm=K4_PER_PREDICT * (CENTER_ITERS + 1) + 2 * K4_PER_PREDICT + 2 * 20,
+        gather_dw=2 * K4_PER_PREDICT))
+    pp, dp = forward(plain[0])
+    heat = max(float((a["heatmap"] - b["heatmap"]).abs().max()) / max(
+        float(b["heatmap"].abs().max()), 1e-30) for a, b in zip(pk, pp))
+    other = max(float((a[k] - b[k]).abs().max()) / max(float(b[k].abs().max()), 1e-30)
+                for a, b in zip(pk, pp) for k in a)
+    if heat > CENTER_TOL or other > BF_TOL:
+        fail(f"CenterPoint vs plain versions: heatmaps {heat:.2e} of scale (tol {CENTER_TOL:g}), "
+             f"every map {other:.2e} (tol {BF_TOL:g})")
+    # the decoded detections as sets: the same (pixel, class) picks per task,
+    # paired, their boxes and scores; a pick on one side only sits at the
+    # top-k boundary (its score within 1e-5 of the other side's last)
+    flips, box_err, sc_err, o = 0, 0.0, 0.0, 0
+    for t, (ik, ip) in enumerate(zip(center_topk(pk, tcfg), center_topk(pp, tcfg))):
+        K = ik.shape[1]  # the task's picks: max_per_task, fewer on a map with fewer cells
+        for b in range(B):
+            pos = {int(v): j for j, v in enumerate(ip[b])}
+            for i, v in enumerate(ik[b].tolist()):
+                j = pos.get(v)
+                if j is None:
+                    flips += 1
+                    if abs(float(dk["scores"][b, o + i] - dp["scores"][b, o + K - 1])) > 1e-5:
+                        fail(f"CenterPoint decode vs plain: task {t} sample {b} pick {v} only on "
+                             "the kernel side, away from the top-k boundary")
+                    continue
+                ba, bp = dk["box3d_lidar"][b, o + i].double(), dp["box3d_lidar"][b, o + j].double()
+                box_err = max(box_err, float(((ba - bp).abs() / bp.abs().clamp(min=1.0)).max()))
+                sc_err = max(sc_err, abs(float(dk["scores"][b, o + i] - dp["scores"][b, o + j])))
+                if int(dk["label_preds"][b, o + i]) != int(dp["label_preds"][b, o + j]):
+                    fail(f"CenterPoint decode vs plain: task {t} pick {v} has another label")
+        o += K
+    if box_err > BF_TOL or sc_err > 1e-5:
+        fail(f"CenterPoint decode vs plain: box err {box_err:.2e}, score err {sc_err:.2e}")
+    loss_p, g_p = center_gradients(bundle, inputs, gt_c, True, tg)
+    noise = 1.0 + 1e-7 * torch.randn(inputs["vf"].shape,
+                                      generator=torch.Generator().manual_seed(20)).to(dev)
+    _, g_n = center_gradients(bundle, dict(inputs, vf=inputs["vf"] * noise), gt_c, True, tg)
+    gap, floor = _grad_gap(g_p, g_k), _grad_gap(g_p, g_n)
+    tol = max(STEP_TOL, 2 * floor)
+    loss_gap = abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)
+    if not (gap <= tol and floor <= STEP_FLOOR_MAX and loss_gap <= CENTER_TOL
+            and np.isfinite(loss_k)):
+        fail(f"CenterPoint loss vs plain versions: loss {loss_k} / {loss_p} ({loss_gap:.2e}), "
+             f"gradient gap {gap:.2e} (tol {tol:.2e}, floor {floor:.2e})")
+    with Capture(tg, "_launch_gemm") as k4, Capture(tg, "_launch_dw") as kdw:
+        center_gradients(bundle, inputs, gt_c, False, tg)
+    held_c = hold_launches("CenterPoint forward + loss backward", k4.calls, kdw.calls)
+    del k4, kdw
+    n_valid = [int(x) for x in dk["det_valid"].sum(1)]
+    print(f"CenterPoint (B={B}): forward + decode median {np.median(times):.2f} ms over "
+          f"{CENTER_ITERS} (decode alone {dec_ms:.3f} ms of device time); train-mode forward + "
+          f"center_head_loss + backward {lb_ms:.1f} ms; {n_valid} detections of "
+          f"{dk['scores'].shape[1]} at score >= {tcfg.score_threshold}; vs plain versions: "
+          f"heatmaps {heat:.1e} of scale, every map {other:.1e}, picks equal but {flips} at the "
+          f"top-k boundary, boxes {box_err:.1e}, scores {sc_err:.1e}; loss {loss_k:.4f} within "
+          f"{loss_gap:.1e}, gradient within {gap:.2e} of its norm (tol {tol:.2e}, rounding "
+          f"alone {floor:.2e}); launches {launches_c}")
+    del bundle, model, inputs, g_k, g_p, g_n, pk, pp
+    torch.cuda.empty_cache()
+
+    cli = map_seg_cli(tmp)
+    print(f"phase 20 (BEVFusion map segmentation and CenterPoint): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(launches_seg_predict=launches_sp, launches_seg_train=launches_st,
+                launches_centerpoint=launches_c, seg_predict_ms=sp_ms, seg_step_ms=st_ms,
+                seg_split_ms=split, seg_share=seg_share, held=(held_st, held_c), cli=cli)
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the CBGS backbone on the gather engine (A9.d.1)
+# ---------------------------------------------------------------------------
+GATHER_CAPS = (60000, 60000, 30000, 30000)
+CBGS_GATHER_ITERS = 5
+CBGS_GATHER_TRAIN_ITERS = 3
+
+
+def cbgs_gather_gradients(bundle, inputs, gt, plain: bool, tg) -> tuple:
+    """One CBGS train step's forward, target assignment, loss and backward
+    without the update, with K4 or on its plain version; the running
+    statistics are put back. Returns (loss, {name: grad})."""
+    from dal3d_tpu_torch.models.heads.mg_head import multi_group_loss
+    from dal3d_tpu_torch.runtime.steps import autotuned_convs
+
+    model = bundle.model
+    model.train()
+    stats = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+    model.zero_grad(set_to_none=True)
+    saved = tg.gather_gemm
+    if plain:
+        tg.gather_gemm = lambda f, idx, hit, w, plan=None: tg.gather_gemm_plain(f, idx, hit, w)
+    try:
+        with autotuned_convs():
+            out = model(**inputs)
+            labels, targets, _ = bundle.assigner.assign_all(*gt)
+            loss = multi_group_loss(out["preds"], labels, targets, bundle.num_classes,
+                                    bundle.loss_cfg)["loss"]
+            loss.backward()
+        torch.cuda.synchronize()
+    finally:
+        tg.gather_gemm = saved
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            if k in stats:
+                v.copy_(stats[k])
+    return float(loss.detach()), grads
+
+
+def cbgs_gather_clis(tmp: str) -> dict:
+    """configs/cbgs_synthetic.py, cbgs_entropy_synthetic.py and
+    cbgs_partial_synthetic.py as written (the gather engine) in a directory
+    holding an 8-frame synthetic set at their relative paths: train (its
+    workflow: two epochs, then val), active_select (entropy) twice, then one
+    ActiveTrainer epoch. Returns seconds per CLI."""
+    import json
+
+    from dal3d_tpu_torch.runtime.checkpoint import latest_epoch
+    from dal3d_tpu_torch.tools import active_select, create_data, train
+    from dal3d_tpu_torch.utils.fileio import load
+
+    base = os.path.join(tmp, "cbgs_gather_cli")
+    os.makedirs(base)
+    cfgs = {n: os.path.join(ROOT, "configs", f"cbgs_{n}synthetic.py")
+            for n in ("", "entropy_", "partial_")}
+    cwd = os.getcwd()
+    os.chdir(base)
+    seconds = {}
+
+    def run(tag, fn, argv):
+        t0 = time.perf_counter()
+        r = fn(argv)
+        torch.cuda.synchronize()
+        seconds[tag] = time.perf_counter() - t0
+        return r
+
+    try:
+        create_data.main(["synthetic_data_prep", "--root_path", "data/synthetic", "--n_frames",
+                          "8", "--n_logs", "2", "--range_xy", "7"])
+        tr = run("train cbgs_synthetic", train.main, [cfgs[""], "--seed", "0"])
+        log = open("work_dirs/cbgs_synthetic/train.log").read()
+        run("active_select (empty buffer)", active_select.main, [cfgs["entropy_"]])
+        run("active_select --checkpoint", active_select.main,
+            [cfgs["entropy_"], "--checkpoint", "work_dirs/cbgs_synthetic"])
+        infos = load("data/synthetic/infos_train_10sweeps_withvelo.pkl")
+        picked = load("data/buffers/synthetic_entropy.json")["3"]
+        subset = load("data/synthetic/infos_train_10sweeps_withvelo_3.pkl")
+        pt = run("train cbgs_partial_synthetic", train.main,
+                 [cfgs["partial_"], "--seed", "0", "--epochs", "1", "--no_validate"])
+        seed = json.load(open("data/buffers/partial_synth.json"))["partial_01"]
+        est = dict(np.load("work_dirs/cbgs_partial_synth/estimator.npz"))
+        plog = open("work_dirs/cbgs_partial_synth/train.log").read()
+        epochs = (latest_epoch("work_dirs/cbgs_synthetic"),
+                  latest_epoch("work_dirs/cbgs_partial_synth"))
+    finally:
+        os.chdir(cwd)
+    impls = (tr.bundle.model.backbone.impl, pt.bundle.model.backbone.impl)
+    if (impls != ("gather", "gather") or epochs != (2, 1) or "val epoch 2" not in log
+            or "brick capacities" in log + plog
+            or not picked or [i["token"] for i in subset] != [infos[k]["token"] for k in picked]
+            or len(seed) != 4 or not est or not all(np.isfinite(v).all() for v in est.values())
+            or pt.estimator_optimizer.count != pt.step or "ActiveTrainer" not in plog):
+        fail(f"the synthetic CBGS configs through the CLIs: engines {impls}, epochs {epochs}, "
+             f"picked {picked}, seed buffer {seed}, estimator arrays {len(est)}")
+    print(f"  the synthetic CBGS configs as written (gather engine, caps "
+          f"{tr.bundle.model.backbone.caps}) on 8 synthetic frames: "
+          + "; ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+          + f"; entropy picks {picked}; seed buffer partial_01 {seed}; the trainers logged "
+          "no capacity report (the gather engine has none, as in JAX)")
+    return seconds
+
+
+def cbgs_gather_phase(tmp: str, Config, counters, tg, tiou) -> dict:
+    """Phase 21: the production CBGS model on the gather engine at full
+    width (configs/cbgs_spatial_temporal.py with impl="gather", f32, voxel
+    caps GATHER_CAPS), B=2: predict and a train step, then the synthetic
+    CBGS configs through the CLIs. Returns each kernel's launches over the
+    predict and the train step main paths, and the numbers."""
+    from dal3d_tpu_torch.models.builder import build_detector
+    from dal3d_tpu_torch.models.heads.mg_head import multi_group_predict
+    from dal3d_tpu_torch.ops.nms import greedy_nms_from_iou
+    from dal3d_tpu_torch.runtime.capacity import brick_capacity_report
+    from dal3d_tpu_torch.runtime.steps import (autotuned_convs, make_predict_step,
+                                               make_train_step, model_inputs)
+    from dal3d_tpu_torch.solver.optim import OneCycleSchedule, build_optimizer
+
+    t_phase = time.perf_counter()
+    cfg = Config.fromfile(os.path.join(ROOT, "configs", "cbgs_spatial_temporal.py"))
+    bb = {k: v for k, v in dict(cfg["model"]["backbone"]).items()
+          if k not in ("brick_widths", "banded_caps", "band_widths", "down_bands")}
+    cfg["model"] = dict(cfg["model"], backbone=dict(bb, impl="gather", dtype="float32",
+                                                    voxel_caps=GATHER_CAPS))
+    vf, vc, vv, n_vox = make_batch(0, cfg)
+    batch = {"voxel_features": torch.from_numpy(vf), "voxel_coords": torch.from_numpy(vc),
+             "voxel_valid": torch.from_numpy(vv)}
+    bundle = build_detector(cfg, seed=0)
+    model, dev = bundle.model, bundle.device
+    predict = make_predict_step(bundle)
+    rows = brick_capacity_report(bundle, batch)
+    if rows:
+        fail(f"the capacity report gave rows {rows} for the gather engine")
+    print(f"CBGS on the gather engine: phase 3's voxels {n_vox} (f32), backbone caps "
+          f"{model.backbone.caps}, {sum(p.numel() for p in model.parameters())} parameters; the "
+          "capacity report has no rows for it, as JAX's")
+    with Capture(tg, "_launch_gemm") as k4, Capture(tiou, "iou_matrix") as k2:
+        predict(batch)
+        torch.cuda.synchronize()
+    if (len(k4.calls), len(k2.calls)) != (K4_PER_PREDICT, K2_PER_PREDICT):
+        fail(f"CBGS gather predict launched K4 {len(k4.calls)}x, K2 {len(k2.calls)}x")
+    held_p = hold_launches("CBGS gather predict", k4.calls, k2=k2.calls)
+    del k4, k2
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = predict(batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(CBGS_GATHER_ITERS):
+        t0 = time.perf_counter()
+        out = predict(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches_p = main_path_launches(counters, "CBGS gather predict", CBGS_GATHER_ITERS + 1,
+                                    dict(gather_gemm=K4_PER_PREDICT, iou_matrix=K2_PER_PREDICT))
+    peak_p = torch.cuda.max_memory_allocated() / 1e9
+    for k, shp in {"box3d_lidar": (B, 498, 9), "scores": (B, 498), "embedding": (B, 512)}.items():
+        if tuple(out[k].shape) != shp or not bool(torch.isfinite(out[k]).all()):
+            fail(f"CBGS gather predict output {k}: {tuple(out[k].shape)}")
+    n_det = [int(x) for x in out["det_valid"].sum(1)]
+    if min(n_det) == 0:
+        fail(f"CBGS gather predict: no detections {n_det}")
+    p_ms = float(np.median(times))
+    # the same predict on plain versions: maps, then the detections matched
+    saved = tg.gather_gemm, tiou.iou_matrix
+    tg.gather_gemm = lambda f, idx, hit, w, plan=None: tg.gather_gemm_plain(f, idx, hit, w)
+    tiou.iou_matrix = tiou.iou_matrix_plain
+    try:
+        with torch.inference_mode(), autotuned_convs():
+            mp = model(**model_inputs(batch, dev))
+        ref = predict(batch)
+        torch.cuda.synchronize()
+    finally:
+        tg.gather_gemm, tiou.iou_matrix = saved
+    with torch.inference_mode(), autotuned_convs():
+        mk = model(**model_inputs(batch, dev))
+    pairs = [("dense", mk["dense"], mp["dense"]), ("embedding", mk["embedding"], mp["embedding"])]
+    pairs += [(f"{n}[{t}]", a[n], b_[n]) for t, (a, b_) in enumerate(zip(mk["preds"], mp["preds"]))
+              for n in ("box_preds", "cls_preds")]
+    map_err = max(float((a - b_).abs().max()) / max(float(b_.abs().max()), 1e-30)
+                  for _, a, b_ in pairs)
+    matched = [match_dets(out, ref, i) for i in range(B)]
+    unmatched = sum(m[2] for m in matched)
+    box_err = max(m[0] for m in matched)
+    if map_err > BF_TOL or unmatched > max(2, sum(n_det) // 100) or box_err > BF_TOL:
+        fail(f"CBGS gather predict vs plain versions: maps {map_err:.2e} of scale, "
+             f"{unmatched} unmatched detections of {sum(n_det)}, box err {box_err:.2e}")
+    del mk, mp
+    print(f"CBGS gather predict (B={B}): median {p_ms:.2f} ms, mean {np.mean(times):.2f} ms over "
+          f"{CBGS_GATHER_ITERS} -> {B / p_ms * 1e3:.2f} scans/s; peak memory {peak_p:.2f} GB; "
+          f"detections {n_det}; launches K4 {launches_p['gather_gemm']} K2 "
+          f"{launches_p['iou_matrix']} in {CBGS_GATHER_ITERS + 1} predicts, no other kernel; vs "
+          f"plain versions: dense, embedding and 12 head maps within {map_err:.1e} of scale, "
+          f"detections matched but {unmatched} of {sum(n_det)} (box err {box_err:.1e})")
+    stage_split(bundle, batch, multi_group_predict, greedy_nms_from_iou, tiou)
+    device_profile(lambda: predict(batch), "CBGS gather predict", p_ms)
+
+    # one train step
+    gtb, gtc = random_gt(cfg, np.random.RandomState(21), B, 8, 45.0)
+    train = dict(batch, gt_boxes=gtb, gt_classes=gtc)
+    inputs = model_inputs(batch, dev)
+    gt = ([torch.from_numpy(x).to(dev) for x in gtb], [torch.from_numpy(x).to(dev) for x in gtc])
+    loss_k, g_k = cbgs_gather_gradients(bundle, inputs, gt, False, tg)
+    loss_p, g_p = cbgs_gather_gradients(bundle, inputs, gt, True, tg)
+    noise = 1.0 + 1e-7 * torch.randn(inputs["vf"].shape,
+                                      generator=torch.Generator().manual_seed(21)).to(dev)
+    _, g_n = cbgs_gather_gradients(bundle, dict(inputs, vf=inputs["vf"] * noise), gt, True, tg)
+    gap, floor = _grad_gap(g_p, g_k), _grad_gap(g_p, g_n)
+    stem = "backbone.l0.stem.weight"
+    stem_gap = _grad_gap({stem: g_p[stem]}, {stem: g_k[stem]})
+    stem_floor = _grad_gap({stem: g_p[stem]}, {stem: g_n[stem]})
+    tol, stem_tol = max(STEP_TOL, 2 * floor), max(STEP_TOL, 2 * stem_floor)
+    loss_gap = abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)
+    if not (gap <= tol and stem_gap <= stem_tol and max(floor, stem_floor) <= STEP_FLOOR_MAX
+            and loss_gap <= 1e-4 and float(g_k[stem].abs().max()) > 0):
+        fail(f"CBGS gather train step vs plain versions: gradient gap {gap:.2e} (tol {tol:.2e}; "
+             f"floor {floor:.2e}), the stem's {stem_gap:.2e} (tol {stem_tol:.2e}), loss gap "
+             f"{loss_gap:.2e}")
+    del g_k, g_p, g_n
+    opt = build_optimizer(OneCycleSchedule(total_steps=100)).init(model.named_parameters())
+    step = make_train_step(bundle, opt)
+    with Capture(tg, "_launch_gemm") as k4, Capture(tg, "_launch_dw") as kdw:
+        step(train)
+        torch.cuda.synchronize()
+    held_t = hold_launches("CBGS gather train step", k4.calls, kdw.calls)
+    n_dx = len(k4.calls) - K4_PER_PREDICT
+    if (n_dx, len(kdw.calls)) != (20, K4_PER_PREDICT):  # the stem's voxel features need no dX
+        fail(f"CBGS gather train step launched {n_dx} K4 input gradients and "
+             f"{len(kdw.calls)} K4-dW; expected 20 and {K4_PER_PREDICT}")
+    del k4, kdw
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step(train)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(CBGS_GATHER_TRAIN_ITERS):
+        t0 = time.perf_counter()
+        logs = {k: float(v) for k, v in step(train).items()}
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches_t = main_path_launches(counters, "CBGS gather train step",
+                                    CBGS_GATHER_TRAIN_ITERS + 1,
+                                    dict(gather_gemm=K4_PER_PREDICT + n_dx,
+                                         gather_dw=K4_PER_PREDICT))
+    peak_t = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(v) for v in logs.values()):
+        fail(f"CBGS gather train step logs {logs}")
+    t_ms = float(np.median(times))
+    split = train_step_split(bundle, opt, train)
+    print(f"CBGS gather train step (B={B}, f32): median {t_ms:.2f} ms over "
+          f"{CBGS_GATHER_TRAIN_ITERS}; peak memory {peak_t:.2f} GB; launches per step: K4 "
+          f"{K4_PER_PREDICT} + {n_dx} input gradients, K4-dW {K4_PER_PREDICT}, no other "
+          f"kernel; vs plain versions: gradient within {gap:.2e} of its norm (tol {tol:.2e}, "
+          f"rounding alone {floor:.2e}), the stem's {stem_gap:.2e} (tol {stem_tol:.2e}), loss "
+          f"{loss_gap:.1e}; logs {logs}; split (ms, median of 5): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    device_profile(lambda: step(train), "CBGS gather train step", t_ms)
+    del step, opt, predict, bundle, model, inputs
+    torch.cuda.empty_cache()
+
+    cli_s = cbgs_gather_clis(tmp)
+    print(f"phase 21 (the CBGS backbone on the gather engine): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(launches_predict=launches_p, launches_train=launches_t, predict_ms=p_ms,
+                step_ms=t_ms, split_ms=split, held=(held_p, held_t), cli_s=cli_s,
+                step_gap=dict(gap=gap, floor=floor, stem_gap=stem_gap, stem_floor=stem_floor))
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@ import numpy as np
 
 from ...utils.fileio import dump
 from ..pipelines import camera
+from ..pipelines.bev_seg import LoadBEVSegmentation
 from ..pipelines.loading import LoadPointCloudAnnotations, LoadPointCloudFromFile
 from ..pipelines.preprocess import Preprocess, ReformatFixedShape
 
@@ -53,17 +54,20 @@ def build_pipeline(pipeline_cfgs: List[dict], tasks=None, max_points=300000,
             stages.append(camera.ImageNormalize(**cfg))
         elif t == "ReformatCamera":
             stages.append(camera.ReformatCamera(**cfg))
+        elif t == "LoadBEVSegmentation":
+            stages.append(LoadBEVSegmentation(**cfg))
         else:
             raise KeyError(f"unknown pipeline stage {t}")
     # val-mode sweep-read cap: when every stage between the lidar load and the
     # fixed-shape reformat preserves point order (no shuffle/subsample), the
     # reformat keeps the first max_points rows — so reading past the cap is
     # wasted IO. Only the stage set below is provably order-preserving in val
-    # mode (the camera stages leave the points alone); anything else disables
+    # mode (the camera stages and the map targets leave the points alone); anything else disables
     # the cap.
     _order_preserving = (LoadPointCloudFromFile, LoadPointCloudAnnotations,
                          ReformatFixedShape, camera.LoadMultiViewImages, camera.ImageAug3D,
-                         camera.GridMask, camera.ImageNormalize, camera.ReformatCamera)
+                         camera.GridMask, camera.ImageNormalize, camera.ReformatCamera,
+                         LoadBEVSegmentation)
     safe = all(
         isinstance(s, _order_preserving)
         or (isinstance(s, Preprocess) and not s.shuffle_points)

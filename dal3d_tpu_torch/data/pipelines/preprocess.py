@@ -132,7 +132,8 @@ class Preprocess:
 class ReformatFixedShape:
     """Produce the fixed-shape example dict the steps consume: padded points
     [P_max, 5] + validity, the camera keys of ``ReformatCamera`` when the
-    pipeline has a camera branch, with ``voxelize_host`` the mean voxel tensors
+    pipeline has a camera branch, ``gt_masks_bev`` [Hc, Wc, C] f32 after
+    ``LoadBEVSegmentation``, with ``voxelize_host`` the mean voxel tensors
     (features [M, 5], coords [M, 3] (z, y, x), valid [M]), and in train mode
     per task ``gt_boxes`` [max_gt, 9] (yaw limited to [-pi, pi)) and
     ``gt_classes`` [max_gt] (task-local 1-based, 0 = pad)."""
@@ -159,6 +160,9 @@ class ReformatFixedShape:
         }
         # the camera branch's stacked multi-view arrays (ReformatCamera)
         example.update(res.get("camera", {}).get("batch") or {})
+        if "gt_masks_bev" in res:  # LoadBEVSegmentation's [C, Wc, Hc] -> NHWC [Hc, Wc, C]
+            example["gt_masks_bev"] = np.transpose(res["gt_masks_bev"], (2, 1, 0)).astype(
+                np.float32)
         if self.voxelize_host is not None:
             vh = self.voxelize_host
             M = int(vh["max_voxel_num"])

@@ -8,11 +8,14 @@ engine) -> dense BEV map. Camera branch (``with_camera``): the B x N images
 in) or ``LSSTransform`` (``vtransform``) -> camera BEV map, resized to the
 lidar grid when the sizes differ (``ops/resize.py``). Both branches meet in
 ``ConvFuser``; ``with_lidar=False`` runs the camera alone. Then SECOND +
-SECONDFPN -> TransFusionHead. Train mode runs every batch norm on batch
-statistics (moving the running ones as JAX's momenta do), the decoder's
-dropout and Swin's stochastic depth; the loss is
-``transfusion.py::transfusion_loss``. The CenterPoint head and map
-segmentation raise in ``models/builder.py`` (ROADMAP A10.c).
+SECONDFPN -> the detection head: ``TransFusionHead`` (``head="transfusion"``)
+or the per-task ``CenterHead`` (``head="centerpoint"``, its predictions under
+``center_preds``); with ``with_map_seg`` the ``BEVSegmentationHead`` adds
+``seg_logits`` [B, H, W, C] from the same neck map. Train mode runs every
+batch norm on batch statistics (moving the running ones as JAX's momenta
+do), the decoder's dropout and Swin's stochastic depth; the TransFusion loss
+is ``transfusion.py::transfusion_loss``, the centre head's
+``centerpoint.py::center_head_loss``.
 """
 from __future__ import annotations
 
@@ -25,8 +28,10 @@ from torch import nn
 from ...ops import sparse_backend as sp
 from ...ops.resize import resize_bilinear
 from ...ops.voxelize import VoxelConfig, voxelize_mean_grid
+from .centerpoint import CenterHead
 from .lss_fpn import GeneralizedLSSFPN
 from .second import SECOND, SECONDFPN, ConvFuser
+from .segm import SEG_CLASSES, BEVSegmentationHead
 from .sparse_encoder import ENCODER_CHANNELS, VOXEL_CAPS, SparseEncoder
 from .swin import SwinTransformer
 from .transfusion import TransFusionHead
@@ -34,6 +39,7 @@ from .vtransforms import DepthLSSTransform, LSSTransform
 
 STOP_AT = ("lidar", "camera", "fused", "decoder", "")
 VTRANSFORMS = ("depth_lss", "lss")
+HEADS = ("transfusion", "centerpoint")
 CAMERA_TRANSFORMS = ("camera2lidar_rots", "camera2lidar_trans", "camera_intrinsics",
                      "img_aug_rots", "img_aug_trans")
 
@@ -57,8 +63,13 @@ class BEVFusion(nn.Module):
                  encoder_channels: Sequence[Sequence[int]] = ENCODER_CHANNELS,
                  hidden_channel: int = 128, num_heads: int = 8, ffn_channel: int = 256,
                  with_lidar: bool = True, vtransform: str = "depth_lss",
-                 image_size: Tuple[int, int] = (256, 704), camera_out_channels: int = 80):
+                 image_size: Tuple[int, int] = (256, 704), camera_out_channels: int = 80,
+                 head: str = "transfusion",
+                 center_task_classes: Sequence[int] = (1, 2, 2, 1, 2, 2),
+                 with_map_seg: bool = False, seg_classes: Sequence[str] = SEG_CLASSES):
         super().__init__()
+        if head not in HEADS:
+            raise ValueError(f"unknown head {head!r} (expected one of {HEADS})")
         if not (with_lidar or with_camera):
             raise ValueError("BEVFusion needs at least one branch (with_lidar and/or "
                              "with_camera)")
@@ -83,8 +94,14 @@ class BEVFusion(nn.Module):
         bev_channels = 256 if self.fuser is not None else branches[0]
         self.decoder = SECOND(bev_channels, decoder_channels, decoder_layer_nums)
         self.neck = SECONDFPN(decoder_channels, neck_out_channels)
-        self.head = TransFusionHead(int(np.sum(neck_out_channels)), num_classes, num_proposals,
-                                    hidden_channel, num_heads, ffn_channel)
+        neck_channels = int(np.sum(neck_out_channels))
+        self.head_type = head
+        if head == "centerpoint":
+            self.head = CenterHead(neck_channels, center_task_classes)
+        else:
+            self.head = TransFusionHead(neck_channels, num_classes, num_proposals,
+                                        hidden_channel, num_heads, ffn_channel)
+        self.seg_head = BEVSegmentationHead(neck_channels, seg_classes) if with_map_seg else None
 
     def forward(self, voxel_features: Optional[torch.Tensor] = None,
                 voxel_coords: Optional[torch.Tensor] = None,
@@ -105,7 +122,9 @@ class BEVFusion(nn.Module):
         stage split: "lidar" -> {"lidar": encoder map}, "camera" -> {"camera":
         camera map (the lidar map without a camera branch), "lidar": ...},
         "fused" -> {"fused": fuser output}, "decoder" -> {"decoder": neck
-        map}."""
+        map}. The full forward returns the TransFusion head's dict, or
+        {"center_preds": the CenterHead's list}, with ``seg_logits`` under
+        ``with_map_seg`` and ``bev_feat``."""
         if stop_at not in STOP_AT:
             raise ValueError(f"stop_at={stop_at!r}: BEVFusion stops at {STOP_AT}")
         feats = []
@@ -131,7 +150,10 @@ class BEVFusion(nn.Module):
         bev = self.neck(self.decoder(fused))
         if stop_at == "decoder":
             return {"decoder": bev}
-        preds = self.head(bev)
+        preds = ({"center_preds": self.head(bev)} if self.head_type == "centerpoint"
+                 else self.head(bev))
+        if self.seg_head is not None:
+            preds["seg_logits"] = self.seg_head(bev)
         preds["bev_feat"] = bev
         return preds
 

@@ -257,13 +257,19 @@ def convert_bevfusion_state_dict(state_dict: Dict[str, np.ndarray],
     port's ``model`` (a BEVFusion, whose layers give the layout and the
     attention heads), through ``reference_to_flax`` and the weights
     bridge. Camera keys into a model without the camera branch raise
-    KeyError (JAX's ``apply_torch_init_bevfusion`` refuses keys its tree
-    lacks)."""
+    KeyError, and so does a CenterPoint model, which has no place for the
+    ``heads.object`` TransFusion tensors (JAX's ``apply_torch_init_bevfusion``
+    refuses keys its tree lacks). The map-segmentation head's
+    ``heads.map.*`` are not converted, as in JAX: a seg model keeps its own
+    seg head."""
     camera = sorted(k for k in state_dict if k.split("module.", 1)[-1].startswith(
         ("encoders.camera.", "fuser.")))
     if camera and not model.with_camera:
         raise KeyError(f"camera keys in the checkpoint ({camera[0]}, ...): the model has no "
                        "camera branch")
+    if model.head_type != "transfusion":
+        raise KeyError(f"heads.object is a TransFusion head: the model's head is "
+                       f"{model.head_type!r}")
     heads = model.head.decoder0.self_attn.heads
     return bevfusion_flax_to_state_dict(reference_to_flax(state_dict, heads), model)
 

@@ -17,8 +17,10 @@ from ..core.box_coders import GroundBox3dCoder, build_box_coder
 from ..core.target_assigner import DeviceTargetAssigner
 from ..device import resolve_device
 from ..ops.voxelize import VoxelConfig
-from .backbones.scn import BANDED_CAPS_DEFAULT, BRICK_WIDTHS_DEFAULT
+from .backbones.scn import BANDED_CAPS_DEFAULT, BRICK_WIDTHS_DEFAULT, VOXEL_CAPS_DEFAULT
 from .bevfusion import BEVFusion, TransFusionTestCfg
+from .bevfusion.centerpoint import CenterTestCfg
+from .bevfusion.segm import SEG_CLASSES
 from .bevfusion.sparse_encoder import ENCODER_CHANNELS, VOXEL_CAPS
 from .bevfusion.swin import WindowAttention
 from .detectors.voxelnet import FPNVoxelNet
@@ -27,6 +29,8 @@ from .layers import BatchNorm2d, MaskedBatchNorm, SparseConvDown, SubMConv
 from .necks.rpn import ConvBN
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# JAX's other backbone engines, with the ROADMAP item each waits for
+_ENGINES_TO_PORT = {"brick": "A9.d.3", "hybrid": "A9.d.4", "dense": "A9.d.4"}
 
 
 @dataclass
@@ -99,17 +103,27 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def build_detector(cfg, device=None, seed: int = 0) -> DetectorBundle:
     """cfg: experiment Config (model / tasks / voxel_generator / box_coder /
-    target_assigner / test_cfg). The model gets seeded random weights
-    (``init_random_``); load trained ones with ``model.load_state_dict``.
-    ``device=None`` means the CUDA card and raises when there is none."""
+    target_assigner / test_cfg). The backbone's ``impl`` is "gather" when
+    the config names none, as in JAX (with ``voxel_caps``, f32 only), or
+    "banded" (``dtype``, ``brick_widths``, ``banded_caps``); "brick",
+    "hybrid" and "dense" are refused with their ROADMAP item. The model gets
+    seeded random weights (``init_random_``); load trained ones with
+    ``model.load_state_dict``. ``device=None`` means the CUDA card and raises
+    when there is none."""
     dev = resolve_device(device)
     model_cfg = dict(cfg["model"])
     if model_cfg.get("type") not in ("FPNVoxelNet", "VoxelNet"):
         raise KeyError(f"unknown detector: {model_cfg.get('type')}")
     backbone_cfg = dict(model_cfg.get("backbone", {}))
-    if backbone_cfg.get("impl", "gather") != "banded":
-        raise ValueError(f"the port runs the banded backbone, config asks for "
-                         f"impl={backbone_cfg.get('impl')!r}")
+    impl = str(backbone_cfg.get("impl", "gather"))
+    dtype = str(backbone_cfg.get("dtype", "float32"))
+    if impl in _ENGINES_TO_PORT:
+        raise NotImplementedError(f"backbone impl={impl!r} is not ported yet (ROADMAP "
+                                  f"{_ENGINES_TO_PORT[impl]}); the port runs 'gather' (the "
+                                  "default) and 'banded'")
+    if impl == "gather" and dtype != "float32":
+        raise NotImplementedError(f"the gather engine runs in float32 (its kernel is f32); "
+                                  f"dtype={dtype!r} on it waits for ROADMAP A9.d.5")
     vg = cfg["voxel_generator"]
     voxel_cfg = VoxelConfig(tuple(vg["range"]), tuple(vg["voxel_size"]),
                             int(vg["max_points_in_voxel"]), int(vg["max_voxel_num"]))
@@ -171,10 +185,11 @@ def build_detector(cfg, device=None, seed: int = 0) -> DetectorBundle:
         rpn_ds_filters=tuple(neck_cfg.get("ds_num_filters", (128, 256))),
         rpn_us_strides=tuple(neck_cfg.get("us_layer_strides", (1, 2))),
         rpn_us_filters=tuple(neck_cfg.get("us_num_filters", (256, 256))),
-        backbone_dtype=_DTYPES[str(backbone_cfg.get("dtype", "float32"))],
+        backbone_dtype=_DTYPES[dtype],
         brick_widths=tuple(backbone_cfg.get("brick_widths", BRICK_WIDTHS_DEFAULT)),
         banded_caps=tuple(backbone_cfg.get("banded_caps", BANDED_CAPS_DEFAULT)),
-        voxel_cfg=voxel_cfg,
+        voxel_cfg=voxel_cfg, backbone_impl=impl,
+        voxel_caps=tuple(backbone_cfg.get("voxel_caps", VOXEL_CAPS_DEFAULT)),
     )
     init_random_(model, torch.Generator().manual_seed(seed))
     return DetectorBundle(
@@ -203,10 +218,10 @@ def loader_voxelize_cfg(cfg):
 
 @dataclass
 class BEVFusionBundle:
-    """What the BEVFusion predict step needs, built once from a config."""
+    """What the BEVFusion steps need, built once from a config."""
 
     model: Any  # BEVFusion on ``device``
-    test_cfg: TransFusionTestCfg
+    test_cfg: Any  # TransFusionTestCfg, or CenterTestCfg for head="centerpoint"
     voxel_cfg: VoxelConfig
     device: torch.device
 
@@ -215,26 +230,21 @@ def build_bevfusion(cfg, device=None, seed: int = 0) -> BEVFusionBundle:
     """cfg: a BEVFusion experiment Config (model / voxel_generator /
     test_cfg, as ``configs/bevfusion_lidar.py`` or the camera + lidar
     ``configs/bevfusion_cl.py``: ``with_camera``, ``with_lidar``,
-    ``vtransform`` ("depth_lss" | "lss"), ``image_size`` and
-    ``camera_out_channels`` are read as JAX's ``tools/train_bevfusion.py``
-    reads them). The model gets seeded random weights (``init_random_``);
-    load trained ones with ``models/convert_flax.py::load_flax_bevfusion``
-    or ``load_state_dict``. ``device=None`` means the CUDA card and raises
-    when there is none.
-
-    Raises NotImplementedError, naming its ROADMAP item, for what is not
-    ported: ``head="centerpoint"`` (A10.c), ``with_map_seg`` (A10.c).
-    ``bevfusion_optimizer`` builds the training optimizer of the same
-    config."""
+    ``vtransform`` ("depth_lss" | "lss"), ``image_size``,
+    ``camera_out_channels`` and ``with_map_seg`` are read as JAX's
+    ``tools/train_bevfusion.py`` reads them; ``head`` ("transfusion" |
+    "centerpoint"), ``center_task_classes`` and ``seg_classes`` as JAX's
+    ``BEVFusion`` takes them). The bundle's ``test_cfg`` is a
+    ``TransFusionTestCfg``, or for the CenterPoint head a ``CenterTestCfg``
+    (``max_per_task`` 83 unless the config's test_cfg says otherwise). The
+    model gets seeded random weights (``init_random_``); load trained ones
+    with ``models/convert_flax.py::load_flax_bevfusion`` or
+    ``load_state_dict``. ``device=None`` means the CUDA card and raises when
+    there is none. ``bevfusion_optimizer`` builds the training optimizer of
+    the same config."""
     mc = dict(cfg["model"])
     if mc.get("type") != "BEVFusion":
         raise KeyError(f"build_bevfusion: model type {mc.get('type')!r} is not BEVFusion")
-    if mc.get("head", "transfusion") != "transfusion":
-        raise NotImplementedError(f"BEVFusion head {mc.get('head')!r}: only the TransFusion "
-                                  "head is ported; the CenterPoint head waits for ROADMAP "
-                                  "A10.c")
-    if mc.get("with_map_seg", False):
-        raise NotImplementedError("BEVFusion map segmentation is not ported: ROADMAP A10.c")
     dev = resolve_device(device)
     vg = cfg["voxel_generator"]
     voxel_cfg = VoxelConfig(tuple(vg["range"]), tuple(vg["voxel_size"]),
@@ -255,15 +265,27 @@ def build_bevfusion(cfg, device=None, seed: int = 0) -> BEVFusionBundle:
         vtransform=str(mc.get("vtransform", "depth_lss")),
         image_size=tuple(mc.get("image_size", (256, 704))),
         camera_out_channels=int(mc.get("camera_out_channels", 80)),
+        head=str(mc.get("head", "transfusion")),
+        center_task_classes=tuple(mc.get("center_task_classes", (1, 2, 2, 1, 2, 2))),
+        with_map_seg=bool(mc.get("with_map_seg", False)),
+        seg_classes=tuple(mc.get("seg_classes", SEG_CLASSES)),
     )
     init_random_(model, torch.Generator().manual_seed(seed))
     tc = dict(cfg.get("test_cfg", {}) or {})
-    test_cfg = TransFusionTestCfg(
-        out_size_factor=int(tc.get("out_size_factor", 8)),
-        voxel_size=tuple(tc.get("voxel_size", (0.075, 0.075))),
-        pc_range=tuple(tc.get("pc_range", (-54.0, -54.0))),
-        score_threshold=float(tc.get("score_threshold", 0.0)),
-    )
+    if model.head_type == "centerpoint":
+        test_cfg = CenterTestCfg(
+            out_size_factor=int(tc.get("out_size_factor", 8)),
+            voxel_size=tuple(tc.get("voxel_size", (0.1, 0.1))),
+            pc_range=tuple(tc.get("pc_range", (-51.2, -51.2))),
+            max_per_task=int(tc.get("max_per_task", 83)),
+            score_threshold=float(tc.get("score_threshold", 0.1)))
+    else:
+        test_cfg = TransFusionTestCfg(
+            out_size_factor=int(tc.get("out_size_factor", 8)),
+            voxel_size=tuple(tc.get("voxel_size", (0.075, 0.075))),
+            pc_range=tuple(tc.get("pc_range", (-54.0, -54.0))),
+            score_threshold=float(tc.get("score_threshold", 0.0)),
+        )
     return BEVFusionBundle(model=model.to(dev).eval(), test_cfg=test_cfg,
                            voxel_cfg=voxel_cfg, device=dev)
 

@@ -3,8 +3,8 @@
 
 The inverse of ``dal3d_tpu/models/convert_second.py`` (which maps det3d
 torch checkpoints onto the flax trees): it takes the ``{"params",
-"batch_stats"}`` trees of a banded ``FPNVoxelNet``, or of a lidar-only
-``BEVFusion``, as nested dicts of numpy arrays and returns the matching
+"batch_stats"}`` trees of an ``FPNVoxelNet`` (banded or gather engine), or
+of a ``BEVFusion``, as nested dicts of numpy arrays and returns the matching
 ``state_dict`` of ``models/detectors/voxelnet.py::FPNVoxelNet`` or
 ``models/bevfusion/bevfusion.py::BEVFusion``.
 
@@ -67,19 +67,23 @@ def _block(params, stats, src: str, dst: str, out: dict) -> None:
 
 
 def flax_to_state_dict(variables: dict, model) -> Dict[str, torch.Tensor]:
-    """{"params", "batch_stats"} of a banded flax FPNVoxelNet -> state_dict
-    of the port's ``model`` (an FPNVoxelNet; its neck gives the RPN layout)."""
+    """{"params", "batch_stats"} of a flax FPNVoxelNet -> state_dict of the
+    port's ``model`` (an FPNVoxelNet; its neck gives the RPN layout). The
+    banded engine nests L0 under ``FPNSpMiddleResNetFHD_0/l0``; the gather
+    engine inlines it under ``FPNSpMiddleResNetFHD_0`` (the port's names are
+    ``backbone.l0.*`` for both)."""
     params = _flatten(variables["params"])
     stats = _flatten(variables.get("batch_stats", {}))
     out: Dict[str, np.ndarray] = {}
 
     bb = "FPNSpMiddleResNetFHD_0"
-    out["backbone.l0.stem.weight"] = params[f"{bb}/l0/SubMConv_0/kernel"]
-    _bn(params, stats, f"{bb}/l0/MaskedBatchNorm_0", "backbone.l0.stem_bn", out)
+    l0 = f"{bb}/l0" if model.backbone.impl == "banded" else bb
+    out["backbone.l0.stem.weight"] = params[f"{l0}/SubMConv_0/kernel"]
+    _bn(params, stats, f"{l0}/MaskedBatchNorm_0", "backbone.l0.stem_bn", out)
     for i in (0, 1):
-        _block(params, stats, f"{bb}/l0/SparseBasicBlock_{i}", f"backbone.l0.block{i}", out)
-    out["backbone.l0.down.weight"] = params[f"{bb}/l0/SparseConvDown_0/kernel"]
-    _bn(params, stats, f"{bb}/l0/MaskedBatchNorm_1", "backbone.l0.down_bn", out)
+        _block(params, stats, f"{l0}/SparseBasicBlock_{i}", f"backbone.l0.block{i}", out)
+    out["backbone.l0.down.weight"] = params[f"{l0}/SparseConvDown_0/kernel"]
+    _bn(params, stats, f"{l0}/MaskedBatchNorm_1", "backbone.l0.down_bn", out)
     for s in (1, 2, 3):
         src, dst = f"{bb}/stage{s}", f"backbone.stage{s}"
         for i in (0, 1):
@@ -248,7 +252,9 @@ def _camera_flax_to_state_dict(params, stats, model, out: dict) -> None:
 
 def bevfusion_flax_to_state_dict(variables: dict, model) -> Dict[str, torch.Tensor]:
     """{"params", "batch_stats"} of a flax BEVFusion -> state_dict of the
-    port's ``model`` (a BEVFusion; its stages give the layout)."""
+    port's ``model`` (a BEVFusion; its stages give the layout): the camera
+    branch and fuser, the lidar encoder, the decoder and neck, the
+    TransFusion or CenterPoint head, and the map-segmentation head."""
     params = _flatten(variables["params"])
     stats = _flatten(variables.get("batch_stats", {}))
     out: Dict[str, np.ndarray] = {}
@@ -296,6 +302,53 @@ def _decoder_and_head(params, stats, model, out: dict) -> None:
         _bn(params, stats, f"SECONDFPN_0/BatchNorm2d_{i}/BatchNorm_0",
             f"neck.deblocks.{i}.bn", out)
 
+    if model.head_type == "centerpoint":
+        out.update(center_head_flax_to_state_dict(params, stats, model.head, "CenterHead_0/",
+                                                  "head."))
+    else:
+        _transfusion_head(params, stats, out)
+    # a tree without the seg head (a converted reference checkpoint: JAX's
+    # converter maps no heads.map.*) leaves it out; a strict load still
+    # refuses the gap
+    if model.seg_head is not None and "BEVSegmentationHead_0/Conv_0/kernel" in params:
+        out.update(seg_head_flax_to_state_dict(params, stats, model.seg_head,
+                                               "BEVSegmentationHead_0/", "seg_head."))
+
+
+def center_head_flax_to_state_dict(params, stats, head, src: str = "",
+                                   dst: str = "") -> Dict[str, np.ndarray]:
+    """A flax ``CenterHead`` (names prefixed by ``src``) -> the port's
+    ``head`` (prefixed by ``dst``): the shared ``Conv_0`` / ``BatchNorm2d_0``,
+    then ``_Branch_<6t + j>`` (task t's heatmap, reg, height, dim, rot, vel in
+    that order), each ``Conv_0`` / ``BatchNorm2d_0`` and the biased
+    ``Conv_1``."""
+    out: Dict[str, np.ndarray] = {}
+    _conv_bn(params, stats, f"{src}Conv_0", f"{src}BatchNorm2d_0", f"{dst}shared", out)
+    n = 0
+    for t, task in enumerate(head.tasks):
+        for name in task:
+            b, d = f"{src}_Branch_{n}", f"{dst}tasks.{t}.{name}"
+            _conv_bn(params, stats, f"{b}/Conv_0", f"{b}/BatchNorm2d_0", f"{d}.conv", out)
+            out[f"{d}.out.weight"] = _conv2d(params[f"{b}/Conv_1/kernel"])
+            out[f"{d}.out.bias"] = params[f"{b}/Conv_1/bias"]
+            n += 1
+    return out
+
+
+def seg_head_flax_to_state_dict(params, stats, head, src: str = "",
+                                dst: str = "") -> Dict[str, np.ndarray]:
+    """A flax ``BEVSegmentationHead`` -> the port's ``head``: ``Conv_i`` /
+    ``BatchNorm2d_i`` per hidden conv, then the biased 1x1 ``Conv_n``."""
+    out: Dict[str, np.ndarray] = {}
+    n = len(head.convs)
+    for i in range(n):
+        _conv_bn(params, stats, f"{src}Conv_{i}", f"{src}BatchNorm2d_{i}", f"{dst}convs.{i}", out)
+    out[f"{dst}out.weight"] = _conv2d(params[f"{src}Conv_{n}/kernel"])
+    out[f"{dst}out.bias"] = params[f"{src}Conv_{n}/bias"]
+    return out
+
+
+def _transfusion_head(params, stats, out: dict) -> None:
     hd = "TransFusionHead_0"
     for name in ("shared_conv", "heatmap_conv", "heatmap_out"):
         out[f"head.{name}.weight"] = _conv2d(params[f"{hd}/{name}/kernel"])

@@ -9,7 +9,10 @@ torchie's ``save_checkpoint``: a plain ``state_dict``, possibly under a
 
 Layouts:
   - spconv kernels [kd, kh, kw, Cin, Cout] -> the port's [kd*kh*kw, Cin,
-    Cout], taps z-major, the order the banded engine walks;
+    Cout], taps z-major, the order both sparse engines walk. The banded and
+    the gather backbone share their names, so one converted state dict
+    loads into either (JAX's ``convert_second_state_dict`` writes L0 under
+    ``l0`` or inlined, ``nested_l0``, for its two flax layouts);
   - torch Conv2d / ConvTranspose2d weights and BN keep torch's layout: only
     the names change;
   - backbone: ``middle_conv0`` (stem 0, BN 1, blocks 3 / 4, strided conv 5,

@@ -1,6 +1,7 @@
 """FPNVoxelNet (port of ``dal3d_tpu/models/detectors/voxelnet.py``): host
-voxels, or raw points voxelized on the input's device -> banded sparse
-backbone -> RPN -> multi-group head, plus the pooled neck embedding the AL
+voxels, or raw points voxelized on the input's device -> sparse backbone
+(``backbone_impl``: the banded brick engine or the gather engine, JAX's
+default) -> RPN -> multi-group head, plus the pooled neck embedding the AL
 selectors read."""
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ import torch
 from torch import nn
 
 from ...ops.voxelize import VoxelConfig, voxelize_mean, voxelize_mean_grid
-from ..backbones.scn import BANDED_CAPS_DEFAULT, BRICK_WIDTHS_DEFAULT, FPNSpMiddleResNetFHD
+from ..backbones.scn import (BANDED_CAPS_DEFAULT, BRICK_WIDTHS_DEFAULT, VOXEL_CAPS_DEFAULT,
+                             FPNSpMiddleResNetFHD)
 from ..heads.mg_head import MultiGroupHead
 from ..necks.rpn import RPN
 
@@ -23,7 +25,8 @@ class FPNVoxelNet(nn.Module):
                  rpn_ds_filters=(128, 256), rpn_us_strides=(1, 2),
                  rpn_us_filters=(256, 256), backbone_dtype: torch.dtype = torch.float32,
                  brick_widths=BRICK_WIDTHS_DEFAULT, banded_caps=BANDED_CAPS_DEFAULT,
-                 voxel_cfg: Optional[VoxelConfig] = None, sort_free_voxelize: bool = True):
+                 voxel_cfg: Optional[VoxelConfig] = None, sort_free_voxelize: bool = True,
+                 backbone_impl: str = "banded", voxel_caps=VOXEL_CAPS_DEFAULT):
         super().__init__()
         # the device voxelizer of a raw-point forward: the grid variant
         # (ascending cells, mean of all points) unless sort_free_voxelize is
@@ -36,7 +39,8 @@ class FPNVoxelNet(nn.Module):
         for p in (1, 1, 0, 0):
             d_out = (d_out + 2 * p - 3) // 2 + 1
         self.backbone = FPNSpMiddleResNetFHD(sparse_shape, num_input_features,
-                                             backbone_dtype, brick_widths, banded_caps)
+                                             backbone_dtype, brick_widths, banded_caps,
+                                             backbone_impl, voxel_caps)
         self.neck = RPN(rpn_layer_nums, rpn_ds_strides, rpn_ds_filters, rpn_us_strides,
                         rpn_us_filters, num_input_features=128 * d_out,
                         dtype=backbone_dtype)

@@ -1,9 +1,10 @@
 """Sparse-engine facade of the gather engine (port of
 ``dal3d_tpu/ops/sparse_backend.py``): the dense-index-grid engine
 (``ops/sparse_grid.py``) with the shared struct and compute of
-``ops/sparse.py``. The JAX package's ``DAL3D_SPARSE_ENGINE`` switch to its
+``ops/sparse.py``, under BEVFusion's SparseEncoder and the CBGS backbone's
+``impl="gather"``. The JAX package's ``DAL3D_SPARSE_ENGINE`` switch to its
 searchsorted engine is not ported: the port has no environment knobs, and
-that engine waits for ROADMAP A9."""
+that engine waits for ROADMAP A9.d.2."""
 from .sparse import SparseBatch, gather_gemm, to_dense
 from .sparse_grid import (build_index_grid, downsample_plan, from_voxels,
                           sparse_conv_downsample, subm_conv, subm_rulebook, with_plan)

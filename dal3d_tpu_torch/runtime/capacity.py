@@ -14,7 +14,8 @@ trainer on the first batch of a run, makes that visible:
 The active sets depend on the coordinates alone, so levels 1-4 come from
 the downsample plans (``downsample_plan``) chained from the level-0 pack,
 with no convolution launched. A batch without host voxels (raw points)
-gives no report, as in JAX.
+gives no report, and neither does a backbone on the gather engine (its
+``voxel_caps`` are not brick capacities), as in JAX.
 """
 from __future__ import annotations
 
@@ -52,9 +53,10 @@ def level_counts(backbone, vc: torch.Tensor, vv: torch.Tensor) -> List[torch.Ten
 def brick_capacity_report(bundle, batch: Dict[str, Any]) -> List[Dict[str, Any]]:
     """Per-level rows {"level", "active" (max over the batch), "cap",
     "saturated"} for one batch of host voxels, or [] for a batch without
-    them. Saturated: the demand exceeds the cap (level 0) or the compacted
-    list is full (levels 1-4)."""
-    if "voxel_features" not in batch:
+    them or a backbone that is not on the banded engine. Saturated: the
+    demand exceeds the cap (level 0) or the compacted list is full (levels
+    1-4)."""
+    if "voxel_features" not in batch or bundle.model.backbone.impl != "banded":
         return []
     inputs = model_inputs(batch, bundle.device)
     backbone = bundle.model.backbone

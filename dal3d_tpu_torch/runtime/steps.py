@@ -52,6 +52,17 @@ def model_inputs(batch: Dict, device) -> Dict[str, torch.Tensor]:
             "points_valid": _to_device(batch["points_valid"], device, torch.bool)}
 
 
+def autotuned_convs():
+    """cuDNN with its autotuner on and TF32 off, around the steps' forward
+    and backward: without TF32, cuDNN's default choice for f32 3x3 convs at
+    BEV-map sizes is an FFT algorithm, several times slower (325 of a 403 ms
+    BEVFusion predict, 400 of a 483 ms f32 CBGS predict on an H100 in
+    ``chip_smoke.py``); the autotuner times the candidates on the first call
+    of each shape and keeps the fastest."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=False,
+                                      allow_tf32=False)
+
+
 def _full_f32() -> None:
     """f32 layers run in full f32: no TF32 for cuDNN convolutions and matmuls
     (the JAX reference has none)."""
@@ -67,7 +78,8 @@ def make_train_step(bundle, optimizer) -> Callable[[Dict], Dict[str, torch.Tenso
     also move the running ones), assigns targets on the device, takes the
     multi-group loss, back-propagates, and lets the optimizer clip and update.
     It returns 0-d tensors ``loss``, ``grad_norm`` (before the clip),
-    ``num_pos``, ``loc_loss`` and ``cls_loss`` (summed over the tasks)."""
+    ``num_pos``, ``loc_loss`` and ``cls_loss`` (summed over the tasks).
+    The forward and backward run under ``autotuned_convs``."""
     _full_f32()
     model, dev = bundle.model, bundle.device
 
@@ -78,11 +90,12 @@ def make_train_step(bundle, optimizer) -> Callable[[Dict], Dict[str, torch.Tenso
         gt_boxes = [_to_device(b, dev, torch.float32) for b in batch["gt_boxes"]]
         gt_classes = [_to_device(c, dev, torch.int32) for c in batch["gt_classes"]]
         optimizer.zero_grad()
-        out = model(**inputs)
-        labels, targets, _ = bundle.assigner.assign_all(gt_boxes, gt_classes)
-        logs = multi_group_loss(out["preds"], labels, targets, bundle.num_classes,
-                                bundle.loss_cfg)
-        logs["loss"].backward()
+        with autotuned_convs():
+            out = model(**inputs)
+            labels, targets, _ = bundle.assigner.assign_all(gt_boxes, gt_classes)
+            logs = multi_group_loss(out["preds"], labels, targets, bundle.num_classes,
+                                    bundle.loss_cfg)
+            logs["loss"].backward()
         grad_norm = optimizer.step()
         return {
             "loss": logs["loss"].detach(),
@@ -106,8 +119,9 @@ def make_predict_step(bundle) -> Callable[[Dict], Dict[str, torch.Tensor]]:
     [B, D], embedding [B, 512] and score_entropy [B].
 
     f32 layers run in full f32: making a step turns TF32 off for cuDNN
-    convolutions and matmuls (the JAX reference has no TF32). The step puts
-    the model in eval mode (a trainer may hold both steps) and runs under
+    convolutions and matmuls (the JAX reference has no TF32), and the
+    forward runs under ``autotuned_convs``. The step puts the model in eval
+    mode (a trainer may hold both steps) and runs under
     ``torch.inference_mode``: its outputs must not be trained on."""
     _full_f32()
     model, dev = bundle.model, bundle.device
@@ -116,7 +130,8 @@ def make_predict_step(bundle) -> Callable[[Dict], Dict[str, torch.Tensor]]:
     def predict_step(batch: Dict) -> Dict[str, torch.Tensor]:
         if model.training:
             model.eval()
-        out = model(**model_inputs(batch, dev))
+        with autotuned_convs():
+            out = model(**model_inputs(batch, dev))
         dets = multi_group_predict(out["preds"], bundle.task_anchors, bundle.box_coder,
                                    bundle.test_cfg)
         dets["embedding"] = out["embedding"]

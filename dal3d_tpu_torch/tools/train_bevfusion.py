@@ -34,9 +34,13 @@ the epoch after the checkpoint's, as the CBGS trainer and the reference's
 runner do.
 
 It runs on the CUDA card; ``--cpu`` is the only way onto the CPU (every
-kernel wrapper then takes its plain PyTorch version). Not ported yet,
-refused with the ROADMAP item it waits for: ``--n_model > 1`` (A11); the
-builder refuses the CenterPoint head and map segmentation (A10.c).
+kernel wrapper then takes its plain PyTorch version). A config with
+``with_map_seg`` (``configs/bevfusion_cl_synthetic.py``) trains the map
+segmentation head beside the detector on its pipeline's
+``LoadBEVSegmentation`` targets (``gt_masks_bev``, kept in the batch), and
+logs ``seg``. Not ported yet, refused with the ROADMAP item it waits for:
+``--n_model > 1`` (A11). A ``head="centerpoint"`` config is refused by the
+train step: JAX's CLI has no CenterPoint path (ROADMAP C.4).
 """
 import argparse
 import os
@@ -48,7 +52,7 @@ from ..utils.config import Config
 from ..utils.log import get_root_logger
 
 BATCH_KEYS = ("points", "points_valid", "voxel_features", "voxel_coords",
-              "voxel_valid") + CAMERA_KEYS
+              "voxel_valid", "gt_masks_bev") + CAMERA_KEYS
 
 
 def parse_args(argv=None):
@@ -72,7 +76,8 @@ def parse_args(argv=None):
 
 
 def fusion_batch(batch, tasks) -> dict:
-    """A loader batch -> the train step's: the lidar and camera inputs, and the per-task
+    """A loader batch -> the train step's: the lidar and camera inputs, the
+    map targets when the pipeline makes them, and the per-task
     GT lists folded into [B, sum G_t, 9] boxes and [B, sum G_t] global
     1-based classes (task t's class c becomes c + the classes of the tasks
     before it; 0 stays padding)."""

@@ -9,10 +9,12 @@ port's device voxelizer (``ops/voxelize.py::voxelize_mean_grid``), its banded
 backbone, RPN, head, decode and rotated NMS, and its ``kitti_eval``.
 
 Two differences from JAX's test, both of the port: JAX's test runs its
-``gather`` sparse engine, which the port's FPNVoxelNet does not have
-(ROADMAP A9.d), so the port runs its banded engine; and the port's model
-starts from its own seeded init (``models/builder.py::init_random_``), not
-flax's. Both leave the gates as they are.
+``gather`` sparse engine, and this twin runs the port's banded engine, the
+one the production configs name (the port's gather engine, JAX's default,
+is held against JAX's in tests/test_torch_gather_backbone.py); and the
+port's model starts from its own seeded init
+(``models/builder.py::init_random_``), not flax's. Both leave the gates as
+they are.
 
 Runs on the card when there is one, else on the CPU (plain versions; a few
 minutes). Slow lane only; ``chip_smoke.py`` runs the same scene on the card

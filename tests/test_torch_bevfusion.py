@@ -209,9 +209,15 @@ def test_build_from_config_file_and_what_raises(tmp_path):
     camera = build_bevfusion(tiny_cfg(with_camera=True, image_size=(32, 48)), device="cpu")
     assert camera.model.with_camera and camera.model.fuser is not None
     assert type(camera.model.camera_vtransform).__name__ == "DepthLSSTransform"
-    for extra, item in ((dict(head="centerpoint"), "A10.c"), (dict(with_map_seg=True), "A10.c")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_bevfusion(tiny_cfg(**extra), device="cpu")
+    # the A10.c heads build (tests/test_torch_bevfusion_centerpoint.py and
+    # test_torch_bevfusion_seg.py hold them against JAX's); an unknown head raises
+    center = build_bevfusion(tiny_cfg(head="centerpoint"), device="cpu")
+    assert center.model.head_type == "centerpoint" and len(center.model.head.tasks) == 6
+    assert center.test_cfg.max_per_task == 83 and center.test_cfg.pc_range == (-6.4, -6.4)
+    seg = build_bevfusion(tiny_cfg(with_map_seg=True), device="cpu")
+    assert seg.model.seg_head is not None and len(seg.model.seg_head.classes) == 6
+    with pytest.raises(ValueError, match="unknown head"):
+        build_bevfusion(tiny_cfg(head="anchor3d"), device="cpu")
     step = make_bevfusion_predict_step(bundle)
     # raw points, refused before the device voxelizer, now run: voxelized at
     # the config's grid, they give what their host-free grid voxels give

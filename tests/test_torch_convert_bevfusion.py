@@ -10,7 +10,10 @@ the weights bridge ``bevfusion_flax_to_state_dict``, tensor for tensor, and
 covers every parameter and buffer of the port's model. Camera keys into a
 model without the camera branch raise, as JAX's ``apply_torch_init`` does
 for keys its tree lacks; a camera + lidar checkpoint converts bit-equal to
-JAX's route (tests/test_torch_convert_swin.py). The npz of the conversion CLI loads into the config's
+JAX's route (tests/test_torch_convert_swin.py). The reference's
+``heads.map.*`` (its segmentation head) are left unconverted, as JAX's
+converter leaves them: a seg model keeps its own seg head; a CenterPoint
+model refuses the TransFusion tensors. The npz of the conversion CLI loads into the config's
 model with the written values; an unknown key or a shape mismatch raises;
 without --cpu on a box with no GPU the CLI raises."""
 import numpy as np
@@ -91,3 +94,29 @@ def test_cli_npz_loads_into_the_model(reference, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert_cli.main([pth, str(tmp_path / "gpu.npz")])
+
+
+def test_map_head_keys_are_left_as_jax_leaves_them(reference, tmp_path):
+    sd = dict(reference)
+    rng = np.random.RandomState(3)
+    for k, shape in (("heads.map.classifier.0.weight", (16, 32, 3, 3)),
+                     ("heads.map.classifier.1.running_mean", (16,)),
+                     ("heads.map.classifier.6.bias", (6,))):
+        sd[k] = rng.randn(*shape).astype(np.float32)
+    params, stats = jax_convert(sd, num_heads=HEADS)
+    assert not any("map" in k.lower() or "Segmentation" in k for k in list(params) + list(stats))
+    assert set(params) == set(jax_convert(reference, num_heads=HEADS)[0])
+    seg = build_bevfusion(_cfg(with_map_seg=True), device="cpu", seed=5).model
+    got = convert_bevfusion_state_dict(sd, seg)
+    ref = bevfusion_flax_to_state_dict({"params": params, "batch_stats": stats}, seg)
+    assert set(got) == set(ref) == {k for k in seg.state_dict() if not k.startswith("seg_head.")}
+    assert all(torch.equal(got[k], v) for k, v in ref.items())
+    before = {k: v.clone() for k, v in seg.state_dict().items() if k.startswith("seg_head.")}
+    save_raw_state_dict_npz(sd, str(tmp_path / "map.npz"))
+    apply_torch_init_bevfusion(seg, str(tmp_path / "map.npz"))
+    after = seg.state_dict()
+    assert all(torch.equal(after[k], v) for k, v in before.items())  # the seg head is kept
+    assert torch.equal(after["head.shared_conv.weight"], got["head.shared_conv.weight"])
+    center = build_bevfusion(_cfg(head="centerpoint"), device="cpu").model
+    with pytest.raises(KeyError, match="TransFusion"):
+        convert_bevfusion_state_dict(sd, center)

@@ -160,7 +160,9 @@ def test_train_mode_is_not_ported(pool):
     sampler, a missing file means none, as in the JAX package
     (tests/test_torch_gt_aug.py holds the sampler against JAX's); the camera
     stages build in the config's order (tests/test_torch_camera_pipeline.py
-    holds them against JAX's), and a stage the port does not know still
+    holds them against JAX's), the map-segmentation targets build
+    (tests/test_torch_bev_seg.py holds them against JAX's), and a stage the
+    port does not have yet (``transforms_extra``'s, ROADMAP A9.g) still
     raises. The train-mode dataset and Preprocess themselves are ported
     (tests/test_torch_train_data.py)."""
     train = dict(mode="train", class_names=["car"])
@@ -181,8 +183,11 @@ def test_train_mode_is_not_ported(pool):
            dict(type="ImageNormalize"), dict(type="ReformatCamera", final_dim=(32, 48))]
     stages = build_pipeline(cam, tasks=TASKS)
     assert [type(st).__name__ for st in stages] == [c["type"] for c in cam]
+    seg = build_pipeline([dict(type="LoadBEVSegmentation", xbound=(-8, 8, 0.5),
+                                ybound=(-8, 8, 0.5))], tasks=TASKS)
+    assert type(seg[0]).__name__ == "LoadBEVSegmentation" and seg[0].canvas == (32, 32)
     with pytest.raises(KeyError):
-        build_pipeline([dict(type="LoadBEVSegmentation")], tasks=TASKS)
+        build_pipeline([dict(type="PointShuffle")], tasks=TASKS)
 
 
 def test_voxelize_cfg_has_no_host_plans():

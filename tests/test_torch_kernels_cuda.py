@@ -15,7 +15,8 @@ from dal3d_tpu_torch.ops import distance as tdist
 from dal3d_tpu_torch.ops import iou_matrix as tiou
 from dal3d_tpu_torch.ops import kcenter as tk
 from dal3d_tpu_torch.runtime.steps import make_predict_step
-from torch_port_utils import cuda, mk_rulebook, small_cfg, small_voxels, t  # noqa: F401
+from torch_port_utils import (cuda, mk_rulebook, small_cfg, small_gather_cfg,  # noqa: F401
+                              small_voxels, t)
 
 pytestmark = pytest.mark.cuda
 
@@ -935,3 +936,76 @@ def test_camera_branch_on_card_matches_cpu(cuda):  # noqa: F811
         ref, got = run("cpu"), run("cuda")
     assert tuple(got.shape) == (2, 50, 50, 16)
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def test_seg_and_center_heads_on_card_match_cpu(cuda):  # noqa: F811
+    """BEVFusion's map-segmentation and CenterPoint heads (seeded weights,
+    eval mode, f32) on the card against the CPU: the logits within 1e-5 of
+    scale; the decode of the CPU's logits on the card equal to the CPU's
+    (classes, validity) with boxes and scores within 1e-6; the centre loss
+    within 1e-5 relative."""
+    from dal3d_tpu_torch.models.bevfusion import centerpoint as tcp
+    from dal3d_tpu_torch.models.bevfusion.segm import BEVSegmentationHead, bev_segmentation_loss
+    from dal3d_tpu_torch.models.builder import init_random_
+
+    torch.backends.cudnn.allow_tf32 = False
+    heads = [init_random_(m, torch.Generator().manual_seed(1)).eval()
+             for m in (tcp.CenterHead(32, (1, 2)), BEVSegmentationHead(32))]
+    x = torch.randn(2, 24, 24, 32, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        ref = [heads[0](x), heads[1](x)]
+        got = [heads[0].to(cuda)(x.to(cuda)), heads[1].to(cuda)(x.to(cuda))]
+    pairs = [(g[k], r[k]) for g, r in zip(got[0], ref[0]) for k in r] + [(got[1], ref[1])]
+    for g, r in pairs:
+        assert float((g.cpu() - r).abs().max()) <= 1e-5 * float(r.abs().max())
+    cfg = tcp.CenterTestCfg(pc_range=(-9.6, -9.6), max_per_task=30, score_threshold=0.3)
+    dec_cpu = tcp.center_head_decode(ref[0], cfg)
+    dec_gpu = tcp.center_head_decode([{k: v.to(cuda) for k, v in p.items()} for p in ref[0]], cfg)
+    for k in ("label_preds", "det_valid"):
+        assert torch.equal(dec_gpu[k].cpu(), dec_cpu[k]), k
+    for k in ("scores", "box3d_lidar"):
+        assert torch.allclose(dec_gpu[k].cpu(), dec_cpu[k], rtol=1e-6, atol=1e-6), k
+    gt = [torch.rand(2, 4, 9, generator=torch.Generator().manual_seed(t)) * 8 - 4 for t in (3, 4)]
+    cls = [torch.tensor([[1, 1, 0, 0], [1, 0, 0, 0]]), torch.tensor([[1, 2, 2, 0], [2, 0, 0, 0]])]
+    lc = tcp.center_head_loss(ref[0], gt, cls, cfg)["loss"]
+    lg = tcp.center_head_loss([{k: v.to(cuda) for k, v in p.items()} for p in ref[0]],
+                              [g.to(cuda) for g in gt], [c.to(cuda) for c in cls], cfg)["loss"]
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    tgt = (torch.rand(2, 24, 24, 6, generator=torch.Generator().manual_seed(5)) < 0.3).float()
+    sc = bev_segmentation_loss(ref[1], tgt)["loss"]
+    sg = bev_segmentation_loss(ref[1].to(cuda), tgt.to(cuda))["loss"]
+    assert abs(float(sg) - float(sc)) <= 1e-5 * abs(float(sc))
+
+
+def test_cbgs_gather_predict_on_card_matches_cpu(cuda):  # noqa: F811
+    """The CBGS FPNVoxelNet on the gather engine (the small config, seeded
+    weights, f32) on the card (K4 launches) against the CPU (plain
+    versions): the dense map within 1e-4 of scale, detections equal as sets
+    with boxes and scores within 1e-4."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    vf, vc, vv = small_voxels(0)
+    batch = {"voxel_features": vf, "voxel_coords": vc, "voxel_valid": vv}
+    out, maps = {}, {}
+    for dev in ("cpu", "cuda"):
+        bundle = build_detector(small_gather_cfg(), device=dev, seed=4)
+        assert bundle.model.backbone.impl == "gather"
+        n0 = tg.gather_gemm.launches
+        out[dev] = {k: v.cpu() for k, v in make_predict_step(bundle)(batch).items()}
+        if dev == "cuda":
+            assert tg.gather_gemm.launches - n0 == 21  # 17 subm + 4 strided convs
+        with torch.inference_mode():
+            maps[dev] = bundle.model(*(torch.from_numpy(a).to(dev) for a in (vf, vc, vv)))[
+                "dense"].cpu()
+    assert float((maps["cuda"] - maps["cpu"]).abs().max()) <= 1e-4 * float(
+        maps["cpu"].abs().max())
+    for b in range(2):
+        cv, gv = out["cpu"]["det_valid"][b], out["cuda"]["det_valid"][b]
+        assert int(cv.sum()) == int(gv.sum()) > 0
+        cs_, gs = out["cpu"]["scores"][b][cv], out["cuda"]["scores"][b][gv]
+        co, go = torch.argsort(-cs_, stable=True), torch.argsort(-gs, stable=True)
+        assert torch.allclose(gs[go], cs_[co], rtol=1e-4, atol=1e-5)
+        assert torch.equal(out["cuda"]["label_preds"][b][gv][go],
+                           out["cpu"]["label_preds"][b][cv][co])
+        assert torch.allclose(out["cuda"]["box3d_lidar"][b][gv][go],
+                              out["cpu"]["box3d_lidar"][b][cv][co], rtol=1e-4, atol=1e-4)

@@ -14,10 +14,11 @@ CLIs, on the CPU.
   shapes); ``active_select`` (``EntropySelector``, the production partial
   config's selector, with ``exclude_buffer``) picks no frame of
   ``partial_01`` (the next round's ``train`` on the picks runs in
-  ``chip_smoke.py`` phase 17). The synthetic config's backbone is the
-  gather engine, which the port does not run (ROADMAP A9.d): the test's
-  config imports it and switches the backbone to the banded engine, nothing
-  else. Without ``--cpu`` on a box with no GPU the CLI raises."""
+  ``chip_smoke.py`` phase 17). The synthetic config names no engine, so it
+  builds the gather engine; this test's config imports it and switches the
+  backbone to the banded engine (the production partial config's), nothing
+  else (tests/test_torch_cbgs_gather_cli.py runs it as written). Without
+  ``--cpu`` on a box with no GPU the CLI raises."""
 import os
 import re
 
@@ -118,8 +119,8 @@ def test_dataset_factory(pool):
 
 
 def _write_partial_cfg(ws, **over):
-    """configs/cbgs_partial_synthetic.py with the banded backbone (the port's
-    engine) at brick caps for its 128 x 128 grid, one epoch, no val, and the
+    """configs/cbgs_partial_synthetic.py with the banded backbone (the
+    production partial config's engine) at brick caps for its 128 x 128 grid, one epoch, no val, and the
     production partial config's EntropySelector."""
     lines = [
         "import copy, sys\n",

@@ -61,6 +61,18 @@ def small_cfg(dtype="float32", pre=64, post=16):
     return cfg
 
 
+def small_gather_cfg(caps=(1920, 1536, 384, 128)):
+    """``small_cfg`` with no backbone engine named, so the gather engine (the
+    default, as in JAX) with voxel caps ``caps`` after each downsample."""
+    cfg = small_cfg("float32")
+    bb = cfg["model"]["backbone"]
+    for k in ("impl", "dtype", "brick_widths", "banded_caps", "band_widths", "down_bands",
+              "band_fb_cap"):
+        bb.pop(k, None)
+    bb["voxel_caps"] = tuple(caps)
+    return cfg
+
+
 def small_voxels(seed, B=2, N=1500, shape=(41, 64, 64)):
     """Host voxels of clustered (lidar-like) scenes: features [B, N, 5] f32,
     coords [B, N, 3] int32 (z, y, x), valid [B, N]; unique coords."""
