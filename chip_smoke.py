@@ -29,7 +29,8 @@ step, and the training CLI warm-started from the stage-1 run with a
 converted Swin), BEVFusion's other heads (map segmentation on the fused map,
 trained beside the detector; the CenterPoint head's decode and loss), and
 the CBGS model on the gather engine (predict, train step, the synthetic
-configs through the CLIs).
+configs through the CLIs), and the CBGS backbone's other engines (brick,
+hybrid, dense, and the searchsorted plans).
 Phases, each fatal on failure:
 
   1. versions of torch / CUDA / nvcc and the card (nvidia-smi);
@@ -218,7 +219,27 @@ Phases, each fatal on failure:
      timed steps, split; the capacity report empty, as JAX's; then
      configs/cbgs_synthetic.py, cbgs_entropy_synthetic.py and
      cbgs_partial_synthetic.py as written through ``train``,
-     ``active_select`` and ``train`` (ActiveTrainer) on 8 synthetic frames.
+     ``active_select`` and ``train`` (ActiveTrainer) on 8 synthetic frames;
+ 22. the other backbone engines at full width on phase 3's voxels (B=2), one
+     seeded state dict for all: ``brick`` (bf16, brick caps (48000, 17000,
+     10000, 6000, 6000): the capacity report, every K1 launch of a predict
+     against its plain version, a warm-up and 5 timed predicts (42 K1, 1 K2
+     each), the maps and every level against the banded engine's where
+     neither drops a brick (both at caps no level fills), the maps against
+     plain versions, a train step's gradient against plain versions within
+     twice its floor (features moved by one bf16 ulp), every K1 / K3 launch
+     of a step, a warm-up and 3 timed steps (78 K1, 21 K3 each), split, peak
+     memory, idle share); ``hybrid`` (f32, voxel caps (60000, 60000, 30000,
+     30000): the same with K4 (6 a predict; 6 + 5 dX and 6 K4-dW a step),
+     the maps and detections against plain versions); ``dense`` (f32: 3
+     timed predicts with the warm-up's autotuner apart, the on-card oracle:
+     the gather engine at caps that hold every level against the dense
+     engine, level by level and map by map within 1e-4 of scale, and the
+     production caps' dropped sites; one train step at B=2 with its peak);
+     the searchsorted engine's plans against the grid engine's as sets, the
+     gather backbone's 21 convs on them (K4) against the grid plans' map;
+     a config importing cbgs_entropy_synthetic.py with ``impl="hybrid"``
+     through ``train`` and ``active_select --checkpoint`` on 8 frames.
 
 Kernel times are device times per call (``cuda_time_ms``: the launches
 queued behind a device-side sleep, so that the host's enqueue is not timed);
@@ -761,6 +782,9 @@ def main() -> None:
         # 21. the CBGS backbone on the gather engine: predict, train step, the CLIs
         cbgs_g = cbgs_gather_phase(tmp, Config, counters, tg, tiou)
 
+        # 22. the brick, hybrid, dense and searchsorted engines; a hybrid CLI round
+        engines = engines_phase(tmp, Config, counters, tg, bd, tiou)
+
     # kernels line, card line, result -------------------------------------------
     kernels = [
         dict(name="banded_conv", route="cuda", source="dal3d_tpu_torch/ops/csrc/banded_conv.cu",
@@ -822,6 +846,10 @@ def main() -> None:
         k["launches_centerpoint"] = heads["launches_centerpoint"][k["name"]]
         k["launches_cbgs_gather_predict"] = cbgs_g["launches_predict"][k["name"]]
         k["launches_cbgs_gather_train"] = cbgs_g["launches_train"][k["name"]]
+        for eng in ("brick", "hybrid", "dense"):
+            for path in ("predict", "train"):
+                k[f"launches_{eng}_{path}"] = engines[eng][f"launches_{path}"][k["name"]]
+        k["launches_sorted_engine"] = engines["sorted"]["launches"][k["name"]]
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
@@ -5641,6 +5669,636 @@ def cbgs_gather_phase(tmp: str, Config, counters, tg, tiou) -> dict:
     return dict(launches_predict=launches_p, launches_train=launches_t, predict_ms=p_ms,
                 step_ms=t_ms, split_ms=split, held=(held_p, held_t), cli_s=cli_s,
                 step_gap=dict(gap=gap, floor=floor, stem_gap=stem_gap, stem_floor=stem_floor))
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the other backbone engines (A9.d.2-4)
+# ---------------------------------------------------------------------------
+ENGINE_ITERS = 5
+ENGINE_TRAIN_ITERS = 3
+DENSE_ITERS = 3
+K4_PER_HYBRID = 6  # the gather L0: stem, 4 subm convs, the downsample
+BRICK_TOL = 2e-2  # of scale: the brick engine's maps against the banded engine's (bf16)
+ORACLE_TOL = 1e-4  # of scale: the gather engine's maps against the dense engine's (f32)
+SORTED_TOL = 1e-6  # of scale: the gather convs on the sorted plans against the grid plans
+BF16_NUDGE = 2.0 ** -8  # one bf16 ulp: the rounding floor's perturbation of bf16 features
+# a box's error relative to max(1, |box|), hybrid against plain versions: K4's rounding
+# (2e-7 of scale) passes through 15 f32 dense layers (maps ~4e-6 of scale) and the
+# decode's exp of the log sizes
+HYBRID_BOX_TOL = 1e-3
+
+
+def engine_cfg(Config, impl: str, **bb):
+    """configs/cbgs_spatial_temporal.py with backbone ``impl`` and knobs
+    ``bb`` (the banded engine's own knobs dropped)."""
+    cfg = Config.fromfile(os.path.join(ROOT, "configs", "cbgs_spatial_temporal.py"))
+    keep = {k: v for k, v in dict(cfg["model"]["backbone"]).items()
+            if k not in ("banded_caps", "band_widths", "down_bands", "band_fb_cap")}
+    cfg["model"] = dict(cfg["model"], backbone=dict(keep, impl=impl, **bb))
+    return cfg
+
+
+def engine_bundle(cfg, sd):
+    """build_detector on the card with the shared state dict ``sd``."""
+    from dal3d_tpu_torch.models.builder import build_detector
+
+    bundle = build_detector(cfg, seed=0)
+    bundle.model.load_state_dict(sd, strict=True)
+    return bundle
+
+
+def engine_gradients(bundle, inputs, gt, plain: bool, tg, bd) -> tuple:
+    """One CBGS train step's forward, target assignment, loss and backward
+    without the update, on the kernels or with every kernel wrapper (K1, K3,
+    K4) swapped for its plain version; the running statistics are put
+    back. Returns (loss, {name: grad})."""
+    saved = tg.gather_gemm, bd.banded_conv, bd.banded_dw
+    if plain:
+        tg.gather_gemm = lambda f, idx, hit, w, plan=None: tg.gather_gemm_plain(f, idx, hit, w)
+        bd.banded_conv, bd.banded_dw = bd.banded_conv_plain, bd.banded_dw_plain
+    try:
+        return cbgs_gather_gradients(bundle, inputs, gt, False, tg)
+    finally:
+        tg.gather_gemm, bd.banded_conv, bd.banded_dw = saved
+
+
+def gradient_floor(bundle, inputs, gt, tg, bd, tag: str) -> dict:
+    """The train step's gradient on the kernels against the plain versions',
+    held within twice the gap rounding alone opens (the plain step on
+    features moved by about one ulp of their type), and at least STEP_TOL;
+    the loss within 1e-4 (f32) or 1e-2 (bf16)."""
+    bf16 = bundle.model.backbone.l0.stem.dtype == torch.bfloat16
+    loss_k, g_k = engine_gradients(bundle, inputs, gt, False, tg, bd)
+    loss_p, g_p = engine_gradients(bundle, inputs, gt, True, tg, bd)
+    nudge = BF16_NUDGE if bf16 else 1e-7
+    vf = inputs["vf"]
+    noise = 1.0 + nudge * torch.randn(vf.shape, generator=torch.Generator().manual_seed(22))
+    moved = (vf.float() * noise.to(vf.device)).to(vf.dtype)
+    _, g_n = engine_gradients(bundle, dict(inputs, vf=moved), gt, True, tg, bd)
+    gap, floor = _grad_gap(g_p, g_k), _grad_gap(g_p, g_n)
+    tol = max(STEP_TOL, 2 * floor)
+    loss_gap = abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)
+    stem = "backbone.l0.stem.weight"
+    if not (gap <= tol and loss_gap <= (1e-2 if bf16 else 1e-4)
+            and float(g_k[stem].abs().max()) > 0):
+        fail(f"{tag} train step vs plain versions: gradient gap {gap:.2e} (tol {tol:.2e}; "
+             f"floor {floor:.2e}), loss gap {loss_gap:.2e}")
+    return dict(gap=gap, floor=floor, tol=tol, loss_gap=loss_gap)
+
+
+def hold_banded(tag: str, k1=(), k3=()) -> dict:
+    """Every captured K1 / K3 launch against its plain version on the same
+    inputs: K1 within one bf16 ulp of the output's scale (2^-7), K3 within
+    1e-3 of its scale, as phases 3 and 9 hold them. Returns {kernel:
+    (launches, max error relative to scale)}."""
+    from dal3d_tpu_torch.ops import banded as bd
+
+    def rel(got, ref):
+        return float((got.float() - ref.float()).abs().max()) / max(
+            float(ref.float().abs().max()), 1e-30)
+
+    with torch.no_grad():
+        e1 = [rel(bd.banded_conv(tb, idx, w), bd.banded_conv_plain(tb, idx, w))
+              for tb, idx, w in k1]
+        e3 = [rel(bd.banded_dw(tb, idx, g), bd.banded_dw_plain(tb, idx, g)) for tb, idx, g in k3]
+    if max(e1, default=0.0) > 2.0 ** -7 or max(e3, default=0.0) > 1e-3:
+        fail(f"{tag}: a K1 launch {max(e1, default=0):.2e} or a K3 launch "
+             f"{max(e3, default=0):.2e} of scale from its plain version")
+    out = {"banded_conv": (len(e1), max(e1, default=0.0)),
+           "banded_dw": (len(e3), max(e3, default=0.0))}
+    print(f"{tag}: every launch against its plain version: "
+          + ", ".join(f"{k} {n} within {e:.1e}" for k, (n, e) in out.items() if n))
+    return out
+
+
+def brick_level_cells(backbone) -> tuple:
+    """Each downsample output's brick cells (D * H * W / bw) of a brick
+    backbone: one more is a cap no active set can fill."""
+    D, H, W = backbone.sparse_shape
+    out = []
+    for lvl, bw in zip((backbone.l0, backbone.stage1, backbone.stage2, backbone.stage3),
+                       backbone.widths[1:]):
+        d = lvl.down
+        k, st, p = (tuple(v) if isinstance(v, (tuple, list)) else (v,) * 3
+                    for v in (d.kernel_size, d.stride, d.padding))
+        D, H, W = ((n + 2 * p_ - k_) // s_ + 1 for n, k_, s_, p_ in zip((D, H, W), k, st, p))
+        out.append(D * H * (W // bw))
+    return tuple(out)
+
+
+def loose_matches(out, ref) -> tuple:
+    """Phase 5's detection match of a bf16 path against its plain versions:
+    (matched, total), a detection matched where one of the other run has
+    its label, a centre within 0.1 m and a score within 0.02."""
+    found = total = 0
+    for b in range(out["scores"].shape[0]):
+        vk, vr = out["det_valid"][b], ref["det_valid"][b]
+        bk, br = out["box3d_lidar"][b][vk], ref["box3d_lidar"][b][vr]
+        sk, sr = out["scores"][b][vk], ref["scores"][b][vr]
+        lk, lr = out["label_preds"][b][vk], ref["label_preds"][b][vr]
+        total += len(sk)
+        if len(sk) and len(sr):
+            ok = ((torch.cdist(bk[:, :2], br[:, :2]) < 0.1) & (lk[:, None] == lr[None, :])
+                  & ((sk[:, None] - sr[None, :]).abs() < 0.02))
+            found += int(ok.any(1).sum())
+    return found, total
+
+
+def stamp(t0: float, what: str) -> None:
+    """Seconds since ``t0`` at the end of a part of a phase."""
+    print(f"  [{time.perf_counter() - t0:.1f} s] {what}", flush=True)
+
+
+def timed_runs(counters, fn, iters: int, tag: str) -> tuple:
+    """Counters set to 0, then a warm-up and ``iters`` timed calls of ``fn``
+    (host clock, synchronized); the warm-up's ms are printed apart (cuDNN's
+    autotuner times every new conv shape in it). Returns (median ms, last
+    output, runs, peak GB of the warm-up, peak GB of the timed calls)."""
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    print(f"  {tag}: warm-up call {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    first_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return (float(np.median(times)), out, iters + 1, first_peak,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def as_grid(m) -> tuple:
+    """A middle level of any engine -> (dense [B, D, H, W, C] f32, bool
+    occupancy [B, D, H, W]) on its device."""
+    from dal3d_tpu_torch.ops import dense_sparse as ds
+    from dal3d_tpu_torch.ops import sparse_backend as sp
+
+    if isinstance(m, tuple):
+        return m[0].float(), m[1] > 0
+    if isinstance(m, sp.SparseBatch):
+        d, o = ds.to_dense_grid(m.replace(features=m.features.float()))
+        return d, o > 0
+    B, Mb, _ = m.features.shape
+    D, H, W = m.shape
+    nbc, dev = m.num_cells, m.features.device
+    dense = torch.zeros(B, nbc + 1, m.bw, m.channels, device=dev)
+    occ = torch.zeros(B, nbc + 1, m.bw, dtype=torch.bool, device=dev)
+    lin = torch.clamp(m.brick_lin.long(), max=nbc)
+    dense.scatter_(1, lin[..., None, None].expand(B, Mb, m.bw, m.channels), m.feat4().float())
+    occ.scatter_(1, lin[..., None].expand(B, Mb, m.bw), m.vmask)
+    return (dense[:, :nbc].reshape(B, D, H, W, m.channels), occ[:, :nbc].reshape(B, D, H, W))
+
+
+def levels_gap(a_mid, b_mid) -> list:
+    """Per level: (occupancies equal, max |a - b| relative to b's scale)."""
+    out = []
+    for a, b in zip(a_mid, b_mid):
+        (da, oa), (db, ob) = as_grid(a), as_grid(b)
+        out.append((bool(torch.equal(oa, ob)),
+                    float((da - db).abs().max()) / max(float(db.abs().max()), 1e-30)))
+        del da, oa, db, ob
+    return out
+
+
+def forward_maps(bundle, batch):
+    from dal3d_tpu_torch.runtime.steps import autotuned_convs, model_inputs
+
+    with torch.inference_mode(), autotuned_convs():
+        return bundle.model(**model_inputs(batch, bundle.device))
+
+
+def maps_gap(mk, mp) -> float:
+    """dense, embedding and the 12 head maps: max error relative to scale."""
+    pairs = [(mk["dense"], mp["dense"]), (mk["embedding"], mp["embedding"])]
+    pairs += [(a[n], b_[n]) for a, b_ in zip(mk["preds"], mp["preds"])
+              for n in ("box_preds", "cls_preds")]
+    return max(float((a.float() - b_.float()).abs().max()) / max(float(b_.float().abs().max()),
+                                                                 1e-30) for a, b_ in pairs)
+
+
+def plain_predict(bundle, predict, batch, tg, bd, tiou) -> tuple:
+    """The forward's maps and the predict's detections with every kernel
+    wrapper (K1, K4, K2) swapped for its plain version."""
+    saved = tg.gather_gemm, bd.banded_conv, tiou.iou_matrix
+    tg.gather_gemm = lambda f, idx, hit, w, plan=None: tg.gather_gemm_plain(f, idx, hit, w)
+    bd.banded_conv, tiou.iou_matrix = bd.banded_conv_plain, tiou.iou_matrix_plain
+    try:
+        mp = forward_maps(bundle, batch)
+        ref = predict(batch)
+        torch.cuda.synchronize()
+    finally:
+        tg.gather_gemm, bd.banded_conv, tiou.iou_matrix = saved
+    return mp, ref
+
+
+def engine_train(bundle, batch, gt_np, counters, per_step: dict, tag: str) -> dict:
+    """Counters set to 0, a warm-up and ENGINE_TRAIN_ITERS timed train steps,
+    launches held to ``per_step``; the split, peak memory and idle share."""
+    from dal3d_tpu_torch.runtime.steps import make_train_step
+    from dal3d_tpu_torch.solver.optim import OneCycleSchedule, build_optimizer
+
+    train = dict(batch, gt_boxes=gt_np[0], gt_classes=gt_np[1])
+    opt = build_optimizer(OneCycleSchedule(total_steps=100)).init(bundle.model.named_parameters())
+    step = make_train_step(bundle, opt)
+    t_ms, logs, runs, first_peak, peak = timed_runs(
+        counters, lambda: {k: float(v) for k, v in step(train).items()}, ENGINE_TRAIN_ITERS, tag)
+    launches = main_path_launches(counters, tag, runs, per_step)
+    if not all(np.isfinite(v) for v in logs.values()):
+        fail(f"{tag} logs {logs}")
+    split = train_step_split(bundle, opt, train)
+    print(f"{tag} (B={B}): median {t_ms:.2f} ms over {ENGINE_TRAIN_ITERS}; peak memory "
+          f"{peak:.2f} GB (first step {first_peak:.2f}); launches per step "
+          f"{ {k: v // runs for k, v in launches.items() if v} }; logs {logs}; split (ms, "
+          "median of 5): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    prof = device_profile(lambda: step(train), tag, t_ms)
+    del step, opt
+    return dict(ms=t_ms, launches=launches, split=split, peak=peak, first_peak=first_peak,
+                busy=sum(v[0] for v in prof.values()))
+
+
+def brick_engine(Config, sd, batch, gt, gt_np, counters, tg, bd, tiou) -> dict:
+    """The brick engine (the config's bf16, brick_caps): capacity report,
+    every K1 launch of a predict, 5 timed predicts, the maps and middle
+    against the banded engine's, the detections against plain versions, a
+    train step's gradient against plain versions, every K1 / K3 launch of a
+    step, 3 timed steps."""
+    from dal3d_tpu_torch.models.heads.mg_head import multi_group_predict
+    from dal3d_tpu_torch.ops.nms import greedy_nms_from_iou
+    from dal3d_tpu_torch.runtime.capacity import brick_capacity_report
+    from dal3d_tpu_torch.runtime.steps import make_predict_step, make_train_step, model_inputs
+    from dal3d_tpu_torch.solver.optim import OneCycleSchedule, build_optimizer
+
+    bundle = engine_bundle(engine_cfg(Config, "brick"), sd)
+    rows = brick_capacity_report(bundle, batch)
+    print("brick engine (bf16, caps " f"{bundle.model.backbone.caps}): active bricks per level "
+          "(max over the batch) / cap: " + ", ".join(
+              f"L{r['level']} {r['active']}/{r['cap']}" + (" SATURATED" if r["saturated"] else "")
+              for r in rows))
+    predict = make_predict_step(bundle)
+    with Capture(bd, "banded_conv") as k1, Capture(tiou, "iou_matrix") as k2:
+        predict(batch)
+        torch.cuda.synchronize()
+    if (len(k1.calls), len(k2.calls)) != (K1_PER_PREDICT, K2_PER_PREDICT):
+        fail(f"brick predict launched K1 {len(k1.calls)}x, K2 {len(k2.calls)}x")
+    held = hold_banded("brick predict", k1.calls)
+    hold_launches("brick predict", k2=k2.calls)
+    del k1, k2
+    p_ms, out, runs, first_peak, peak = timed_runs(counters, lambda: predict(batch), ENGINE_ITERS,
+                                                   "brick predict")
+    launches_p = main_path_launches(counters, "brick predict", runs,
+                                    dict(banded_conv=K1_PER_PREDICT, iou_matrix=K2_PER_PREDICT))
+    n_det = [int(x) for x in out["det_valid"].sum(1)]
+    if min(n_det) == 0 or not bool(torch.isfinite(out["box3d_lidar"]).all()):
+        fail(f"brick predict: detections {n_det}")
+    # against the banded engine on the same weights, both at caps no level
+    # can fill (one more than each level's brick cells; L0's demand is below
+    # the production cap), so that neither drops a brick
+    nbc = brick_level_cells(bundle.model.backbone)
+    wide = {k: (bundle.model.backbone.caps[0],) + tuple(n + 1 for n in nbc)
+            for k in ("brick_caps", "banded_caps")}
+    if rows[0]["saturated"]:
+        fail(f"brick engine: L0's demand {rows[0]['active']} is over its cap")
+    wb = engine_bundle(engine_cfg(Config, "brick", brick_caps=wide["brick_caps"]), sd)
+    wr = engine_bundle(engine_cfg(Config, "banded", banded_caps=wide["banded_caps"]), sd)
+    wide_rows = [brick_capacity_report(b, batch) for b in (wb, wr)]
+    if any(r["saturated"] for rs in wide_rows for r in rs):
+        fail(f"brick vs banded at wide caps: a level fills its cap {wide_rows}")
+    mk, mb = forward_maps(wb, batch), forward_maps(wr, batch)
+    lv = levels_gap(mk["middle"], mb["middle"])
+    map_gap = maps_gap(mk, mb)
+    if any(not a or g > BRICK_TOL for a, g in lv) or map_gap > BRICK_TOL:
+        fail(f"brick vs banded: levels {lv}, maps {map_gap}")
+    del mk, mb, wb, wr
+    mk = forward_maps(bundle, batch)
+    mp, ref = plain_predict(bundle, predict, batch, tg, bd, tiou)
+    plain_gap = maps_gap(mk, mp)
+    if plain_gap > 5e-2:
+        fail(f"brick predict vs plain versions: maps {plain_gap:.2e} of scale")
+    found, total = loose_matches(out, ref)
+    del mk, mp
+    print(f"brick predict (B={B}, bf16): median {p_ms:.2f} ms over {ENGINE_ITERS} -> "
+          f"{B / p_ms * 1e3:.2f} scans/s; peak memory {peak:.2f} GB (first call {first_peak:.2f}); "
+          f"detections {n_det}; launches K1 {launches_p['banded_conv']} K2 "
+          f"{launches_p['iou_matrix']} in {runs}; vs the banded engine on the same weights, "
+          f"both at caps {wide['brick_caps']} that no level fills (active bricks "
+          f"{[r['active'] for r in wide_rows[0]]} and {[r['active'] for r in wide_rows[1]]}): "
+          f"every level's active set equal, features within "
+          f"{[f'{g:.1e}' for _, g in lv]} of scale, dense, embedding and 12 head maps within "
+          f"{map_gap:.2e} (tol {BRICK_TOL}); vs plain versions: maps within {plain_gap:.1e} of "
+          f"scale (tol 5e-2, phase 5's), detections matched {found}/{total} (phase 5's loose "
+          "match: bf16 reorders the near-equal scores of random weights)")
+    stage_split(bundle, batch, multi_group_predict, greedy_nms_from_iou, tiou)
+    device_profile(lambda: predict(batch), "brick predict", p_ms)
+    inputs = model_inputs(batch, bundle.device)
+    grad = gradient_floor(bundle, inputs, gt, tg, bd, "brick")
+    opt = build_optimizer(OneCycleSchedule(total_steps=100)).init(bundle.model.named_parameters())
+    step = make_train_step(bundle, opt)
+    with Capture(bd, "banded_conv") as k1, Capture(bd, "banded_dw") as k3:
+        step(dict(batch, gt_boxes=gt_np[0], gt_classes=gt_np[1]))
+        torch.cuda.synchronize()
+    if (len(k1.calls), len(k3.calls)) != (K1_PER_TRAIN_STEP, K3_PER_TRAIN_STEP):
+        fail(f"brick train step launched K1 {len(k1.calls)}x, K3 {len(k3.calls)}x")
+    held_t = hold_banded("brick train step", k1.calls, k3.calls)
+    del k1, k3, step, opt
+    print(f"brick train step vs plain versions: gradient within {grad['gap']:.2e} of its norm "
+          f"(tol {grad['tol']:.2e}, rounding alone {grad['floor']:.2e} with features moved by "
+          f"one bf16 ulp), loss {grad['loss_gap']:.1e}")
+    tr = engine_train(bundle, batch, gt_np, counters,
+                      dict(banded_conv=K1_PER_TRAIN_STEP, banded_dw=K3_PER_TRAIN_STEP),
+                      "brick train step")
+    del bundle, predict
+    torch.cuda.empty_cache()
+    return dict(predict_ms=p_ms, launches_predict=launches_p, launches_train=tr["launches"],
+                train=tr, grad=grad, held=(held, held_t), levels=lv, map_gap=map_gap,
+                capacity=rows)
+
+
+def hybrid_engine(Config, sd, batch, gt, gt_np, counters, tg, bd, tiou) -> dict:
+    """The hybrid engine (f32, voxel caps (60000, 60000, 30000, 30000)):
+    every K4 launch of a predict, 5 timed predicts, maps and detections
+    against plain versions, a train step's gradient against plain versions,
+    every K4 / dX / K4-dW launch of a step, 3 timed steps."""
+    from dal3d_tpu_torch.models.heads.mg_head import multi_group_predict
+    from dal3d_tpu_torch.ops.nms import greedy_nms_from_iou
+    from dal3d_tpu_torch.runtime.steps import make_predict_step, make_train_step, model_inputs
+    from dal3d_tpu_torch.solver.optim import OneCycleSchedule, build_optimizer
+
+    bundle = engine_bundle(engine_cfg(Config, "hybrid", dtype="float32", voxel_caps=GATHER_CAPS),
+                           sd)
+    t0 = time.perf_counter()
+    predict = make_predict_step(bundle)
+    with Capture(tg, "_launch_gemm") as k4, Capture(tiou, "iou_matrix") as k2:
+        predict(batch)
+        torch.cuda.synchronize()
+    if (len(k4.calls), len(k2.calls)) != (K4_PER_HYBRID, K2_PER_PREDICT):
+        fail(f"hybrid predict launched K4 {len(k4.calls)}x, K2 {len(k2.calls)}x")
+    held_p = hold_launches("hybrid predict", k4.calls, k2=k2.calls)
+    del k4, k2
+    stamp(t0, "hybrid: a predict's launches held")
+    p_ms, out, runs, first_peak, peak = timed_runs(counters, lambda: predict(batch), ENGINE_ITERS,
+                                                   "hybrid predict")
+    launches_p = main_path_launches(counters, "hybrid predict", runs,
+                                    dict(gather_gemm=K4_PER_HYBRID, iou_matrix=K2_PER_PREDICT))
+    n_det = [int(x) for x in out["det_valid"].sum(1)]
+    if min(n_det) == 0 or not bool(torch.isfinite(out["box3d_lidar"]).all()):
+        fail(f"hybrid predict: detections {n_det}")
+    mk = forward_maps(bundle, batch)
+    mp, ref = plain_predict(bundle, predict, batch, tg, bd, tiou)
+    map_gap = maps_gap(mk, mp)
+    matched = [match_dets(out, ref, i) for i in range(B)]
+    unmatched, box_err = sum(m[2] for m in matched), max(m[0] for m in matched)
+    if map_gap > BF_TOL or unmatched > max(2, sum(n_det) // 100) or box_err > HYBRID_BOX_TOL:
+        fail(f"hybrid predict vs plain versions: maps {map_gap:.2e} of scale, {unmatched} "
+             f"unmatched of {sum(n_det)}, box err {box_err:.2e}")
+    del mk, mp
+    print(f"hybrid predict (B={B}, f32): median {p_ms:.2f} ms over {ENGINE_ITERS} -> "
+          f"{B / p_ms * 1e3:.2f} scans/s; peak memory {peak:.2f} GB (first call, with the "
+          f"autotuner's trials, {first_peak:.2f}); detections {n_det}; launches K4 "
+          f"{launches_p['gather_gemm']} K2 {launches_p['iou_matrix']} in {runs}; vs plain "
+          f"versions: dense, embedding and 12 head maps within {map_gap:.1e} of scale, detections "
+          f"matched but {unmatched} of {sum(n_det)} (box err {box_err:.1e}, tol "
+          f"{HYBRID_BOX_TOL})")
+    stage_split(bundle, batch, multi_group_predict, greedy_nms_from_iou, tiou)
+    device_profile(lambda: predict(batch), "hybrid predict", p_ms)
+    stamp(t0, "hybrid: predicts timed, against plain versions, split, profile")
+    inputs = model_inputs(batch, bundle.device)
+    grad = gradient_floor(bundle, inputs, gt, tg, bd, "hybrid")
+    stamp(t0, "hybrid: the step's gradient and its floor")
+    opt = build_optimizer(OneCycleSchedule(total_steps=100)).init(bundle.model.named_parameters())
+    step = make_train_step(bundle, opt)
+    with Capture(tg, "_launch_gemm") as k4, Capture(tg, "_launch_dw") as kdw:
+        step(dict(batch, gt_boxes=gt_np[0], gt_classes=gt_np[1]))
+        torch.cuda.synchronize()
+    n_dx = len(k4.calls) - K4_PER_HYBRID
+    if (n_dx, len(kdw.calls)) != (K4_PER_HYBRID - 1, K4_PER_HYBRID):
+        fail(f"hybrid train step launched {n_dx} K4 input gradients and {len(kdw.calls)} K4-dW")
+    held_t = hold_launches("hybrid train step", k4.calls, kdw.calls)
+    del k4, kdw, step, opt
+    print(f"hybrid train step vs plain versions: gradient within {grad['gap']:.2e} of its norm "
+          f"(tol {grad['tol']:.2e}, rounding alone {grad['floor']:.2e}), loss "
+          f"{grad['loss_gap']:.1e}")
+    tr = engine_train(bundle, batch, gt_np, counters,
+                      dict(gather_gemm=K4_PER_HYBRID + n_dx, gather_dw=K4_PER_HYBRID),
+                      "hybrid train step")
+    stamp(t0, "hybrid: train steps timed, split, profile")
+    del bundle, predict
+    torch.cuda.empty_cache()
+    return dict(predict_ms=p_ms, launches_predict=launches_p, launches_train=tr["launches"],
+                train=tr, grad=grad, held=(held_p, held_t), map_gap=map_gap)
+
+
+def dense_engine(Config, sd, batch, gt_np, counters, tiou) -> dict:
+    """The dense engine (f32): 3 timed predicts with the peak memory, the
+    on-card oracle (the gather engine, at caps that hold every level, held
+    to it level by level), the production caps' dropped sites, one train
+    step at B=2 with its peak and ms."""
+    from dal3d_tpu_torch.models.heads.mg_head import multi_group_predict
+    from dal3d_tpu_torch.ops.nms import greedy_nms_from_iou
+    from dal3d_tpu_torch.runtime.steps import make_predict_step, make_train_step
+    from dal3d_tpu_torch.solver.optim import OneCycleSchedule, build_optimizer
+
+    bundle = engine_bundle(engine_cfg(Config, "dense", dtype="float32"), sd)
+    t0 = time.perf_counter()
+    predict = make_predict_step(bundle)
+    p_ms, out, runs, first_peak, peak = timed_runs(counters, lambda: predict(batch), DENSE_ITERS,
+                                                   "dense predict")
+    launches_p = main_path_launches(counters, "dense predict", runs,
+                                    dict(iou_matrix=K2_PER_PREDICT))
+    n_det = [int(x) for x in out["det_valid"].sum(1)]
+    if min(n_det) == 0 or not bool(torch.isfinite(out["box3d_lidar"]).all()):
+        fail(f"dense predict: detections {n_det}")
+    print(f"dense predict (B={B}, f32): median {p_ms:.2f} ms over {DENSE_ITERS} -> "
+          f"{B / p_ms * 1e3:.2f} scans/s; peak memory {peak:.2f} GB (first call, with the "
+          f"autotuner's trials, {first_peak:.2f}); detections {n_det}; launches K2 "
+          f"{launches_p['iou_matrix']} in {runs}, no other kernel (cuDNN's convs)")
+    stage_split(bundle, batch, multi_group_predict, greedy_nms_from_iou, tiou)
+    prof = device_profile(lambda: predict(batch), "dense predict", p_ms)
+    stamp(t0, "dense: predicts timed, split, profile")
+
+    # the oracle: the gather engine at caps that hold every level (the dense
+    # engine's active sets give their sizes), held to the dense engine
+    md = forward_maps(bundle, batch)
+    counts = [(m[1] > 0).flatten(1).sum(1) for m in md["middle"]]
+    full = tuple(-(-int(c.max()) // 128) * 128 for c in counts)
+    dropped = [[max(0, int(n) - cap) for n in c.tolist()] for c, cap in zip(counts, GATHER_CAPS)]
+    gather = engine_bundle(engine_cfg(Config, "gather", dtype="float32", voxel_caps=full), sd)
+    mg = forward_maps(gather, batch)
+    lv = levels_gap(mg["middle"], md["middle"])
+    oracle = maps_gap(mg, md)
+    if not all(a for a, _ in lv) or max(g for _, g in lv) > ORACLE_TOL or oracle > ORACLE_TOL:
+        fail(f"the gather engine against the dense oracle: levels {lv}, maps {oracle:.2e}")
+    print(f"dense oracle: the gather engine (phase 21's path, voxel caps {full}, which hold every "
+          f"level: active sites {[c.tolist() for c in counts]}) against the dense engine on the "
+          f"same weights: each level's active set equal, features within "
+          f"{max(g for _, g in lv):.2e} of scale ({[f'{g:.1e}' for _, g in lv]}); dense, "
+          f"embedding and 12 head maps within {oracle:.2e} (tol {ORACLE_TOL}); the production "
+          f"caps {GATHER_CAPS} drop {dropped} sites per level and frame")
+    del md, mg
+    stamp(t0, "dense: the oracle")
+    # one train step
+    train = dict(batch, gt_boxes=gt_np[0], gt_classes=gt_np[1])
+    opt = build_optimizer(OneCycleSchedule(total_steps=100)).init(bundle.model.named_parameters())
+    step = make_train_step(bundle, opt)
+    t_ms, logs, truns, t_first, t_peak = timed_runs(
+        counters, lambda: {k: float(v) for k, v in step(train).items()}, 1, "dense train step")
+    launches_t = main_path_launches(counters, "dense train step", truns, {})
+    if not all(np.isfinite(v) for v in logs.values()):
+        fail(f"dense train step logs {logs}")
+    print(f"dense train step (B={B}, f32; each L0 unit and each stage recomputed in backward): "
+          f"{t_ms:.2f} ms (one step after a warm-up); peak memory {t_peak:.2f} GB (warm-up "
+          f"{t_first:.2f}); logs {logs}")
+    del step, opt, bundle, predict
+    torch.cuda.empty_cache()
+    return dict(predict_ms=p_ms, launches_predict=launches_p, launches_train=launches_t,
+                peak=peak, first_peak=first_peak, oracle=oracle, levels=lv, counts=counts,
+                dropped=dropped, step_ms=t_ms, step_peak=t_peak, gather=gather,
+                busy=sum(v[0] for v in prof.values()))
+
+
+def sorted_engine(gather, batch, counters) -> dict:
+    """The searchsorted engine at full width on phase 3's voxels: every
+    level's subm rulebook and downsample output set against the grid
+    engine's as sets (each output cell's input cells per tap), then the
+    gather backbone's 21 convs on the sorted plans (K4) against the grid
+    plans' map."""
+    from dal3d_tpu_torch.models.backbones.scn import sorted_forward
+    from dal3d_tpu_torch.ops import sparse as ss
+    from dal3d_tpu_torch.ops import sparse_backend as sp
+    from dal3d_tpu_torch.runtime.steps import autotuned_convs, model_inputs
+
+    backbone = gather.model.backbone
+    inputs = model_inputs(batch, gather.device)
+    vox = (inputs["vf"], inputs["vc"], inputs["vv"])
+    srt, grd = ss.from_voxels(*vox, backbone.sparse_shape), sp.from_voxels(*vox, backbone.sparse_shape)
+
+    def neighbours(lin, idx, hit, sentinel):
+        """[B, K, M] input cells of each (tap, output row), sentinel = none."""
+        src = torch.gather(lin.long(), 1, idx.long().reshape(B, -1)).view(idx.shape)
+        return torch.where(hit, src, sentinel)
+
+    t0 = time.perf_counter()
+    sizes = []
+    for level in (backbone.l0, backbone.stage1, backbone.stage2, backbone.stage3):
+        d = level.down
+        n_in = int(np.prod(srt.shape))
+        rs, rg = ss.subm_rulebook(srt, 3), sp.subm_rulebook(grd, 3)
+        order = torch.argsort(grd.lin.long(), dim=1)
+        ng = torch.gather(neighbours(grd.lin, *rg, n_in), 2,
+                          order[:, None, :].expand(-1, rs[0].shape[1], -1))
+        if not torch.equal(torch.sort(grd.lin, 1)[0], srt.lin) or not torch.equal(
+                neighbours(srt.lin, *rs, n_in), ng):
+            fail(f"sorted engine: a subm rulebook differs from the grid engine's as a set")
+        sd = ss.downsample_plan(srt, d.kernel_size, d.stride, d.padding, d.out_cap)
+        gd = sp.downsample_plan(grd, d.kernel_size, d.stride, d.padding, d.out_cap)
+        if not torch.equal(sd[0], gd[0]) or not torch.equal(neighbours(srt.lin, sd[1], sd[2], n_in),
+                                                            neighbours(grd.lin, gd[1], gd[2], n_in)):
+            fail(f"sorted engine: a downsample plan differs from the grid engine's as a set")
+        sizes.append(int((sd[0] < int(np.prod(sd[3]))).sum()))
+        srt = ss.SparseBatch(features=srt.features[:, :1], lin=sd[0], shape=sd[3])
+        grd = sp.SparseBatch(features=grd.features[:, :1], lin=gd[0], shape=gd[3])
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    for c in counters:
+        c.launches = 0
+    with torch.inference_mode(), autotuned_convs():
+        got, _ = sorted_forward(backbone, *vox)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        want, _ = backbone(*vox)
+    gap = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+    if launches.get("gather_gemm") != K4_PER_PREDICT or gap > SORTED_TOL:
+        fail(f"sorted engine: launches {launches}, BEV map {gap:.2e} of scale")
+    print(f"sorted engine (full width, phase 3's voxels): rulebooks and downsample output sets "
+          f"of all 4 levels equal to the grid engine's as sets ({sizes} output sites, "
+          f"{plan_s:.2f} s to build and compare); the gather backbone's "
+          f"{launches['gather_gemm']} convs on the sorted plans (K4) give the grid plans' BEV "
+          f"map within {gap:.1e} of scale")
+    return dict(launches=launches, gap=gap, sizes=sizes)
+
+
+def hybrid_cli(tmp: str) -> dict:
+    """A config that imports configs/cbgs_entropy_synthetic.py and sets
+    impl="hybrid", through ``train`` and ``active_select --checkpoint`` on 8
+    synthetic frames. Returns seconds per CLI."""
+    from dal3d_tpu_torch.runtime.checkpoint import latest_epoch
+    from dal3d_tpu_torch.tools import active_select, create_data, train
+    from dal3d_tpu_torch.utils.fileio import load
+
+    base = os.path.join(tmp, "cbgs_hybrid_cli")
+    os.makedirs(base)
+    cfg = os.path.join(base, "cbgs_hybrid_synthetic.py")
+    with open(cfg, "w") as f:
+        f.write(f"import copy\nimport sys\nsys.path.insert(0, {os.path.join(ROOT, 'configs')!r})\n"
+                "from cbgs_entropy_synthetic import *  # noqa: F401,F403\n"
+                "model = copy.deepcopy(model)\nmodel['backbone']['impl'] = 'hybrid'\n"
+                "selector = dict(selector, buffer_file='data/buffers/synthetic_hybrid.json')\n"
+                "work_dir = './work_dirs/cbgs_hybrid_synthetic'\n")
+    cwd = os.getcwd()
+    os.chdir(base)
+    seconds = {}
+    try:
+        create_data.main(["synthetic_data_prep", "--root_path", "data/synthetic", "--n_frames",
+                          "8", "--n_logs", "2", "--range_xy", "7"])
+        t0 = time.perf_counter()
+        tr = train.main([cfg, "--seed", "0", "--epochs", "1", "--no_validate"])
+        seconds["train"] = time.perf_counter() - t0
+        active_select.main([cfg])  # writes the empty buffer
+        t0 = time.perf_counter()
+        active_select.main([cfg, "--checkpoint", "work_dirs/cbgs_hybrid_synthetic"])
+        seconds["active_select --checkpoint"] = time.perf_counter() - t0
+        picked = load("data/buffers/synthetic_hybrid.json")
+        subset = load("data/synthetic/infos_train_10sweeps_withvelo_3.pkl")
+        infos = load("data/synthetic/infos_train_10sweeps_withvelo.pkl")
+        epoch = latest_epoch("work_dirs/cbgs_hybrid_synthetic")
+    finally:
+        os.chdir(cwd)
+    if (tr.bundle.model.backbone.impl != "hybrid" or epoch != 1 or not picked.get("3")
+            or [i["token"] for i in subset] != [infos[k]["token"] for k in picked["3"]]):
+        fail(f"the hybrid CLI round: engine {tr.bundle.model.backbone.impl}, epoch {epoch}, "
+             f"buffer {picked}")
+    print(f"  a config importing cbgs_entropy_synthetic.py with impl='hybrid' on 8 synthetic "
+          "frames: " + "; ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+          + f"; the buffer {picked}")
+    return seconds
+
+
+def engines_phase(tmp: str, Config, counters, tg, bd, tiou) -> dict:
+    """Phase 22: the brick, hybrid and dense engines and the searchsorted
+    engine at full width on phase 3's voxels (B=2), one seeded state dict
+    for every engine; then a hybrid config through the CLIs. Returns each
+    kernel's launches over the new main paths, and the numbers."""
+    from dal3d_tpu_torch.models.builder import build_detector
+
+    t_phase = time.perf_counter()
+    cfg = Config.fromfile(os.path.join(ROOT, "configs", "cbgs_spatial_temporal.py"))
+    sd = build_detector(cfg, seed=0).model.state_dict()
+    vf, vc, vv, n_vox = make_batch(0, cfg)
+    batch16 = {"voxel_features": torch.from_numpy(vf).to(torch.bfloat16),
+               "voxel_coords": torch.from_numpy(vc), "voxel_valid": torch.from_numpy(vv)}
+    batch32 = dict(batch16, voxel_features=torch.from_numpy(vf))
+    gt_np = random_gt(cfg, np.random.RandomState(22), B, 8, 45.0)
+    gt = ([torch.from_numpy(x).cuda() for x in gt_np[0]],
+          [torch.from_numpy(x).cuda() for x in gt_np[1]])
+    print(f"the other engines: phase 3's voxels {n_vox}, one seeded state dict for every engine")
+    brick = brick_engine(Config, sd, batch16, gt, gt_np, counters, tg, bd, tiou)
+    t_brick = time.perf_counter() - t_phase
+    hybrid = hybrid_engine(Config, sd, batch32, gt, gt_np, counters, tg, bd, tiou)
+    t_hybrid = time.perf_counter() - t_phase - t_brick
+    dense = dense_engine(Config, sd, batch32, gt_np, counters, tiou)
+    srt = sorted_engine(dense.pop("gather"), batch32, counters)
+    torch.cuda.empty_cache()
+    t_dense = time.perf_counter() - t_phase - t_brick - t_hybrid
+    cli_s = hybrid_cli(tmp)
+    print(f"phase 22 (the other engines): {time.perf_counter() - t_phase:.1f} s (brick "
+          f"{t_brick:.1f}, hybrid {t_hybrid:.1f}, dense + oracle + sorted {t_dense:.1f})")
+    return dict(brick=brick, hybrid=hybrid, dense=dense, sorted=srt, cli_s=cli_s)
 
 
 if __name__ == "__main__":

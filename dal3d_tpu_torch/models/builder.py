@@ -17,7 +17,8 @@ from ..core.box_coders import GroundBox3dCoder, build_box_coder
 from ..core.target_assigner import DeviceTargetAssigner
 from ..device import resolve_device
 from ..ops.voxelize import VoxelConfig
-from .backbones.scn import BANDED_CAPS_DEFAULT, BRICK_WIDTHS_DEFAULT, VOXEL_CAPS_DEFAULT
+from .backbones.scn import (BANDED_CAPS_DEFAULT, BRICK_CAPS_DEFAULT, BRICK_WIDTHS_DEFAULT,
+                             VOXEL_CAPS_DEFAULT)
 from .bevfusion import BEVFusion, TransFusionTestCfg
 from .bevfusion.centerpoint import CenterTestCfg
 from .bevfusion.segm import SEG_CLASSES
@@ -29,8 +30,6 @@ from .layers import BatchNorm2d, MaskedBatchNorm, SparseConvDown, SubMConv
 from .necks.rpn import ConvBN
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# JAX's other backbone engines, with the ROADMAP item each waits for
-_ENGINES_TO_PORT = {"brick": "A9.d.3", "hybrid": "A9.d.4", "dense": "A9.d.4"}
 
 
 @dataclass
@@ -103,10 +102,13 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def build_detector(cfg, device=None, seed: int = 0) -> DetectorBundle:
     """cfg: experiment Config (model / tasks / voxel_generator / box_coder /
-    target_assigner / test_cfg). The backbone's ``impl`` is "gather" when
-    the config names none, as in JAX (with ``voxel_caps``, f32 only), or
-    "banded" (``dtype``, ``brick_widths``, ``banded_caps``); "brick",
-    "hybrid" and "dense" are refused with their ROADMAP item. The model gets
+    target_assigner / test_cfg). The backbone's ``impl`` is every engine of
+    JAX's: "gather" when the config names none, as in JAX (``voxel_caps``),
+    "banded" (``dtype``, ``brick_widths``, ``banded_caps``), "brick"
+    (``dtype``, ``brick_widths``, ``brick_caps``), "hybrid" (``voxel_caps``;
+    its L0 is the gather engine) and "dense" (``dtype``). The gather and
+    hybrid engines run in float32 alone: bf16 on the gather kernel is
+    refused with its ROADMAP item (A9.d.5). The model gets
     seeded random weights (``init_random_``); load trained ones with
     ``model.load_state_dict``. ``device=None`` means the CUDA card and raises
     when there is none."""
@@ -117,13 +119,9 @@ def build_detector(cfg, device=None, seed: int = 0) -> DetectorBundle:
     backbone_cfg = dict(model_cfg.get("backbone", {}))
     impl = str(backbone_cfg.get("impl", "gather"))
     dtype = str(backbone_cfg.get("dtype", "float32"))
-    if impl in _ENGINES_TO_PORT:
-        raise NotImplementedError(f"backbone impl={impl!r} is not ported yet (ROADMAP "
-                                  f"{_ENGINES_TO_PORT[impl]}); the port runs 'gather' (the "
-                                  "default) and 'banded'")
-    if impl == "gather" and dtype != "float32":
+    if impl in ("gather", "hybrid") and dtype != "float32":
         raise NotImplementedError(f"the gather engine runs in float32 (its kernel is f32); "
-                                  f"dtype={dtype!r} on it waits for ROADMAP A9.d.5")
+                                  f"dtype={dtype!r} on impl={impl!r} waits for ROADMAP A9.d.5")
     vg = cfg["voxel_generator"]
     voxel_cfg = VoxelConfig(tuple(vg["range"]), tuple(vg["voxel_size"]),
                             int(vg["max_points_in_voxel"]), int(vg["max_voxel_num"]))
@@ -190,6 +188,7 @@ def build_detector(cfg, device=None, seed: int = 0) -> DetectorBundle:
         banded_caps=tuple(backbone_cfg.get("banded_caps", BANDED_CAPS_DEFAULT)),
         voxel_cfg=voxel_cfg, backbone_impl=impl,
         voxel_caps=tuple(backbone_cfg.get("voxel_caps", VOXEL_CAPS_DEFAULT)),
+        brick_caps=tuple(backbone_cfg.get("brick_caps", BRICK_CAPS_DEFAULT)),
     )
     init_random_(model, torch.Generator().manual_seed(seed))
     return DetectorBundle(

@@ -3,7 +3,7 @@
 
 The inverse of ``dal3d_tpu/models/convert_second.py`` (which maps det3d
 torch checkpoints onto the flax trees): it takes the ``{"params",
-"batch_stats"}`` trees of an ``FPNVoxelNet`` (banded or gather engine), or
+"batch_stats"}`` trees of an ``FPNVoxelNet`` (any backbone engine), or
 of a ``BEVFusion``, as nested dicts of numpy arrays and returns the matching
 ``state_dict`` of ``models/detectors/voxelnet.py::FPNVoxelNet`` or
 ``models/bevfusion/bevfusion.py::BEVFusion``.
@@ -69,15 +69,18 @@ def _block(params, stats, src: str, dst: str, out: dict) -> None:
 def flax_to_state_dict(variables: dict, model) -> Dict[str, torch.Tensor]:
     """{"params", "batch_stats"} of a flax FPNVoxelNet -> state_dict of the
     port's ``model`` (an FPNVoxelNet; its neck gives the RPN layout). The
-    banded engine nests L0 under ``FPNSpMiddleResNetFHD_0/l0``; the gather
-    engine inlines it under ``FPNSpMiddleResNetFHD_0`` (the port's names are
-    ``backbone.l0.*`` for both)."""
+    banded, brick and hybrid engines nest L0 under
+    ``FPNSpMiddleResNetFHD_0/l0`` (hybrid's is the remat-wrapped
+    ``_L0GatherSection``, under the same name); the gather and dense engines
+    inline it under ``FPNSpMiddleResNetFHD_0`` (the port's names are
+    ``backbone.l0.*`` for all). The stages are ``stage{1..3}`` on every
+    engine, remat-wrapped or not."""
     params = _flatten(variables["params"])
     stats = _flatten(variables.get("batch_stats", {}))
     out: Dict[str, np.ndarray] = {}
 
     bb = "FPNSpMiddleResNetFHD_0"
-    l0 = f"{bb}/l0" if model.backbone.impl == "banded" else bb
+    l0 = f"{bb}/l0" if model.backbone.impl in ("banded", "brick", "hybrid") else bb
     out["backbone.l0.stem.weight"] = params[f"{l0}/SubMConv_0/kernel"]
     _bn(params, stats, f"{l0}/MaskedBatchNorm_0", "backbone.l0.stem_bn", out)
     for i in (0, 1):

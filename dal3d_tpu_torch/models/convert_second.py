@@ -17,8 +17,10 @@ Layouts:
     the names change;
   - backbone: ``middle_conv0`` (stem 0, BN 1, blocks 3 / 4, strided conv 5,
     BN 6) -> ``backbone.l0``; ``middle_conv{1..3}`` (blocks 0 / 1, strided
-    conv 2, BN 3) -> ``backbone.stage{1..3}``. A non-FPN checkpoint (one
-    ``middle_conv``) is refused: the port's backbone is the FPN one;
+    conv 2, BN 3) -> ``backbone.stage{1..3}``. A non-FPN checkpoint
+    (``SpMiddleResNetFHD``: one ``middle_conv`` Sequential, its L0 at the
+    same indices, its stages at 8 / 9, 10, 11 | 13 / 14, 15, 16 | 18 / 19,
+    20, 21) maps onto the same names, as JAX's converter reads it;
   - neck: ``neck.blocks.{b}.{1 + 3j}`` (after the ZeroPad) and its BN at
     ``{2 + 3j}`` -> ``neck.blocks.{b}.{j}`` with ``.bn``;
     ``neck.deblocks.{d}.0`` / ``.1`` -> ``neck.deblocks.{d}`` with ``.bn``;
@@ -66,32 +68,36 @@ def _block(sd, src: str, dst: str, out: dict) -> None:
 
 
 def convert_second_state_dict(state_dict: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """A det3d CBGS FPN VoxelNet ``state_dict`` (numpy or torch values) ->
-    the port's FPNVoxelNet ``state_dict`` (f32 CPU tensors). Raises KeyError
-    on a layout it does not know."""
+    """A det3d CBGS VoxelNet ``state_dict`` (numpy or torch values; the FPN
+    or the non-FPN backbone) -> the port's FPNVoxelNet ``state_dict`` (f32
+    CPU tensors). Raises KeyError on a layout it does not know."""
     sd = {k: (v.numpy() if isinstance(v, torch.Tensor) else v)
           for k, v in _strip(state_dict).items()}
     out: Dict[str, np.ndarray] = {}
 
-    if not any(k.startswith("backbone.middle_conv0.") for k in sd):
-        if any(k.startswith("backbone.middle_conv.") for k in sd):
-            raise KeyError("a non-FPN SpMiddleResNetFHD checkpoint (one backbone.middle_conv): "
-                           "the port's backbone is FPNSpMiddleResNetFHD "
-                           "(backbone.middle_conv0..3)")
-        raise KeyError("no backbone.middle_conv0.* keys in state_dict")
-    m = "backbone.middle_conv0"
-    out["backbone.l0.stem.weight"] = _spconv(sd[f"{m}.0.weight"])
-    _bn(sd, f"{m}.1", "backbone.l0.stem_bn", out)
-    _block(sd, f"{m}.3", "backbone.l0.block0", out)
-    _block(sd, f"{m}.4", "backbone.l0.block1", out)
-    out["backbone.l0.down.weight"] = _spconv(sd[f"{m}.5.weight"])
-    _bn(sd, f"{m}.6", "backbone.l0.down_bn", out)
-    for s in range(1, STAGES + 1):
-        m, dst = f"backbone.middle_conv{s}", f"backbone.stage{s}"
-        _block(sd, f"{m}.0", f"{dst}.block0", out)
-        _block(sd, f"{m}.1", f"{dst}.block1", out)
-        out[f"{dst}.down.weight"] = _spconv(sd[f"{m}.2.weight"])
-        _bn(sd, f"{m}.3", f"{dst}.down_bn", out)
+    if any(k.startswith("backbone.middle_conv0.") for k in sd):
+        l0 = "backbone.middle_conv0"
+        stages = [(f"backbone.middle_conv{s}.0", f"backbone.middle_conv{s}.1",
+                   f"backbone.middle_conv{s}.2", f"backbone.middle_conv{s}.3")
+                  for s in range(1, STAGES + 1)]
+    elif any(k.startswith("backbone.middle_conv.") for k in sd):
+        l0 = "backbone.middle_conv"
+        stages = [tuple(f"{l0}.{i + j}" for j in range(4)) for i in (8, 13, 18)]
+    else:
+        raise KeyError("no backbone.middle_conv0.* (FPN) or backbone.middle_conv.* keys in "
+                       "state_dict")
+    out["backbone.l0.stem.weight"] = _spconv(sd[f"{l0}.0.weight"])
+    _bn(sd, f"{l0}.1", "backbone.l0.stem_bn", out)
+    _block(sd, f"{l0}.3", "backbone.l0.block0", out)
+    _block(sd, f"{l0}.4", "backbone.l0.block1", out)
+    out["backbone.l0.down.weight"] = _spconv(sd[f"{l0}.5.weight"])
+    _bn(sd, f"{l0}.6", "backbone.l0.down_bn", out)
+    for s, (b0, b1, down, bn) in enumerate(stages, start=1):
+        dst = f"backbone.stage{s}"
+        _block(sd, b0, f"{dst}.block0", out)
+        _block(sd, b1, f"{dst}.block1", out)
+        out[f"{dst}.down.weight"] = _spconv(sd[f"{down}.weight"])
+        _bn(sd, bn, f"{dst}.down_bn", out)
 
     # neck: block b = Sequential(ZeroPad, then (Conv, BN, ReLU) x layers)
     b = 0

@@ -1,8 +1,9 @@
 """FPNVoxelNet (port of ``dal3d_tpu/models/detectors/voxelnet.py``): host
 voxels, or raw points voxelized on the input's device -> sparse backbone
-(``backbone_impl``: the banded brick engine or the gather engine, JAX's
-default) -> RPN -> multi-group head, plus the pooled neck embedding the AL
-selectors read."""
+(``backbone_impl``: "banded", "brick", "gather" (JAX's default), "hybrid" or
+"dense"; the backbone routes the voxels as JAX's detector does: a brick pack
+for the brick engines, a SparseBatch for the others) -> RPN -> multi-group
+head, plus the pooled neck embedding the AL selectors read."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -11,8 +12,8 @@ import torch
 from torch import nn
 
 from ...ops.voxelize import VoxelConfig, voxelize_mean, voxelize_mean_grid
-from ..backbones.scn import (BANDED_CAPS_DEFAULT, BRICK_WIDTHS_DEFAULT, VOXEL_CAPS_DEFAULT,
-                             FPNSpMiddleResNetFHD)
+from ..backbones.scn import (BANDED_CAPS_DEFAULT, BRICK_CAPS_DEFAULT, BRICK_WIDTHS_DEFAULT,
+                             VOXEL_CAPS_DEFAULT, FPNSpMiddleResNetFHD)
 from ..heads.mg_head import MultiGroupHead
 from ..necks.rpn import RPN
 
@@ -26,7 +27,8 @@ class FPNVoxelNet(nn.Module):
                  rpn_us_filters=(256, 256), backbone_dtype: torch.dtype = torch.float32,
                  brick_widths=BRICK_WIDTHS_DEFAULT, banded_caps=BANDED_CAPS_DEFAULT,
                  voxel_cfg: Optional[VoxelConfig] = None, sort_free_voxelize: bool = True,
-                 backbone_impl: str = "banded", voxel_caps=VOXEL_CAPS_DEFAULT):
+                 backbone_impl: str = "banded", voxel_caps=VOXEL_CAPS_DEFAULT,
+                 brick_caps=BRICK_CAPS_DEFAULT):
         super().__init__()
         # the device voxelizer of a raw-point forward: the grid variant
         # (ascending cells, mean of all points) unless sort_free_voxelize is
@@ -40,7 +42,7 @@ class FPNVoxelNet(nn.Module):
             d_out = (d_out + 2 * p - 3) // 2 + 1
         self.backbone = FPNSpMiddleResNetFHD(sparse_shape, num_input_features,
                                              backbone_dtype, brick_widths, banded_caps,
-                                             backbone_impl, voxel_caps)
+                                             backbone_impl, voxel_caps, brick_caps)
         self.neck = RPN(rpn_layer_nums, rpn_ds_strides, rpn_ds_filters, rpn_us_strides,
                         rpn_us_filters, num_input_features=128 * d_out,
                         dtype=backbone_dtype)

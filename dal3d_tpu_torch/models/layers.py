@@ -1,8 +1,10 @@
-"""Building blocks of the sparse backbones and the dense necks (port of the
-brick and gather-engine branches of ``dal3d_tpu/models/layers.py``).
+"""Building blocks of the sparse backbones and the dense necks (port of
+``dal3d_tpu/models/layers.py``).
 
-The sparse convs take a ``BrickBatch`` (the banded brick engine of the CBGS
-backbone) or a ``SparseBatch`` (the gather engine of BEVFusion's encoder).
+The sparse convs take a ``BrickBatch`` (the banded and brick engines of the
+CBGS backbone), a ``SparseBatch`` (the gather engine, also BEVFusion's
+encoder) or a ``(dense, occ)`` tuple (the dense compute of the ``hybrid``
+and ``dense`` engines: [B, D, H, W, C] and its occupancy [B, D, H, W]).
 
 Parameters stay f32, as in the JAX package, and are cast to the layer's
 compute dtype at each call, so bf16 rounds in the same places. The norms
@@ -13,17 +15,47 @@ with momentum 0.01 in torch's convention.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..ops import dense_sparse as ds
 from ..ops import sparse_backend as sp
 from ..ops import sparse_brick as spb
+
+_STATS_FROZEN = [False]  # set while a checkpointed forward is recomputed
+
+
+@contextlib.contextmanager
+def _frozen_stats():
+    """Running statistics stay as they are inside (a recomputed forward)."""
+    prev = _STATS_FROZEN[0]
+    _STATS_FROZEN[0] = True
+    try:
+        yield
+    finally:
+        _STATS_FROZEN[0] = prev
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint``: its activations are
+    recomputed in backward instead of stored. The recomputation leaves the
+    norms' running statistics alone, so they move once a step, as under
+    JAX's functional remat. Without grad it is a plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _frozen_stats()))
 
 
 def _update_running(bn: nn.Module, mean: torch.Tensor, var: torch.Tensor) -> None:
     """running <- (1 - momentum) * running + momentum * batch, in place,
-    outside the graph."""
+    outside the graph (not in a recomputed forward)."""
+    if _STATS_FROZEN[0]:
+        return
     with torch.no_grad():
         bn.running_mean.mul_(1 - bn.momentum).add_(mean, alpha=bn.momentum)
         bn.running_var.mul_(1 - bn.momentum).add_(var, alpha=bn.momentum)
@@ -50,12 +82,7 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
-            m = mask[..., None].float()
-            cnt = torch.clamp(m.sum(), min=1.0)
-            xf = x.float()
-            dims = tuple(range(x.ndim - 1))
-            mean = (xf * m).sum(dims) / cnt
-            var = (torch.square(xf - mean) * m).sum(dims) / cnt
+            mean, var = ds.masked_mean_var(x, mask)
             _update_running(self, mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -124,8 +151,9 @@ class BatchNormLast(BatchNorm2d):
 
 class SubMConv(nn.Module):
     """Submanifold sparse conv with a prebuilt shared rulebook, on a
-    BrickBatch (banded engine) or a SparseBatch (gather engine); weight
-    [K, Cin, Cout] in z-major tap order. Padding voxels stay zero."""
+    BrickBatch (brick engines) or a SparseBatch (gather engine), or masked
+    dense on a ``(dense, occ)`` tuple (no rulebook); weight [K, Cin, Cout] in
+    z-major tap order. Inactive sites stay zero."""
 
     def __init__(self, cin: int, cout: int, kernel_size=3, use_bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -136,7 +164,14 @@ class SubMConv(nn.Module):
         self.weight = nn.Parameter(torch.zeros(K, cin, cout))
         self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
-    def forward(self, x, rulebook):
+    def forward(self, x, rulebook=None):
+        if isinstance(x, tuple):
+            dense, occ = x
+            occ = occ.to(self.dtype)
+            out = ds.subm_conv_dense(dense.to(self.dtype), occ, self.weight, self.kernel_size)
+            if self.bias is not None:
+                out = (out + self.bias.to(self.dtype)) * occ[..., None]
+            return out, occ
         if x.features.dtype != self.dtype:
             x = x.replace(features=x.features.to(self.dtype))
         if isinstance(x, sp.SparseBatch):
@@ -158,18 +193,28 @@ class SubMConv(nn.Module):
 
 class SparseConvDown(nn.Module):
     """Strided sparse conv (new output active set of at most ``out_cap``
-    sites) on the banded engine (``out_bw``: the output brick width) or the
-    gather engine; bias-free as every downsample of both backbones."""
+    sites) on a brick engine (``out_bw``: the output brick width;
+    ``spatial``: the banded engine's y-major output order, else the brick
+    engine's first-appearance order), the gather engine, or dense on a
+    ``(dense, occ)`` tuple (no cap); bias-free as every downsample of the
+    backbones."""
 
     def __init__(self, cin: int, cout: int, kernel_size, stride, padding,
-                 out_cap: int, out_bw: int = 0, dtype: torch.dtype = torch.float32):
+                 out_cap: int, out_bw: int = 0, dtype: torch.dtype = torch.float32,
+                 spatial: bool = True):
         super().__init__()
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
         self.out_cap, self.out_bw, self.dtype = out_cap, out_bw, dtype
+        self.spatial = spatial
         K = int(np.prod(spb._triple(kernel_size)))
         self.weight = nn.Parameter(torch.zeros(K, cin, cout))
 
     def forward(self, x, grid: torch.Tensor | None = None):
+        if isinstance(x, tuple):
+            dense, occ = x
+            return ds.sparse_conv_down_dense(dense.to(self.dtype), occ.to(self.dtype),
+                                             self.weight, self.kernel_size, self.stride,
+                                             self.padding)
         if x.features.dtype != self.dtype:
             x = x.replace(features=x.features.to(self.dtype))
         if isinstance(x, sp.SparseBatch):
@@ -177,4 +222,4 @@ class SparseConvDown(nn.Module):
                                              self.stride, self.padding, self.out_cap, grid)
         return spb.downsample_conv_banded(
             x, self.weight.to(self.dtype), self.kernel_size, self.stride, self.padding,
-            out_bw=self.out_bw, out_cap=self.out_cap, grid=grid)
+            out_bw=self.out_bw, out_cap=self.out_cap, grid=grid, spatial=self.spatial)

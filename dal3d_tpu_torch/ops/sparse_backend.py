@@ -2,9 +2,11 @@
 ``dal3d_tpu/ops/sparse_backend.py``): the dense-index-grid engine
 (``ops/sparse_grid.py``) with the shared struct and compute of
 ``ops/sparse.py``, under BEVFusion's SparseEncoder and the CBGS backbone's
-``impl="gather"``. The JAX package's ``DAL3D_SPARSE_ENGINE`` switch to its
-searchsorted engine is not ported: the port has no environment knobs, and
-that engine waits for ROADMAP A9.d.2."""
+``impl="gather"`` and ``"hybrid"`` (L0). JAX's ``DAL3D_SPARSE_ENGINE``
+switch to its searchsorted engine has no counterpart: the port has no
+environment knobs, and that engine's functions are called by name from
+``ops/sparse.py`` (``from_voxels``, ``subm_rulebook``, ``downsample_plan``,
+``sparse_conv_downsample``)."""
 from .sparse import SparseBatch, gather_gemm, to_dense
 from .sparse_grid import (build_index_grid, downsample_plan, from_voxels,
                           sparse_conv_downsample, subm_conv, subm_rulebook, with_plan)

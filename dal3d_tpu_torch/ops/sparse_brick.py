@@ -1,5 +1,5 @@
-"""Brick-packed sparse 3D convolution engine, banded form (port of
-``dal3d_tpu/ops/sparse_brick.py``).
+"""Brick-packed sparse 3D convolution engine, the banded and the brick form
+(port of ``dal3d_tpu/ops/sparse_brick.py``).
 
 Data model (the JAX layout, kept at every public function):
   features  [B, Mb, bw*C]   w-major rows (view [B, Mb, bw, C])
@@ -7,11 +7,18 @@ Data model (the JAX layout, kept at every public function):
                             carry the sentinel D*H*(W/bw)
   vmask     [B, Mb, bw]     per-voxel active mask
 
-Bricks are compacted in y-major spatial order ((y, x_brick, z) ascending),
-as JAX's ``spatial=True`` packing does; capacity overflow drops the highest
-(y, x, z) bricks. Every plan (brick pack, subm rulebook, halo rows,
-downsample output set and rulebook) is built on the tensor's device with the
-same scatter / cumsum steps as JAX, so the integer plans are bit-identical.
+The banded engine (``spatial=True``) compacts bricks in y-major spatial
+order ((y, x_brick, z) ascending); capacity overflow drops the highest
+(y, x, z) bricks. The brick engine (``spatial=False``) compacts them in
+the order of their last appearance in the candidate list (``_compact_cells``:
+each cell's representative is its last entry, as JAX's scatter keeps the
+last writer); beyond the cap the latest-appearing bricks are dropped. Every
+plan (brick pack, subm rulebook, halo rows, downsample output set and
+rulebook) is built on the tensor's device with the same scatter / cumsum
+steps as JAX, so the integer plans are bit-identical. Both engines run the
+same convs: JAX's non-banded subm conv (halo pad, gather, one einsum) and
+strided conv are the functions ``banded_gather_matmul`` computes over the
+full rulebook.
 
 Rulebooks are full: one int32 tensor with -1 for a miss. A subm rulebook is
 JAX's ``pack_host_rulebook`` layout [B, 11, Mb]: rows 0-8 the (dz, dy) taps in
@@ -270,12 +277,68 @@ def _rank_first(occ: torch.Tensor, cap: int, fill: int) -> torch.Tensor:
     return out[:, :cap]
 
 
+def _spatial_outputs(grid, bb: BrickBatch, kzy, out_bricks, A: int, b0e: int, nwbe: int,
+                     out_cap: int) -> torch.Tensor:
+    """The banded engine's output bricks [B, out_cap]: the input occupancy
+    OR-ed over each output's window (strided slices of the padded grid),
+    ranked in y-major (y, x_brick, z) order; overflow drops the highest."""
+    kd, kh, sd, sh, pd, ph = kzy
+    Do, Ho, Wbo = out_bricks
+    D, H, _ = bb.shape
+    Wb = bb.wb
+    B = grid.shape[0]
+    pz0 = max(0, pd)
+    pz1 = max(0, sd * (Do - 1) - pd + kd - 1 - (D - 1))
+    py0 = max(0, ph)
+    py1 = max(0, sh * (Ho - 1) - ph + kh - 1 - (H - 1))
+    pw0 = max(0, -b0e)
+    pw1 = max(0, A * (Wbo - 1) + b0e + nwbe - 1 - (Wb - 1))
+    occ = (grid[:, :bb.num_cells] >= 0).reshape(B, D, H, Wb)
+    occ = torch.nn.functional.pad(occ.to(torch.uint8), (pw0, pw1, py0, py1, pz0, pz1))
+    acc = torch.zeros(B, Do, Ho, Wbo, dtype=torch.uint8, device=grid.device)
+    for dz in range(kd):
+        for dy in range(kh):
+            for dwb in range(nwbe):
+                z0, y0, x0 = pz0 - pd + dz, py0 - ph + dy, pw0 + b0e + dwb
+                acc |= occ[:, z0:z0 + sd * (Do - 1) + 1:sd,
+                           y0:y0 + sh * (Ho - 1) + 1:sh,
+                           x0:x0 + A * (Wbo - 1) + 1:A]
+    occ_y = acc.permute(0, 2, 3, 1).reshape(B, -1).long()  # (yo, wbo, zo) key order
+    oky = _rank_first(occ_y, out_cap, -1)
+    zz = torch.remainder(oky, Do)
+    rr = torch.div(oky, Do, rounding_mode="floor")
+    return torch.where(
+        oky >= 0,
+        (zz * Ho + torch.div(rr, Wbo, rounding_mode="floor")) * Wbo + torch.remainder(rr, Wbo),
+        torch.full_like(oky, Do * Ho * Wbo))
+
+
+def _compact_cells(cells: torch.Tensor, nbc: int, cap: int) -> torch.Tensor:
+    """Dedup + compact cell lists [B, L] (sentinel nbc) to [B, cap] in the
+    order of each cell's last entry in the list (JAX's ``_compact_cells``:
+    its scatter keeps the last writer, here a deterministic ``amax`` of the
+    entry positions); beyond ``cap`` the latest ones are dropped."""
+    B, L = cells.shape
+    c = torch.clamp(cells.long(), max=nbc)
+    pos = torch.arange(L, device=cells.device).expand(B, L)
+    last = torch.full((B, nbc + 1), -1, dtype=torch.long, device=cells.device)
+    last.scatter_reduce_(1, c, pos, reduce="amax")
+    win = (torch.gather(last, 1, c) == pos) & (c < nbc)
+    slot = torch.cumsum(win.long(), dim=-1) - 1
+    tgt = torch.where(win, torch.clamp(slot, max=cap), cap)
+    out = torch.full((B, cap + 1), nbc, dtype=torch.long, device=cells.device)
+    out.scatter_(1, tgt, torch.where(win, c, nbc))  # winners hold distinct slots
+    return out[:, :cap]
+
+
 @torch.no_grad()
 def downsample_plan(bb: BrickBatch, kernel_size, stride, padding, out_bw: int,
-                    out_cap: int, grid: torch.Tensor | None = None):
-    """Plan a strided sparse conv in brick space (JAX's ``spatial=True``
-    dense-stencil form). Returns (out_lin [B, Mo] int32, idx [B, Q, Mo] int32
-    with -1 = miss, out_shape, meta, halo [B, 2, Mb])."""
+                    out_cap: int, grid: torch.Tensor | None = None, spatial: bool = True):
+    """Plan a strided sparse conv in brick space. ``spatial``: JAX's dense-
+    stencil form, output bricks in y-major order (the banded engine);
+    otherwise each input brick's candidate outputs, compacted in order of
+    appearance (the brick engine). Returns (out_lin [B, Mo] int32, idx
+    [B, Q, Mo] int32 with -1 = miss, out_shape, meta, halo [B, 2, Mb])."""
     kd, kh, kw = _triple(kernel_size)
     sd, sh, sw = _triple(stride)
     pd, ph, pw = _triple(padding)
@@ -293,36 +356,32 @@ def downsample_plan(bb: BrickBatch, kernel_size, stride, padding, out_bw: int,
     if grid is None:
         grid = build_brick_grid(bb)
 
-    # output active bricks: OR of the input occupancy over the window, with
-    # the w window extended one output voxel each side so an output brick
-    # exists wherever its halo voxel is active
+    # output active bricks: those whose window (the w window extended one
+    # output voxel each side, so that an output brick exists wherever its
+    # halo voxel is active) holds an active input brick
     w_start_e, w_end_e = -sw - pw, sw * out_bw - pw + kw - 1
     b0e = w_start_e // bw
     nwbe = (w_end_e // bw) - b0e + 1
-    pz0 = max(0, pd)
-    pz1 = max(0, sd * (Do - 1) - pd + kd - 1 - (D - 1))
-    py0 = max(0, ph)
-    py1 = max(0, sh * (Ho - 1) - ph + kh - 1 - (H - 1))
-    pw0 = max(0, -b0e)
-    pw1 = max(0, A * (Wbo - 1) + b0e + nwbe - 1 - (Wb - 1))
-    occ = (grid[:, :nbc_in] >= 0).reshape(B, D, H, Wb)
-    occ = torch.nn.functional.pad(occ.to(torch.uint8), (pw0, pw1, py0, py1, pz0, pz1))
-    acc = torch.zeros(B, Do, Ho, Wbo, dtype=torch.uint8, device=dev)
-    for dz in range(kd):
-        for dy in range(kh):
-            for dwb in range(nwbe):
-                z0, y0, x0 = pz0 - pd + dz, py0 - ph + dy, pw0 + b0e + dwb
-                acc |= occ[:, z0:z0 + sd * (Do - 1) + 1:sd,
-                           y0:y0 + sh * (Ho - 1) + 1:sh,
-                           x0:x0 + A * (Wbo - 1) + 1:A]
-    occ_y = acc.permute(0, 2, 3, 1).reshape(B, -1).long()  # (yo, wbo, zo) key order
-    oky = _rank_first(occ_y, out_cap, -1)
-    zz = torch.remainder(oky, Do)
-    rr = torch.div(oky, Do, rounding_mode="floor")
-    out_lin = torch.where(
-        oky >= 0,
-        (zz * Ho + torch.div(rr, Wbo, rounding_mode="floor")) * Wbo + torch.remainder(rr, Wbo),
-        torch.full_like(oky, nbc_out))
+    if spatial:
+        out_lin = _spatial_outputs(grid, bb, (kd, kh, sd, sh, pd, ph), (Do, Ho, Wbo), A, b0e,
+                                   nwbe, out_cap)
+    else:
+        # invert the window per input brick (each feeds at most ceil(k / s)
+        # outputs a dim), candidate-major as JAX's list, then compact
+        cand = torch.as_tensor(np.stack(np.meshgrid(
+            np.arange(-(-kd // sd)), np.arange(-(-kh // sh)), np.arange(-(-nwbe // A)),
+            indexing="ij"), -1).reshape(-1, 3), dtype=torch.long, device=dev)
+        lin = bb.brick_lin.long()
+        zi, yi, wi = (v[:, None, :] for v in _decode(lin, H, Wb))
+        zo = torch.div(zi + pd, sd, rounding_mode="floor") - cand[None, :, 0:1]
+        yo = torch.div(yi + ph, sh, rounding_mode="floor") - cand[None, :, 1:2]
+        wo = torch.div(wi - b0e, A, rounding_mode="floor") - cand[None, :, 2:3]
+        ok = ((zo >= 0) & (zo < Do) & (sd * zo - pd <= zi) & (zi <= sd * zo - pd + kd - 1)
+              & (yo >= 0) & (yo < Ho) & (sh * yo - ph <= yi) & (yi <= sh * yo - ph + kh - 1)
+              & (wo >= 0) & (wo < Wbo) & (A * wo + b0e <= wi) & (wi <= A * wo + b0e + nwbe - 1)
+              & (lin < nbc_in)[:, None, :])
+        cells = torch.where(ok, (zo * Ho + yo) * Wbo + wo, nbc_out)
+        out_lin = _compact_cells(cells.reshape(B, -1), nbc_out, out_cap)
 
     # rulebook: taps over (dz, dy, halo-padded input brick), z-major
     taps = torch.as_tensor(
@@ -381,14 +440,17 @@ def down_wband(weights: torch.Tensor, bw: int, out_bw: int, meta: dict,
 
 
 def downsample_conv_banded(bb: BrickBatch, weights: torch.Tensor, kernel_size, stride,
-                    padding, out_bw: int, out_cap: int, plan=None,
-                    grid: torch.Tensor | None = None) -> BrickBatch:
-    """Strided sparse conv on the banded engine (``downsample_conv_banded``):
-    a 3-tap halo-pad gather of the combined [features | validity] table, then
-    one Q = kd*kh*nwb_h tap gather whose block weights yield [conv output |
+                           padding, out_bw: int, out_cap: int, plan=None,
+                           grid: torch.Tensor | None = None, spatial: bool = True) -> BrickBatch:
+    """Strided sparse conv on the banded engine (``downsample_conv_banded``),
+    or with ``spatial=False`` on the brick engine (JAX's ``downsample_conv``,
+    the same function over a first-appearance plan): a 3-tap halo-pad
+    gather of the combined [features | validity] table, then one Q =
+    kd*kh*nwb_h tap gather whose block weights yield [conv output |
     per-voxel validity count]. weights [kd*kh*kw, Cin, Cout] z-major."""
     if plan is None:
-        plan = downsample_plan(bb, kernel_size, stride, padding, out_bw, out_cap, grid)
+        plan = downsample_plan(bb, kernel_size, stride, padding, out_bw, out_cap, grid,
+                               spatial)
     out_lin, idx, out_shape, meta, halo = plan
     bw, C = bb.bw, bb.channels
     Cout = weights.shape[-1]
@@ -475,12 +537,14 @@ def count_active_bricks(coords_zyx: torch.Tensor, valid: torch.Tensor, shape,
 
 @torch.no_grad()
 def pack_plan_arrays(coords_zyx: torch.Tensor, valid: torch.Tensor, shape, bw: int,
-                     mb_cap: int):
+                     mb_cap: int, spatial: bool = True):
     """(brick_lin [B, Mb] int32, row [B, N] int32): the active bricks in
-    y-major order and each voxel's brick row (-1 = invalid or dropped)."""
+    y-major order (``spatial``) or in order of appearance, and each voxel's
+    brick row (-1 = invalid or dropped)."""
     D, H, W = (int(s) for s in shape)
     cand, cell, _, nbc, Wb = _brick_candidates(coords_zyx, valid, shape, bw)
-    lin = _compact_cells_spatial(cand, nbc, mb_cap, (D, H, Wb))
+    lin = (_compact_cells_spatial(cand, nbc, mb_cap, (D, H, Wb)) if spatial
+           else _compact_cells(cand, nbc, mb_cap))
     grid = _grid_from_lin(lin, nbc)
     row = _grid_lookup(grid, cell)
     row = torch.where(valid & (row >= 0), row, torch.full_like(row, -1))
@@ -488,13 +552,15 @@ def pack_plan_arrays(coords_zyx: torch.Tensor, valid: torch.Tensor, shape, bw: i
 
 
 def from_voxels(features: torch.Tensor, coords_zyx: torch.Tensor, valid: torch.Tensor,
-                shape, bw: int, mb_cap: int) -> BrickBatch:
-    """Voxel list (any row order) -> BrickBatch, bricks in y-major order.
+                shape, bw: int, mb_cap: int, spatial: bool = True) -> BrickBatch:
+    """Voxel list (any row order) -> BrickBatch, bricks in y-major order
+    (``spatial``, the banded engine) or in order of appearance (the brick
+    engine: beyond ``mb_cap`` the latest-appearing bricks are dropped).
     features [B, N, C], coords_zyx [B, N, 3], valid [B, N]."""
     D, H, W = (int(s) for s in shape)
     B, N, C = features.shape
     valid = valid.bool()
-    brick_lin, row = pack_plan_arrays(coords_zyx, valid, shape, bw, mb_cap)
+    brick_lin, row = pack_plan_arrays(coords_zyx, valid, shape, bw, mb_cap, spatial)
     ok = row >= 0
     wpos = torch.remainder(coords_zyx[..., 2].long(), bw)
     fv = torch.cat([torch.where(ok[..., None], features, torch.zeros_like(features)),

@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from .gather import gather_plan
-from .sparse import SparseBatch, _kernel_offsets, _triple, gather_gemm
+from . import sparse as _sp
+from .sparse import SparseBatch, _kernel_offsets, _triple, downsample_conv
 from .sparse_brick import _decode, _rank_first
 
 
@@ -129,8 +130,8 @@ def downsample_plan(sb: SparseBatch, kernel_size, stride, padding, out_cap: int,
 
 
 def with_plan(rulebook):
-    """(idx, hit) -> (idx, hit, plan): a submanifold rulebook shared by
-    several convs, with the gather-GEMM kernel's walk plan
+    """(idx, hit) -> (idx, hit, plan): a submanifold rulebook (of either
+    engine) shared by several convs, with the gather-GEMM kernel's walk plan
     (``ops/gather.py::gather_plan``, sorted and symmetric: the input
     gradients walk it too) made once for all of them."""
     idx, hit = rulebook
@@ -139,29 +140,19 @@ def with_plan(rulebook):
 
 def subm_conv(sb: SparseBatch, weights: torch.Tensor, rulebook=None,
               kernel_size=3) -> SparseBatch:
-    """Submanifold sparse conv, weights [K, Cin, Cout]; padding rows stay 0.
-    ``rulebook`` is ``(idx, hit)`` or ``with_plan``'s ``(idx, hit, plan)``."""
+    """Submanifold sparse conv (``ops/sparse.py::subm_conv``), its rulebook
+    built on the index grid when none is given."""
     if rulebook is None:
         rulebook = subm_rulebook(sb, kernel_size)
-    idx, hit = rulebook[:2]
-    plan = (rulebook[2] if len(rulebook) > 2
-            else gather_plan(idx, hit, sort=False, symmetric=True))
-    out = gather_gemm(sb.features, idx, hit, weights, plan)
-    out = torch.where(sb.valid[..., None], out, torch.zeros((), dtype=out.dtype,
-                                                            device=out.device))
-    return SparseBatch(features=out, lin=sb.lin, shape=sb.shape)
+    return _sp.subm_conv(sb, weights, rulebook, kernel_size)
 
 
 def sparse_conv_downsample(sb: SparseBatch, weights: torch.Tensor, kernel_size, stride,
                            padding, out_cap: int, grid=None) -> SparseBatch:
     """Strided (non-submanifold) sparse conv onto a new active set of at most
     ``out_cap`` rows."""
-    out_lin, idx, hit, out_shape = downsample_plan(sb, kernel_size, stride, padding,
-                                                   out_cap, grid)
-    out = gather_gemm(sb.features, idx, hit, weights)
-    keep = (out_lin < int(np.prod(out_shape)))[..., None]
-    out = torch.where(keep, out, torch.zeros((), dtype=out.dtype, device=out.device))
-    return SparseBatch(features=out, lin=out_lin, shape=out_shape)
+    return downsample_conv(sb, weights, downsample_plan(sb, kernel_size, stride, padding,
+                                                        out_cap, grid))
 
 
 def from_voxels(features: torch.Tensor, coords_zyx: torch.Tensor, valid: torch.Tensor,

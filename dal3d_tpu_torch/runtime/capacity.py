@@ -1,9 +1,10 @@
 """Brick-capacity report (port of ``dal3d_tpu/runtime/capacity.py``).
 
-The banded engine compacts the active bricks of each level into a fixed
-capacity (``backbone.banded_caps``); an overflow drops the highest (y, x, z)
-bricks, and the numbers degrade with no error. This report, logged by the
-trainer on the first batch of a run, makes that visible:
+The brick engines compact the active bricks of each level into a fixed
+capacity (``backbone.banded_caps`` on the banded engine, ``brick_caps`` on
+the brick engine); an overflow drops bricks (the highest (y, x, z) ones, or
+the latest to appear), and the numbers degrade with no error. This report,
+logged by the trainer on the first batch of a run, makes that visible:
 
 - level 0 gives the true (uncapped) demand of the fed voxels
   (``ops/sparse_brick.py::count_active_bricks``), which can exceed its cap;
@@ -14,8 +15,8 @@ trainer on the first batch of a run, makes that visible:
 The active sets depend on the coordinates alone, so levels 1-4 come from
 the downsample plans (``downsample_plan``) chained from the level-0 pack,
 with no convolution launched. A batch without host voxels (raw points)
-gives no report, and neither does a backbone on the gather engine (its
-``voxel_caps`` are not brick capacities), as in JAX.
+gives no report, and neither does a backbone on the gather, hybrid or dense
+engine (its ``voxel_caps`` are not brick capacities), as in JAX.
 """
 from __future__ import annotations
 
@@ -36,11 +37,11 @@ def level_counts(backbone, vc: torch.Tensor, vv: torch.Tensor) -> List[torch.Ten
     shape, bw0 = backbone.sparse_shape, backbone.widths[0]
     counts = [spb.count_active_bricks(vc, vv, shape, bw0)]
     bb = spb.from_voxels(torch.zeros(*vv.shape, 1, device=vc.device), vc, vv, shape,
-                         bw=bw0, mb_cap=backbone.caps[0])
+                         bw=bw0, mb_cap=backbone.caps[0], spatial=backbone.spatial)
     for level in (backbone.l0, backbone.stage1, backbone.stage2, backbone.stage3):
         d = level.down
         out_lin, _, out_shape, _, _ = spb.downsample_plan(
-            bb, d.kernel_size, d.stride, d.padding, d.out_bw, d.out_cap)
+            bb, d.kernel_size, d.stride, d.padding, d.out_bw, d.out_cap, spatial=d.spatial)
         bb = spb.BrickBatch(features=torch.zeros(*out_lin.shape, d.out_bw, device=vc.device),
                             brick_lin=out_lin,
                             vmask=torch.zeros(*out_lin.shape, d.out_bw, dtype=torch.bool,
@@ -53,10 +54,10 @@ def level_counts(backbone, vc: torch.Tensor, vv: torch.Tensor) -> List[torch.Ten
 def brick_capacity_report(bundle, batch: Dict[str, Any]) -> List[Dict[str, Any]]:
     """Per-level rows {"level", "active" (max over the batch), "cap",
     "saturated"} for one batch of host voxels, or [] for a batch without
-    them or a backbone that is not on the banded engine. Saturated: the
+    them or a backbone that is not on a brick engine. Saturated: the
     demand exceeds the cap (level 0) or the compacted list is full (levels
     1-4)."""
-    if "voxel_features" not in batch or bundle.model.backbone.impl != "banded":
+    if "voxel_features" not in batch or bundle.model.backbone.impl not in ("banded", "brick"):
         return []
     inputs = model_inputs(batch, bundle.device)
     backbone = bundle.model.backbone
@@ -85,6 +86,6 @@ def log_capacity_report(trainer, batch) -> None:
     msg = "brick capacities (active/cap, first batch): " + ", ".join(parts)
     if any(r["saturated"] for r in rows):
         trainer.logger.warning(msg + " - saturated levels truncate bricks (numerics degrade "
-                               "silently); raise banded_caps in the model config")
+                               "silently); raise brick_caps / banded_caps in the model config")
     else:
         trainer.logger.info(msg)

@@ -11,6 +11,7 @@ import glob
 import os
 
 import pytest
+import torch
 
 from dal3d_tpu_torch.models.builder import build_bevfusion, build_detector
 from dal3d_tpu_torch.utils.config import Config
@@ -45,9 +46,32 @@ def test_config_builds_as_written(name):
         assert bundle.model.backbone.caps == tuple(bb["voxel_caps"])
 
 
+@pytest.mark.parametrize("impl", ["brick", "hybrid", "dense"])
+def test_every_engine_builds(impl):
+    """configs/cbgs_synthetic.py with another engine builds it, with the
+    knobs JAX's builder reads for it (brick: dtype, widths, brick_caps;
+    hybrid / dense: voxel_caps), and one state dict loads into each."""
+    cfg = Config.fromfile(os.path.join(CONFIGS, "cbgs_synthetic.py"))
+    bb = dict(cfg["model"]["backbone"], impl=impl)
+    if impl == "brick":
+        bb.update(dtype="bfloat16", brick_caps=(900, 1200, 600, 200, 100))
+    cfg["model"] = dict(cfg["model"], backbone=bb)
+    model = build_detector(cfg, device="cpu").model
+    assert model.backbone.impl == impl
+    if impl == "brick":
+        assert model.backbone.caps == (900, 1200, 600, 200, 100)
+        assert model.backbone.l0.stem.dtype == torch.bfloat16
+        assert model.backbone.widths == (16, 16, 8, 4, 4) and not model.backbone.spatial
+    else:
+        assert model.backbone.caps == (8000, 4000, 2000, 2000)
+    gather = build_detector(Config.fromfile(os.path.join(CONFIGS, "cbgs_synthetic.py")),
+                            device="cpu", seed=1).model
+    model.load_state_dict(gather.state_dict(), strict=True)
+
+
 @pytest.mark.parametrize("backbone,item", [
-    (dict(impl="brick"), "A9.d.3"), (dict(impl="hybrid"), "A9.d.4"),
-    (dict(impl="dense"), "A9.d.4"), (dict(impl="gather", dtype="bfloat16"), "A9.d.5")])
+    (dict(impl="gather", dtype="bfloat16"), "A9.d.5"),
+    (dict(impl="hybrid", dtype="bfloat16"), "A9.d.5")])
 def test_engines_not_ported_name_their_item(backbone, item):
     cfg = copy.deepcopy(small_cfg())
     cfg["model"]["backbone"].update(backbone)

@@ -10,8 +10,9 @@ port's CLIs on the CPU.
   prefix is stripped; ``to_det3d_state_dict`` is the exact inverse.
 - The raw-npz pair round-trips and reads JAX's files (and JAX reads the
   port's); ``apply_torch_init`` refuses unknown keys and shape mismatches,
-  keeps and logs what the checkpoint does not cover; a non-FPN checkpoint
-  is refused with its reason.
+  keeps and logs what the checkpoint does not cover; a non-FPN
+  (``SpMiddleResNetFHD``) checkpoint converts bit-equal to JAX's route, a
+  foreign one is refused with its reason.
 - ``tools/convert_second.py`` writes the npz from a .pth and validates it on
   a config's model; ``train --torch_init`` starts from those weights."""
 import logging
@@ -115,12 +116,40 @@ def test_apply_torch_init_checks_and_logs(tmp_path, caplog):
         cs.apply_torch_init(oracle_model(), path)
 
 
-def test_non_fpn_and_foreign_checkpoints_are_refused():
+def _non_fpn(sd):
+    """An FPN det3d state_dict re-indexed as the non-FPN ``SpMiddleResNetFHD``'s
+    one ``backbone.middle_conv`` Sequential: L0 keeps its indices, stage s's
+    blocks / strided conv / BN (0, 1, 2, 3) move to 3 + 5s + (0, 1, 2, 3)."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("backbone.middle_conv0."):
+            k = k.replace("backbone.middle_conv0.", "backbone.middle_conv.")
+        elif k.startswith("backbone.middle_conv"):
+            s, i, rest = k[len("backbone.middle_conv"):].split(".", 2)
+            k = f"backbone.middle_conv.{3 + 5 * int(s) + int(i)}.{rest}"
+        out[k] = v
+    return out
+
+
+def test_non_fpn_checkpoint_converts_as_jax_does():
+    sd = _non_fpn(rnd_state_dict(np.random.RandomState(3)))
+    assert not any(k.startswith("backbone.middle_conv0.") for k in sd)
+    assert "backbone.middle_conv.21.running_var" in sd
+    model = oracle_model()
+    params, stats = jax_convert(sd, nested_l0=True)
+    want = flax_to_state_dict({"params": params, "batch_stats": stats}, model)
+    got = cs.convert_second_state_dict(sd)
+    assert set(got) == set(want) == set(model.state_dict())
+    for k, v in want.items():
+        assert torch.equal(got[k].view(torch.int32), v.view(torch.int32)), k
+    model.load_state_dict(got, strict=True)
+
+
+def test_foreign_checkpoints_are_refused():
     sd = rnd_state_dict(np.random.RandomState(3))
-    single = {k.replace("backbone.middle_conv0.", "backbone.middle_conv."): v
-              for k, v in sd.items()}
-    with pytest.raises(KeyError, match="non-FPN"):
-        cs.convert_second_state_dict(single)
+    with pytest.raises(KeyError, match="no backbone.middle_conv0"):
+        cs.convert_second_state_dict({k: v for k, v in sd.items()
+                                      if not k.startswith("backbone.")})
     with pytest.raises(KeyError, match="no neck.blocks"):
         cs.convert_second_state_dict({k: v for k, v in sd.items() if not k.startswith("neck.")})
     with pytest.raises(KeyError, match="no bbox_head"):

@@ -1009,3 +1009,120 @@ def test_cbgs_gather_predict_on_card_matches_cpu(cuda):  # noqa: F811
                            out["cpu"]["label_preds"][b][cv][co])
         assert torch.allclose(out["cuda"]["box3d_lidar"][b][gv][go],
                               out["cpu"]["box3d_lidar"][b][cv][co], rtol=1e-4, atol=1e-4)
+
+
+class _Spy:
+    """Records every call of a module's kernel wrapper (``name``) with its
+    arguments, and still runs it."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def spy(*args):
+            self.calls.append(args)
+            return self.orig(*args)
+
+        # a wrapper counts its launches on the module attribute it is looked up by
+        spy.launches = getattr(self.orig, "launches", 0)
+        self.spy = spy
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        if hasattr(self.orig, "launches"):
+            self.orig.launches = self.spy.launches
+        setattr(self.module, self.name, self.orig)
+
+
+def _engine_cfg(impl):
+    cfg = small_cfg("bfloat16" if impl == "brick" else "float32")
+    bb = cfg["model"]["backbone"]
+    bb.update(impl=impl, brick_caps=(600, 1200, 600, 200, 100),
+              voxel_caps=(4000, 4000, 4000, 4000))
+    return cfg
+
+
+@pytest.mark.parametrize("impl", ["brick", "hybrid"])
+def test_engine_launches_on_card_match_plain(cuda, impl):  # noqa: F811
+    """Every kernel launch of the brick engine (K1 forward and input
+    gradients, K3 weight gradients; bf16) and of the hybrid engine's L0 (K4
+    forward and input gradients; f32) in a predict-mode forward and a
+    train-mode forward + backward at small size, each against its plain
+    version on the same inputs; the launch counts of the path."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    vf, vc, vv = small_voxels(0)
+    model = build_detector(_engine_cfg(impl), device=cuda, seed=4).model
+    args = [torch.from_numpy(a).to(cuda) for a in (vf, vc, vv)]
+    if impl == "brick":
+        spies = (_Spy(tbd, "banded_conv"), _Spy(tbd, "banded_dw"))
+    else:
+        spies = (_Spy(tg, "_launch_gemm"), _Spy(tg, "_launch_dw"))
+    with spies[0] as fwd, spies[1] as dw:
+        with torch.inference_mode():
+            model.eval()(*args)
+        n_predict = len(fwd.calls)
+        out = model.train()(*args)
+        (out["dense"] * torch.randn_like(out["dense"])).sum().backward()
+        torch.cuda.synchronize()
+    n_train, n_dw = len(fwd.calls) - n_predict, len(dw.calls)
+    if impl == "brick":
+        assert (n_predict, n_train, n_dw) == (42, 42 + 36, 21)
+        for table, idx, w in fwd.calls:
+            ref = tbd.banded_conv_plain(table, idx, w).float()
+            got = tbd.banded_conv(table, idx, w).float()
+            assert float((got - ref).abs().max()) <= 2.0 ** -7 * float(ref.abs().max())
+        for table, idx, g in dw.calls:
+            ref = tbd.banded_dw_plain(table, idx, g)
+            assert float((tbd.banded_dw(table, idx, g) - ref).abs().max()) <= \
+                1e-4 * float(ref.abs().max())
+    else:  # L0: stem, 4 subm convs, the downsample; dX for all but the stem
+        assert (n_predict, n_train, n_dw) == (6, 6 + 5, 6)
+        with torch.no_grad():  # a launch walks its plan's rows in plan.order
+            for f, plan, w in fwd.calls:  # forward and input-gradient launches
+                rb = plan.rulebook
+                ref = tg.gather_gemm_plain(f, torch.clamp(rb, min=0), rb >= 0, w)
+                if plan.order is not None:
+                    ref = torch.empty_like(ref).scatter_(
+                        1, plan.order[..., None].expand_as(ref), ref)
+                got = tg._launch_gemm(f, plan, w)
+                assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+            for f, plan, g in dw.calls:
+                rb, gp = plan.rulebook, g
+                if plan.order is not None:
+                    gp = torch.gather(g, 1, plan.order[..., None].expand_as(g))
+                ref = tg.gather_dw_plain(f, torch.clamp(rb, min=0), rb >= 0, gp)
+                got = tg._launch_dw(f, plan, g)
+                assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("impl", ["brick", "hybrid", "dense"])
+def test_engine_predict_on_card_matches_cpu(cuda, impl):  # noqa: F811
+    """The small CBGS model on each new engine, seeded weights: the card
+    (kernels, cuDNN) against the CPU (plain versions): the dense map within
+    1e-4 of scale (f32) or 2e-2 (brick's bf16), detections equal as sets."""
+    vf, vc, vv = small_voxels(0)
+    batch = {"voxel_features": vf, "voxel_coords": vc, "voxel_valid": vv}
+    out, maps = {}, {}
+    for dev in ("cpu", "cuda"):
+        bundle = build_detector(_engine_cfg(impl), device=dev, seed=4)
+        out[dev] = {k: v.cpu() for k, v in make_predict_step(bundle)(batch).items()}
+        with torch.inference_mode():
+            maps[dev] = bundle.model(*(torch.from_numpy(a).to(dev) for a in (vf, vc, vv)))[
+                "dense"].cpu()
+    tol = 2e-2 if impl == "brick" else 1e-4
+    assert float((maps["cuda"] - maps["cpu"]).abs().max()) <= tol * float(
+        maps["cpu"].abs().max())
+    for b in range(2):
+        cv, gv = out["cpu"]["det_valid"][b], out["cuda"]["det_valid"][b]
+        assert int(cv.sum()) > 0
+        if impl != "brick":  # bf16 scores may reorder ties at the threshold
+            assert int(cv.sum()) == int(gv.sum())
+            cs_, gs = out["cpu"]["scores"][b][cv], out["cuda"]["scores"][b][gv]
+            co, go = torch.argsort(-cs_, stable=True), torch.argsort(-gs, stable=True)
+            assert torch.allclose(gs[go], cs_[co], rtol=1e-4, atol=1e-5)
+            assert torch.allclose(out["cuda"]["box3d_lidar"][b][gv][go],
+                                  out["cpu"]["box3d_lidar"][b][cv][co], rtol=1e-4, atol=1e-4)
