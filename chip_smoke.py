@@ -223,23 +223,35 @@ Phases, each fatal on failure:
  22. the other backbone engines at full width on phase 3's voxels (B=2), one
      seeded state dict for all: ``brick`` (bf16, brick caps (48000, 17000,
      10000, 6000, 6000): the capacity report, every K1 launch of a predict
-     against its plain version, a warm-up and 5 timed predicts (42 K1, 1 K2
+     against its plain version, a warm-up and 3 timed predicts (42 K1, 1 K2
      each), the maps and every level against the banded engine's where
      neither drops a brick (both at caps no level fills), the maps against
      plain versions, a train step's gradient against plain versions within
      twice its floor (features moved by one bf16 ulp), every K1 / K3 launch
-     of a step, a warm-up and 3 timed steps (78 K1, 21 K3 each), split, peak
-     memory, idle share); ``hybrid`` (f32, voxel caps (60000, 60000, 30000,
+     of a step, a warm-up and 2 timed steps (78 K1, 21 K3 each), split
+     (median of 3), peak memory, idle share); ``hybrid`` (f32, voxel caps (60000, 60000, 30000,
      30000): the same with K4 (6 a predict; 6 + 5 dX and 6 K4-dW a step),
-     the maps and detections against plain versions); ``dense`` (f32: 3
-     timed predicts with the warm-up's autotuner apart, the on-card oracle:
-     the gather engine at caps that hold every level against the dense
-     engine, level by level and map by map within 1e-4 of scale, and the
-     production caps' dropped sites; one train step at B=2 with its peak);
+     the maps and detections against plain versions); ``dense`` (f32: 2
+     timed predicts with the warm-up apart, the on-card oracle: the gather
+     engine at caps that hold every level against the dense engine, level
+     by level and map by map within 1e-4 of scale, and the production caps'
+     dropped sites; one train step at B=2, timed alone, with its peak);
      the searchsorted engine's plans against the grid engine's as sets, the
      gather backbone's 21 convs on them (K4) against the grid plans' map;
      a config importing cbgs_entropy_synthetic.py with ``impl="hybrid"``
-     through ``train`` and ``active_select --checkpoint`` on 8 frames.
+     through ``train`` and ``active_select --checkpoint`` on 8 frames;
+ 23. the gather and hybrid engines in bf16 (configs/cbgs_spatial_temporal.py
+     with ``dtype="bfloat16"``, voxel caps (60000, 60000, 30000, 30000)) on
+     phase 21's voxels and weights: every bf16 K4 launch of a predict
+     against its plain version within one bf16 ulp of scale (2^-7), the
+     gather engine's 21 timed beside the f32 K4 on the same plans with
+     their plain versions, yardstick and bound; a warm-up and 3 timed
+     predicts (21 or 6 bf16 K4, 1 K2, no f32 K4), the maps against phase
+     21's f32 maps within 5e-2 of scale, the detections under phase 5's
+     loose match against the plain versions' and the f32 model's, stage
+     split, idle share; every bf16 K4 / dX / K4-dW launch of a train step
+     within one ulp (K4-dW bit-equal on a repeat), the K4-dW launches
+     timed, a warm-up and 2 timed steps, split, peak memory, idle share.
 
 Kernel times are device times per call (``cuda_time_ms``: the launches
 queued behind a device-side sleep, so that the host's enqueue is not timed);
@@ -756,7 +768,7 @@ def main() -> None:
         # 12-14. BEVFusion lidar-only predict at full width (K4, K5) ------------------
         counters = (bd.banded_conv, bd.banded_dw, tiou.iou_matrix, td.pairwise_l1,
                     td.pairwise_l2, tg.gather_gemm, tg.gather_rows, tg.gather_dw,
-                    tl.linear_sum_assignment)
+                    tl.linear_sum_assignment, tg.gather_gemm_bf16, tg.gather_dw_bf16)
         gather = bevfusion_main_path(tmp, Config, counters, tg, bd)
 
         # 15. two AL rounds through the CLIs: data, GT-AUG, train + val, eval -------
@@ -784,6 +796,9 @@ def main() -> None:
 
         # 22. the brick, hybrid, dense and searchsorted engines; a hybrid CLI round
         engines = engines_phase(tmp, Config, counters, tg, bd, tiou)
+
+        # 23. the gather and hybrid engines in bf16: K4 and K4-dW in bf16
+        bf16 = bf16_engines_phase(Config, counters, tg, bd, tiou, cbgs_g.pop("f32_ref"))
 
     # kernels line, card line, result -------------------------------------------
     kernels = [
@@ -827,6 +842,27 @@ def main() -> None:
         name="gather_dw", route="cuda", source="dal3d_tpu_torch/ops/csrc/gather.cu",
         replaces="dal3d_tpu/ops/sparse.py:132 (XLA autodiff of gather_gemm: no Pallas kernel)",
         launches=bftrain["launches"]["gather_dw"], **bftrain["gather_dw"]))
+    k4b, dwb = bf16["gather"]["k4_times"], bf16["gather"]["dw_times"]
+    kernels.append(dict(
+        name="gather_gemm_bf16", route="cuda", source="dal3d_tpu_torch/ops/csrc/gather.cu",
+        replaces="dal3d_tpu/ops/pallas_gather.py:123",
+        launches=bf16["gather"]["launches_predict"]["gather_gemm_bf16"],
+        max_abs_err=max(bf16[e]["held"][i]["gather_gemm_bf16"][2] for e in ("gather", "hybrid")
+                        for i in (0, 1)),
+        max_rel_err=max(bf16[e]["held"][i]["gather_gemm_bf16"][1] for e in ("gather", "hybrid")
+                        for i in (0, 1)),
+        ms=k4b["ms"], plain_ms=k4b["plain_ms"], bound_ms=k4b["bound_ms"],
+        bound_by=k4b["bound_by"], library_ms=k4b["library_ms"], f32_kernel_ms=k4b["f32_ms"],
+        per="the 21 launches of one bf16 gather predict (phase 23)"))
+    kernels.append(dict(
+        name="gather_dw_bf16", route="cuda", source="dal3d_tpu_torch/ops/csrc/gather.cu",
+        replaces="dal3d_tpu/ops/sparse.py:132 (XLA autodiff of gather_gemm: no Pallas kernel)",
+        launches=bf16["gather"]["launches_train"]["gather_dw_bf16"],
+        max_abs_err=max(bf16[e]["held"][1]["gather_dw_bf16"][2] for e in ("gather", "hybrid")),
+        max_rel_err=max(bf16[e]["held"][1]["gather_dw_bf16"][1] for e in ("gather", "hybrid")),
+        ms=dwb["ms"], plain_ms=dwb["plain_ms"], bound_ms=dwb["bound_ms"],
+        bound_by=dwb["bound_by"], library_ms=dwb["library_ms"],
+        per="the 21 launches of one bf16 gather train step (phase 23)"))
     kernels.append(dict(
         name="linear_sum_assignment", route="cuda", source="dal3d_tpu_torch/ops/csrc/lsa.cu",
         replaces="dal3d_tpu/ops/lsa.py:39 (a lax.while_loop program: no Pallas kernel)",
@@ -850,6 +886,9 @@ def main() -> None:
             for path in ("predict", "train"):
                 k[f"launches_{eng}_{path}"] = engines[eng][f"launches_{path}"][k["name"]]
         k["launches_sorted_engine"] = engines["sorted"]["launches"][k["name"]]
+        for eng in ("gather", "hybrid"):
+            for path in ("predict", "train"):
+                k[f"launches_bf16_{eng}_{path}"] = bf16[eng][f"launches_{path}"][k["name"]]
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
@@ -1993,7 +2032,7 @@ def training_run(tmp: str, dev) -> dict:
     split = train_step_split(bundle, opt, batch)
     print(f"train step on a repeated batch (B={B}, bf16, {int(batch['voxel_valid'].sum())} voxels): "
           f"loss {losses[0]:.3f} -> {losses[-1]:.3f} over {len(losses)} steps; median step "
-          f"{ms_med:.2f} ms ({B / ms_med * 1e3:.2f} scans/s); split (synchronized, median of 5): "
+          f"{ms_med:.2f} ms ({B / ms_med * 1e3:.2f} scans/s); split (synchronized, median of 3): "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
           + f"; peak memory {peak:.2f} GB")
     by_name = device_profile(lambda: step(batch), "train step", ms_med)
@@ -2046,8 +2085,8 @@ def logged_intervals(work_dir: str, epoch: int, steps: int, interval: int) -> np
 
 def train_step_split(bundle, opt, batch) -> dict:
     """Host-clock split of a train step with a synchronize after each part
-    (median of 5): host-to-device copies, forward (with target assignment and
-    loss), backward, optimizer (clip + AdamW)."""
+    (median of 3 after a warm-up): host-to-device copies, forward (with
+    target assignment and loss), backward, optimizer (clip + AdamW)."""
     from dal3d_tpu_torch.models.heads.mg_head import multi_group_loss
     from dal3d_tpu_torch.runtime.steps import _to_device, autotuned_convs
 
@@ -2055,7 +2094,7 @@ def train_step_split(bundle, opt, batch) -> dict:
     names = ["h2d", "forward+assign+loss", "backward", "optimizer"]
     rec = {n: [] for n in names}
     model.train()
-    for _ in range(6):
+    for _ in range(4):
         marks = [time.perf_counter()]
         vf = _to_device(batch["voxel_features"], dev)
         vc = _to_device(batch["voxel_coords"], dev, torch.int32)
@@ -5590,6 +5629,9 @@ def cbgs_gather_phase(tmp: str, Config, counters, tg, tiou) -> dict:
     if map_err > BF_TOL or unmatched > max(2, sum(n_det) // 100) or box_err > BF_TOL:
         fail(f"CBGS gather predict vs plain versions: maps {map_err:.2e} of scale, "
              f"{unmatched} unmatched detections of {sum(n_det)}, box err {box_err:.2e}")
+    # phase 23 holds the bf16 engines to these f32 maps and detections
+    f32_ref = dict(maps=maps_cpu(mk), out={k: v.cpu() for k, v in out.items()},
+                   sd={k: v.cpu().clone() for k, v in model.state_dict().items()}, batch=batch)
     del mk, mp
     print(f"CBGS gather predict (B={B}): median {p_ms:.2f} ms, mean {np.mean(times):.2f} ms over "
           f"{CBGS_GATHER_ITERS} -> {B / p_ms * 1e3:.2f} scans/s; peak memory {peak_p:.2f} GB; "
@@ -5657,7 +5699,7 @@ def cbgs_gather_phase(tmp: str, Config, counters, tg, tiou) -> dict:
           f"{K4_PER_PREDICT} + {n_dx} input gradients, K4-dW {K4_PER_PREDICT}, no other "
           f"kernel; vs plain versions: gradient within {gap:.2e} of its norm (tol {tol:.2e}, "
           f"rounding alone {floor:.2e}), the stem's {stem_gap:.2e} (tol {stem_tol:.2e}), loss "
-          f"{loss_gap:.1e}; logs {logs}; split (ms, median of 5): "
+          f"{loss_gap:.1e}; logs {logs}; split (ms, median of 3): "
           + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
     device_profile(lambda: step(train), "CBGS gather train step", t_ms)
     del step, opt, predict, bundle, model, inputs
@@ -5668,15 +5710,16 @@ def cbgs_gather_phase(tmp: str, Config, counters, tg, tiou) -> dict:
           f"{time.perf_counter() - t_phase:.1f} s")
     return dict(launches_predict=launches_p, launches_train=launches_t, predict_ms=p_ms,
                 step_ms=t_ms, split_ms=split, held=(held_p, held_t), cli_s=cli_s,
-                step_gap=dict(gap=gap, floor=floor, stem_gap=stem_gap, stem_floor=stem_floor))
+                step_gap=dict(gap=gap, floor=floor, stem_gap=stem_gap, stem_floor=stem_floor),
+                f32_ref=f32_ref)
 
 
 # ---------------------------------------------------------------------------
 # phase 22: the other backbone engines (A9.d.2-4)
 # ---------------------------------------------------------------------------
-ENGINE_ITERS = 5
-ENGINE_TRAIN_ITERS = 3
-DENSE_ITERS = 3
+ENGINE_ITERS = 3
+ENGINE_TRAIN_ITERS = 2
+DENSE_ITERS = 2
 K4_PER_HYBRID = 6  # the gather L0: stem, 4 subm convs, the downsample
 BRICK_TOL = 2e-2  # of scale: the brick engine's maps against the banded engine's (bf16)
 ORACLE_TOL = 1e-4  # of scale: the gather engine's maps against the dense engine's (f32)
@@ -5874,6 +5917,12 @@ def forward_maps(bundle, batch):
         return bundle.model(**model_inputs(batch, bundle.device))
 
 
+def maps_cpu(m) -> dict:
+    """The dense, embedding and head maps of a forward, on the CPU."""
+    return dict(dense=m["dense"].cpu(), embedding=m["embedding"].cpu(),
+                preds=[{n: p[n].cpu() for n in ("box_preds", "cls_preds")} for p in m["preds"]])
+
+
 def maps_gap(mk, mp) -> float:
     """dense, embedding and the 12 head maps: max error relative to scale."""
     pairs = [(mk["dense"], mp["dense"]), (mk["embedding"], mp["embedding"])]
@@ -5916,7 +5965,7 @@ def engine_train(bundle, batch, gt_np, counters, per_step: dict, tag: str) -> di
     print(f"{tag} (B={B}): median {t_ms:.2f} ms over {ENGINE_TRAIN_ITERS}; peak memory "
           f"{peak:.2f} GB (first step {first_peak:.2f}); launches per step "
           f"{ {k: v // runs for k, v in launches.items() if v} }; logs {logs}; split (ms, "
-          "median of 5): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+          "median of 3): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
     prof = device_profile(lambda: step(train), tag, t_ms)
     del step, opt
     return dict(ms=t_ms, launches=launches, split=split, peak=peak, first_peak=first_peak,
@@ -5925,10 +5974,10 @@ def engine_train(bundle, batch, gt_np, counters, per_step: dict, tag: str) -> di
 
 def brick_engine(Config, sd, batch, gt, gt_np, counters, tg, bd, tiou) -> dict:
     """The brick engine (the config's bf16, brick_caps): capacity report,
-    every K1 launch of a predict, 5 timed predicts, the maps and middle
+    every K1 launch of a predict, ENGINE_ITERS timed predicts, the maps and middle
     against the banded engine's, the detections against plain versions, a
     train step's gradient against plain versions, every K1 / K3 launch of a
-    step, 3 timed steps."""
+    step, ENGINE_TRAIN_ITERS timed steps."""
     from dal3d_tpu_torch.models.heads.mg_head import multi_group_predict
     from dal3d_tpu_torch.ops.nms import greedy_nms_from_iou
     from dal3d_tpu_torch.runtime.capacity import brick_capacity_report
@@ -6022,9 +6071,10 @@ def brick_engine(Config, sd, batch, gt, gt_np, counters, tg, bd, tiou) -> dict:
 
 def hybrid_engine(Config, sd, batch, gt, gt_np, counters, tg, bd, tiou) -> dict:
     """The hybrid engine (f32, voxel caps (60000, 60000, 30000, 30000)):
-    every K4 launch of a predict, 5 timed predicts, maps and detections
-    against plain versions, a train step's gradient against plain versions,
-    every K4 / dX / K4-dW launch of a step, 3 timed steps."""
+    every K4 launch of a predict, ENGINE_ITERS timed predicts, maps and
+    detections against plain versions, a train step's gradient against
+    plain versions, every K4 / dX / K4-dW launch of a step,
+    ENGINE_TRAIN_ITERS timed steps."""
     from dal3d_tpu_torch.models.heads.mg_head import multi_group_predict
     from dal3d_tpu_torch.ops.nms import greedy_nms_from_iou
     from dal3d_tpu_torch.runtime.steps import make_predict_step, make_train_step, model_inputs
@@ -6095,7 +6145,7 @@ def hybrid_engine(Config, sd, batch, gt, gt_np, counters, tg, bd, tiou) -> dict:
 
 
 def dense_engine(Config, sd, batch, gt_np, counters, tiou) -> dict:
-    """The dense engine (f32): 3 timed predicts with the peak memory, the
+    """The dense engine (f32): DENSE_ITERS timed predicts with the peak memory, the
     on-card oracle (the gather engine, at caps that hold every level, held
     to it level by level), the production caps' dropped sites, one train
     step at B=2 with its peak and ms."""
@@ -6142,18 +6192,26 @@ def dense_engine(Config, sd, batch, gt_np, counters, tiou) -> dict:
           f"caps {GATHER_CAPS} drop {dropped} sites per level and frame")
     del md, mg
     stamp(t0, "dense: the oracle")
-    # one train step
+    # one train step, timed alone: the 3D convs take cuDNN's heuristic choice,
+    # which searches nothing, so a first step runs as a later one does (17751.9
+    # and 17760 ms in PR 15's run); a warm-up step would double the 18 s
     train = dict(batch, gt_boxes=gt_np[0], gt_classes=gt_np[1])
     opt = build_optimizer(OneCycleSchedule(total_steps=100)).init(bundle.model.named_parameters())
     step = make_train_step(bundle, opt)
-    t_ms, logs, truns, t_first, t_peak = timed_runs(
-        counters, lambda: {k: float(v) for k, v in step(train).items()}, 1, "dense train step")
-    launches_t = main_path_launches(counters, "dense train step", truns, {})
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    logs = {k: float(v) for k, v in step(train).items()}
+    torch.cuda.synchronize()
+    t_ms = (time.perf_counter() - t1) * 1e3
+    t_peak = torch.cuda.max_memory_allocated() / 1e9
+    launches_t = main_path_launches(counters, "dense train step", 1, {})
     if not all(np.isfinite(v) for v in logs.values()):
         fail(f"dense train step logs {logs}")
     print(f"dense train step (B={B}, f32; each L0 unit and each stage recomputed in backward): "
-          f"{t_ms:.2f} ms (one step after a warm-up); peak memory {t_peak:.2f} GB (warm-up "
-          f"{t_first:.2f}); logs {logs}")
+          f"{t_ms:.2f} ms (one step, the first); peak memory {t_peak:.2f} GB; logs {logs}")
     del step, opt, bundle, predict
     torch.cuda.empty_cache()
     return dict(predict_ms=p_ms, launches_predict=launches_p, launches_train=launches_t,
@@ -6299,6 +6357,242 @@ def engines_phase(tmp: str, Config, counters, tg, bd, tiou) -> dict:
     print(f"phase 22 (the other engines): {time.perf_counter() - t_phase:.1f} s (brick "
           f"{t_brick:.1f}, hybrid {t_hybrid:.1f}, dense + oracle + sorted {t_dense:.1f})")
     return dict(brick=brick, hybrid=hybrid, dense=dense, sorted=srt, cli_s=cli_s)
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the gather and hybrid engines in bf16: K4 and K4-dW in bf16 (B.1, A9.d.5)
+# ---------------------------------------------------------------------------
+BF16_ULP = 2.0 ** -7  # one bf16 ulp at the output's scale: every bf16 K4 / dX / K4-dW launch
+BF16_MAP_TOL = 5e-2  # phase 5's bf16 gate: the bf16 maps against phase 21's f32 maps
+
+
+def gemm_bf16_bound_ms(features, plan, w) -> tuple:
+    """Least time (ms) of one bf16 K4 launch over its plan: the bytes (bf16
+    rows and weights, the rulebook and order read once, the bf16 output
+    written once) or 2 * hits * Cin * Cout at the bf16 tensor-core peak,
+    whichever is larger; and which."""
+    Bt, _, Cin = features.shape
+    M, Cout = plan.rulebook.shape[2], w.shape[-1]
+    nbytes = ((features.numel() + w.numel() + Bt * M * Cout) * 2 + plan.rulebook.numel() * 4
+              + (plan.order.numel() * 8 if plan.order is not None else 0))
+    ops = 2.0 * int((plan.rulebook >= 0).sum()) * Cin * Cout
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def dw_bf16_bound_ms(features, plan, g) -> tuple:
+    """Least time (ms) of one bf16 K4-dW launch: the bytes (bf16 features
+    and g, the rulebook and order read once, the bf16 dW written once) or
+    2 * hits * Cin * Cout at the bf16 tensor-core peak."""
+    K, Cin, Cout = plan.rulebook.shape[1], features.shape[-1], g.shape[-1]
+    nbytes = ((features.numel() + g.numel() + K * Cin * Cout) * 2 + plan.rulebook.numel() * 4
+              + (plan.order.numel() * 8 if plan.order is not None else 0))
+    ops = 2.0 * int((plan.rulebook >= 0).sum()) * Cin * Cout
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def library_gemm_over_plan(features, plan, w):
+    """Yardstick the port never calls: one index_select of every (row, tap)
+    feature row, then one cuBLAS matmul [B*M, K*Cin] x [K*Cin, Cout] in the
+    features' type (JAX's einsum over (k, c))."""
+    Bt, N, Cin = features.shape
+    rb = plan.rulebook
+    K, M = rb.shape[1], rb.shape[2]
+    flat = torch.cat([features.reshape(Bt * N, Cin), features.new_zeros(1, Cin)])
+    base = (torch.arange(Bt, device=rb.device) * N)[:, None, None]
+    sel = torch.where(rb >= 0, rb.long() + base, Bt * N).transpose(1, 2).reshape(-1)
+    wk = w.reshape(K * Cin, -1)
+
+    def run():
+        return flat.index_select(0, sel).view(Bt * M, K * Cin) @ wk
+
+    return run
+
+
+def hold_bf16(tag: str, k4=(), dw=()) -> dict:
+    """Every captured bf16 K4 launch (forward and input gradient) and K4-dW
+    launch against its plain version over the same plan (f32 sums, one
+    rounding) within one bf16 ulp of scale, and each K4-dW bit-equal on a
+    repeat. Returns {kernel: (launches, max error relative to scale, max
+    absolute error)}."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    def err(got, ref):
+        e = float((got.float() - ref.float()).abs().max())
+        return e / max(float(ref.float().abs().max()), 1e-30), e
+
+    with torch.no_grad():
+        e4 = [err(tg._launch_gemm(f, p, w), gemm_plain_over_plan(tg, f, p, w)) for f, p, w in k4]
+        ew, repeat = [], True
+        for f, p, g in dw:
+            got = tg._launch_dw(f, p, g)
+            ew.append(err(got, dw_plain_over_plan(tg, f, p, g)))
+            repeat &= torch.equal(got, tg._launch_dw(f, p, g))
+    r4, rw = max(e4, default=(0.0, 0.0)), max(ew, default=(0.0, 0.0))
+    if max(r4[0], rw[0]) > BF16_ULP or not repeat:
+        fail(f"{tag}: a bf16 K4 launch {r4[0]:.2e} or K4-dW launch {rw[0]:.2e} of scale from "
+             f"its plain version (tol {BF16_ULP:.2e}), K4-dW repeat bit-equal {repeat}")
+    out = {"gather_gemm_bf16": (len(e4), r4[0], max((e[1] for e in e4), default=0.0)),
+           "gather_dw_bf16": (len(ew), rw[0], max((e[1] for e in ew), default=0.0))}
+    print(f"{tag}: every bf16 launch against its plain version (tol {BF16_ULP:.2e} of scale): "
+          + ", ".join(f"{k} {n} within {e:.1e} ({a:.2e} absolute)" for k, (n, e, a) in out.items()
+                      if n)
+          + ("; K4-dW bit-equal on a repeat" if dw else ""))
+    return out
+
+
+def bf16_k4_times(tg, calls) -> dict:
+    """One predict's bf16 K4 launches timed (device ms), each beside the f32
+    K4 on the same plan (the same values in f32), its plain version, the
+    index_select + matmul yardstick and its bound; summed per predict."""
+    tot = dict(ms=0.0, f32_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, t_bytes=0.0,
+               t_ops=0.0)
+    rows = []
+    with torch.no_grad():
+        for f, p, w in calls:
+            f32, w32 = f.float(), w.float()
+            ms = cuda_time_ms(lambda: tg._launch_gemm(f, p, w), 5)
+            ms32 = cuda_time_ms(lambda: tg._launch_gemm(f32, p, w32), 5)
+            pms = cuda_time_ms(lambda: gemm_plain_over_plan(tg, f, p, w), 2)
+            lms = cuda_time_ms(library_gemm_over_plan(f, p, w), 2)
+            bms, by = gemm_bf16_bound_ms(f, p, w)
+            for k, v in (("ms", ms), ("f32_ms", ms32), ("plain_ms", pms), ("library_ms", lms),
+                         ("bound_ms", bms), ("t_bytes" if by == "bytes" else "t_ops", bms)):
+                tot[k] += v
+            rows.append((tuple(f.shape), tuple(w.shape), int((p.rulebook >= 0).sum()), ms, ms32,
+                         pms, lms, bms, by))
+    print("  bf16 K4 launches of one predict (device ms: bf16 kernel | f32 kernel on the same "
+          "plan | plain | index_select + matmul | bound):")
+    for fs, ws, hits, ms, ms32, pms, lms, bms, by in rows:
+        print(f"    features {fs} w {ws} hits {hits}: {ms:.4f} | {ms32:.4f} | {pms:.3f} | "
+              f"{lms:.3f} | {bms:.4f} ({by})")
+    tot["bound_by"] = "bytes" if tot["t_bytes"] >= tot["t_ops"] else "operations"
+    print(f"  bf16 K4 per predict: {tot['ms']:.3f} ms, f32 K4 on the same plans "
+          f"{tot['f32_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, library "
+          f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']})")
+    return tot
+
+
+def bf16_dw_times(tg, calls) -> dict:
+    """One train step's bf16 K4-dW launches timed (device ms) beside their
+    plain version, the index_select + bmm yardstick and their bound, summed
+    per step."""
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0)
+    with torch.no_grad():
+        for f, p, g in calls:
+            tot["ms"] += cuda_time_ms(lambda: tg._launch_dw(f, p, g), 5)
+            tot["plain_ms"] += cuda_time_ms(lambda: dw_plain_over_plan(tg, f, p, g), 2)
+            tot["library_ms"] += cuda_time_ms(library_gather_dw(f, p, g), 2)
+            bms, by = dw_bf16_bound_ms(f, p, g)
+            tot["bound_ms"] += bms
+            tot["t_bytes" if by == "bytes" else "t_ops"] += bms
+    tot["bound_by"] = "bytes" if tot["t_bytes"] >= tot["t_ops"] else "operations"
+    print(f"  bf16 K4-dW per train step ({len(calls)} launches): {tot['ms']:.3f} ms, plain "
+          f"{tot['plain_ms']:.3f} ms, index_select + bmm {tot['library_ms']:.3f} ms, bound "
+          f"{tot['bound_ms']:.4f} ms ({tot['bound_by']})")
+    return tot
+
+
+def bf16_engine(impl: str, Config, ref: dict, gt_np, counters, tg, bd, tiou,
+                times: bool) -> dict:
+    """The CBGS model on one engine in bf16 (voxel caps GATHER_CAPS) with
+    phase 21's weights and voxels: every bf16 K4 launch of a predict held
+    against its plain version (and, with ``times``, timed beside the f32 K4
+    on the same plans), ENGINE_ITERS timed predicts with their launches, the
+    maps against phase 21's f32 maps, the detections under phase 5's loose
+    match against the plain versions' and the f32 model's; every K4 / dX /
+    K4-dW launch of a train step held, ENGINE_TRAIN_ITERS timed steps."""
+    from dal3d_tpu_torch.models.heads.mg_head import multi_group_predict
+    from dal3d_tpu_torch.ops.nms import greedy_nms_from_iou
+    from dal3d_tpu_torch.runtime.steps import make_predict_step, make_train_step
+    from dal3d_tpu_torch.solver.optim import OneCycleSchedule, build_optimizer
+
+    tag = f"bf16 {impl}"
+    t0 = time.perf_counter()
+    bundle = engine_bundle(engine_cfg(Config, impl, dtype="bfloat16", voxel_caps=GATHER_CAPS),
+                           ref["sd"])
+    if bundle.model.backbone.l0.stem.dtype != torch.bfloat16:
+        fail(f"{tag}: the backbone runs in {bundle.model.backbone.l0.stem.dtype}")
+    batch = ref["batch"]
+    predict = make_predict_step(bundle)
+    n4 = K4_PER_PREDICT if impl == "gather" else K4_PER_HYBRID
+    with Capture(tg, "_launch_gemm") as k4, Capture(tiou, "iou_matrix") as k2:
+        predict(batch)
+        torch.cuda.synchronize()
+    if (len(k4.calls), len(k2.calls)) != (n4, K2_PER_PREDICT) or any(
+            f.dtype != torch.bfloat16 for f, _, _ in k4.calls):
+        fail(f"{tag} predict launched K4 {len(k4.calls)}x, K2 {len(k2.calls)}x")
+    held_p = hold_bf16(f"{tag} predict", k4.calls)
+    k4_times = bf16_k4_times(tg, k4.calls) if times else None
+    del k4, k2
+    stamp(t0, f"{tag}: a predict's launches held" + (" and timed" if times else ""))
+    p_ms, out, runs, first_peak, peak = timed_runs(counters, lambda: predict(batch), ENGINE_ITERS,
+                                                   f"{tag} predict")
+    launches_p = main_path_launches(counters, f"{tag} predict", runs,
+                                    dict(gather_gemm_bf16=n4, iou_matrix=K2_PER_PREDICT))
+    n_det = [int(x) for x in out["det_valid"].sum(1)]
+    if min(n_det) == 0 or not bool(torch.isfinite(out["box3d_lidar"]).all()):
+        fail(f"{tag} predict: detections {n_det}")
+    mk = maps_cpu(forward_maps(bundle, batch))
+    gap = maps_gap(mk, ref["maps"])
+    if not gap <= BF16_MAP_TOL:
+        fail(f"{tag} maps {gap:.2e} of scale from phase 21's f32 maps (tol {BF16_MAP_TOL})")
+    _, plain_out = plain_predict(bundle, predict, batch, tg, bd, tiou)
+    out_cpu = {k: v.cpu() for k, v in out.items()}
+    m_plain = loose_matches(out_cpu, {k: v.cpu() for k, v in plain_out.items()})
+    m_f32 = loose_matches(out_cpu, ref["out"])
+    del mk, plain_out
+    print(f"{tag} predict (B={B}): median {p_ms:.2f} ms over {ENGINE_ITERS} -> "
+          f"{B / p_ms * 1e3:.2f} scans/s; peak memory {peak:.2f} GB (first call "
+          f"{first_peak:.2f}); detections {n_det}; launches bf16 K4 "
+          f"{launches_p['gather_gemm_bf16']} K2 {launches_p['iou_matrix']} in {runs}, no f32 "
+          f"K4; dense, embedding and 12 head maps within {gap:.2e} of scale of phase 21's f32 "
+          f"maps (tol {BF16_MAP_TOL}); detections under phase 5's loose match: {m_plain[0]} of "
+          f"{m_plain[1]} against the plain versions' bf16 predict, {m_f32[0]} of {m_f32[1]} "
+          f"against the f32 model's")
+    stage_split(bundle, batch, multi_group_predict, greedy_nms_from_iou, tiou)
+    prof = device_profile(lambda: predict(batch), f"{tag} predict", p_ms)
+    stamp(t0, f"{tag}: predicts timed, maps, split, profile")
+
+    train = dict(batch, gt_boxes=gt_np[0], gt_classes=gt_np[1])
+    opt = build_optimizer(OneCycleSchedule(total_steps=100)).init(bundle.model.named_parameters())
+    step = make_train_step(bundle, opt)
+    with Capture(tg, "_launch_gemm") as k4, Capture(tg, "_launch_dw") as kdw:
+        step(train)
+        torch.cuda.synchronize()
+    n_dx = len(k4.calls) - n4
+    if (n_dx, len(kdw.calls)) != (n4 - 1, n4):  # the stem's voxel features need no dX
+        fail(f"{tag} train step launched {n_dx} K4 input gradients and {len(kdw.calls)} K4-dW")
+    held_t = hold_bf16(f"{tag} train step", k4.calls, kdw.calls)
+    dw_times = bf16_dw_times(tg, kdw.calls) if times else None
+    del k4, kdw, step, opt
+    tr = engine_train(bundle, batch, gt_np, counters,
+                      dict(gather_gemm_bf16=n4 + n_dx, gather_dw_bf16=n4), f"{tag} train step")
+    stamp(t0, f"{tag}: train steps held, timed, split, profile")
+    del bundle, predict
+    torch.cuda.empty_cache()
+    return dict(predict_ms=p_ms, launches_predict=launches_p, launches_train=tr["launches"],
+                train=tr, held=(held_p, held_t), map_gap=gap, k4_times=k4_times,
+                dw_times=dw_times, peak=peak, busy=sum(v[0] for v in prof.values()),
+                loose=(m_plain, m_f32))
+
+
+def bf16_engines_phase(Config, counters, tg, bd, tiou, ref: dict) -> dict:
+    """Phase 23: configs/cbgs_spatial_temporal.py on the gather engine and
+    on the hybrid engine at dtype="bfloat16" (B=2, phase 21's voxels and
+    weights): predicts and train steps, every bf16 K4 / dX / K4-dW launch
+    against its plain version, the maps against phase 21's f32 maps, the
+    bf16 K4 beside the f32 K4 on the same rulebooks. Returns each kernel's
+    launches over the four main paths, and the numbers."""
+    t_phase = time.perf_counter()
+    gt_np = random_gt(Config.fromfile(os.path.join(ROOT, "configs", "cbgs_spatial_temporal.py")),
+                      np.random.RandomState(23), B, 8, 45.0)
+    gather = bf16_engine("gather", Config, ref, gt_np, counters, tg, bd, tiou, True)
+    hybrid = bf16_engine("hybrid", Config, ref, gt_np, counters, tg, bd, tiou, False)
+    print(f"phase 23 (the gather and hybrid engines in bf16): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(gather=gather, hybrid=hybrid)
 
 
 if __name__ == "__main__":

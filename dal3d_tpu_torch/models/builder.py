@@ -104,14 +104,13 @@ def build_detector(cfg, device=None, seed: int = 0) -> DetectorBundle:
     """cfg: experiment Config (model / tasks / voxel_generator / box_coder /
     target_assigner / test_cfg). The backbone's ``impl`` is every engine of
     JAX's: "gather" when the config names none, as in JAX (``voxel_caps``),
-    "banded" (``dtype``, ``brick_widths``, ``banded_caps``), "brick"
-    (``dtype``, ``brick_widths``, ``brick_caps``), "hybrid" (``voxel_caps``;
-    its L0 is the gather engine) and "dense" (``dtype``). The gather and
-    hybrid engines run in float32 alone: bf16 on the gather kernel is
-    refused with its ROADMAP item (A9.d.5). The model gets
-    seeded random weights (``init_random_``); load trained ones with
-    ``model.load_state_dict``. ``device=None`` means the CUDA card and raises
-    when there is none."""
+    "banded" (``brick_widths``, ``banded_caps``), "brick" (``brick_widths``,
+    ``brick_caps``), "hybrid" (``voxel_caps``; its L0 is the gather engine)
+    and "dense". Every engine runs in the config's ``dtype``, float32 or
+    bfloat16, as JAX's (the gather kernels K4 and K4-dW have a build for
+    each). The model gets seeded random weights (``init_random_``); load
+    trained ones with ``model.load_state_dict``. ``device=None`` means the
+    CUDA card and raises when there is none."""
     dev = resolve_device(device)
     model_cfg = dict(cfg["model"])
     if model_cfg.get("type") not in ("FPNVoxelNet", "VoxelNet"):
@@ -119,9 +118,6 @@ def build_detector(cfg, device=None, seed: int = 0) -> DetectorBundle:
     backbone_cfg = dict(model_cfg.get("backbone", {}))
     impl = str(backbone_cfg.get("impl", "gather"))
     dtype = str(backbone_cfg.get("dtype", "float32"))
-    if impl in ("gather", "hybrid") and dtype != "float32":
-        raise NotImplementedError(f"the gather engine runs in float32 (its kernel is f32); "
-                                  f"dtype={dtype!r} on impl={impl!r} waits for ROADMAP A9.d.5")
     vg = cfg["voxel_generator"]
     voxel_cfg = VoxelConfig(tuple(vg["range"]), tuple(vg["voxel_size"]),
                             int(vg["max_points_in_voxel"]), int(vg["max_voxel_num"]))

@@ -135,12 +135,20 @@
 //     gather_dw_reduce_kernel adds a tap's partials in share order. No float
 //     atomics: a repeat gives the same bits.
 
+// gather_gemm_bf16 and gather_dw_bf16: the same two functions on bf16
+// features, weights and g, with f32 sums and each output rounded once to
+// bf16, as JAX's gather_gemm computes in bf16 (its Pallas kernel takes the
+// features' dtype). The same walks on bf16 mma.sync m16n8k16; see their
+// sections below. Bound on the card: the bytes, or 2 * hits * Cin * Cout
+// at the 989 TFLOP/s bf16 tensor-core peak.
+//
 // Alignment contract of gather_gemm_f32 (checked by the Python wrapper):
-// Cin % 4 == 0, Cout is 16, 32, 64 or a multiple of 128, K <= 32, pointers
-// 16-byte aligned, contiguous.
+// Cin % 4 == 0 (bf16: Cin % 16 == 0), Cout is 16, 32, 64 or a multiple of
+// 128, K <= 32, pointers 16-byte aligned, contiguous.
 
 #include "common.cuh"
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -175,6 +183,86 @@ __device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The prologue of a gather-GEMM block: its plan positions m0 .. m0 + BM - 1
+// of batch element b. Stages their rulebook entries sidx[k * BM + r] (-1
+// past M) and output rows sorder[r] (-1 past M), the taps each row group of
+// WM rows hits (gmask, one bit a tap) and the block hits (bmask); returns
+// the calling warp's row group's mask. Warps WM-row groups in order, as
+// many warps a group as the block has over BM / WM.
+template <int WM>
+__device__ __forceinline__ unsigned stage_block(const int* __restrict__ rbb,
+                                                const long long* __restrict__ order, int b,
+                                                int K, int M, int m0, int* sidx, int* sorder,
+                                                unsigned* gmask, unsigned* bmask) {
+  constexpr int GROUPS = BM / WM;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp % GROUPS, wn = warp / GROUPS;
+  if (tid == 0) *bmask = 0;
+  for (int e = tid; e < K * BM; e += THREADS) {
+    const int k = e / BM, r = e - k * BM, m = m0 + r;
+    sidx[e] = m < M ? rbb[(size_t)k * M + m] : -1;
+  }
+  for (int r = tid; r < BM; r += THREADS) {
+    const int m = m0 + r;
+    sorder[r] = m >= M ? -1 : (order ? static_cast<int>(order[(size_t)b * M + m]) : m);
+  }
+  __syncthreads();
+  // the taps the warp's rows hit: one bit per tap
+  unsigned wmask = 0;
+  for (int k = 0; k < K; ++k) {
+    const bool h = lane < WM && sidx[k * BM + wm * WM + lane] >= 0;
+    wmask |= (__any_sync(0xffffffffu, h) ? 1u : 0u) << k;
+  }
+  if (lane == 0) {
+    if (wn == 0) gmask[wm] = wmask;
+    atomicOr(bmask, wmask);
+  }
+  __syncthreads();
+  return wmask;
+}
+
+// The ring of a gather-GEMM block: the (active tap, Cin chunk) steps of the
+// taps the block hits, nk chunks a tap, in order, STAGES - 1 in flight and
+// one barrier a step. load(stage, tap, chunk) issues a step's copies;
+// compute(stage) multiplies a landed step, in the warps whose row group
+// hits its tap (wmask). Called by every thread of the block together.
+template <int STAGES, typename Load, typename Compute>
+__device__ __forceinline__ void tap_ring(unsigned taps, int nk, unsigned wmask, Load load,
+                                         Compute compute) {
+  const int steps = __popc(taps) * nk;
+  unsigned lrem = taps;
+  int lk = taps ? __ffs(taps) - 1 : 0, lc = 0;
+  auto load_next = [&](int stage) {
+    load(stage, lk, lc);
+    if (++lc == nk) {
+      lc = 0;
+      lrem &= lrem - 1;
+      lk = lrem ? __ffs(lrem) - 1 : 0;
+    }
+  };
+#pragma unroll 1
+  for (int p = 0; p < STAGES - 1; ++p) {
+    if (p < steps) load_next(p);
+    cp_async_commit();
+  }
+  unsigned crem = taps;
+  int ck = taps ? __ffs(taps) - 1 : 0, cc = 0;
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<STAGES - 2>();  // step s has landed (this thread's copies)
+    __syncthreads();              // ... everyone's; the stage of step s - 1 is free
+    if (s + STAGES - 1 < steps) load_next((s + STAGES - 1) % STAGES);
+    cp_async_commit();
+    if ((wmask >> ck) & 1u) compute(s % STAGES);
+    if (++cc == nk) {
+      cc = 0;
+      crem &= crem - 1;
+      ck = crem ? __ffs(crem) - 1 : 0;
+    }
+  }
+  cp_async_wait<0>();
 }
 
 template <int COUT, int BK>
@@ -214,37 +302,11 @@ gather_gemm_kernel(const float* __restrict__ feat, const int* __restrict__ rb,
   const float* fb = feat + (size_t)b * N * Cin;
   const int* rbb = rb + (size_t)b * K * M;
 
-  if (tid == 0) bmask = 0;
-  for (int e = tid; e < K * BM; e += THREADS) {
-    const int k = e / BM, r = e - k * BM, m = m0 + r;
-    sidx[e] = m < M ? rbb[(size_t)k * M + m] : -1;
-  }
-  for (int r = tid; r < BM; r += THREADS) {
-    const int m = m0 + r;
-    sorder[r] = m >= M ? -1 : (order ? static_cast<int>(order[(size_t)b * M + m]) : m);
-  }
-  __syncthreads();
-  // the taps the warp's rows hit: one bit per tap
-  unsigned wmask = 0;
-  for (int k = 0; k < K; ++k) {
-    const bool h = lane < T::WM && sidx[k * BM + wm * T::WM + lane] >= 0;
-    wmask |= (__any_sync(0xffffffffu, h) ? 1u : 0u) << k;
-  }
-  if (lane == 0) {
-    if (wn == 0) gmask[wm] = wmask;
-    atomicOr(&bmask, wmask);
-  }
-  __syncthreads();
+  const unsigned wmask = stage_block<T::WM>(rbb, order, b, K, M, m0, sidx, sorder, gmask, &bmask);
 
-  const int nk = (Cin + BK - 1) / BK;
-  const unsigned taps = bmask;
-  const int steps = __popc(taps) * nk;
-
-  // load side: step (tap lk, chunk lc); gathers only the rows of the row
-  // groups that hit tap lk (the others' stale rows are never read)
-  unsigned lrem = taps;
-  int lk = taps ? __ffs(taps) - 1 : 0, lc = 0;
-  auto load_next = [&](int stage) {
+  // step (tap lk, chunk lc): gathers only the rows of the row groups that
+  // hit tap lk (the others' stale rows are never read)
+  auto load = [&](int stage, int lk, int lc) {
     float* a = tiles + stage * T::STAGE;
     float* ws = a + T::A_STAGE;
     const int c0 = lc * BK;
@@ -262,11 +324,6 @@ gather_gemm_kernel(const float* __restrict__ feat, const int* __restrict__ rb,
       const int r = e / CPW, c = (e % CPW) * 4;
       const bool ok = c0 + r < Cin;
       cp_async16(ws + r * T::LDW + c, ok ? wk + (size_t)(c0 + r) * Cout + c : w, ok);
-    }
-    if (++lc == nk) {
-      lc = 0;
-      lrem &= lrem - 1;
-      lk = lrem ? __ffs(lrem) - 1 : 0;
     }
   };
 
@@ -334,29 +391,7 @@ gather_gemm_kernel(const float* __restrict__ feat, const int* __restrict__ rb,
     }
   };
 
-  // the ring: STAGES - 1 steps in flight, one barrier per step
-  constexpr int STAGES = T::STAGES;
-#pragma unroll 1
-  for (int p = 0; p < STAGES - 1; ++p) {
-    if (p < steps) load_next(p);
-    cp_async_commit();
-  }
-  unsigned crem = taps;
-  int ck = taps ? __ffs(taps) - 1 : 0, cc = 0;
-#pragma unroll 1
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<STAGES - 2>();  // step s has landed (this thread's copies)
-    __syncthreads();              // ... everyone's; the stage of step s - 1 is free
-    if (s + STAGES - 1 < steps) load_next((s + STAGES - 1) % STAGES);
-    cp_async_commit();
-    if ((wmask >> ck) & 1u) compute(s % STAGES);
-    if (++cc == nk) {
-      cc = 0;
-      crem &= crem - 1;
-      ck = crem ? __ffs(crem) - 1 : 0;
-    }
-  }
-  cp_async_wait<0>();
+  tap_ring<T::STAGES>(bmask, (Cin + BK - 1) / BK, wmask, load, compute);
 
   // C fragment: c0, c1 at (g, 2t + {0, 1}), c2, c3 at (g + 8, 2t + {0, 1})
 #pragma unroll
@@ -398,6 +433,156 @@ int dispatch_bk(const float* feat, const int* rb, const long long* order, const 
   if (Cin <= 16)
     return launch_gather_gemm<COUT, 16>(feat, rb, order, w, out, B, N, Cin, K, M, Cout, stream);
   return launch_gather_gemm<COUT, 32>(feat, rb, order, w, out, B, N, Cin, K, M, Cout, stream);
+}
+
+// ---- gather_gemm_bf16 --------------------------------------------------------
+//
+// The same block walk as gather_gemm_kernel (stage_block, then tap_ring's
+// (active tap, Cin chunk) steps, only the row groups that hit a tap
+// gathering and multiplying it), on bf16 rows and weights: one bf16
+// mma.sync m16n8k16 a 16-channel step into the f32 sums (JAX's product:
+// bf16 operands, f32 sums), each output rounded once to bf16 (nearest) in
+// the epilogue. A row's sum runs through at most 27 x 128 / 16 = 216
+// products of the tensor cores' truncating accumulator, whose drift (about
+// 1e-5 of scale over such a chain, see gather_gemm_f32) is far below the
+// output's bf16 rounding (2^-9 of scale), so no step is summed apart.
+// Chunks of 16 channels at Cin 16 and of 32 from Cin 32 on; A and B tiles
+// by ldmatrix (B transposed) from row pitches padded by 16 bytes, which put
+// the 8 rows each 8 x 8 matrix reads on 8 different 16-byte bank groups.
+
+template <int COUT, int BK>
+struct Bf16Tile {
+  static constexpr int STAGES = 4;                      // cp.async ring
+  static constexpr int WARPS_M = COUT >= 64 ? 4 : 8;    // row groups
+  static constexpr int WARPS_N = 8 / WARPS_M;
+  static constexpr int WM = BM / WARPS_M;               // rows of a warp: 16 or 32
+  static constexpr int WN = COUT / WARPS_N;             // columns of a warp
+  static constexpr int MT = WM / 16, NT = WN / 8;
+  static constexpr int LDA = BK + 8;                    // bf16
+  static constexpr int LDW = COUT + 8;                  // bf16
+  static constexpr int A_STAGE = BM * LDA;
+  static constexpr int STAGE = A_STAGE + BK * LDW;
+  static constexpr int TILE_BYTES = STAGES * STAGE * 2;
+  static_assert(BK % 16 == 0 && WN % 16 == 0 && WM % 16 == 0, "tile shape");
+};
+
+template <int COUT, int BK>
+__global__ void __launch_bounds__(THREADS, 2)
+gather_gemm_bf16_kernel(const __nv_bfloat16* __restrict__ feat, const int* __restrict__ rb,
+                        const long long* __restrict__ order, const __nv_bfloat16* __restrict__ w,
+                        __nv_bfloat16* __restrict__ out, int N, int Cin, int K, int M, int Cout) {
+  using T = Bf16Tile<COUT, BK>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][A | W]
+  int* sidx = reinterpret_cast<int*>(smem + T::TILE_BYTES);       // [K][BM]
+  __shared__ int sorder[BM];
+  __shared__ unsigned gmask[T::WARPS_M];
+  __shared__ unsigned bmask;
+
+  const int b = blockIdx.z, m0 = blockIdx.x * BM, n0 = blockIdx.y * COUT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp % T::WARPS_M, wn = warp / T::WARPS_M;
+  const __nv_bfloat16* fb = feat + (size_t)b * N * Cin;
+  const unsigned wmask = stage_block<T::WM>(rb + (size_t)b * K * M, order, b, K, M, m0, sidx,
+                                            sorder, gmask, &bmask);
+  auto load = [&](int stage, int lk, int lc) {
+    __nv_bfloat16* a = tiles + stage * T::STAGE;
+    __nv_bfloat16* ws = a + T::A_STAGE;
+    const int c0 = lc * BK;
+    constexpr int CPR = BK / 8;  // 16-byte pieces of a row chunk
+    for (int e = tid; e < BM * CPR; e += THREADS) {
+      const int r = e / CPR, c = (e % CPR) * 8;
+      if (!((gmask[r / T::WM] >> lk) & 1u)) continue;
+      const int src = sidx[lk * BM + r];
+      const bool ok = src >= 0 && c0 + c < Cin;
+      cp_async16(a + r * T::LDA + c, ok ? fb + (size_t)src * Cin + c0 + c : fb, ok);
+    }
+    const __nv_bfloat16* wk = w + (size_t)lk * Cin * Cout + n0;
+    constexpr int CPW = COUT / 8;
+    for (int e = tid; e < BK * CPW; e += THREADS) {
+      const int r = e / CPW, c = (e % CPW) * 8;
+      const bool ok = c0 + r < Cin;
+      cp_async16(ws + r * T::LDW + c, ok ? wk + (size_t)(c0 + r) * Cout + c : w, ok);
+    }
+  };
+
+  float acc[T::MT][T::NT][4];
+#pragma unroll
+  for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+
+  // ldmatrix: lanes 8q..8q+7 address matrix q; A: rows +8 for q odd, k +8
+  // for q >= 2; B (transposed): k +8 for q odd, columns +8 for q >= 2
+  const int a_row = wm * T::WM + (lane & 15), a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 3) & 1) * 8, b_col = wn * T::WN + (lane >> 4) * 8;
+  auto compute = [&](int stage) {
+    const __nv_bfloat16* a = tiles + stage * T::STAGE;
+    const __nv_bfloat16* ws = a + T::A_STAGE;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t af[T::MT][4];
+#pragma unroll
+      for (int i = 0; i < T::MT; ++i)
+        ldmatrix_x4(af[i], a + (a_row + i * 16) * T::LDA + kk + a_col);
+#pragma unroll
+      for (int np = 0; np < T::NT / 2; ++np) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, ws + (kk + b_row) * T::LDW + b_col + np * 16);
+#pragma unroll
+        for (int i = 0; i < T::MT; ++i) {
+          mma_bf16_16816(acc[i][2 * np], af[i], bf[0], bf[1]);
+          mma_bf16_16816(acc[i][2 * np + 1], af[i], bf[2], bf[3]);
+        }
+      }
+    }
+  };
+
+  tap_ring<T::STAGES>(bmask, (Cin + BK - 1) / BK, wmask, load, compute);
+
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < T::MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = sorder[wm * T::WM + i * 16 + h * 8 + g];
+      if (m < 0) continue;
+      __nv_bfloat16* o = out + ((size_t)b * M + m) * Cout + n0 + wn * T::WN + 2 * t;
+#pragma unroll
+      for (int j = 0; j < T::NT; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(o + j * 8) =
+            __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+    }
+  }
+}
+
+template <int COUT, int BK>
+int launch_gather_gemm_bf16(const __nv_bfloat16* feat, const int* rb, const long long* order,
+                            const __nv_bfloat16* w, __nv_bfloat16* out, int B, int N, int Cin,
+                            int K, int M, int Cout, cudaStream_t stream) {
+  using T = Bf16Tile<COUT, BK>;
+  const size_t smem = T::TILE_BYTES + (size_t)K * BM * 4;
+  cudaError_t e = cudaFuncSetAttribute(gather_gemm_bf16_kernel<COUT, BK>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((M + BM - 1) / BM, Cout / COUT, B);
+  gather_gemm_bf16_kernel<COUT, BK><<<grid, THREADS, smem, stream>>>(feat, rb, order, w, out, N,
+                                                                     Cin, K, M, Cout);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int COUT>
+int dispatch_bk_bf16(const __nv_bfloat16* feat, const int* rb, const long long* order,
+                     const __nv_bfloat16* w, __nv_bfloat16* out, int B, int N, int Cin, int K,
+                     int M, int Cout, cudaStream_t stream) {
+  if (Cin <= 16)
+    return launch_gather_gemm_bf16<COUT, 16>(feat, rb, order, w, out, B, N, Cin, K, M, Cout,
+                                             stream);
+  return launch_gather_gemm_bf16<COUT, 32>(feat, rb, order, w, out, B, N, Cin, K, M, Cout,
+                                           stream);
 }
 
 template <typename V>
@@ -452,6 +637,47 @@ constexpr int DW_STATIC = DW_MAX_CHUNKS * 8 + DW_IDX * DW_CH * 12 + 16;
 // then the ring of DW_STAGES gathered chunks, [32 positions][TI + 4]
 // features (the pitch keeps the A fragments' loads on 32 banks) and [32][TO]
 // g. ops/gather.py::_dw_blocks_per_sm mirrors SMEM + DW_STATIC.
+// The chunks of a dW block's share (chunks c_begin .. c_begin + n_ch - 1 of
+// tc a batch element) that hit tap k, in order, into clist as (batch
+// element, first position); returns their count. 8 chunks a warp a round
+// (their rulebook reads in flight together), one byte a chunk of flags in
+// the scratch `flag` (n_ch bytes); count is a shared int.
+template <int WARPS>
+__device__ __forceinline__ int list_hit_chunks(const int* __restrict__ rb, int k, int K, int M,
+                                               int tc, int c_begin, int n_ch, unsigned char* flag,
+                                               int2* clist, int* count) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int c0 = warp * 8; c0 < n_ch; c0 += WARPS * 8) {
+    int v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int cc = c_begin + c0 + u, b = cc / tc, p = (cc - b * tc) * DW_CH + lane;
+      v[u] = c0 + u < n_ch && p < M ? __ldg(rb + ((size_t)b * K + k) * M + p) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const unsigned m = __ballot_sync(0xffffffffu, v[u] >= 0);
+      if (lane == 0 && c0 + u < n_ch) flag[c0 + u] = m != 0u;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int base = 0; base < n_ch; base += 32) {
+      const bool f = base + lane < n_ch && flag[base + lane];
+      const unsigned m = __ballot_sync(0xffffffffu, f);
+      if (f) {
+        const int cc = c_begin + base + lane, b = cc / tc;
+        clist[n + __popc(m & ((1u << lane) - 1u))] = make_int2(b, (cc - b * tc) * DW_CH);
+      }
+      n += __popc(m);
+    }
+    if (lane == 0) *count = n;
+  }
+  __syncthreads();
+  return *count;
+}
+
 template <int TI, int TO>
 struct DwTile {
   static constexpr int WGM = TI == 128 ? 2 : 1;
@@ -507,38 +733,8 @@ gather_dw_kernel(const float* __restrict__ feat, const int* __restrict__ rb,
   const int c_begin = s * cps;
   const int n_ch = min(c_begin + cps, chunks) - c_begin;
 
-  // the chunks of the share that hit tap k, in order: 8 chunks a warp a
-  // round (their rulebook reads in flight together), flags in the ring
-  unsigned char* flag = reinterpret_cast<unsigned char*>(ring);
-  for (int c0 = warp * 8; c0 < n_ch; c0 += T::WARPS * 8) {
-    int v[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int cc = c_begin + c0 + u, b = cc / tc, p = (cc - b * tc) * DW_CH + lane;
-      v[u] = c0 + u < n_ch && p < M ? __ldg(rb + ((size_t)b * K + k) * M + p) : -1;
-    }
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const unsigned m = __ballot_sync(0xffffffffu, v[u] >= 0);
-      if (lane == 0 && c0 + u < n_ch) flag[c0 + u] = m != 0u;
-    }
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int n = 0;
-    for (int base = 0; base < n_ch; base += 32) {
-      const bool f = base + lane < n_ch && flag[base + lane];
-      const unsigned m = __ballot_sync(0xffffffffu, f);
-      if (f) {
-        const int cc = c_begin + base + lane, b = cc / tc;
-        clist[n + __popc(m & ((1u << lane) - 1u))] = make_int2(b, (cc - b * tc) * DW_CH);
-      }
-      n += __popc(m);
-    }
-    if (lane == 0) count = n;
-  }
-  __syncthreads();
-  const int nh = count;
+  const int nh = list_hit_chunks<T::WARPS>(rb, k, K, M, tc, c_begin, n_ch,
+                                           reinterpret_cast<unsigned char*>(ring), clist, &count);
 
   // slot j's rulebook entries (warp 0) and output rows (warp 1) into the
   // index ring by 4- and 8-byte cp.async: no thread waits on them
@@ -710,15 +906,31 @@ gather_dw_kernel(const float* __restrict__ feat, const int* __restrict__ rb,
   }
 }
 
-// dw[e] = sum over shares s, in order, of part[s][e]
-__global__ void gather_dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
+__device__ __forceinline__ void store_sum(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_sum(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// dw[e] = sum over shares s, in order, of part[s][e] (f32), rounded once to
+// dw's type
+template <typename OutT>
+__global__ void gather_dw_reduce_kernel(const float* __restrict__ part, OutT* __restrict__ dw,
                                         int shares, long long per) {
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < per;
        e += (long long)gridDim.x * blockDim.x) {
     float sum = part[e];
     for (int s = 1; s < shares; ++s) sum += part[(size_t)s * per + e];
-    dw[e] = sum;
+    store_sum(dw + e, sum);
   }
+}
+
+template <typename OutT>
+int launch_dw_reduce(const float* part, OutT* dw, int shares, long long per,
+                     cudaStream_t stream) {
+  const long long blocks = (per + THREADS - 1) / THREADS;
+  gather_dw_reduce_kernel<OutT><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), THREADS,
+                                  0, stream>>>(part, dw, shares, per);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int TI, int TO>
@@ -736,11 +948,7 @@ int launch_gather_dw(const float* feat, const int* rb, const long long* order, c
       feat, rb, order, g, part, N, Cin, K, M, Cout, chunks, cps, tiles_o);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long per = (long long)K * Cin * Cout;
-  const long long blocks = (per + THREADS - 1) / THREADS;
-  gather_dw_reduce_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), THREADS, 0,
-                            stream>>>(part, dw, shares, per);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dw_reduce(part, dw, shares, (long long)K * Cin * Cout, stream);
 }
 
 template <int TI>
@@ -758,6 +966,197 @@ int dispatch_dw_to(const float* feat, const int* rb, const long long* order, con
                                     cps, stream);
   return launch_gather_dw<TI, 128>(feat, rb, order, g, dw, part, B, N, Cin, K, M, Cout, shares,
                                    cps, stream);
+}
+
+// ---- gather_dw_bf16 -----------------------------------------------------------
+//
+// The weight gradient of gather_gemm_bf16: bf16 features and g, f32 sums, dw
+// rounded once to bf16. The block walk of gather_dw_kernel (one block per
+// (share, tap, TI x TO tile of dw); the share's chunks that hit the tap
+// listed first by list_hit_chunks; partial tiles summed in share order by
+// gather_dw_reduce_kernel, so a repeat gives the same bits), with the
+// products on bf16 mma.sync m16n8k16: one warp per 16 rows of the tile's
+// Cin, all TO columns, the 32 positions of a chunk as two k16 steps. Both
+// operands come by ldmatrix.trans from the chunk's [position][channel]
+// rows (features as the transposed A, g as B), in a ring of DW_STAGES
+// chunks gathered by 16-byte cp.async DW_STAGES - 1 chunks ahead (zero fill
+// for misses and the Cin / Cout edge; row pitches padded by 16 bytes, so
+// each 8 x 8 matrix reads 8 bank groups). A chunk's products go into fresh
+// accumulators, added to the block's f32 sums with round-to-nearest adds:
+// the tensor cores' sum truncates and a tap's reduction can run to tens of
+// thousands of positions. The rulebook entries and output rows are read
+// where a chunk's gathers are issued (no index ring, unlike the f32 kernel).
+
+template <int TI, int TO>
+struct DwBf16Tile {
+  static constexpr int WARPS = TI / 16;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int NT = TO / 8;             // n8 tiles of a warp
+  static constexpr int LDA = TI + 8, LDG = TO + 8;  // bf16
+  static constexpr int STAGE = DW_CH * (LDA + LDG);  // bf16 of a ring stage
+  static constexpr int SMEM = DW_STAGES * STAGE * 2;
+  static constexpr int PIECES = (TI + TO) / 8;  // 16-byte pieces of a position's two rows
+  static constexpr int TPP = THREADS / DW_CH;   // threads of a position's gathers
+  static_assert(TI % 16 == 0 && TO % 16 == 0 && TI <= 128 && TO <= 128, "dw tile");
+  static_assert(STAGE * 2 >= DW_MAX_CHUNKS, "the chunk flags live in the ring");
+};
+
+template <int TI, int TO>
+__global__ void __launch_bounds__(DwBf16Tile<TI, TO>::THREADS)
+gather_dw_bf16_kernel(const __nv_bfloat16* __restrict__ feat, const int* __restrict__ rb,
+                      const long long* __restrict__ order, const __nv_bfloat16* __restrict__ g,
+                      float* __restrict__ part, int N, int Cin, int K, int M, int Cout,
+                      int chunks, int cps, int tiles_o) {
+  using T = DwBf16Tile<TI, TO>;
+  constexpr int PA = TI / 8;  // 16-byte pieces of a feature row
+  extern __shared__ __align__(128) unsigned char dsm_bf16[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(dsm_bf16);
+  __shared__ int2 clist[DW_MAX_CHUNKS];
+  __shared__ int count;
+
+  const int s = blockIdx.x, k = blockIdx.y;
+  const int i0 = (blockIdx.z / tiles_o) * TI, o0 = (blockIdx.z % tiles_o) * TO;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tc = (M + DW_CH - 1) / DW_CH;
+  const int c_begin = s * cps;
+  const int n_ch = min(c_begin + cps, chunks) - c_begin;
+  const int nh = list_hit_chunks<T::WARPS>(rb, k, K, M, tc, c_begin, n_ch,
+                                           reinterpret_cast<unsigned char*>(ring), clist, &count);
+
+  // slot j into ring stage `stage`: thread tid takes position p = tid /
+  // TPP, pieces sub, sub + TPP, ... of its feature row then its g row
+  const int p = tid / T::TPP, sub = tid % T::TPP;
+  auto load = [&](int j, int stage) {
+    const int2 c = clist[j];
+    const int pos = c.y + p;
+    const int v = pos < M ? __ldg(rb + ((size_t)c.x * K + k) * M + pos) : -1;
+    const bool h = v >= 0;
+    const int o = !h ? 0
+                     : order != nullptr ? static_cast<int>(__ldg(order + (size_t)c.x * M + pos))
+                                        : pos;
+    __nv_bfloat16* ra = ring + stage * T::STAGE;
+    const __nv_bfloat16* fr = feat + ((size_t)c.x * N + (h ? v : 0)) * Cin + i0;
+    const __nv_bfloat16* gr = g + ((size_t)c.x * M + o) * Cout + o0;
+#pragma unroll
+    for (int q = sub; q < T::PIECES; q += T::TPP) {
+      const bool is_a = q < PA;
+      const int cc = 8 * (is_a ? q : q - PA);
+      const bool ok = h && (is_a ? i0 + cc < Cin : o0 + cc < Cout);
+      __nv_bfloat16* dst = is_a ? ra + p * T::LDA + cc : ra + DW_CH * T::LDA + p * T::LDG + cc;
+      cp_async16(dst, ok ? (is_a ? fr : gr) + cc : feat, ok);
+    }
+  };
+
+  float acc[T::NT][4], pr[T::NT][4];
+#pragma unroll
+  for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.0f;
+  // ldmatrix.trans, lanes 8q..8q+7 address matrix q: A (the features,
+  // [position][Cin]) rows +8 of Cin for q odd, positions +8 for q >= 2;
+  // B (g, [position][Cout]) positions +8 for q odd, columns +8 for q >= 2
+  const int a_pos = (lane & 7) + (lane >> 4) * 8, a_col = warp * 16 + ((lane >> 3) & 1) * 8;
+  const int b_pos = (lane & 7) + ((lane >> 3) & 1) * 8, b_col = (lane >> 4) * 8;
+  auto compute = [&](int stage) {
+    const __nv_bfloat16* ra = ring + stage * T::STAGE;
+    const __nv_bfloat16* rg = ra + DW_CH * T::LDA;
+#pragma unroll
+    for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) pr[j][q] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DW_CH; kk += 16) {
+      uint32_t af[4];
+      ldmatrix_x4_trans(af, ra + (kk + a_pos) * T::LDA + a_col);
+#pragma unroll
+      for (int np = 0; np < T::NT / 2; ++np) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, rg + (kk + b_pos) * T::LDG + b_col + np * 16);
+        mma_bf16_16816(pr[2 * np], af, bf[0], bf[1]);
+        mma_bf16_16816(pr[2 * np + 1], af, bf[2], bf[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] = __fadd_rn(acc[j][q], pr[j][q]);
+  };
+
+  constexpr int AHEAD = DW_STAGES - 1;
+#pragma unroll 1
+  for (int j = 0; j < AHEAD; ++j) {
+    if (j < nh) load(j, j);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int j = 0; j < nh; ++j) {
+    cp_async_wait<AHEAD - 1>();  // slot j has landed (this thread's copies)
+    __syncthreads();             // ... everyone's; slot j - 1's stage is free
+    if (j + AHEAD < nh) load(j + AHEAD, (j + AHEAD) % DW_STAGES);
+    cp_async_commit();
+    compute(j % DW_STAGES);
+  }
+  cp_async_wait<0>();
+
+  // C fragment: rows (Cin) g and g + 8 of the warp's 16, columns 8 j + 2 t (+ 1)
+  float* out = part + ((size_t)s * K + k) * Cin * Cout;
+  const int gr_ = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = i0 + warp * 16 + gr_ + 8 * h;
+    if (row >= Cin) continue;
+#pragma unroll
+    for (int j = 0; j < T::NT; ++j) {
+      const int col = o0 + 8 * j + 2 * t;
+      if (col < Cout)
+        *reinterpret_cast<float2*>(out + (size_t)row * Cout + col) =
+            make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+  }
+}
+
+template <int TI, int TO>
+int launch_gather_dw_bf16(const __nv_bfloat16* feat, const int* rb, const long long* order,
+                          const __nv_bfloat16* g, __nv_bfloat16* dw, float* part, int B, int N,
+                          int Cin, int K, int M, int Cout, int shares, int cps,
+                          cudaStream_t stream) {
+  using T = DwBf16Tile<TI, TO>;
+  const int tiles_i = (Cin + TI - 1) / TI, tiles_o = (Cout + TO - 1) / TO;
+  const int chunks = B * ((M + DW_CH - 1) / DW_CH);
+  cudaError_t e = cudaFuncSetAttribute(gather_dw_bf16_kernel<TI, TO>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(shares, K, tiles_i * tiles_o);
+  gather_dw_bf16_kernel<TI, TO><<<grid, T::THREADS, T::SMEM, stream>>>(
+      feat, rb, order, g, part, N, Cin, K, M, Cout, chunks, cps, tiles_o);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_dw_reduce(part, dw, shares, (long long)K * Cin * Cout, stream);
+}
+
+template <int TI>
+int dispatch_dw_bf16_to(const __nv_bfloat16* feat, const int* rb, const long long* order,
+                        const __nv_bfloat16* g, __nv_bfloat16* dw, float* part, int B, int N,
+                        int Cin, int K, int M, int Cout, int shares, int cps,
+                        cudaStream_t stream) {
+  if (Cout <= 16)
+    return launch_gather_dw_bf16<TI, 16>(feat, rb, order, g, dw, part, B, N, Cin, K, M, Cout,
+                                         shares, cps, stream);
+  if (Cout <= 32)
+    return launch_gather_dw_bf16<TI, 32>(feat, rb, order, g, dw, part, B, N, Cin, K, M, Cout,
+                                         shares, cps, stream);
+  if (Cout <= 64)
+    return launch_gather_dw_bf16<TI, 64>(feat, rb, order, g, dw, part, B, N, Cin, K, M, Cout,
+                                         shares, cps, stream);
+  return launch_gather_dw_bf16<TI, 128>(feat, rb, order, g, dw, part, B, N, Cin, K, M, Cout,
+                                        shares, cps, stream);
+}
+
+// the checks of a dW launch's chunk shares (ops/gather.py::_dw_chunk_shares)
+bool dw_shares_ok(int B, int M, int shares, int cps) {
+  const long long chunks = (long long)B * ((M + DW_CH - 1) / DW_CH);
+  return cps > 0 && cps <= DW_MAX_CHUNKS && shares > 0 && (long long)shares * cps >= chunks &&
+         (long long)(shares - 1) * cps < (chunks > 0 ? chunks : 1);
 }
 
 }  // namespace
@@ -812,9 +1211,7 @@ extern "C" int gather_dw_f32(const void* feat, const void* rb, const void* order
                              void* dw, void* part, int B, int N, int Cin, int K, int M, int Cout,
                              int shares, int cps, void* stream) {
   if (K == 0 || Cin == 0 || Cout == 0) return 0;
-  const long long chunks = (long long)B * ((M + DW_CH - 1) / DW_CH);
-  if (Cin % 4 != 0 || Cout % 4 != 0 || cps <= 0 || cps > DW_MAX_CHUNKS || shares <= 0 ||
-      (long long)shares * cps < chunks || (long long)(shares - 1) * cps >= (chunks > 0 ? chunks : 1))
+  if (Cin % 4 != 0 || Cout % 4 != 0 || !dw_shares_ok(B, M, shares, cps))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* f = static_cast<const float*>(feat);
   const int* r = static_cast<const int*>(rb);
@@ -827,4 +1224,51 @@ extern "C" int gather_dw_f32(const void* feat, const void* rb, const void* order
   if (Cin <= 32) return dispatch_dw_to<32>(f, r, o, gg, d, p, B, N, Cin, K, M, Cout, shares, cps, s);
   if (Cin <= 64) return dispatch_dw_to<64>(f, r, o, gg, d, p, B, N, Cin, K, M, Cout, shares, cps, s);
   return dispatch_dw_to<128>(f, r, o, gg, d, p, B, N, Cin, K, M, Cout, shares, cps, s);
+}
+
+// bf16 features [B, N, Cin] with Cin % 16 == 0 and weights [K, Cin, Cout]
+// -> out [B, M, Cout] bf16; the rest as gather_gemm_f32.
+extern "C" int gather_gemm_bf16(const void* feat, const void* rb, const void* order,
+                                const void* w, void* out, int B, int N, int Cin, int K, int M,
+                                int Cout, void* stream) {
+  if (B == 0 || M == 0 || Cout == 0) return 0;
+  if (Cin % 16 != 0 || K <= 0 || K > MAX_TAPS) return static_cast<int>(cudaErrorInvalidValue);
+  const __nv_bfloat16* f = static_cast<const __nv_bfloat16*>(feat);
+  const int* r = static_cast<const int*>(rb);
+  const long long* o = static_cast<const long long*>(order);
+  const __nv_bfloat16* ww = static_cast<const __nv_bfloat16*>(w);
+  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (Cout) {
+    case 16: return dispatch_bk_bf16<16>(f, r, o, ww, y, B, N, Cin, K, M, Cout, s);
+    case 32: return dispatch_bk_bf16<32>(f, r, o, ww, y, B, N, Cin, K, M, Cout, s);
+    case 64: return dispatch_bk_bf16<64>(f, r, o, ww, y, B, N, Cin, K, M, Cout, s);
+    default:
+      if (Cout % 128 != 0) return static_cast<int>(cudaErrorInvalidValue);
+      return dispatch_bk_bf16<128>(f, r, o, ww, y, B, N, Cin, K, M, Cout, s);
+  }
+}
+
+// bf16 features and g with Cin % 8 == 0 and Cout % 8 == 0 -> dw [K, Cin,
+// Cout] bf16; part and the shares as gather_dw_f32.
+extern "C" int gather_dw_bf16(const void* feat, const void* rb, const void* order, const void* g,
+                              void* dw, void* part, int B, int N, int Cin, int K, int M, int Cout,
+                              int shares, int cps, void* stream) {
+  if (K == 0 || Cin == 0 || Cout == 0) return 0;
+  if (Cin % 8 != 0 || Cout % 8 != 0 || !dw_shares_ok(B, M, shares, cps))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const __nv_bfloat16* f = static_cast<const __nv_bfloat16*>(feat);
+  const int* r = static_cast<const int*>(rb);
+  const long long* o = static_cast<const long long*>(order);
+  const __nv_bfloat16* gg = static_cast<const __nv_bfloat16*>(g);
+  __nv_bfloat16* d = static_cast<__nv_bfloat16*>(dw);
+  float* p = static_cast<float*>(part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Cin <= 16)
+    return dispatch_dw_bf16_to<16>(f, r, o, gg, d, p, B, N, Cin, K, M, Cout, shares, cps, s);
+  if (Cin <= 32)
+    return dispatch_dw_bf16_to<32>(f, r, o, gg, d, p, B, N, Cin, K, M, Cout, shares, cps, s);
+  if (Cin <= 64)
+    return dispatch_dw_bf16_to<64>(f, r, o, gg, d, p, B, N, Cin, K, M, Cout, shares, cps, s);
+  return dispatch_dw_bf16_to<128>(f, r, o, gg, d, p, B, N, Cin, K, M, Cout, shares, cps, s);
 }

@@ -9,8 +9,11 @@
 (``ops/sparse_grid.py``), so of every conv of BEVFusion's SparseEncoder;
 ``gather_rows`` is TransFusion's query gather. Each wrapper runs its plain
 PyTorch version for a CPU tensor and launches its CUDA kernel
-(``csrc/gather.cu``) for a CUDA tensor, or raises; ``<wrapper>.launches``
-counts the kernel launches.
+(``csrc/gather.cu``) for a CUDA tensor, or raises. ``gather_gemm`` and
+``gather_dw`` take f32 or bf16 (the backbone's ``dtype``), each type its own
+kernel: ``<wrapper>.launches`` counts the f32 kernel's launches,
+``gather_gemm_bf16.launches`` and ``gather_dw_bf16.launches`` the bf16
+kernels'; ``gather_rows.launches`` counts K5's.
 
 The grid engine hands over JAX's rulebook form, ``max(idx, 0)`` with a
 separate ``hit``. ``gather_plan`` turns it, once per rulebook, into what the
@@ -53,10 +56,31 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _GEMM_ARGS = [_P] * 5 + [_I] * 6
 _ROWS_ARGS = [_P] * 3 + [_I] + [_L] * 5 + [_I] * 2
 _DW_ARGS = [_P] * 6 + [_I] * 8
-DW_CHUNK = 32  # plan positions of one reduction step of the dW kernel
+DW_CHUNK = 32  # plan positions of one reduction step of the dW kernels
 DW_MAX_CHUNKS = 256  # chunks of one share (the kernel's shared-memory list)
 _SMS = 132  # multiprocessors of an H100
 _DW_WAVES = 8  # a dW launch's blocks: this many times what the card holds at once
+
+
+class LaunchCount:
+    """The launch count of a kernel that a wrapper of another name reaches
+    (``gather_gemm`` launches the bf16 K4 for bf16 tensors): ``launches``,
+    and the kernel's name as ``__name__``, as a wrapper's own count has."""
+
+    def __init__(self, name: str):
+        self.__name__, self.launches = name, 0
+
+
+gather_gemm_bf16 = LaunchCount("gather_gemm_bf16")
+gather_dw_bf16 = LaunchCount("gather_dw_bf16")
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _chan_pad(c: int, dtype: torch.dtype) -> int:
+    """A channel count of a K4 or K4-dW launch: a multiple of 4 (f32: 16
+    bytes) or 16 (bf16: the depth of one bf16 product)."""
+    q = 16 if dtype == torch.bfloat16 else 4
+    return -(-c // q) * q
 
 
 def _cout_pad(cout: int) -> int:
@@ -170,9 +194,11 @@ def gather_gemm_plain(features: torch.Tensor, idx: torch.Tensor, hit: torch.Tens
 
 def gather_dw_plain(features: torch.Tensor, idx: torch.Tensor, hit: torch.Tensor,
                     g: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the weight-gradient kernel: the zero-row
-    gather and ``einsum("bmc,bmo->co")`` per tap in f32. features [B, N,
-    Cin], idx / hit [B, K, M], g [B, M, Cout] -> dW [K, Cin, Cout] f32."""
+    """Plain PyTorch version of the weight-gradient kernels: the zero-row
+    gather and ``einsum("bmc,bmo->co")`` per tap in f32, rounded to the
+    features' dtype (bf16 dW for bf16 operands, as autograd of
+    ``gather_gemm_plain`` gives it). features [B, N, Cin], idx / hit [B, K,
+    M], g [B, M, Cout] -> dW [K, Cin, Cout]."""
     B, N, Cin = features.shape
     K, M = idx.shape[1], idx.shape[2]
     acc = _acc_dtype(features.dtype)
@@ -183,7 +209,7 @@ def gather_dw_plain(features: torch.Tensor, idx: torch.Tensor, hit: torch.Tensor
     for k in range(K):
         rows = torch.gather(tbl, 1, safe[:, k, :, None].expand(B, M, Cin))
         dw[k] = torch.einsum("bmc,bmo->co", rows.to(acc), gf)
-    return dw
+    return dw.to(features.dtype)
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -199,25 +225,28 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _launch_gemm(features: torch.Tensor, plan: GatherPlan,
                  weights: torch.Tensor) -> torch.Tensor:
-    """One launch of ``csrc/gather.cu::gather_gemm_f32`` over ``plan``:
-    features [B, N, Cin] f32, weights [K, Cin, Cout] -> [B, M, Cout]. Cin is
-    zero-padded to a multiple of 4 and Cout to the kernel's column tile here
+    """One launch of ``csrc/gather.cu::gather_gemm_f32`` (f32) or
+    ``gather_gemm_bf16`` (bf16) over ``plan``: features [B, N, Cin] and
+    weights [K, Cin, Cout] of that type -> [B, M, Cout] of it. Cin is
+    zero-padded to ``_chan_pad`` and Cout to the kernel's column tile here
     (no autograd: the callers are the Function below and the wrapper)."""
     B, N, Cin = features.shape
     K, M = plan.rulebook.shape[1], plan.rulebook.shape[2]
     Cout = weights.shape[-1]
-    Cinp, Coutp = -(-Cin // 4) * 4, _cout_pad(Cout)
+    bf16 = features.dtype == torch.bfloat16
+    Cinp, Coutp = _chan_pad(Cin, features.dtype), _cout_pad(Cout)
     if Cinp != Cin:
         features = F.pad(features, (0, Cinp - Cin))
     if Cinp != Cin or Coutp != Cout:
         weights = F.pad(weights, (0, Coutp - Cout, 0, Cinp - Cin))
     features, weights = features.contiguous(), weights.contiguous()
-    out = torch.empty(B, M, Coutp, dtype=torch.float32, device=features.device)
-    _build.function("gather", "gather_gemm_f32", _GEMM_ARGS, "gather_gemm")(
+    out = torch.empty(B, M, Coutp, dtype=features.dtype, device=features.device)
+    fn = "gather_gemm_bf16" if bf16 else "gather_gemm_f32"
+    _build.function("gather", fn, _GEMM_ARGS, "gather_gemm")(
         features.device, features.data_ptr(), plan.rulebook.data_ptr(),
         0 if plan.order is None else plan.order.data_ptr(),
         weights.data_ptr(), out.data_ptr(), B, N, Cinp, K, M, Coutp)
-    gather_gemm.launches += 1
+    (gather_gemm_bf16 if bf16 else gather_gemm).launches += 1
     return out[..., :Cout] if Coutp != Cout else out
 
 
@@ -258,19 +287,21 @@ def gather_gemm(features: torch.Tensor, idx: torch.Tensor, hit: torch.Tensor,
     ``gather_plan(idx, hit)``, made once by a caller whose rulebook serves
     several convs; made here (rows in order, not symmetric) when not given.
 
-    CPU tensors take the plain version. CUDA tensors (f32, the type of the
-    gather engine's convs) launch ``csrc/gather.cu`` (3xTF32 on the tensor
-    cores) or raise; Cin is zero-padded to a multiple of 4 and Cout to the
-    kernel's column tile where needed (the stem's 5 channels; every other
-    conv of the path is aligned), by autograd-tracked pads around the
-    launch's Function."""
+    CPU tensors take the plain version. CUDA tensors launch
+    ``csrc/gather.cu`` or raise: f32 features and weights the f32 kernel
+    (3xTF32 on the tensor cores), bf16 ones the bf16 kernel (bf16 products,
+    f32 sums, the output rounded once, as JAX's); any other type, or two
+    types, raises. Cin is zero-padded to a multiple of 4 (f32) or 16 (bf16)
+    and Cout to the kernel's column tile where needed (the stem's 5
+    channels; every other conv of the path is aligned), by autograd-tracked
+    pads around the launch's Function."""
     if features.device.type == "cpu":
         return gather_gemm_plain(features, idx, hit, weights)
+    if features.dtype not in _KERNEL_DTYPES or weights.dtype != features.dtype:
+        raise TypeError(f"gather_gemm: features {features.dtype} / weights {weights.dtype}; "
+                        "the kernels take f32 or bf16, both operands of one type")
     if features.device.type != "cuda":
         raise ValueError(f"gather_gemm: unsupported device {features.device}")
-    if features.dtype != torch.float32 or weights.dtype != torch.float32:
-        raise TypeError(f"gather_gemm: features {features.dtype} / weights {weights.dtype}; "
-                        "the kernel takes f32")
     B, N, Cin = features.shape
     K, M = idx.shape[1], idx.shape[2]
     Cout = weights.shape[-1]
@@ -291,7 +322,7 @@ def gather_gemm(features: torch.Tensor, idx: torch.Tensor, hit: torch.Tensor,
         raise ValueError(f"gather_gemm: a symmetric plan has M == N, got M={M}, N={N}")
     if not (torch.is_grad_enabled() and (features.requires_grad or weights.requires_grad)):
         return _launch_gemm(features, plan, weights)
-    Cinp, Coutp = -(-Cin // 4) * 4, _cout_pad(Cout)
+    Cinp, Coutp = _chan_pad(Cin, features.dtype), _cout_pad(Cout)
     if Cinp != Cin:
         features = F.pad(features, (0, Cinp - Cin))
     if Cinp != Cin or Coutp != Cout:
@@ -323,63 +354,80 @@ def _dw_blocks_per_sm(ti: int, to: int) -> int:
     return max(1, min(2048 // threads, 232448 // (smem + fixed)))
 
 
-def _dw_chunk_shares(B: int, M: int, K: int, Cin: int, Cout: int) -> tuple:
+def _dw_bf16_blocks_per_sm(ti: int, to: int) -> int:
+    """Blocks of one tile shape of the bf16 dW kernel a multiprocessor holds
+    (csrc/gather.cu ``DwBf16Tile``): shared memory (four ring stages of
+    gathered bf16 features and g at pitches padded by 8) + the chunk list
+    and count + the 1 KB the card reserves; a warp per 16 rows of the tile,
+    within 2048 threads and 32 blocks."""
+    smem = 4 * DW_CHUNK * (ti + 8 + to + 8) * 2 + DW_MAX_CHUNKS * 8 + 16 + 1024
+    return max(1, min(2048 // (2 * ti), 32, 232448 // smem))
+
+
+def _dw_chunk_shares(B: int, M: int, K: int, Cin: int, Cout: int,
+                     bf16: bool = False) -> tuple:
     """(shares, chunks per share) of a dW launch: the B * ceil(M / 32)
     chunks of plan positions cut into equal runs, so that shares x taps x
     tiles is about ``_DW_WAVES`` times the blocks the card holds at once
-    (one to six a multiprocessor by tile), each run at most
+    (of the f32 or the bf16 kernel, by tile), each run at most
     ``DW_MAX_CHUNKS`` chunks."""
     chunks = B * -(-M // DW_CHUNK)
     ti, to = _dw_tiles(Cin, Cout)
     tiles = -(-Cin // ti) * -(-Cout // to)
-    blocks = _DW_WAVES * _SMS * _dw_blocks_per_sm(ti, to)
+    per_sm = _dw_bf16_blocks_per_sm(ti, to) if bf16 else _dw_blocks_per_sm(ti, to)
+    blocks = _DW_WAVES * _SMS * per_sm
     shares = max(1, min(chunks, -(-blocks // (K * tiles))))
     cps = min(-(-chunks // shares), DW_MAX_CHUNKS)
     return -(-chunks // cps), cps
 
 
 def _launch_dw(features: torch.Tensor, plan: GatherPlan, g: torch.Tensor) -> torch.Tensor:
-    """One launch of ``csrc/gather.cu::gather_dw_f32``: features [B, N, Cin]
-    f32 with Cin % 4 == 0, g [B, M, Cout] f32 with Cout % 4 == 0 -> dW [K,
-    Cin, Cout]. Each block (share, tap, tile) writes one partial tile; a
-    second kernel adds a tap's partials in share order, so a repeat gives
-    the same bits."""
+    """One launch of ``csrc/gather.cu::gather_dw_f32`` (f32) or
+    ``gather_dw_bf16`` (bf16): features [B, N, Cin] and g [B, M, Cout] of
+    one type, Cin and Cout padded by ``_chan_pad`` -> dW [K, Cin, Cout]
+    of that type (f32 sums either way). Each block (share, tap, tile) writes
+    one partial tile in f32; a second kernel adds a tap's partials in share
+    order and rounds once, so a repeat gives the same bits."""
     B, N, Cin = features.shape
     K, M = plan.rulebook.shape[1], plan.rulebook.shape[2]
     Cout = g.shape[-1]
-    if Cin % 4 or Cout % 4:
-        raise ValueError(f"gather_dw: Cin {Cin} and Cout {Cout} must be multiples of 4")
+    bf16 = features.dtype == torch.bfloat16
+    if _chan_pad(Cin, features.dtype) != Cin or _chan_pad(Cout, features.dtype) != Cout:
+        raise ValueError(f"gather_dw: Cin {Cin} and Cout {Cout} must be multiples of "
+                         f"{_chan_pad(1, features.dtype)} for {features.dtype}")
     if B * M == 0:
-        return torch.zeros(K, Cin, Cout, dtype=torch.float32, device=features.device)
-    shares, cps = _dw_chunk_shares(B, M, K, Cin, Cout)
+        return torch.zeros(K, Cin, Cout, dtype=features.dtype, device=features.device)
+    shares, cps = _dw_chunk_shares(B, M, K, Cin, Cout, bf16)
     features, g = features.contiguous(), g.contiguous()
-    dw = torch.empty(K, Cin, Cout, dtype=torch.float32, device=features.device)
+    dw = torch.empty(K, Cin, Cout, dtype=features.dtype, device=features.device)
     part = torch.empty(shares * K * Cin * Cout, dtype=torch.float32, device=features.device)
-    _build.function("gather", "gather_dw_f32", _DW_ARGS, "gather_dw")(
+    _build.function("gather", "gather_dw_bf16" if bf16 else "gather_dw_f32", _DW_ARGS,
+                    "gather_dw")(
         features.device, features.data_ptr(), plan.rulebook.data_ptr(),
         0 if plan.order is None else plan.order.data_ptr(), g.data_ptr(), dw.data_ptr(),
         part.data_ptr(), B, N, Cin, K, M, Cout, shares, cps)
-    gather_dw.launches += 1
+    (gather_dw_bf16 if bf16 else gather_dw).launches += 1
     return dw
 
 
 def gather_dw(features: torch.Tensor, idx: torch.Tensor, hit: torch.Tensor,
               g: torch.Tensor, plan: GatherPlan | None = None) -> torch.Tensor:
-    """The weight-gradient kernel's wrapper: features [B, N, Cin] f32, idx /
-    hit [B, K, M], g [B, M, Cout] f32 -> dW [K, Cin, Cout] f32 (the weight
-    gradient of ``gather_gemm`` for an output gradient g). ``plan`` as for
-    ``gather_gemm``. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (3xTF32 on TF32 ``wgmma``, f32 sums) or raise; Cin and Cout are
-    zero-padded to multiples of 4 where needed. ``gather_dw.launches``
-    counts launches (in a train step they come from ``gather_gemm``'s
-    backward)."""
+    """The weight-gradient kernels' wrapper: features [B, N, Cin], idx / hit
+    [B, K, M], g [B, M, Cout], f32 or bf16 both -> dW [K, Cin, Cout] of
+    their type (the weight gradient of ``gather_gemm`` for an output
+    gradient g). ``plan`` as for ``gather_gemm``. CPU tensors take the plain
+    version; CUDA tensors launch the f32 kernel (3xTF32 on TF32 ``wgmma``,
+    f32 sums) or the bf16 one (bf16 ``mma.sync``, f32 sums, dW rounded once)
+    or raise; Cin and Cout are zero-padded by ``_chan_pad`` where needed.
+    ``gather_dw.launches`` and ``gather_dw_bf16.launches`` count launches
+    (in a train step they come from ``gather_gemm``'s backward)."""
     if features.device.type == "cpu":
         return gather_dw_plain(features, idx, hit, g)
+    if features.dtype not in _KERNEL_DTYPES or g.dtype != features.dtype:
+        raise TypeError(f"gather_dw: features {features.dtype} / g {g.dtype}; the kernels "
+                        "take f32 or bf16, both operands of one type")
     if features.device.type != "cuda":
         raise ValueError(f"gather_dw: unsupported device {features.device}")
-    if features.dtype != torch.float32 or g.dtype != torch.float32:
-        raise TypeError(f"gather_dw: features {features.dtype} / g {g.dtype}; the kernel "
-                        "takes f32")
     B, N, Cin = features.shape
     M, Cout = idx.shape[2], g.shape[-1]
     if (idx.dtype != torch.int32 or hit.shape != idx.shape or idx.shape[0] != B
@@ -391,7 +439,7 @@ def gather_dw(features: torch.Tensor, idx: torch.Tensor, hit: torch.Tensor,
         raise ValueError("gather_dw: inputs must be on one device")
     if plan is None:
         plan = gather_plan(idx, hit, sort=False)
-    Cinp, Coutp = -(-Cin // 4) * 4, -(-Cout // 4) * 4
+    Cinp, Coutp = _chan_pad(Cin, features.dtype), _chan_pad(Cout, features.dtype)
     if Cinp != Cin:
         features = F.pad(features, (0, Cinp - Cin))
     if Coutp != Cout:

@@ -42,13 +42,14 @@ def nuscenes_data_prep(root_path, version="v1.0-trainval", nsweeps=10, suffix=No
     return create_groundtruth_database(root_path, info_path, nsweeps=nsweeps, suffix=suffix)
 
 
-def synthetic_data_prep(root_path, n_frames=32, n_logs=4, seed=0, range_xy=45.0):
+def synthetic_data_prep(root_path, n_frames=32, n_logs=4, seed=0, range_xy=45.0,
+                        with_camera=False):
     from ..data.datasets.synthetic import make_synthetic_nuscenes
 
     train = make_synthetic_nuscenes(root_path, n_frames, n_logs, seed=seed, split="train",
-                                    range_xy=range_xy)
+                                    range_xy=range_xy, with_camera=with_camera)
     make_synthetic_nuscenes(root_path, max(n_frames // 4, 2), n_logs, seed=seed + 1,
-                            split="val", range_xy=range_xy)
+                            split="val", range_xy=range_xy, with_camera=with_camera)
     # a minimal log.json for the spatial selectors
     infos = load(train)
     logfiles = sorted({i["cam_front_path"].split("/")[-1].split("__")[0] for i in infos})
@@ -73,6 +74,8 @@ def parse_args(argv=None):
     s.add_argument("--n_logs", type=int, default=4)
     s.add_argument("--seed", type=int, default=0)
     s.add_argument("--range_xy", type=float, default=45.0)
+    s.add_argument("--with_camera", action="store_true",
+                   help="also write the six camera images of each frame")
     return p.parse_args(argv)
 
 
@@ -83,7 +86,7 @@ def main(argv=None):
                            args.infos_only)
     else:
         synthetic_data_prep(args.root_path, args.n_frames, args.n_logs, args.seed,
-                            args.range_xy)
+                            args.range_xy, args.with_camera)
 
 
 if __name__ == "__main__":

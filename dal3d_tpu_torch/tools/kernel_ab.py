@@ -1,7 +1,8 @@
 #!/usr/bin/env python
-"""This tree's weight-gradient kernel (K4-dW) and assignment kernel (LSA)
-against another tree's, on the inputs of one full-width BEVFusion train
-step, timed in turns on the card.
+"""This tree's gather-GEMM (K4: the forward and input-gradient launches),
+weight-gradient kernel (K4-dW) and assignment kernel (LSA) against another
+tree's, on the inputs of one full-width BEVFusion train step, timed in
+turns on the card.
 
     python -m dal3d_tpu_torch.tools.kernel_ab --other <dir> [--rounds 1]
 
@@ -13,13 +14,15 @@ own launch parameters (the dW kernel's chunk shares).
 
 The inputs are those of phase 18 of ``chip_smoke.py``: configs/bevfusion_lidar.py
 at full width, that phase's seeded clouds and GT boxes, weights from seed
-0; one train step runs with the 21 dW launches and the assignment's cost
-captured. Each round times other, this, this, other: per turn the sum of
-the 21 launches' device times and the assignment's (``chip_smoke.cuda_time_ms``).
-The two trees' results are held against each other: dW within 1e-5 of
-each launch's scale, ``col4row`` equal. Prints the card's name and power
-limit, a line per turn, a line per dW launch (the mean of each side's
-turns) and a JSON summary as the last line. Needs the card.
+0; one train step runs with its 41 K4 launches, 21 dW launches and the
+assignment's cost captured. Each round times other, this, this, other: per
+turn the sum of the K4 launches', the dW launches' and the assignment's
+device times (``chip_smoke.cuda_time_ms``). The two trees' results are
+held against each other: K4 and dW within 1e-5 of each launch's scale
+(and whether every launch gives the same bits is printed), ``col4row``
+equal. Prints the card's name and power limit, a line per turn, a line per
+dW launch (the mean of each side's turns) and a JSON summary as the last
+line. Needs the card.
 """
 import argparse
 import importlib
@@ -51,8 +54,9 @@ def load_other(root: Path, build_dir: Path):
 
 
 def captured_step(cs):
-    """The dW launches' (features, plan, g) and the assignment's cost of one
-    full-width BEVFusion train step (phase 18's inputs)."""
+    """The K4 launches' (features, plan, weights), the dW launches'
+    (features, plan, g) and the assignment's cost of one full-width
+    BEVFusion train step (phase 18's inputs)."""
     from dal3d_tpu_torch.models.builder import bevfusion_optimizer, build_bevfusion
     from dal3d_tpu_torch.ops import gather as tg
     from dal3d_tpu_torch.ops import lsa as tl
@@ -64,10 +68,11 @@ def captured_step(cs):
     batch["gt_boxes"], batch["gt_classes"] = cs.bevfusion_gt(18)
     bundle = build_bevfusion(cfg, seed=0)
     step = make_bevfusion_train_step(bundle, bevfusion_optimizer(cfg, bundle, 100))
-    with cs.Capture(tg, "_launch_dw") as kdw, cs.Capture(tl, "linear_sum_assignment") as klsa:
+    with cs.Capture(tg, "_launch_gemm") as k4, cs.Capture(tg, "_launch_dw") as kdw, \
+            cs.Capture(tl, "linear_sum_assignment") as klsa:
         step(batch)
         torch.cuda.synchronize()
-    return kdw.calls, klsa.calls[0][0]
+    return k4.calls, kdw.calls, klsa.calls[0][0]
 
 
 def main(argv=None) -> int:
@@ -89,14 +94,20 @@ def main(argv=None) -> int:
     print(f"card: {torch.cuda.get_device_name(0)} | {smi}")
     with tempfile.TemporaryDirectory() as tmp:
         og, ol = load_other(Path(args.other).resolve(), Path(tmp))
-        dw_calls, cost = captured_step(cs)
+        k4_calls, dw_calls, cost = captured_step(cs)
         sides = {"this": (tg, tl), "other": (og, ol)}
-        for n, (f, plan, g) in enumerate(dw_calls):
-            a, b = tg._launch_dw(f, plan, g), og._launch_dw(f, plan, g)
-            scale = max(float(b.abs().max()), 1e-30)
-            if not float((a - b).abs().max()) <= 1e-5 * scale:
-                print(f"kernel_ab: dW launch {n} differs between the trees", file=sys.stderr)
-                return 1
+        same_bits = True
+        for what, fn, calls in (("K4", "_launch_gemm", k4_calls), ("dW", "_launch_dw", dw_calls)):
+            for n, call in enumerate(calls):
+                a, b = getattr(tg, fn)(*call), getattr(og, fn)(*call)
+                scale = max(float(b.abs().max()), 1e-30)
+                if not float((a - b).abs().max()) <= 1e-5 * scale:
+                    print(f"kernel_ab: {what} launch {n} differs between the trees",
+                          file=sys.stderr)
+                    return 1
+                same_bits &= torch.equal(a, b)
+        print(f"the two trees' {len(k4_calls)} K4 and {len(dw_calls)} dW launches: within 1e-5 "
+              f"of scale; the same bits: {same_bits}")
         if not torch.equal(tl.linear_sum_assignment(cost), ol.linear_sum_assignment(cost)):
             print("kernel_ab: col4row differs between the trees", file=sys.stderr)
             return 1
@@ -105,20 +116,23 @@ def main(argv=None) -> int:
         for r in range(args.rounds):
             for side in ("other", "this", "this", "other"):
                 gm, lm = sides[side]
+                k4_ms = sum(cs.cuda_time_ms(lambda f=f, p=p, w=w: gm._launch_gemm(f, p, w), 5)
+                            for f, p, w in k4_calls)
                 ms = [cs.cuda_time_ms(lambda f=f, p=p, g=g: gm._launch_dw(f, p, g), 5)
                       for f, p, g in dw_calls]
                 lsa_ms = cs.cuda_time_ms(lambda: lm.linear_sum_assignment(cost), 5)
-                turns[side].append((sum(ms), lsa_ms))
+                turns[side].append((sum(ms), lsa_ms, k4_ms))
                 per_launch[side].append(ms)
-                print(f"round {r} {side:5s}: K4-dW {sum(ms):.3f} ms over {len(ms)} launches, "
-                      f"LSA {lsa_ms:.4f} ms")
+                print(f"round {r} {side:5s}: K4 {k4_ms:.3f} ms over {len(k4_calls)} launches, "
+                      f"K4-dW {sum(ms):.3f} ms over {len(ms)} launches, LSA {lsa_ms:.4f} ms")
     mean = {s: np.mean(per_launch[s], axis=0) for s in per_launch}
     for n, (f, plan, g) in enumerate(dw_calls):
         print(f"  dW #{n:2d} Cin {f.shape[-1]:3d} Cout {g.shape[-1]:3d} taps "
               f"{plan.rulebook.shape[1]:2d} hits {int((plan.rulebook >= 0).sum()):8d}: this "
               f"{mean['this'][n]:.4f} ms, other {mean['other'][n]:.4f} ms")
-    summary = {s: {"dw_ms": [t[0] for t in turns[s]], "lsa_ms": [t[1] for t in turns[s]]}
-               for s in turns}
+    summary = {s: {"k4_ms": [t[2] for t in turns[s]], "dw_ms": [t[0] for t in turns[s]],
+                   "lsa_ms": [t[1] for t in turns[s]]} for s in turns}
+    summary["same_bits"] = same_bits
     summary["card"] = smi
     print(json.dumps(summary))
     return 0

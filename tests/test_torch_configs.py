@@ -4,8 +4,8 @@ for the CBGS VoxelNets (the gather engine where a config names none, as in
 JAX; the banded one where it asks for it). No forward runs: the full sizes
 are for the card. Together with the CLI tests of the synthetic configs
 (tests/test_torch_cbgs_gather_cli.py, test_torch_bevfusion_seg_cli.py) this
-is the claim that every config runs as written. The backbone engines and
-dtypes the port does not run yet are refused with their ROADMAP item."""
+is the claim that every config runs as written. The gather and hybrid
+engines in bf16 build and predict; an unknown engine is refused."""
 import copy
 import glob
 import os
@@ -14,9 +14,10 @@ import pytest
 import torch
 
 from dal3d_tpu_torch.models.builder import build_bevfusion, build_detector
+from dal3d_tpu_torch.runtime.steps import make_predict_step
 from dal3d_tpu_torch.utils.config import Config
 from test_torch_camera_branch import few_threads  # noqa: F401
-from torch_port_utils import small_cfg
+from torch_port_utils import small_cfg, small_voxels
 
 pytestmark = pytest.mark.usefixtures("few_threads")
 
@@ -69,14 +70,28 @@ def test_every_engine_builds(impl):
     model.load_state_dict(gather.state_dict(), strict=True)
 
 
-@pytest.mark.parametrize("backbone,item", [
-    (dict(impl="gather", dtype="bfloat16"), "A9.d.5"),
-    (dict(impl="hybrid", dtype="bfloat16"), "A9.d.5")])
-def test_engines_not_ported_name_their_item(backbone, item):
+def test_engines_not_ported_name_their_item():
+    """Every engine of JAX's builds (the last refusal, bf16 on the gather
+    and hybrid engines, A9.d.5, is lifted: see the test below); an unknown
+    engine is refused."""
     cfg = copy.deepcopy(small_cfg())
-    cfg["model"]["backbone"].update(backbone)
-    with pytest.raises(NotImplementedError, match=item):
-        build_detector(cfg, device="cpu")
     cfg["model"]["backbone"].update(impl="sparse")
     with pytest.raises(ValueError, match="unknown backbone impl"):
         build_detector(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("impl", ["gather", "hybrid"])
+def test_bf16_gather_engines_build_and_predict(impl):
+    """The gather and hybrid engines at ``dtype="bfloat16"`` build (their
+    convs in bf16) and run a CPU predict with detections."""
+    cfg = copy.deepcopy(small_cfg())
+    cfg["model"]["backbone"].update(impl=impl, dtype="bfloat16",
+                                    voxel_caps=(1920, 1536, 384, 128))
+    bundle = build_detector(cfg, device="cpu")
+    bb = bundle.model.backbone
+    assert bb.impl == impl and bb.l0.stem.dtype == torch.bfloat16
+    vf, vc, vv = small_voxels(0)
+    out = make_predict_step(bundle)({"voxel_features": vf, "voxel_coords": vc,
+                                     "voxel_valid": vv})
+    assert out["box3d_lidar"].shape[0] == 2 and bool(torch.isfinite(out["scores"]).all())
+    assert int(out["det_valid"].sum()) > 0

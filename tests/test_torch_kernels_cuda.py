@@ -488,17 +488,76 @@ def test_gather_rows_kernel_reads_strided_views(cuda, dtype):  # noqa: F811
 
 
 def test_gather_gemm_kernel_refuses_other_types(cuda):  # noqa: F811
-    """The kernel takes f32 features and weights and an int32 rulebook."""
+    """The kernels take f32 or bf16 features and weights of one type and an
+    int32 rulebook: f16, f64 and mixed operands raise, before any launch."""
     from dal3d_tpu_torch.ops import gather as tg
 
     feats = torch.zeros(1, 8, 8, device=cuda)
     idx = torch.zeros(1, 2, 4, dtype=torch.int32, device=cuda)
     hit = torch.ones(1, 2, 4, dtype=torch.bool, device=cuda)
     w = torch.zeros(2, 8, 16, device=cuda)
-    with pytest.raises(TypeError):
-        tg.gather_gemm(feats.bfloat16(), idx, hit, w.bfloat16())
+    before = (tg.gather_gemm.launches, tg.gather_gemm_bf16.launches)
+    for fd, wd in ((torch.float16, torch.float16), (torch.float64, torch.float64),
+                   (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)):
+        with pytest.raises(TypeError):
+            tg.gather_gemm(feats.to(fd), idx, hit, w.to(wd))
     with pytest.raises(ValueError):
         tg.gather_gemm(feats, idx.long(), hit, w)
+    assert (tg.gather_gemm.launches, tg.gather_gemm_bf16.launches) == before
+
+
+BF16_ULP = 2.0 ** -7  # one bf16 ulp at a tensor's scale (K1's rule)
+
+
+def _rel(got, ref):
+    return float((got.float() - ref.float()).abs().max()) / max(float(ref.float().abs().max()),
+                                                                1e-30)
+
+
+@pytest.mark.parametrize("Cin,Cout", K4_WIDTHS)
+def test_gather_gemm_bf16_kernel_random_rows(cuda, Cin, Cout):  # noqa: F811
+    """The bf16 K4 (bf16 products, f32 sums, one rounding) on the random
+    rows of the f32 test above (19 % hits, 500 rows without one, features
+    over 1e-3..1e3): within one bf16 ulp of the plain version's scale, the
+    rows without a hit exactly 0, bf16 out, the same bits on a second call
+    and on the sorted plan, one launch each on the bf16 counter."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    rng = np.random.RandomState(Cin * 1000 + Cout)
+    B, N, K, M = 2, 5000, 27, 4000
+    f = rng.randn(B, N, Cin) * 10.0 ** rng.uniform(-3, 3, (B, N, Cin))
+    feats = t(f.astype(np.float32)).to(cuda, torch.bfloat16)
+    idx = t(rng.randint(0, N, (B, K, M)).astype(np.int32)).to(cuda)
+    hit = t(rng.rand(B, K, M) < 0.19).to(cuda)
+    hit[:, :, 1000:1500] = False
+    w = t((rng.randn(K, Cin, Cout) * 0.1).astype(np.float32)).to(cuda, torch.bfloat16)
+    n32, n16 = tg.gather_gemm.launches, tg.gather_gemm_bf16.launches
+    got = tg.gather_gemm(feats, idx, hit, w)
+    torch.cuda.synchronize()
+    assert (tg.gather_gemm.launches - n32, tg.gather_gemm_bf16.launches - n16) == (0, 1)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, M, Cout)
+    ref = tg.gather_gemm_plain(feats, idx, hit, w)
+    assert _rel(got, ref) <= BF16_ULP
+    assert float(got[:, 1000:1500].float().abs().max()) == 0.0
+    assert torch.equal(got, tg.gather_gemm(feats, idx, hit, w))
+    assert torch.equal(got, tg.gather_gemm(feats, idx, hit, w, tg.gather_plan(idx, hit)))
+
+
+@pytest.mark.parametrize("Cout", [16, 32, 64, 128])
+def test_gather_gemm_bf16_kernel_l0_like_rulebook(cuda, Cout):  # noqa: F811
+    """The bf16 K4 on the surface rulebook of the f32 test above: within
+    one bf16 ulp of scale, repeat bit-equal."""
+    from dal3d_tpu_torch.ops import gather as tg
+    from test_torch_gather_tf32 import surface_rulebook
+
+    idx, hit = (x.to(cuda) for x in surface_rulebook(Cout))
+    rng = np.random.RandomState(Cout)
+    Cin = 16 if Cout <= 32 else Cout
+    feats = t(rng.randn(1, idx.shape[2], Cin).astype(np.float32)).to(cuda, torch.bfloat16)
+    w = t((rng.randn(27, Cin, Cout) * 0.1).astype(np.float32)).to(cuda, torch.bfloat16)
+    got = tg.gather_gemm(feats, idx, hit, w)
+    assert _rel(got, tg.gather_gemm_plain(feats, idx, hit, w)) <= BF16_ULP
+    assert torch.equal(got, tg.gather_gemm(feats, idx, hit, w))
 
 
 # --- the redesigned K7 (3xTF32 wgmma) and K2 (exact cull) --------------------
@@ -639,6 +698,58 @@ def test_gather_dw_kernel_matches_plain(cuda, Cin, Cout):  # noqa: F811
     assert tg.gather_dw.launches == before + 4
 
 
+@pytest.mark.parametrize("Cin,Cout", DW_WIDTHS)
+def test_gather_dw_bf16_kernel_matches_plain(cuda, Cin, Cout):  # noqa: F811
+    """The bf16 K4-dW (bf16 mma.sync, f32 sums, dW rounded once) on the
+    random rows of the f32 test above, on both plans: bf16 dW within one
+    bf16 ulp of the plain version's scale, the same bits on a repeat, a tap
+    without a hit exact zeros, the launches on the bf16 counter."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    rng = np.random.RandomState(Cin * 100 + Cout)
+    B, N, K, M = 2, 3000, 27, 2500
+    feats = t(rng.randn(B, N, Cin).astype(np.float32)).to(cuda, torch.bfloat16)
+    idx = t(rng.randint(0, N, (B, K, M)).astype(np.int32)).to(cuda)
+    hit = t(rng.rand(B, K, M) < 0.19).to(cuda)
+    hit[:, :, 1000:1500] = False
+    hit[:, 5] = False
+    g = t(rng.randn(B, M, Cout).astype(np.float32)).to(cuda, torch.bfloat16)
+    ref = tg.gather_dw_plain(feats, idx, hit, g)
+    assert ref.dtype == torch.bfloat16
+    n32, n16 = tg.gather_dw.launches, tg.gather_dw_bf16.launches
+    for plan in (None, tg.gather_plan(idx, hit)):
+        got = tg.gather_dw(feats, idx, hit, g, plan)
+        torch.cuda.synchronize()
+        assert got.shape == (K, Cin, Cout) and got.dtype == torch.bfloat16
+        assert _rel(got, ref) <= BF16_ULP
+        assert float(got[5].float().abs().max()) == 0.0
+        assert torch.equal(got, tg.gather_dw(feats, idx, hit, g, plan))
+    assert (tg.gather_dw.launches - n32, tg.gather_dw_bf16.launches - n16) == (0, 4)
+
+
+@pytest.mark.parametrize("Cin,Cout", [(64, 128), (16, 16), (128, 128)])
+def test_gather_dw_bf16_kernel_long_reduction(cuda, Cin, Cout):  # noqa: F811
+    """One tap hit by every one of 20480 positions with positive features
+    and g (a sum through the tensor cores' truncating accumulator would
+    drift), another by a tenth: within one bf16 ulp of scale, repeat
+    bit-equal."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    rng = np.random.RandomState(Cin + Cout)
+    B, N, K, M = 1, 4000, 2, 20480
+    hit = np.zeros((B, K, M), bool)
+    hit[:, 0] = True
+    hit[:, 1] = rng.rand(B, M) < 0.1
+    idx = t(rng.randint(0, N, (B, K, M)).astype(np.int32)).to(cuda)
+    feats = t(rng.rand(B, N, Cin).astype(np.float32)).to(cuda, torch.bfloat16)
+    g = t(rng.rand(B, M, Cout).astype(np.float32)).to(cuda, torch.bfloat16)
+    hit = t(hit).to(cuda)
+    got = tg.gather_dw(feats, idx, hit, g)
+    ref = tg.gather_dw_plain(feats, idx, hit, g)
+    assert _rel(got, ref) <= BF16_ULP
+    assert torch.equal(got, tg.gather_dw(feats, idx, hit, g))
+
+
 def _dw_direct(tg, feats, rb, g, shares, cps):
     """One launch of the dW kernel's C entry with the chunk shares given
     (the wrapper chooses its own): features [B, N, Cin], rulebook [B, K, M]
@@ -766,6 +877,79 @@ def test_gather_gemm_backward_on_card_matches_plain(cuda, kind, Cin, Cout):  # n
         assert a.shape == b.shape
         assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
     assert float(out["cpu"][1].abs().max()) > 0 and float(out["cpu"][2].abs().max()) > 0
+
+
+@pytest.mark.parametrize("kind,Cin,Cout", [("subm", 16, 16), ("subm", 32, 64), ("stem", 5, 16),
+                                           ("down", 16, 32), ("conv_out", 64, 64),
+                                           ("subm_unplanned", 16, 32)])
+def test_gather_gemm_bf16_backward_on_card_matches_plain(cuda, kind, Cin, Cout):  # noqa: F811
+    """The f32 backward test above in bf16: one bf16 K4 forward, one bf16
+    K4 dX and one bf16 K4-dW launch, bf16 gradients; the output and dW
+    within one bf16 ulp of scale of autograd through the plain version on
+    the CPU, dX within four (the plain version rounds a row's sum to bf16
+    after each tap, the kernel once)."""
+    from dal3d_tpu_torch.ops import gather as tg
+    from dal3d_tpu_torch.ops import sparse_backend as sp
+
+    out = {}
+    for dev in ("cpu", cuda):
+        sb, rb, grid = _encoder_like(dev, Cin)
+        sb = sb.replace(features=sb.features.bfloat16())
+        rng = np.random.RandomState(Cin + Cout)
+        K = 3 if kind == "conv_out" else 27
+        w = t((rng.randn(K, Cin, Cout) * 0.1).astype(np.float32)).to(dev, torch.bfloat16)
+        w.requires_grad_(True)
+        x = sb.features.clone().requires_grad_(True)
+        sbx = sb.replace(features=x)
+        launches = (tg.gather_gemm_bf16.launches, tg.gather_dw_bf16.launches)
+        if kind in ("subm", "stem"):
+            y = sp.subm_conv(sbx, w, rb).features
+        elif kind == "subm_unplanned":
+            y = sp.subm_conv(sbx, w, rb[:2]).features
+        elif kind == "down":
+            y = sp.sparse_conv_downsample(sbx, w, 3, 2, 1, 1000, grid).features
+        else:
+            y = sp.sparse_conv_downsample(sbx, w, (3, 1, 1), (2, 1, 1), 0, 1500, grid).features
+        gy = t(rng.randn(*y.shape).astype(np.float32)).to(dev)
+        (y.float() * gy).sum().backward()
+        assert y.dtype == x.grad.dtype == w.grad.dtype == torch.bfloat16
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert tg.gather_gemm_bf16.launches - launches[0] == 2
+            assert tg.gather_dw_bf16.launches - launches[1] == 1
+        out[str(dev)] = (y.detach().cpu(), x.grad.cpu(), w.grad.cpu())
+    for a, b, tol in zip(out["cpu"], out[str(cuda)], (1, 4, 1)):
+        assert a.shape == b.shape
+        assert _rel(b, a) <= tol * BF16_ULP
+    assert float(out["cpu"][1].float().abs().max()) > 0
+
+
+def test_cbgs_gather_bf16_predict_on_card_matches_cpu(cuda):  # noqa: F811
+    """The small CBGS model on the gather engine in bf16 (seeded weights) on
+    the card (bf16 K4 launches, 21 a predict, none of the f32 kernel)
+    against the CPU (plain versions): the dense map within 5e-2 of scale
+    (bf16 rounded in other orders through the backbone), as many
+    detections."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    vf, vc, vv = small_voxels(0)
+    batch = {"voxel_features": vf, "voxel_coords": vc, "voxel_valid": vv}
+    out, maps = {}, {}
+    cfg = small_gather_cfg()
+    cfg["model"]["backbone"]["dtype"] = "bfloat16"
+    for dev in ("cpu", "cuda"):
+        bundle = build_detector(cfg, device=dev, seed=4)
+        n0 = (tg.gather_gemm.launches, tg.gather_gemm_bf16.launches)
+        out[dev] = {k: v.cpu() for k, v in make_predict_step(bundle)(batch).items()}
+        if dev == "cuda":
+            assert (tg.gather_gemm.launches - n0[0], tg.gather_gemm_bf16.launches - n0[1]) == (
+                0, 21)
+        with torch.inference_mode():
+            maps[dev] = bundle.model(*(torch.from_numpy(a).to(dev) for a in (vf, vc, vv)))[
+                "dense"].float().cpu()
+    assert _rel(maps["cuda"], maps["cpu"]) <= 5e-2
+    n = [int(out[d]["det_valid"].sum()) for d in ("cpu", "cuda")]
+    assert n[0] > 0 and abs(n[0] - n[1]) <= max(2, n[0] // 20)
 
 
 def test_gather_rows_backward_on_card_matches_plain(cuda):  # noqa: F811
