@@ -853,6 +853,7 @@ def main() -> None:
                         for i in (0, 1)),
         ms=k4b["ms"], plain_ms=k4b["plain_ms"], bound_ms=k4b["bound_ms"],
         bound_by=k4b["bound_by"], library_ms=k4b["library_ms"], f32_kernel_ms=k4b["f32_ms"],
+        hit_pairs=k4b["hits"],
         per="the 21 launches of one bf16 gather predict (phase 23)"))
     kernels.append(dict(
         name="gather_dw_bf16", route="cuda", source="dal3d_tpu_torch/ops/csrc/gather.cu",
@@ -2296,7 +2297,8 @@ def gather_kernels_check(bundle, batch, bd, tg) -> dict:
     print(f"gather_gemm launches of one predict (kernel vs plain, f32; tol = {K4_TOL:g} x "
           "max|plain|, and bit-equal on a second call; library = index_select + one matmul over "
           "K*Cin; K1 = banded_conv's f32 path on the same rulebook; bounds: bytes, f32 FMA, "
-          "3xTF32 tensor cores; walked = (row, tap) pairs the warps multiply / hits, unsorted = "
+          "3xTF32 tensor cores; walked = (row, tap) pairs the warps multiply as gemm_walk models "
+          "the walk / hits, unsorted = "
           "the same for rulebook-order tiles of 256/128/64 rows; TFLOP/s = 2 hits Cin Cout / "
           "kernel time):")
     prev = None
@@ -2361,8 +2363,9 @@ def gather_kernels_check(bundle, batch, bd, tg) -> dict:
           f"{tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms, K1 f32 "
           f"{tot['k1_ms']:.3f} ms; bound {tot['bound_ms']:.3f} ms ({tot['bound_by']}; operation "
           f"routes: f32 FMA {tot['fma_ms']:.3f}, 3xTF32 {tot['tc_ms']:.3f}); hits {tot['hits']} "
-          f"of {tot['dense']} (row, tap) pairs, walked {tot['walked'] / tot['hits']:.3f} x hits "
-          f"(unsorted {tot['unsorted'] / tot['hits']:.3f}); max_abs_err {worst_abs:.3e} "
+          f"of {tot['dense']} (row, tap) pairs, walked (as gemm_walk models it) "
+          f"{tot['walked'] / tot['hits']:.3f} x hits (unsorted {tot['unsorted'] / tot['hits']:.3f}); "
+          f"max_abs_err {worst_abs:.3e} "
           f"(relative to output scale {worst_rel:.2e})")
 
     # K5: the query gather from the [B, H*W, C] view of the NCHW map
@@ -2424,9 +2427,7 @@ def gather_kernels_check(bundle, batch, bd, tg) -> dict:
               bound_ms=tot["bound_ms"], bound_by=tot["bound_by"], library_ms=tot["library_ms"],
               kernel_ms=tot["ms"], plan_ms=tot["plan_ms"], plan_host_ms=tot["plan_host_ms"],
               k1_f32_ms=tot["k1_ms"],
-              bound_fma_ms=tot["fma_ms"], bound_3xtf32_ms=tot["tc_ms"],
-              walked_per_hit=tot["walked"] / tot["hits"],
-              unsorted_walked_per_hit=tot["unsorted"] / tot["hits"])
+              bound_fma_ms=tot["fma_ms"], bound_3xtf32_ms=tot["tc_ms"])
     return {"gather_gemm": k4, "gather_rows": k5n}
 
 
@@ -3349,9 +3350,11 @@ def match_sets(card: dict, cpu: dict) -> tuple:
     one: greedy by the card's score, the same label and the nearest box (the
     largest |difference| over its 9 values, relative to max(1, |value|)).
     Returns (pairs within 1e-3, card total, CPU total, the largest box and
-    score gaps of those pairs)."""
+    score gaps of those pairs, the unpaired detections as (side, token,
+    score, label, box))."""
     matched = n_a = n_b = 0
     box_gap = score_gap = 0.0
+    unpaired = []
     for token, a in card.items():
         b = cpu[token]
         va, vb = a["det_valid"].astype(bool), b["det_valid"].astype(bool)
@@ -3364,13 +3367,16 @@ def match_sets(card: dict, cpu: dict) -> tuple:
             d = (np.abs(bb - ba[k]) / np.maximum(np.abs(ba[k]), 1.0)).max(1) if len(bb) else bb
             d = np.where(used | (lb != la[k]), np.inf, d)
             if not len(d) or not d.min() <= 1e-3:
+                unpaired.append(("card", token, float(sa[k]), int(la[k]), ba[k].tolist()))
                 continue
             j = int(d.argmin())
             used[j] = True
             matched += 1
             box_gap = max(box_gap, float(d[j]))
             score_gap = max(score_gap, abs(float(sb[j]) - float(sa[k])))
-    return matched, n_a, n_b, box_gap, score_gap
+        unpaired += [("cpu", token, float(sb[j]), int(lb[j]), bb[j].tolist())
+                     for j in np.flatnonzero(~used)]
+    return matched, n_a, n_b, box_gap, score_gap, unpaired
 
 
 def prepass_card_vs_cpu(tmp: str, loop: dict) -> None:
@@ -3386,9 +3392,9 @@ def prepass_card_vs_cpu(tmp: str, loop: dict) -> None:
                                {"0": []}, side == "cpu", seconds, f32=True)
            for side in ("card slice", "cpu")}
     a, b = got["card slice"], got["cpu"]
-    report, bad = [], []
+    report, bad, unpaired = [], [], {}
     for k in ("pred_list", "cald_plain", "cald_aug"):
-        matched, n_a, n_b, box_gap, score_gap = match_sets(a[k], b[k])
+        matched, n_a, n_b, box_gap, score_gap, unpaired[k] = match_sets(a[k], b[k])
         if matched != n_a or n_a != n_b or not score_gap <= 1e-4:
             bad.append(k)
         report.append(f"{k} {matched}/{n_a} matched (CPU {n_b}), box gap {box_gap:.1e}, score "
@@ -3407,6 +3413,12 @@ def prepass_card_vs_cpu(tmp: str, loop: dict) -> None:
           f"{js_gap:.1e} (tol 1e-4); buffers {a['PPALSelector']!r} / {b['PPALSelector']!r}, "
           f"{a['CaldSelector']!r} / {b['CaldSelector']!r}; "
           + "; ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
+    for k in bad:
+        if unpaired.get(k):
+            print(f"  {k}, unpaired detections (side, token, score, label, box): "
+                  + "; ".join(f"{u[0]} {u[1]} {u[2]:.3e} {u[3]} "
+                              + "[" + ", ".join(f"{x:.3e}" for x in u[4]) + "]"
+                              for u in unpaired[k][:12]))
     if bad:
         fail(f"pre-pass CLIs, card vs CPU: {bad} differ beyond their tolerances")
 
@@ -3557,6 +3569,7 @@ def raw_points_phase(tmp: str, dev, Config, counters, host_fed_ms, loop, bd, tio
 # of phase 15's 16 frames: the config's 0.1 of a 28130-frame pool would seed
 # one frame here
 PARTIAL_RATIO = 0.25
+HEAD_MAP_TOL = 1e-5  # f32 head maps on K1 vs its plain version, of each map's scale
 EST_MAX_PTS, EST_HIDDEN = 128, (64, 128)  # configs/cbgs_partial.py's Estimator
 
 
@@ -3608,12 +3621,23 @@ def partial_dataset(cfg):
 
 def estimator_card_vs_plain(cfg32, work: str, estimator, batch, bd, tiou) -> str:
     """One estimator step's inputs and loss from the trained checkpoint in
-    f32 on the card, with the kernels and with every kernel swapped for its
-    plain version: as many valid slots; the valid detections paired by score
-    and box (candidates of equal score come out of the top-k in an order of
-    its own, so a slot may hold another box), and on every pair the pool
-    indices equal and the targets within 1e-5; the loss over all slots
-    within 1e-5."""
+    f32 on the card, with the kernels and with each kernel swapped for its
+    plain version, held kernel by kernel:
+
+    - K1: the predict's head maps against those of K1's plain version,
+      within HEAD_MAP_TOL of each map's scale;
+    - K2: on K1's head maps, the step with K2 and with its plain version:
+      as many valid slots; the valid detections paired by score and box
+      (candidates of equal score come out of the top-k in an order of its
+      own, so a slot may hold another box), and on every pair the pool
+      indices equal and the targets within 1e-5; the loss over all slots
+      within 1e-5.
+
+    The step with both plain versions is reported beside it, not held to
+    the slot: this briefly trained detector decodes hundreds of boxes of
+    infinite or astronomic size (``exp`` of its box maps), and a gap of
+    1e-6 of scale in the maps flips NMS decisions among them (82 against
+    84 valid slots seen on one checkpoint)."""
     import copy
 
     from dal3d_tpu_torch.models.builder import build_detector
@@ -3626,11 +3650,14 @@ def estimator_card_vs_plain(cfg32, work: str, estimator, batch, bd, tiou) -> str
     bundle.model.train()
     predict = ta.multi_group_predict
 
-    def step():
+    def step(maps=None):
+        """The step; with ``maps`` the predict decodes these head maps in
+        place of the model's."""
         seen = {}
 
-        def spy(*a, **k):
-            seen.update(predict(*a, **k))
+        def spy(preds, *a, **k):
+            seen["maps"] = preds
+            seen.update(predict(preds if maps is None else maps, *a, **k))
             return seen
 
         ta.multi_group_predict = spy
@@ -3644,53 +3671,67 @@ def estimator_card_vs_plain(cfg32, work: str, estimator, batch, bd, tiou) -> str
         loss = ta.estimator_loss(est, **inputs)
         loss.backward()
         grad = torch.cat([p.grad.flatten() for p in est.parameters()])
-        return inputs, idx, float(loss), grad, seen["scores"][:, :inputs["boxes"].shape[1]]
+        return (inputs, idx, float(loss.detach()), grad,
+                seen["scores"][:, :inputs["boxes"].shape[1]], seen["maps"])
+
+    def compare(card, plain):
+        (ci, cx, cl, cg, cs, _), (pi, px, pl, pg, ps, _) = card, plain
+        # each valid card slot paired with the valid plain slot of the same
+        # score (within 1e-5) and box (within 1e-3 of max(1, |box|)), greedily
+        # by score
+        pairs = []
+        for b in range(B):
+            cv = torch.nonzero(ci["det_valid"][b]).flatten().tolist()
+            pv = torch.nonzero(pi["det_valid"][b]).flatten().tolist()
+            used = set()
+            for k in sorted(cv, key=lambda k: -float(cs[b, k])):
+                for j in pv:
+                    if j in used:
+                        continue
+                    tol = 1e-3 * max(1.0, float(ci["boxes"][b, k].abs().max()))
+                    if (abs(float(cs[b, k]) - float(ps[b, j])) <= 1e-5
+                            and float((ci["boxes"][b, k] - pi["boxes"][b, j]).abs().max()) <= tol):
+                        used.add(j)
+                        pairs.append((b, k, j))
+                        break
+        n_card, n_plain = int(ci["det_valid"].sum()), int(pi["det_valid"].sum())
+        idx_same = all(torch.equal(cx[b][0][k], px[b][0][j])
+                       and torch.equal(cx[b][1][k], px[b][1][j]) for b, k, j in pairs)
+        t_gap = max((abs(float(ci["target"][b, k]) - float(pi["target"][b, j]))
+                     for b, k, j in pairs), default=0.0)
+        box_gap = max((float((ci["boxes"][b, k] - pi["boxes"][b, j]).abs().max())
+                       for b, k, j in pairs), default=0.0)
+        l_gap = abs(cl - pl) / max(abs(pl), 1e-30)
+        g_gap = float((cg - pg).abs().max() / pg.norm().clamp(min=1e-30))
+        interior = sum(int(cx[b][1][k].sum()) for b, k, _ in pairs)
+        msg = (f"valid slots {n_card} and {n_plain}; {len(pairs)} paired by score and box; on "
+               f"the pairs: pool indices and masks equal {idx_same} ({interior} interior points "
+               f"pooled), box gap {box_gap:.2e}, target gap {t_gap:.2e} (tol 1e-5; targets > 0: "
+               f"{int((ci['target'] > 0).sum())}); loss over every slot {cl:.6g} vs {pl:.6g} (rel "
+               f"{l_gap:.2e}, tol 1e-5), gradient gap {g_gap:.2e} of its norm")
+        ok = (n_card == n_plain and pairs and idx_same and t_gap <= 1e-5 and l_gap <= 1e-5
+              and np.isfinite(cl))
+        return ok, msg
 
     card = step()
     k1, k2 = bd.banded_conv, tiou.iou_matrix
-    bd.banded_conv, tiou.iou_matrix = bd.banded_conv_plain, tiou.iou_matrix_plain
+    tiou.iou_matrix = tiou.iou_matrix_plain
     try:
+        plain_k2 = step(maps=card[5])
+        bd.banded_conv = bd.banded_conv_plain
         plain = step()
     finally:
         bd.banded_conv, tiou.iou_matrix = k1, k2
-    (ci, cx, cl, cg, cs), (pi, px, pl, pg, ps) = card, plain
-    # each valid card slot paired with the valid plain slot of the same score
-    # (within 1e-5) and box (within 1e-3 of max(1, |box|)), greedily by score
-    pairs = []
-    for b in range(B):
-        cv = torch.nonzero(ci["det_valid"][b]).flatten().tolist()
-        pv = torch.nonzero(pi["det_valid"][b]).flatten().tolist()
-        used = set()
-        for k in sorted(cv, key=lambda k: -float(cs[b, k])):
-            for j in pv:
-                if j in used:
-                    continue
-                tol = 1e-3 * max(1.0, float(ci["boxes"][b, k].abs().max()))
-                if (abs(float(cs[b, k]) - float(ps[b, j])) <= 1e-5
-                        and float((ci["boxes"][b, k] - pi["boxes"][b, j]).abs().max()) <= tol):
-                    used.add(j)
-                    pairs.append((b, k, j))
-                    break
-    n_card, n_plain = int(ci["det_valid"].sum()), int(pi["det_valid"].sum())
-    idx_same = all(torch.equal(cx[b][0][k], px[b][0][j]) and torch.equal(cx[b][1][k], px[b][1][j])
-                   for b, k, j in pairs)
-    t_gap = max((abs(float(ci["target"][b, k]) - float(pi["target"][b, j])) for b, k, j in pairs),
-                default=0.0)
-    box_gap = max((float((ci["boxes"][b, k] - pi["boxes"][b, j]).abs().max())
-                   for b, k, j in pairs), default=0.0)
-    l_gap = abs(cl - pl) / max(abs(pl), 1e-30)
-    g_gap = float((cg - pg).abs().max() / pg.norm().clamp(min=1e-30))
-    interior = sum(int(cx[b][1][k].sum()) for b, k, _ in pairs)
-    msg = (f"valid slots {n_card} on the card, {n_plain} on plain versions; {len(pairs)} paired "
-           f"by score and box; on the pairs: pool indices and masks equal "
-           f"{idx_same} ({interior} interior points pooled), box gap {box_gap:.2e}, target gap "
-           f"{t_gap:.2e} (tol 1e-5; targets > 0: {int((ci['target'] > 0).sum())}); loss over "
-           f"every slot {cl:.6g} vs {pl:.6g} (rel {l_gap:.2e}, tol 1e-5), gradient gap "
-           f"{g_gap:.2e} of its norm")
-    if not (n_card == n_plain and pairs and idx_same and t_gap <= 1e-5 and l_gap <= 1e-5
-            and np.isfinite(cl)):
-        fail(f"estimator step, card vs plain versions: {msg}")
-    return msg
+    map_gap = max(float((a[k] - b[k]).abs().max() / b[k].abs().max().clamp(min=1e-30))
+                  for a, b in zip(card[5], plain[5]) for k in a)
+    if not map_gap <= HEAD_MAP_TOL:
+        fail(f"estimator step: the predict's head maps on K1 and on its plain version "
+             f"{map_gap:.2e} of scale apart (tol {HEAD_MAP_TOL:g})")
+    ok, msg_k2 = compare(card, plain_k2)
+    if not ok:
+        fail(f"estimator step on K1's head maps, K2 vs its plain version: {msg_k2}")
+    return (f"head maps K1 vs plain {map_gap:.2e} of scale (tol {HEAD_MAP_TOL:g}); on K1's maps, "
+            f"K2 vs plain: {msg_k2}; both plain versions (reported): {compare(card, plain)[1]}")
 
 
 def partial_phase(tmp: str, dev, loop: dict, counters, bd, tiou) -> dict:
@@ -3872,9 +3913,19 @@ def partial_phase(tmp: str, dev, loop: dict, counters, bd, tiou) -> dict:
     if steps2 < 1 or not {i["token"] for i in ds2.infos} <= picked:
         fail(f"partial round 2: {steps2} steps on {len(ds2)} frames outside the picks")
     expect(f"train (active_flag {key})", steps2, steps2)
+    # this round's detector starts from random weights and diverges for a
+    # while: slots without a detection decode boxes of infinite size, which
+    # the estimator's loss must leave out
+    with open(os.path.join(base, "work_round2", "train.log")) as f:
+        active2 = re.findall(r"\[active\] epoch 1: loss ([^,]+), estimator_loss (\S+)",
+                             f.read())
+    if len(active2) != 1 or not np.isfinite(float(active2[0][1])):
+        fail(f"partial round 2: the train log's [active] lines {active2} (a finite estimator "
+             "loss expected)")
     total = {c.__name__: sum(v[c.__name__] for v in launches.values()) for c in counters}
     print(f"  active_select (EntropySelector, exclude_buffer): picks {picks}, disjoint from "
-          f"partial_01; the next train on budget key {key}: {steps2} iterations; "
+          f"partial_01; the next train on budget key {key}: {steps2} iterations, epoch means: "
+          f"detector loss {active2[0][0]}, estimator loss {active2[0][1]}; "
           + "; ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
     print(f"phase 17 (partial-label round): {time.perf_counter() - t_phase:.1f} s; launches "
           f"{total}")
@@ -4088,7 +4139,7 @@ def step_gradients(bundle, inputs, gt, step_idx: int, plain: bool, tg, tl, queri
         m.generator = gen
     model.zero_grad(set_to_none=True)
     taken = {}
-    top_k = ttf._top_k
+    top_k = ttf.top_k
     solve = tl.linear_sum_assignment_plain if plain else tl.linear_sum_assignment
 
     def recording_top_k(x, k):
@@ -4103,7 +4154,7 @@ def step_gradients(bundle, inputs, gt, step_idx: int, plain: bool, tg, tl, queri
 
     saved = tg.gather_gemm, tg.gather_rows, tl.linear_sum_assignment
     recording_solve.launches = saved[2].launches  # the wrapper counts on this attribute
-    ttf._top_k, tl.linear_sum_assignment = recording_top_k, recording_solve
+    ttf.top_k, tl.linear_sum_assignment = recording_top_k, recording_solve
     if plain:
         tg.gather_gemm = lambda f, idx, hit, w, plan=None: tg.gather_gemm_plain(f, idx, hit, w)
         tg.gather_rows = tg.gather_rows_plain
@@ -4119,7 +4170,7 @@ def step_gradients(bundle, inputs, gt, step_idx: int, plain: bool, tg, tl, queri
     finally:
         tg.gather_gemm, tg.gather_rows, tl.linear_sum_assignment = saved
         saved[2].launches = recording_solve.launches
-        ttf._top_k = top_k
+        ttf.top_k = top_k
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
     with torch.no_grad():
         for k, v in model.state_dict().items():
@@ -5108,14 +5159,14 @@ def center_topk(preds, cfg) -> list:
     its order ([B, max_per_task] each)."""
     import torch.nn.functional as F
 
-    from dal3d_tpu_torch.models.bevfusion.transfusion import _top_k
+    from dal3d_tpu_torch.ops.nms import top_k
 
     out = []
     for p in preds:
         Bp, H, W, nc = p["heatmap"].shape
         prob = torch.sigmoid(p["heatmap"].permute(0, 3, 1, 2))
         peaks = torch.where(prob == F.max_pool2d(prob, 3, 1, 1), prob, torch.zeros_like(prob))
-        out.append(_top_k(peaks.permute(0, 2, 3, 1).reshape(Bp, -1), cfg.max_per_task)[1])
+        out.append(top_k(peaks.permute(0, 2, 3, 1).reshape(Bp, -1), cfg.max_per_task)[1])
     return out
 
 
@@ -6410,12 +6461,12 @@ def library_gemm_over_plan(features, plan, w):
     return run
 
 
-def hold_bf16(tag: str, k4=(), dw=()) -> dict:
+def hold_bf16(tag: str, k4=(), dw=(), k4_repeat: bool = False) -> dict:
     """Every captured bf16 K4 launch (forward and input gradient) and K4-dW
     launch against its plain version over the same plan (f32 sums, one
-    rounding) within one bf16 ulp of scale, and each K4-dW bit-equal on a
-    repeat. Returns {kernel: (launches, max error relative to scale, max
-    absolute error)}."""
+    rounding) within one bf16 ulp of scale, each K4-dW launch bit-equal on a
+    repeat, and with ``k4_repeat`` each K4 launch too. Returns {kernel:
+    (launches, max error relative to scale, max absolute error)}."""
     from dal3d_tpu_torch.ops import gather as tg
 
     def err(got, ref):
@@ -6423,22 +6474,27 @@ def hold_bf16(tag: str, k4=(), dw=()) -> dict:
         return e / max(float(ref.float().abs().max()), 1e-30), e
 
     with torch.no_grad():
-        e4 = [err(tg._launch_gemm(f, p, w), gemm_plain_over_plan(tg, f, p, w)) for f, p, w in k4]
-        ew, repeat = [], True
+        e4, ew, rep4, repw = [], [], True, True
+        for f, p, w in k4:
+            got = tg._launch_gemm(f, p, w)
+            e4.append(err(got, gemm_plain_over_plan(tg, f, p, w)))
+            if k4_repeat:
+                rep4 &= torch.equal(got, tg._launch_gemm(f, p, w))
         for f, p, g in dw:
             got = tg._launch_dw(f, p, g)
             ew.append(err(got, dw_plain_over_plan(tg, f, p, g)))
-            repeat &= torch.equal(got, tg._launch_dw(f, p, g))
+            repw &= torch.equal(got, tg._launch_dw(f, p, g))
     r4, rw = max(e4, default=(0.0, 0.0)), max(ew, default=(0.0, 0.0))
-    if max(r4[0], rw[0]) > BF16_ULP or not repeat:
+    if max(r4[0], rw[0]) > BF16_ULP or not (rep4 and repw):
         fail(f"{tag}: a bf16 K4 launch {r4[0]:.2e} or K4-dW launch {rw[0]:.2e} of scale from "
-             f"its plain version (tol {BF16_ULP:.2e}), K4-dW repeat bit-equal {repeat}")
+             f"its plain version (tol {BF16_ULP:.2e}), repeat bit-equal K4 {rep4} K4-dW {repw}")
     out = {"gather_gemm_bf16": (len(e4), r4[0], max((e[1] for e in e4), default=0.0)),
            "gather_dw_bf16": (len(ew), rw[0], max((e[1] for e in ew), default=0.0))}
     print(f"{tag}: every bf16 launch against its plain version (tol {BF16_ULP:.2e} of scale): "
           + ", ".join(f"{k} {n} within {e:.1e} ({a:.2e} absolute)" for k, (n, e, a) in out.items()
                       if n)
-          + ("; K4-dW bit-equal on a repeat" if dw else ""))
+          + (f"; every {'K4 and ' if k4_repeat else ''}K4-dW launch bit-equal on a repeat"
+             if k4_repeat or dw else ""))
     return out
 
 
@@ -6447,10 +6503,24 @@ def bf16_k4_times(tg, calls) -> dict:
     K4 on the same plan (the same values in f32), its plain version, the
     index_select + matmul yardstick and its bound; summed per predict."""
     tot = dict(ms=0.0, f32_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, t_bytes=0.0,
-               t_ops=0.0)
+               t_ops=0.0, hits=0, walked=0, walked_f32=0)
     rows = []
     with torch.no_grad():
         for f, p, w in calls:
+            # the (row, tap) pairs that gemm_walk, the launch arithmetic's
+            # model of the kernels' walks, has the bf16 kernel multiply
+            # (64-row warpgroup groups) and the f32 one (16- or 32-row warp
+            # groups), against the hits; the model's tiles held to the build
+            Cout = w.shape[-1]
+            built = (tg.built_bf16_tile(0, tg._cout_pad(Cout)),
+                     tg.built_bf16_tile(1, tg._cout_pad(Cout)))
+            if tg.gemm_tile_rows(Cout, True) != built:
+                fail(f"gemm_tile_rows({Cout}, bf16) {tg.gemm_tile_rows(Cout, True)} is not the "
+                     f"built kernel's tile {built}")
+            tot["hits"] += int((p.rulebook >= 0).sum())
+            tot["walked"] += int(tg.gemm_walk(p, Cout, True)[1].sum()) * built[1]
+            tot["walked_f32"] += (int(tg.gemm_walk(p, Cout)[1].sum())
+                                  * tg.gemm_tile_rows(Cout)[1])
             f32, w32 = f.float(), w.float()
             ms = cuda_time_ms(lambda: tg._launch_gemm(f, p, w), 5)
             ms32 = cuda_time_ms(lambda: tg._launch_gemm(f32, p, w32), 5)
@@ -6468,6 +6538,11 @@ def bf16_k4_times(tg, calls) -> dict:
         print(f"    features {fs} w {ws} hits {hits}: {ms:.4f} | {ms32:.4f} | {pms:.3f} | "
               f"{lms:.3f} | {bms:.4f} ({by})")
     tot["bound_by"] = "bytes" if tot["t_bytes"] >= tot["t_ops"] else "operations"
+    print(f"  bf16 K4 walk over the predict's plans, as gemm_walk models it (tiles held to the "
+          f"build; not counted by the kernel): {tot['walked']} (row, tap) pairs in 64-row "
+          f"warpgroup groups against {tot['hits']} hits ({tot['walked'] / tot['hits']:.3f}x); "
+          f"the f32 kernel's 16- / 32-row groups {tot['walked_f32']} "
+          f"({tot['walked_f32'] / tot['hits']:.3f}x)")
     print(f"  bf16 K4 per predict: {tot['ms']:.3f} ms, f32 K4 on the same plans "
           f"{tot['f32_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, library "
           f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']})")
@@ -6523,7 +6598,7 @@ def bf16_engine(impl: str, Config, ref: dict, gt_np, counters, tg, bd, tiou,
     if (len(k4.calls), len(k2.calls)) != (n4, K2_PER_PREDICT) or any(
             f.dtype != torch.bfloat16 for f, _, _ in k4.calls):
         fail(f"{tag} predict launched K4 {len(k4.calls)}x, K2 {len(k2.calls)}x")
-    held_p = hold_bf16(f"{tag} predict", k4.calls)
+    held_p = hold_bf16(f"{tag} predict", k4.calls, k4_repeat=True)
     k4_times = bf16_k4_times(tg, k4.calls) if times else None
     del k4, k2
     stamp(t0, f"{tag}: a predict's launches held" + (" and timed" if times else ""))

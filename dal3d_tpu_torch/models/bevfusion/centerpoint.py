@@ -26,8 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.nms import top_k
 from ..layers import Conv2dBN
-from .transfusion import _top_k
 
 BRANCHES = (("heatmap", None), ("reg", 2), ("height", 1), ("dim", 3), ("rot", 2), ("vel", 2))
 
@@ -89,7 +89,7 @@ def center_head_decode(preds: List[Dict[str, torch.Tensor]], cfg: CenterTestCfg)
         prob = torch.sigmoid(p["heatmap"].permute(0, 3, 1, 2))
         pooled = F.max_pool2d(prob, 3, stride=1, padding=1)  # -inf padding, flax's "SAME"
         peaks = torch.where(prob == pooled, prob, torch.zeros((), device=prob.device))
-        scores, idx = _top_k(peaks.permute(0, 2, 3, 1).reshape(B, H * W * nc), cfg.max_per_task)
+        scores, idx = top_k(peaks.permute(0, 2, 3, 1).reshape(B, H * W * nc), cfg.max_per_task)
         cls = idx % nc
         pix = torch.div(idx, nc, rounding_mode="floor")
         py, px = torch.div(pix, W, rounding_mode="floor"), pix % W

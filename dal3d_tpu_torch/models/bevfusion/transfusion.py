@@ -34,6 +34,7 @@ from torch import nn
 
 from ...ops import gather as _gather
 from ...ops import lsa as _lsa
+from ...ops.nms import top_k
 from ...ops.rotated_iou import boxes_iou3d
 from ..layers import BatchNorm2d, BatchNormLast
 from ..losses.losses import sigmoid_focal_loss
@@ -136,14 +137,6 @@ class DecoderLayer(nn.Module):
         return self.norm3(q + self.drop(y))
 
 
-def _top_k(x: torch.Tensor, k: int):
-    """Top k along the last dim with ``jax.lax.top_k``'s order: descending
-    values, the lower index first among equal ones (a stable sort;
-    ``torch.topk`` promises no order among ties)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
 class TransFusionHead(nn.Module):
     PRED = (("center", 2), ("height", 1), ("dim", 3), ("rot", 2), ("vel", 2))
 
@@ -189,7 +182,7 @@ class TransFusionHead(nn.Module):
         if nc == 10:  # nuScenes pedestrian and traffic_cone keep their raw peaks
             local_max = torch.cat([local_max[:, :8], prob[:, 8:]], dim=1)
         masked = prob * (prob == local_max)
-        top_scores, top_idx = _top_k(masked.reshape(B, nc * H * W), P)
+        top_scores, top_idx = top_k(masked.reshape(B, nc * H * W), P)
         cls_id = torch.div(top_idx, H * W, rounding_mode="floor")
         pix = top_idx - cls_id * (H * W)
         qy = torch.div(pix, W, rounding_mode="floor")

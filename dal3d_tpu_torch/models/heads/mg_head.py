@@ -13,7 +13,7 @@ from torch import nn
 from ...core.anchors import TaskAnchors
 from ...core.box_coders import GroundBox3dCoder
 from ...ops.iou_matrix import rotated_iou_matrix_batched
-from ...ops.nms import greedy_nms_from_iou
+from ...ops.nms import greedy_nms_from_iou, top_k
 from ..losses.losses import prepare_loss_weights, sigmoid_focal_loss, weighted_smooth_l1
 
 
@@ -119,7 +119,8 @@ def multi_group_predict(preds: List[Dict[str, torch.Tensor]],
                         cfg: TestConfig = TestConfig(),
                         iou_rescore_alpha: float = 0.0) -> Dict[str, torch.Tensor]:
     """Fixed-shape batched decode + NMS: per task, score threshold, exact
-    top-k candidates (JAX's ``use_approx_topk=False`` branch) and decode;
+    top-k candidates (JAX's ``use_approx_topk=False`` branch, with
+    ``lax.top_k``'s order among equal scores) and decode;
     then one batched rotated-IoU matrix and greedy NMS over all (task, batch)
     sets; merge with label offsets.
 
@@ -160,7 +161,7 @@ def multi_group_predict(preds: List[Dict[str, torch.Tensor]],
                               * torch.pow(iou_dec, iou_rescore_alpha))
         masked = torch.where(top_scores >= cfg.score_threshold, top_scores,
                              torch.full_like(top_scores, float("-inf")))
-        csc, cidx = torch.topk(masked, pre, dim=-1)  # [B, pre], descending
+        csc, cidx = top_k(masked, pre)  # [B, pre], descending, ties as lax.top_k
         cand_bp = torch.gather(box_preds, 1, cidx[..., None].expand(B, pre, code))
         cand_boxes.append(box_coder.decode(cand_bp, anchors[cidx]))
         cand_scores.append(csc)
@@ -179,8 +180,8 @@ def multi_group_predict(preds: List[Dict[str, torch.Tensor]],
     iou_all = rotated_iou_matrix_batched(bev_all, bev_all)
     keep = greedy_nms_from_iou(iou_all, valid_all, cfg.nms_iou_threshold)
     post = cfg.nms_post_max_size
-    ks, sel = torch.topk(torch.where(keep, scores_all, torch.full_like(scores_all, float("-inf"))),
-                         post, dim=-1)
+    ks, sel = top_k(torch.where(keep, scores_all, torch.full_like(scores_all, float("-inf"))),
+                    post)
     kv = torch.isfinite(ks)
     sel_boxes = torch.gather(boxes_all, 1, sel[..., None].expand(T * B, post, boxes_all.shape[-1]))
     sel_scores = torch.gather(scores_all, 1, sel)

@@ -9,8 +9,11 @@
 // pairwise_l2_tf32.cu: mbarriers, 2-D TMA loads of 128-byte-swizzled tiles
 // (the host encodes their tensor maps, make_tma_2d), wgmma descriptors of
 // such tiles and the TF32 wgmma (A from shared memory or from registers, N
-// 16 to 128), also the weight-gradient kernel's of gather.cu; and the 4-,
-// 8- and 16-byte cp.async copies of the gather engine.
+// 16 to 128), also the weight-gradient kernel's of gather.cu; the 4-, 8-
+// and 16-byte cp.async copies of the gather engine; and the bf16 gather
+// kernels' Hopper pieces: cp.async completing on an mbarrier, the 32-, 64-
+// and 128-byte swizzles with their wgmma descriptors and the bf16 wgmma
+// (K- or MN-major operands from shared memory, N 16 to 128).
 #pragma once
 
 #include <cuda.h>
@@ -314,6 +317,123 @@ __device__ __forceinline__ void wgmma_m64n16k8_tf32_rs(float (&d)[8], const uint
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+
+// --- Hopper, bf16: swizzled tiles written by cp.async, bf16 wgmma -----------
+
+// one arrival on `bar` once every cp.async this thread issued before it has
+// landed; the barrier's count includes this arrival (.noinc)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Byte offset of 16-byte piece q of row r of a tile of RB-byte rows (RB 32,
+// 64 or 128) in the wgmma swizzle of that width: bits 4.. of the linear
+// offset XORed with bits 7.. (CUTLASS's Swizzle<1|2|3, 4, 3>), the tile
+// aligned to 1024 bytes. 8-row atoms of 8 RB bytes, one after the other.
+template <int RB>
+__device__ __forceinline__ uint32_t swz_off(int r, int q) {
+  static_assert(RB == 32 || RB == 64 || RB == 128, "swizzle rows of 32, 64 or 128 bytes");
+  constexpr uint32_t mask = RB / 16 - 1;
+  const uint32_t lin = static_cast<uint32_t>(r * RB + q * 16);
+  return lin ^ (((lin >> 7) & mask) << 4);
+}
+
+// wgmma descriptor of a tile of RB-byte rows in the swizzle of swz_off:
+// `sbo` bytes between 8-row atoms, `lbo` bytes between atoms along the
+// rows' own axis where the operand is MN-major (unused K-major). A k-step
+// adds its byte offset >> 4.
+template <int RB>
+__device__ __forceinline__ uint64_t wgmma_desc_sw(const void* tile, uint32_t lbo, uint32_t sbo) {
+  constexpr uint64_t layout = RB == 128 ? 1 : RB == 64 ? 2 : 3;
+  uint64_t d = static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
+  d |= layout << 62;
+  return d;
+}
+
+// d (64 x N, f32, in the warpgroup's registers) = (scale_d ? d : 0) + A (64
+// x 16) * B (16 x N), bf16 from shared memory. TA / TB: 0 the operand is
+// K-major, 1 MN-major (the transpose of the instruction's descriptor
+// modes). d's layout as the TF32 shapes above.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n16k16_bf16(float (&d)[8], uint64_t a, uint64_t b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32k16_bf16(float (&d)[16], uint64_t a, uint64_t b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32], uint64_t a, uint64_t b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t a, uint64_t b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (N == 128) wgmma_m64n128k16_bf16<TA, TB>(d, a, b, scale_d);
+  else if constexpr (N == 64) wgmma_m64n64k16_bf16<TA, TB>(d, a, b, scale_d);
+  else if constexpr (N == 32) wgmma_m64n32k16_bf16<TA, TB>(d, a, b, scale_d);
+  else wgmma_m64n16k16_bf16<TA, TB>(d, a, b, scale_d);
 }
 
 }  // namespace dal3d

@@ -138,9 +138,76 @@
 // gather_gemm_bf16 and gather_dw_bf16: the same two functions on bf16
 // features, weights and g, with f32 sums and each output rounded once to
 // bf16, as JAX's gather_gemm computes in bf16 (its Pallas kernel takes the
-// features' dtype). The same walks on bf16 mma.sync m16n8k16; see their
-// sections below. Bound on the card: the bytes, or 2 * hits * Cin * Cout
-// at the 989 TFLOP/s bf16 tensor-core peak.
+// features' dtype). Bound on the card: the bytes, or 2 * hits * Cin * Cout
+// at the 989 TFLOP/s bf16 tensor-core peak (a CBGS gather predict's 21
+// launches by bytes; its L3 convs alone by operations).
+//
+// Design, both kernels:
+//   - products on bf16 wgmma m64nNk16 (f32 accumulators) with both
+//     operands in shared memory, in tiles stored in the 128-, 64- or
+//     32-byte swizzle as wide as their rows (common.cuh swz_off,
+//     wgmma_desc_sw). bf16 wgmma reads an operand in either major order,
+//     so every tile is read as it was gathered: no transpose pass, no
+//     ldmatrix;
+//   - warp-specialised: a producer warpgroup gathers by 16-byte cp.async
+//     (TMA has no row gather) straight to the swizzled places, each copy
+//     landing on its ring stage's full mbarrier (cp.async.mbarrier.arrive
+//     .noinc); the consumer warpgroups wait on it, and each consumer warp
+//     releases the stage on its empty mbarrier once its products are done.
+//     No block-wide barrier in the main loop. No setmaxnreg: no tile is
+//     short of registers at the occupancy it runs at, and the m64n128 tile
+//     needs 90 a thread, more than two 384-thread blocks leave (80);
+//   - the bits: no atomics, f32 sums in a fixed order, one rounding, so a
+//     repeat and the sorted plan give the same bits.
+//
+// gather_gemm_bf16:
+//   - blocks of one consumer warpgroup (64 plan positions) at COUT 16, 32
+//     and 128, of two (128) at COUT 64, all COUT columns, so a gathered row
+//     is read once a tap; steps (active tap, Cin chunk of 16, 32 or 64
+//     channels: one 32-, 64- or 128-byte swizzle row), A the gathered rows
+//     (K-major), B w[k]'s chunk (MN-major, in atoms of 16, 32 or 64
+//     columns); wgmma_wait<1> keeps one step's products in flight while
+//     the next step's copies are awaited. Each warpgroup's 64 rows skip the
+//     taps none of them hits: no row gathered, no product issued.
+//   - Tile choices, measured on the CBGS gather backbone's launches (H100
+//     SXM, 700 W; tools/kernel_ab.py's inputs): at COUT 128 one warpgroup
+//     at two blocks a multiprocessor took its L3 convs in 0.091 ms a
+//     launch, two warpgroups at one block 0.104 and four 0.101; at COUT 64
+//     two warpgroups at two blocks 0.057 ms, one at three 0.059.
+//   - The 64-row skip walks 1.418x a CBGS gather predict's hits against
+//     1.253x for the f32 kernel's 16- and 32-row warp groups (L0 1.395 /
+//     1.120, L1 1.332 / 1.120, L2 1.137 / 1.095, L3 1.035 / 1.022, the
+//     strided 16 -> 32 conv 10.71 / 7.45; gemm_walk over the plans: the
+//     launch arithmetic's model of the walk, its tiles held to the
+//     build's by gather_bf16_tile in a card test). What
+//     a small tile walks in vain is zero-filled copies (issue slots, no
+//     bytes) and products of a few cycles: L0's launches take 0.019 ms on
+//     this kernel against 0.024 for the mma.sync one of 16-row groups, so
+//     no shape keeps mma.sync.
+//
+// gather_dw_bf16:
+//   - one block per (share of the plan's 64-position chunks, tap, TI x TO
+//     tile of dw), the share's chunks that hit the tap listed first;
+//     wgmma's M the larger of the tile's Cin and Cout sides (dw^T where
+//     Cout is larger: the strided convs' 16 -> 32, 32 -> 64, 64 -> 128),
+//     one consumer warpgroup per 64 of it, N the other side; a tile side
+//     below 64 is padded to wgmma's 64 rows (the padding rows read whatever
+//     the stage holds and are dropped: a small tile is bound by its bytes,
+//     not by the products). A chunk is one stage, 4 k16 steps, with both
+//     gathered operands MN-major;
+//   - the producer takes two threads a position; a slot's rulebook entries
+//     and output rows are loaded into registers 4 slots ahead, so no copy
+//     waits on a global load;
+//   - each chunk's products go into fresh accumulators, added to the sums
+//     with round-to-nearest adds (a model of it holds 1.7e-6 of scale over
+//     the L0 centre tap's 120000 positions, where one truncating chain
+//     drifts 1.6e-4); a chain of two chunks under wgmma_wait<1> measured
+//     the same and ptxas serialised it, so each chunk is waited for;
+//   - the shares: 4 waves of the blocks the card holds (1.49 ms a CBGS
+//     gather step's 21 launches against 1.76 at the f32 kernel's 8: a
+//     block's listing, fill and partial tile amortised over a longer
+//     share); partial tiles in f32, added in share order by
+//     gather_dw_reduce_kernel.
 //
 // Alignment contract of gather_gemm_f32 (checked by the Python wrapper):
 // Cin % 4 == 0 (bf16: Cin % 16 == 0), Cout is 16, 32, 64 or a multiple of
@@ -185,42 +252,45 @@ __device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The prologue of a gather-GEMM block: its plan positions m0 .. m0 + BM - 1
-// of batch element b. Stages their rulebook entries sidx[k * BM + r] (-1
-// past M) and output rows sorder[r] (-1 past M), the taps each row group of
-// WM rows hits (gmask, one bit a tap) and the block hits (bmask); returns
-// the calling warp's row group's mask. Warps WM-row groups in order, as
-// many warps a group as the block has over BM / WM.
-template <int WM>
-__device__ __forceinline__ unsigned stage_block(const int* __restrict__ rbb,
-                                                const long long* __restrict__ order, int b,
-                                                int K, int M, int m0, int* sidx, int* sorder,
-                                                unsigned* gmask, unsigned* bmask) {
-  constexpr int GROUPS = BM / WM;
+// The prologue of a gather-GEMM block of NT threads: its plan positions m0
+// .. m0 + ROWS - 1 of batch element b. Stages their rulebook entries
+// sidx[k * ROWS + r] (-1 past M) and output rows sorder[r] (-1 past M), the
+// taps each row group of WM rows hits (gmask, one bit a tap) and the block
+// hits (bmask). The first ROWS / S warps look at S = min(WM, 32) rows each,
+// in order, and OR what they see into their group's mask.
+template <int ROWS, int NT, int WM>
+__device__ __forceinline__ void stage_block(const int* __restrict__ rbb,
+                                            const long long* __restrict__ order, int b, int K,
+                                            int M, int m0, int* sidx, int* sorder,
+                                            unsigned* gmask, unsigned* bmask) {
+  constexpr int S = WM < 32 ? WM : 32;
+  static_assert(ROWS % WM == 0 && WM % S == 0 && ROWS / S <= NT / 32, "row groups");
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp % GROUPS, wn = warp / GROUPS;
-  if (tid == 0) *bmask = 0;
-  for (int e = tid; e < K * BM; e += THREADS) {
-    const int k = e / BM, r = e - k * BM, m = m0 + r;
+  if (tid == 0) {
+    *bmask = 0;
+    for (int g = 0; g < ROWS / WM; ++g) gmask[g] = 0;
+  }
+  for (int e = tid; e < K * ROWS; e += NT) {
+    const int k = e / ROWS, r = e - k * ROWS, m = m0 + r;
     sidx[e] = m < M ? rbb[(size_t)k * M + m] : -1;
   }
-  for (int r = tid; r < BM; r += THREADS) {
+  for (int r = tid; r < ROWS; r += NT) {
     const int m = m0 + r;
     sorder[r] = m >= M ? -1 : (order ? static_cast<int>(order[(size_t)b * M + m]) : m);
   }
   __syncthreads();
-  // the taps the warp's rows hit: one bit per tap
-  unsigned wmask = 0;
-  for (int k = 0; k < K; ++k) {
-    const bool h = lane < WM && sidx[k * BM + wm * WM + lane] >= 0;
-    wmask |= (__any_sync(0xffffffffu, h) ? 1u : 0u) << k;
-  }
-  if (lane == 0) {
-    if (wn == 0) gmask[wm] = wmask;
-    atomicOr(bmask, wmask);
+  if (warp < ROWS / S) {  // the taps the warp's rows hit: one bit per tap
+    unsigned wmask = 0;
+    for (int k = 0; k < K; ++k) {
+      const bool h = lane < S && sidx[k * ROWS + warp * S + lane] >= 0;
+      wmask |= (__any_sync(0xffffffffu, h) ? 1u : 0u) << k;
+    }
+    if (lane == 0 && wmask) {
+      atomicOr(&gmask[warp * S / WM], wmask);
+      atomicOr(bmask, wmask);
+    }
   }
   __syncthreads();
-  return wmask;
 }
 
 // The ring of a gather-GEMM block: the (active tap, Cin chunk) steps of the
@@ -302,7 +372,8 @@ gather_gemm_kernel(const float* __restrict__ feat, const int* __restrict__ rb,
   const float* fb = feat + (size_t)b * N * Cin;
   const int* rbb = rb + (size_t)b * K * M;
 
-  const unsigned wmask = stage_block<T::WM>(rbb, order, b, K, M, m0, sidx, sorder, gmask, &bmask);
+  stage_block<BM, THREADS, T::WM>(rbb, order, b, K, M, m0, sidx, sorder, gmask, &bmask);
+  const unsigned wmask = gmask[wm];  // the taps this warp's row group hits
 
   // step (tap lk, chunk lc): gathers only the rows of the row groups that
   // hit tap lk (the others' stale rows are never read)
@@ -437,124 +508,185 @@ int dispatch_bk(const float* feat, const int* rb, const long long* order, const 
 
 // ---- gather_gemm_bf16 --------------------------------------------------------
 //
-// The same block walk as gather_gemm_kernel (stage_block, then tap_ring's
-// (active tap, Cin chunk) steps, only the row groups that hit a tap
-// gathering and multiplying it), on bf16 rows and weights: one bf16
-// mma.sync m16n8k16 a 16-channel step into the f32 sums (JAX's product:
-// bf16 operands, f32 sums), each output rounded once to bf16 (nearest) in
-// the epilogue. A row's sum runs through at most 27 x 128 / 16 = 216
-// products of the tensor cores' truncating accumulator, whose drift (about
-// 1e-5 of scale over such a chain, see gather_gemm_f32) is far below the
-// output's bf16 rounding (2^-9 of scale), so no step is summed apart.
-// Chunks of 16 channels at Cin 16 and of 32 from Cin 32 on; A and B tiles
-// by ldmatrix (B transposed) from row pitches padded by 16 bytes, which put
-// the 8 rows each 8 x 8 matrix reads on 8 different 16-byte bank groups.
+// (the design and its measurements: the note on the bf16 kernels above)
+
+constexpr int PATH_TAPS = 27;  // the path's largest tap count: sizes the rings below
 
 template <int COUT, int BK>
-struct Bf16Tile {
-  static constexpr int STAGES = 4;                      // cp.async ring
-  static constexpr int WARPS_M = COUT >= 64 ? 4 : 8;    // row groups
-  static constexpr int WARPS_N = 8 / WARPS_M;
-  static constexpr int WM = BM / WARPS_M;               // rows of a warp: 16 or 32
-  static constexpr int WN = COUT / WARPS_N;             // columns of a warp
-  static constexpr int MT = WM / 16, NT = WN / 8;
-  static constexpr int LDA = BK + 8;                    // bf16
-  static constexpr int LDW = COUT + 8;                  // bf16
-  static constexpr int A_STAGE = BM * LDA;
-  static constexpr int STAGE = A_STAGE + BK * LDW;
-  static constexpr int TILE_BYTES = STAGES * STAGE * 2;
-  static_assert(BK % 16 == 0 && WN % 16 == 0 && WM % 16 == 0, "tile shape");
+struct WgTile {
+  static constexpr int NWG = COUT == 64 ? 2 : 1;   // consumer warpgroups, 64 rows each
+  static constexpr int WR = 64;                     // rows that skip a tap together: wgmma's M
+  static constexpr int BMW = WR * NWG;              // plan positions of a block
+  static constexpr int THREADS = 128 * (NWG + 1);   // and the producer warpgroup
+  static constexpr int NA = COUT < 64 ? COUT : 64;  // columns of a B swizzle atom
+  static constexpr int RA = BK * 2, RB = NA * 2;    // bytes of an A row, of a B atom row
+  static constexpr int A_BYTES = BMW * RA;          // [BMW rows][BK], K-major
+  static constexpr int B_BYTES = BK * COUT * 2;     // [COUT / NA][BK][NA], MN-major
+  static constexpr int STAGE = (A_BYTES + B_BYTES + 1023) / 1024 * 1024;
+  static constexpr int MIN_BLOCKS = COUT >= 64 ? 2 : 4;
+  // the ring: what MIN_BLOCKS blocks leave of a multiprocessor (1 KB each
+  // reserved) after the alignment slack, the rulebook of PATH_TAPS taps,
+  // the barriers and the static arrays; at most 8 stages
+  static constexpr int FIXED = 1024 + PATH_TAPS * BMW * 4 + 16 * 8 + BMW * 4 + 16;
+  static constexpr int FIT = (232448 / MIN_BLOCKS - 1024 - FIXED) / STAGE;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  static_assert(BK == 16 || BK == 32 || BK == 64, "Cin chunks of 16, 32 or 64");
+  static_assert(STAGES >= 3, "ring");
 };
 
 template <int COUT, int BK>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(WgTile<COUT, BK>::THREADS, WgTile<COUT, BK>::MIN_BLOCKS)
 gather_gemm_bf16_kernel(const __nv_bfloat16* __restrict__ feat, const int* __restrict__ rb,
                         const long long* __restrict__ order, const __nv_bfloat16* __restrict__ w,
                         __nv_bfloat16* __restrict__ out, int N, int Cin, int K, int M, int Cout) {
-  using T = Bf16Tile<COUT, BK>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][A | W]
-  int* sidx = reinterpret_cast<int*>(smem + T::TILE_BYTES);       // [K][BM]
-  __shared__ int sorder[BM];
-  __shared__ unsigned gmask[T::WARPS_M];
-  __shared__ unsigned bmask;
+  using T = WgTile<COUT, BK>;
+  extern __shared__ unsigned char dsm_gemm[];
+  unsigned char* sm = dsm_gemm + ((1024u - (smem_u32(dsm_gemm) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + T::STAGES * T::STAGE);
+  uint64_t* empty = full + T::STAGES;
+  int* sidx = reinterpret_cast<int*>(empty + T::STAGES);  // [K][BMW]
+  __shared__ int sorder[T::BMW];
+  __shared__ unsigned gmask[T::NWG];  // taps hit by each consumer warpgroup's rows
+  __shared__ unsigned bmask;          // taps hit by the block
 
-  const int b = blockIdx.z, m0 = blockIdx.x * BM, n0 = blockIdx.y * COUT;
+  const int b = blockIdx.z, m0 = blockIdx.x * T::BMW, n0 = blockIdx.y * COUT;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp % T::WARPS_M, wn = warp / T::WARPS_M;
-  const __nv_bfloat16* fb = feat + (size_t)b * N * Cin;
-  const unsigned wmask = stage_block<T::WM>(rb + (size_t)b * K * M, order, b, K, M, m0, sidx,
-                                            sorder, gmask, &bmask);
-  auto load = [&](int stage, int lk, int lc) {
-    __nv_bfloat16* a = tiles + stage * T::STAGE;
-    __nv_bfloat16* ws = a + T::A_STAGE;
-    const int c0 = lc * BK;
-    constexpr int CPR = BK / 8;  // 16-byte pieces of a row chunk
-    for (int e = tid; e < BM * CPR; e += THREADS) {
-      const int r = e / CPR, c = (e % CPR) * 8;
-      if (!((gmask[r / T::WM] >> lk) & 1u)) continue;
-      const int src = sidx[lk * BM + r];
-      const bool ok = src >= 0 && c0 + c < Cin;
-      cp_async16(a + r * T::LDA + c, ok ? fb + (size_t)src * Cin + c0 + c : fb, ok);
+  const int* rbb = rb + (size_t)b * K * M;
+  if (tid == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&full[s], 128);                 // the producer's threads
+      mbar_init(&empty[s], 4 * T::NWG);         // the consumers' warps
     }
-    const __nv_bfloat16* wk = w + (size_t)lk * Cin * Cout + n0;
-    constexpr int CPW = COUT / 8;
-    for (int e = tid; e < BK * CPW; e += THREADS) {
-      const int r = e / CPW, c = (e % CPW) * 8;
-      const bool ok = c0 + r < Cin;
-      cp_async16(ws + r * T::LDW + c, ok ? wk + (size_t)(c0 + r) * Cout + c : w, ok);
-    }
-  };
+    fence_mbar_init();
+  }
+  stage_block<T::BMW, T::THREADS, T::WR>(rbb, order, b, K, M, m0, sidx, sorder, gmask, &bmask);
+  const unsigned taps = bmask;
+  const int nk = (Cin + BK - 1) / BK, steps = __popc(taps) * nk;
 
-  float acc[T::MT][T::NT][4];
+  if (warp >= 4 * T::NWG) {
+    // the producer: step s (active tap k, Cin chunk c, in order) into stage
+    // s % STAGES once the consumers have released its last use; the rows of
+    // the warpgroups that hit tap k (zero fill for misses and the Cin edge)
+    // and w[k]'s chunk, 16-byte cp.async to swizzled places, all landing on
+    // the stage's full barrier
+    const int pt = tid - 128 * T::NWG;
+    const __nv_bfloat16* fb = feat + (size_t)b * N * Cin;
+    // A: thread pt takes piece pa of rows ra0 + RPI i of each warpgroup's 64
+    // (RPI a multiple of 8, so the swizzle of those rows is ra0's); B: piece
+    // qb of w rows rb0 + WPI i, in atom qb / CPA
+    constexpr int CPR = BK / 8, RPI = 128 / CPR;      // 16-byte pieces of a row chunk
+    constexpr int CPW = COUT / 8, CPA = T::NA / 8, WPI = 128 / CPW;
+    constexpr int BPT = (BK * CPW + 127) / 128;       // B pieces a thread
+    const int ra0 = pt / CPR, pa = pt % CPR, rb0 = pt / CPW, qb = pt % CPW;
+    const uint32_t aoff = swz_off<T::RA>(ra0, pa);
+    const uint32_t boff = (qb / CPA) * (BK * T::RB) + swz_off<T::RB>(rb0, qb % CPA);
+    unsigned masks[T::NWG];
 #pragma unroll
-  for (int i = 0; i < T::MT; ++i)
+    for (int g = 0; g < T::NWG; ++g) masks[g] = gmask[g];
+    unsigned rem = taps;
+    int k = taps ? __ffs(taps) - 1 : 0, c = 0;
+#pragma unroll 1
+    for (int s = 0; s < steps; ++s) {
+      const int st = s % T::STAGES;
+      if (s >= T::STAGES) mbar_wait(&empty[st], ((s / T::STAGES) - 1) & 1);
+      unsigned char* a = sm + st * T::STAGE;
+      unsigned char* bt = a + T::A_BYTES;
+      const int c0 = c * BK;
+      const bool a_in = c0 + pa * 8 < Cin;
+      const int* sk = sidx + k * T::BMW;
 #pragma unroll
-    for (int j = 0; j < T::NT; ++j)
+      for (int g = 0; g < T::NWG; ++g) {
+        if (!((masks[g] >> k) & 1u)) continue;  // no row of warpgroup g hits tap k
+        int src[64 / RPI];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
-
-  // ldmatrix: lanes 8q..8q+7 address matrix q; A: rows +8 for q odd, k +8
-  // for q >= 2; B (transposed): k +8 for q odd, columns +8 for q >= 2
-  const int a_row = wm * T::WM + (lane & 15), a_col = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + ((lane >> 3) & 1) * 8, b_col = wn * T::WN + (lane >> 4) * 8;
-  auto compute = [&](int stage) {
-    const __nv_bfloat16* a = tiles + stage * T::STAGE;
-    const __nv_bfloat16* ws = a + T::A_STAGE;
+        for (int i = 0; i < 64 / RPI; ++i) src[i] = sk[64 * g + RPI * i + ra0];
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[T::MT][4];
-#pragma unroll
-      for (int i = 0; i < T::MT; ++i)
-        ldmatrix_x4(af[i], a + (a_row + i * 16) * T::LDA + kk + a_col);
-#pragma unroll
-      for (int np = 0; np < T::NT / 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, ws + (kk + b_row) * T::LDW + b_col + np * 16);
-#pragma unroll
-        for (int i = 0; i < T::MT; ++i) {
-          mma_bf16_16816(acc[i][2 * np], af[i], bf[0], bf[1]);
-          mma_bf16_16816(acc[i][2 * np + 1], af[i], bf[2], bf[3]);
+        for (int i = 0; i < 64 / RPI; ++i) {
+          const bool ok = src[i] >= 0 && a_in;
+          cp_async16(a + aoff + (64 * g + RPI * i) * T::RA,
+                     ok ? fb + (size_t)src[i] * Cin + c0 + pa * 8 : fb, ok);
         }
       }
+      const __nv_bfloat16* wk = w + (size_t)k * Cin * Cout + n0 + qb * 8;
+#pragma unroll
+      for (int i = 0; i < BPT; ++i) {
+        const int r = rb0 + WPI * i;
+        if ((BK * CPW) % 128 != 0 && r >= BK) break;
+        const bool ok = c0 + r < Cin;
+        cp_async16(bt + boff + WPI * i * T::RB, ok ? wk + (size_t)(c0 + r) * Cout : w, ok);
+      }
+      cp_async_mbar_arrive(&full[st]);
+      if (++c == nk) {
+        c = 0;
+        rem &= rem - 1;
+        k = rem ? __ffs(rem) - 1 : 0;
+      }
     }
-  };
+    cp_async_wait<0>();
+    return;
+  }
 
-  tap_ring<T::STAGES>(bmask, (Cin + BK - 1) / BK, wmask, load, compute);
-
-  const int g = lane / 4, t = lane % 4;
+  // the consumers: warpgroup wg multiplies rows 64 wg .. of every step whose
+  // tap its rows hit, one step's products in flight while it waits for the
+  // next (a stage is released once its products are done), and passes over
+  // the others (released at once: nothing reads them)
+  const int wg = warp / 4, t = tid % 128;
+  const unsigned mine = gmask[wg];
+  float acc[COUT / 2];
 #pragma unroll
-  for (int i = 0; i < T::MT; ++i) {
+  for (int q = 0; q < COUT / 2; ++q) acc[q] = 0.0f;
+  int pending = -1;  // the stage whose products may be in flight
+  unsigned rem = taps;
+  int k = taps ? __ffs(taps) - 1 : 0, c = 0;
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+    const int st = s % T::STAGES;
+    mbar_wait(&full[st], (s / T::STAGES) & 1);
+    if ((mine >> k) & 1u) {
+      fence_proxy_async();  // the landed copies, to the tensor cores' reads
+      const unsigned char* a = sm + st * T::STAGE;
+      const uint64_t da = wgmma_desc_sw<T::RA>(a + wg * 64 * T::RA, 16, 8 * T::RA);
+      const uint64_t db = wgmma_desc_sw<T::RB>(a + T::A_BYTES, BK * T::RB, 8 * T::RB);
+      wgmma_fence_operands(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = sorder[wm * T::WM + i * 16 + h * 8 + g];
-      if (m < 0) continue;
-      __nv_bfloat16* o = out + ((size_t)b * M + m) * Cout + n0 + wn * T::WN + 2 * t;
-#pragma unroll
-      for (int j = 0; j < T::NT; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(o + j * 8) =
-            __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_bf16<COUT, 0, 1>(acc, da + 2 * kk, db + ((16 * T::RB * kk) >> 4), 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      wgmma_fence_operands(acc);
+      if (pending >= 0 && lane == 0) mbar_arrive(&empty[pending]);
+      pending = st;
+    } else {
+      if (pending >= 0) {  // released before a later step can need its stage
+        wgmma_wait<0>();
+        wgmma_fence_operands(acc);
+        if (lane == 0) mbar_arrive(&empty[pending]);
+        pending = -1;
+      }
+      if (lane == 0) mbar_arrive(&empty[st]);
     }
+    if (++c == nk) {
+      c = 0;
+      rem &= rem - 1;
+      k = rem ? __ffs(rem) - 1 : 0;
+    }
+  }
+  wgmma_wait<0>();
+  wgmma_fence_operands(acc);
+
+  // thread t holds acc[4 j + q] at row 16 (t / 32) + (t % 32) / 4 + 8 (q / 2)
+  // of the warpgroup's 64, column 8 j + 2 (t % 4) + q % 2; each output row
+  // written once at its place, rounded once to bf16 (nearest)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = sorder[wg * 64 + 16 * (t / 32) + (t % 32) / 4 + 8 * h];
+    if (m < 0) continue;
+    __nv_bfloat16* o = out + ((size_t)b * M + m) * Cout + n0 + 2 * (t % 4);
+#pragma unroll
+    for (int j = 0; j < COUT / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   }
 }
 
@@ -562,15 +694,15 @@ template <int COUT, int BK>
 int launch_gather_gemm_bf16(const __nv_bfloat16* feat, const int* rb, const long long* order,
                             const __nv_bfloat16* w, __nv_bfloat16* out, int B, int N, int Cin,
                             int K, int M, int Cout, cudaStream_t stream) {
-  using T = Bf16Tile<COUT, BK>;
-  const size_t smem = T::TILE_BYTES + (size_t)K * BM * 4;
+  using T = WgTile<COUT, BK>;
+  const size_t smem = 1024 + T::STAGES * (T::STAGE + 16) + (size_t)K * T::BMW * 4;
   cudaError_t e = cudaFuncSetAttribute(gather_gemm_bf16_kernel<COUT, BK>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((M + BM - 1) / BM, Cout / COUT, B);
-  gather_gemm_bf16_kernel<COUT, BK><<<grid, THREADS, smem, stream>>>(feat, rb, order, w, out, N,
-                                                                     Cin, K, M, Cout);
+  dim3 grid((M + T::BMW - 1) / T::BMW, Cout / COUT, B);
+  gather_gemm_bf16_kernel<COUT, BK><<<grid, T::THREADS, smem, stream>>>(feat, rb, order, w, out,
+                                                                       N, Cin, K, M, Cout);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -581,7 +713,10 @@ int dispatch_bk_bf16(const __nv_bfloat16* feat, const int* rb, const long long* 
   if (Cin <= 16)
     return launch_gather_gemm_bf16<COUT, 16>(feat, rb, order, w, out, B, N, Cin, K, M, Cout,
                                              stream);
-  return launch_gather_gemm_bf16<COUT, 32>(feat, rb, order, w, out, B, N, Cin, K, M, Cout,
+  if (Cin <= 32)
+    return launch_gather_gemm_bf16<COUT, 32>(feat, rb, order, w, out, B, N, Cin, K, M, Cout,
+                                             stream);
+  return launch_gather_gemm_bf16<COUT, 64>(feat, rb, order, w, out, B, N, Cin, K, M, Cout,
                                            stream);
 }
 
@@ -638,25 +773,32 @@ constexpr int DW_STATIC = DW_MAX_CHUNKS * 8 + DW_IDX * DW_CH * 12 + 16;
 // features (the pitch keeps the A fragments' loads on 32 banks) and [32][TO]
 // g. ops/gather.py::_dw_blocks_per_sm mirrors SMEM + DW_STATIC.
 // The chunks of a dW block's share (chunks c_begin .. c_begin + n_ch - 1 of
-// tc a batch element) that hit tap k, in order, into clist as (batch
-// element, first position); returns their count. 8 chunks a warp a round
-// (their rulebook reads in flight together), one byte a chunk of flags in
-// the scratch `flag` (n_ch bytes); count is a shared int.
-template <int WARPS>
+// tc a batch element, CH positions each) that hit tap k, in order, into
+// clist as (batch element, first position); returns their count. 8 chunks
+// a warp a round (their rulebook reads in flight together), one byte a
+// chunk of flags in the scratch `flag` (n_ch bytes); count is a shared int.
+template <int WARPS, int CH>
 __device__ __forceinline__ int list_hit_chunks(const int* __restrict__ rb, int k, int K, int M,
                                                int tc, int c_begin, int n_ch, unsigned char* flag,
                                                int2* clist, int* count) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int c0 = warp * 8; c0 < n_ch; c0 += WARPS * 8) {
-    int v[8];
+    int v[8][CH / 32];
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      const int cc = c_begin + c0 + u, b = cc / tc, p = (cc - b * tc) * DW_CH + lane;
-      v[u] = c0 + u < n_ch && p < M ? __ldg(rb + ((size_t)b * K + k) * M + p) : -1;
+      const int cc = c_begin + c0 + u, b = cc / tc;
+#pragma unroll
+      for (int h = 0; h < CH / 32; ++h) {
+        const int p = (cc - b * tc) * CH + 32 * h + lane;
+        v[u][h] = c0 + u < n_ch && p < M ? __ldg(rb + ((size_t)b * K + k) * M + p) : -1;
+      }
     }
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      const unsigned m = __ballot_sync(0xffffffffu, v[u] >= 0);
+      bool any = false;
+#pragma unroll
+      for (int h = 0; h < CH / 32; ++h) any |= v[u][h] >= 0;
+      const unsigned m = __ballot_sync(0xffffffffu, any);
       if (lane == 0 && c0 + u < n_ch) flag[c0 + u] = m != 0u;
     }
   }
@@ -668,7 +810,7 @@ __device__ __forceinline__ int list_hit_chunks(const int* __restrict__ rb, int k
       const unsigned m = __ballot_sync(0xffffffffu, f);
       if (f) {
         const int cc = c_begin + base + lane, b = cc / tc;
-        clist[n + __popc(m & ((1u << lane) - 1u))] = make_int2(b, (cc - b * tc) * DW_CH);
+        clist[n + __popc(m & ((1u << lane) - 1u))] = make_int2(b, (cc - b * tc) * CH);
       }
       n += __popc(m);
     }
@@ -733,8 +875,9 @@ gather_dw_kernel(const float* __restrict__ feat, const int* __restrict__ rb,
   const int c_begin = s * cps;
   const int n_ch = min(c_begin + cps, chunks) - c_begin;
 
-  const int nh = list_hit_chunks<T::WARPS>(rb, k, K, M, tc, c_begin, n_ch,
-                                           reinterpret_cast<unsigned char*>(ring), clist, &count);
+  const int nh = list_hit_chunks<T::WARPS, DW_CH>(rb, k, K, M, tc, c_begin, n_ch,
+                                                  reinterpret_cast<unsigned char*>(ring), clist,
+                                                  &count);
 
   // slot j's rulebook entries (warp 0) and output rows (warp 1) into the
   // index ring by 4- and 8-byte cp.async: no thread waits on them
@@ -970,147 +1113,189 @@ int dispatch_dw_to(const float* feat, const int* rb, const long long* order, con
 
 // ---- gather_dw_bf16 -----------------------------------------------------------
 //
-// The weight gradient of gather_gemm_bf16: bf16 features and g, f32 sums, dw
-// rounded once to bf16. The block walk of gather_dw_kernel (one block per
-// (share, tap, TI x TO tile of dw); the share's chunks that hit the tap
-// listed first by list_hit_chunks; partial tiles summed in share order by
-// gather_dw_reduce_kernel, so a repeat gives the same bits), with the
-// products on bf16 mma.sync m16n8k16: one warp per 16 rows of the tile's
-// Cin, all TO columns, the 32 positions of a chunk as two k16 steps. Both
-// operands come by ldmatrix.trans from the chunk's [position][channel]
-// rows (features as the transposed A, g as B), in a ring of DW_STAGES
-// chunks gathered by 16-byte cp.async DW_STAGES - 1 chunks ahead (zero fill
-// for misses and the Cin / Cout edge; row pitches padded by 16 bytes, so
-// each 8 x 8 matrix reads 8 bank groups). A chunk's products go into fresh
-// accumulators, added to the block's f32 sums with round-to-nearest adds:
-// the tensor cores' sum truncates and a tap's reduction can run to tens of
-// thousands of positions. The rulebook entries and output rows are read
-// where a chunk's gathers are issued (no index ring, unlike the f32 kernel).
+// (the design and its measurements: the note on the bf16 kernels above)
+
+constexpr int DWB_CH = 64;    // plan positions of a bf16 dW chunk: one ring stage, 4 k16 steps
+constexpr int DWB_LEAD = 4;   // the producer's rulebook entries and output rows, slots ahead
 
 template <int TI, int TO>
-struct DwBf16Tile {
-  static constexpr int WARPS = TI / 16;
-  static constexpr int THREADS = 32 * WARPS;
-  static constexpr int NT = TO / 8;             // n8 tiles of a warp
-  static constexpr int LDA = TI + 8, LDG = TO + 8;  // bf16
-  static constexpr int STAGE = DW_CH * (LDA + LDG);  // bf16 of a ring stage
-  static constexpr int SMEM = DW_STAGES * STAGE * 2;
-  static constexpr int PIECES = (TI + TO) / 8;  // 16-byte pieces of a position's two rows
-  static constexpr int TPP = THREADS / DW_CH;   // threads of a position's gathers
+struct DwWgTile {
+  static constexpr bool TR = TO > TI;                // dw^T: Cout as wgmma's M
+  static constexpr int MD = TR ? TO : TI;            // the M side (Cin or Cout), padded to 64
+  static constexpr int ND = TR ? TI : TO;            // the N side
+  static constexpr int WG = MD > 64 ? 2 : 1;         // consumer warpgroups, 64 of M each
+  static constexpr int THREADS = 128 * (WG + 1);     // and the producer warpgroup
+  static constexpr int WARPS = THREADS / 32;
+  static constexpr int NA = ND < 64 ? ND : 64;       // columns of a B swizzle atom
+  static constexpr int RB = NA * 2;                  // bytes of a B atom row
+  static constexpr int A_BYTES = WG * DWB_CH * 128;  // [WG][64 positions][64 of M], MN-major
+  static constexpr int B_BYTES = DWB_CH * ND * 2;    // [ND / NA][64 positions][NA], MN-major
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  // registers of a consumer thread: the sums and products, and about 40 more
+  static constexpr int REGS = ND + 40;
+  static constexpr int BY_REGS = 65536 / (THREADS * ((REGS + 7) / 8 * 8));
+  static constexpr int MIN_BLOCKS = BY_REGS < 1 ? 1 : (BY_REGS > 4 ? 4 : BY_REGS);
+  // the ring: what MIN_BLOCKS blocks leave of a multiprocessor (1 KB each
+  // reserved) after the alignment slack, the barriers and the chunk list;
+  // at most 8 stages
+  static constexpr int FIXED = 1024 + 16 * 8 + DW_MAX_CHUNKS * 8 + 16;
+  static constexpr int FIT = (232448 / MIN_BLOCKS - 1024 - FIXED) / STAGE;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
   static_assert(TI % 16 == 0 && TO % 16 == 0 && TI <= 128 && TO <= 128, "dw tile");
-  static_assert(STAGE * 2 >= DW_MAX_CHUNKS, "the chunk flags live in the ring");
+  static_assert(STAGES >= 3 && STAGE >= DW_MAX_CHUNKS, "ring; the chunk flags live in it");
 };
 
 template <int TI, int TO>
-__global__ void __launch_bounds__(DwBf16Tile<TI, TO>::THREADS)
+__global__ void __launch_bounds__(DwWgTile<TI, TO>::THREADS, DwWgTile<TI, TO>::MIN_BLOCKS)
 gather_dw_bf16_kernel(const __nv_bfloat16* __restrict__ feat, const int* __restrict__ rb,
                       const long long* __restrict__ order, const __nv_bfloat16* __restrict__ g,
                       float* __restrict__ part, int N, int Cin, int K, int M, int Cout,
                       int chunks, int cps, int tiles_o) {
-  using T = DwBf16Tile<TI, TO>;
-  constexpr int PA = TI / 8;  // 16-byte pieces of a feature row
-  extern __shared__ __align__(128) unsigned char dsm_bf16[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(dsm_bf16);
+  using T = DwWgTile<TI, TO>;
+  constexpr int ND = T::ND, NA = T::NA, RB = T::RB;
+  extern __shared__ unsigned char dsm_dw[];
+  unsigned char* sm = dsm_dw + ((1024u - (smem_u32(dsm_dw) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + T::STAGES * T::STAGE);
+  uint64_t* empty = full + T::STAGES;
   __shared__ int2 clist[DW_MAX_CHUNKS];
   __shared__ int count;
 
   const int s = blockIdx.x, k = blockIdx.y;
   const int i0 = (blockIdx.z / tiles_o) * TI, o0 = (blockIdx.z % tiles_o) * TO;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int tc = (M + DW_CH - 1) / DW_CH;
+  const int tc = (M + DWB_CH - 1) / DWB_CH;
   const int c_begin = s * cps;
   const int n_ch = min(c_begin + cps, chunks) - c_begin;
-  const int nh = list_hit_chunks<T::WARPS>(rb, k, K, M, tc, c_begin, n_ch,
-                                           reinterpret_cast<unsigned char*>(ring), clist, &count);
-
-  // slot j into ring stage `stage`: thread tid takes position p = tid /
-  // TPP, pieces sub, sub + TPP, ... of its feature row then its g row
-  const int p = tid / T::TPP, sub = tid % T::TPP;
-  auto load = [&](int j, int stage) {
-    const int2 c = clist[j];
-    const int pos = c.y + p;
-    const int v = pos < M ? __ldg(rb + ((size_t)c.x * K + k) * M + pos) : -1;
-    const bool h = v >= 0;
-    const int o = !h ? 0
-                     : order != nullptr ? static_cast<int>(__ldg(order + (size_t)c.x * M + pos))
-                                        : pos;
-    __nv_bfloat16* ra = ring + stage * T::STAGE;
-    const __nv_bfloat16* fr = feat + ((size_t)c.x * N + (h ? v : 0)) * Cin + i0;
-    const __nv_bfloat16* gr = g + ((size_t)c.x * M + o) * Cout + o0;
-#pragma unroll
-    for (int q = sub; q < T::PIECES; q += T::TPP) {
-      const bool is_a = q < PA;
-      const int cc = 8 * (is_a ? q : q - PA);
-      const bool ok = h && (is_a ? i0 + cc < Cin : o0 + cc < Cout);
-      __nv_bfloat16* dst = is_a ? ra + p * T::LDA + cc : ra + DW_CH * T::LDA + p * T::LDG + cc;
-      cp_async16(dst, ok ? (is_a ? fr : gr) + cc : feat, ok);
+  if (tid == 0) {
+    for (int q = 0; q < T::STAGES; ++q) {
+      mbar_init(&full[q], 128);
+      mbar_init(&empty[q], 4 * T::WG);
     }
-  };
-
-  float acc[T::NT][4], pr[T::NT][4];
-#pragma unroll
-  for (int j = 0; j < T::NT; ++j)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[j][q] = 0.0f;
-  // ldmatrix.trans, lanes 8q..8q+7 address matrix q: A (the features,
-  // [position][Cin]) rows +8 of Cin for q odd, positions +8 for q >= 2;
-  // B (g, [position][Cout]) positions +8 for q odd, columns +8 for q >= 2
-  const int a_pos = (lane & 7) + (lane >> 4) * 8, a_col = warp * 16 + ((lane >> 3) & 1) * 8;
-  const int b_pos = (lane & 7) + ((lane >> 3) & 1) * 8, b_col = (lane >> 4) * 8;
-  auto compute = [&](int stage) {
-    const __nv_bfloat16* ra = ring + stage * T::STAGE;
-    const __nv_bfloat16* rg = ra + DW_CH * T::LDA;
-#pragma unroll
-    for (int j = 0; j < T::NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) pr[j][q] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < DW_CH; kk += 16) {
-      uint32_t af[4];
-      ldmatrix_x4_trans(af, ra + (kk + a_pos) * T::LDA + a_col);
-#pragma unroll
-      for (int np = 0; np < T::NT / 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, rg + (kk + b_pos) * T::LDG + b_col + np * 16);
-        mma_bf16_16816(pr[2 * np], af, bf[0], bf[1]);
-        mma_bf16_16816(pr[2 * np + 1], af, bf[2], bf[3]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < T::NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[j][q] = __fadd_rn(acc[j][q], pr[j][q]);
-  };
-
-  constexpr int AHEAD = DW_STAGES - 1;
-#pragma unroll 1
-  for (int j = 0; j < AHEAD; ++j) {
-    if (j < nh) load(j, j);
-    cp_async_commit();
+    fence_mbar_init();
   }
+  const int nh = list_hit_chunks<T::WARPS, DWB_CH>(rb, k, K, M, tc, c_begin, n_ch, sm, clist,
+                                                   &count);
+
+  if (warp >= 4 * T::WG) {
+    // the producer: slot j (a listed chunk) into stage j % STAGES once the
+    // consumers have released its last use. Two threads a position, each
+    // every other 16-byte piece of its feature row then its g row (zero
+    // fill for misses, positions past M and the Cin / Cout edge), to their
+    // swizzled places; the rulebook entries and output rows of slot j +
+    // DWB_LEAD are loaded into registers while slot j is issued, so no
+    // copy waits on a global load
+    const int pt = tid - 128 * T::WG, p = pt / 2, sub = pt % 2;
+    // A: the M side's rows (features, or g for dw^T); B: the N side's
+    const __nv_bfloat16* src_a = T::TR ? g : feat;
+    const __nv_bfloat16* src_b = T::TR ? feat : g;
+    const int ca = T::TR ? Cout : Cin, cb = T::TR ? Cin : Cout;
+    const int a0 = T::TR ? o0 : i0, b0 = T::TR ? i0 : o0;
+    constexpr int PA = T::MD / 8, PIECES = PA + ND / 8;
+    int vq[DWB_LEAD], oq[DWB_LEAD];
+    auto entries = [&](int j, int& v, int& o) {
+      v = -1;
+      o = 0;
+      if (j >= nh) return;
+      const int2 c = clist[j];
+      const int pos = c.y + p;
+      if (pos >= M) return;
+      v = __ldg(rb + ((size_t)c.x * K + k) * M + pos);
+      o = order != nullptr ? static_cast<int>(__ldg(order + (size_t)c.x * M + pos)) : pos;
+    };
+#pragma unroll
+    for (int i = 0; i < DWB_LEAD; ++i) entries(i, vq[i], oq[i]);
+    auto slot = [&](int j, int& v, int& o) {
+      const int st = j % T::STAGES;
+      if (j >= T::STAGES) mbar_wait(&empty[st], ((j / T::STAGES) - 1) & 1);
+      const int bx = clist[j].x;
+      const bool h = v >= 0;
+      // the feature row is rulebook row v, the g row output row o
+      const size_t fr = ((size_t)bx * N + (h ? v : 0)) * Cin;
+      const size_t gr = ((size_t)bx * M + (h ? o : 0)) * Cout;
+      const __nv_bfloat16* ra = src_a + (T::TR ? gr : fr) + a0;
+      const __nv_bfloat16* rbw = src_b + (T::TR ? fr : gr) + b0;
+      unsigned char* st_a = sm + st * T::STAGE;
+      unsigned char* st_b = st_a + T::A_BYTES;
+#pragma unroll
+      for (int i = 0; i < PIECES / 2; ++i) {
+        const int q = 2 * i + sub;  // PA is even: i < PA / 2 picks A for both threads
+        if (i < PA / 2) {
+          const bool ok = h && a0 + 8 * q < ca;
+          cp_async16(st_a + (q / 8) * (DWB_CH * 128) + swz_off<128>(p, q % 8),
+                     ok ? ra + 8 * q : feat, ok);
+        } else {
+          const int qb = q - PA;
+          const bool ok = h && b0 + 8 * qb < cb;
+          cp_async16(st_b + (qb / (NA / 8)) * (DWB_CH * RB) + swz_off<RB>(p, qb % (NA / 8)),
+                     ok ? rbw + 8 * qb : feat, ok);
+        }
+      }
+      cp_async_mbar_arrive(&full[st]);
+      entries(j + DWB_LEAD, v, o);  // the registers of slot j now take slot j + LEAD's
+    };
+    // unrolled by DWB_LEAD, so that each slot's registers stay in place
+    // until their loads are used
+#pragma unroll 1
+    for (int j = 0; j < nh; j += DWB_LEAD) {
+#pragma unroll
+      for (int i = 0; i < DWB_LEAD; ++i)
+        if (j + i < nh) slot(j + i, vq[i], oq[i]);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // the consumers: warpgroup wg takes rows 64 wg .. of the M side. Each
+  // chunk's 4 k16 products go into fresh accumulators (the tensor cores' sum
+  // truncates, and a tap's reduction runs to tens of thousands of
+  // positions), added to the sums with round-to-nearest adds in chunk
+  // order; the chunk's stage is released once its products are done
+  const int wg = warp / 4, t = tid % 128;
+  float acc[ND / 2], pr[ND / 2];
+#pragma unroll
+  for (int q = 0; q < ND / 2; ++q) acc[q] = 0.0f;
 #pragma unroll 1
   for (int j = 0; j < nh; ++j) {
-    cp_async_wait<AHEAD - 1>();  // slot j has landed (this thread's copies)
-    __syncthreads();             // ... everyone's; slot j - 1's stage is free
-    if (j + AHEAD < nh) load(j + AHEAD, (j + AHEAD) % DW_STAGES);
-    cp_async_commit();
-    compute(j % DW_STAGES);
+    const int st = j % T::STAGES;
+    mbar_wait(&full[st], (j / T::STAGES) & 1);
+    fence_proxy_async();  // the landed copies, to the tensor cores' reads
+    const unsigned char* a = sm + st * T::STAGE;
+    const uint64_t da = wgmma_desc_sw<128>(a + wg * (DWB_CH * 128), DWB_CH * 128, 1024);
+    const uint64_t db = wgmma_desc_sw<RB>(a + T::A_BYTES, DWB_CH * RB, 8 * RB);
+    wgmma_fence_operands(pr);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DWB_CH / 16; ++kk)
+      wgmma_bf16<ND, 1, 1>(pr, da + ((16 * 128 * kk) >> 4), db + ((16 * RB * kk) >> 4), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operands(pr);
+    if (lane == 0) mbar_arrive(&empty[st]);
+#pragma unroll
+    for (int q = 0; q < ND / 2; ++q) acc[q] = __fadd_rn(acc[q], pr[q]);
   }
-  cp_async_wait<0>();
 
-  // C fragment: rows (Cin) g and g + 8 of the warp's 16, columns 8 j + 2 t (+ 1)
+  // thread t holds acc[4 jn + q] at row 16 (t / 32) + (t % 32) / 4 + 8 (q /
+  // 2) of the warpgroup's 64 of M, column 8 jn + 2 (t % 4) + q % 2 of N;
+  // rows past the tile's M side are not dw's
   float* out = part + ((size_t)s * K + k) * Cin * Cout;
-  const int gr_ = lane / 4, t = lane % 4;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = i0 + warp * 16 + gr_ + 8 * h;
-    if (row >= Cin) continue;
+    const int row = wg * 64 + 16 * (t / 32) + (t % 32) / 4 + 8 * h;
+    if (row >= T::MD) continue;
 #pragma unroll
-    for (int j = 0; j < T::NT; ++j) {
-      const int col = o0 + 8 * j + 2 * t;
-      if (col < Cout)
-        *reinterpret_cast<float2*>(out + (size_t)row * Cout + col) =
-            make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+    for (int jn = 0; jn < ND / 8; ++jn) {
+      const int col = 8 * jn + 2 * (t % 4);
+      if constexpr (T::TR) {
+        const int o = o0 + row, i = i0 + col;
+        if (o < Cout && i < Cin) out[(size_t)i * Cout + o] = acc[4 * jn + 2 * h];
+        if (o < Cout && i + 1 < Cin) out[(size_t)(i + 1) * Cout + o] = acc[4 * jn + 2 * h + 1];
+      } else {
+        const int i = i0 + row, o = o0 + col;
+        if (i < Cin && o < Cout)
+          *reinterpret_cast<float2*>(out + (size_t)i * Cout + o) =
+              make_float2(acc[4 * jn + 2 * h], acc[4 * jn + 2 * h + 1]);
+      }
     }
   }
 }
@@ -1120,14 +1305,15 @@ int launch_gather_dw_bf16(const __nv_bfloat16* feat, const int* rb, const long l
                           const __nv_bfloat16* g, __nv_bfloat16* dw, float* part, int B, int N,
                           int Cin, int K, int M, int Cout, int shares, int cps,
                           cudaStream_t stream) {
-  using T = DwBf16Tile<TI, TO>;
+  using T = DwWgTile<TI, TO>;
   const int tiles_i = (Cin + TI - 1) / TI, tiles_o = (Cout + TO - 1) / TO;
-  const int chunks = B * ((M + DW_CH - 1) / DW_CH);
+  const int chunks = B * ((M + DWB_CH - 1) / DWB_CH);
+  const int smem = 1024 + T::STAGES * (T::STAGE + 16);
   cudaError_t e = cudaFuncSetAttribute(gather_dw_bf16_kernel<TI, TO>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(shares, K, tiles_i * tiles_o);
-  gather_dw_bf16_kernel<TI, TO><<<grid, T::THREADS, T::SMEM, stream>>>(
+  gather_dw_bf16_kernel<TI, TO><<<grid, T::THREADS, smem, stream>>>(
       feat, rb, order, g, part, N, Cin, K, M, Cout, chunks, cps, tiles_o);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1153,10 +1339,21 @@ int dispatch_dw_bf16_to(const __nv_bfloat16* feat, const int* rb, const long lon
 }
 
 // the checks of a dW launch's chunk shares (ops/gather.py::_dw_chunk_shares)
-bool dw_shares_ok(int B, int M, int shares, int cps) {
-  const long long chunks = (long long)B * ((M + DW_CH - 1) / DW_CH);
+bool dw_shares_ok(int B, int M, int shares, int cps, int ch) {
+  const long long chunks = (long long)B * ((M + ch - 1) / ch);
   return cps > 0 && cps <= DW_MAX_CHUNKS && shares > 0 && (long long)shares * cps >= chunks &&
          (long long)(shares - 1) * cps < (chunks > 0 ? chunks : 1);
+}
+
+template <int TI>
+int dw_bf16_min_blocks(int to) {
+  switch (to) {
+    case 16: return DwWgTile<TI, 16>::MIN_BLOCKS;
+    case 32: return DwWgTile<TI, 32>::MIN_BLOCKS;
+    case 64: return DwWgTile<TI, 64>::MIN_BLOCKS;
+    case 128: return DwWgTile<TI, 128>::MIN_BLOCKS;
+    default: return -1;
+  }
 }
 
 }  // namespace
@@ -1211,7 +1408,7 @@ extern "C" int gather_dw_f32(const void* feat, const void* rb, const void* order
                              void* dw, void* part, int B, int N, int Cin, int K, int M, int Cout,
                              int shares, int cps, void* stream) {
   if (K == 0 || Cin == 0 || Cout == 0) return 0;
-  if (Cin % 4 != 0 || Cout % 4 != 0 || !dw_shares_ok(B, M, shares, cps))
+  if (Cin % 4 != 0 || Cout % 4 != 0 || !dw_shares_ok(B, M, shares, cps, DW_CH))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* f = static_cast<const float*>(feat);
   const int* r = static_cast<const int*>(rb);
@@ -1255,7 +1452,7 @@ extern "C" int gather_dw_bf16(const void* feat, const void* rb, const void* orde
                               void* dw, void* part, int B, int N, int Cin, int K, int M, int Cout,
                               int shares, int cps, void* stream) {
   if (K == 0 || Cin == 0 || Cout == 0) return 0;
-  if (Cin % 8 != 0 || Cout % 8 != 0 || !dw_shares_ok(B, M, shares, cps))
+  if (Cin % 8 != 0 || Cout % 8 != 0 || !dw_shares_ok(B, M, shares, cps, DWB_CH))
     return static_cast<int>(cudaErrorInvalidValue);
   const __nv_bfloat16* f = static_cast<const __nv_bfloat16*>(feat);
   const int* r = static_cast<const int*>(rb);
@@ -1271,4 +1468,33 @@ extern "C" int gather_dw_bf16(const void* feat, const void* rb, const void* orde
   if (Cin <= 64)
     return dispatch_dw_bf16_to<64>(f, r, o, gg, d, p, B, N, Cin, K, M, Cout, shares, cps, s);
   return dispatch_dw_bf16_to<128>(f, r, o, gg, d, p, B, N, Cin, K, M, Cout, shares, cps, s);
+}
+
+// The bf16 kernels' tile constants as built, for the launch arithmetic of
+// ops/gather.py to be held against them (gemm_tile_rows, gemm_walk,
+// _dw_bf16_blocks_per_sm): what 0 gives a K4 block's plan positions at
+// Cout a, 1 the rows of a K4 block that skip a tap together, 2 the K4-dW
+// blocks a multiprocessor holds at the tile a (of Cin) x b (of Cout); -1
+// for a shape without a tile.
+extern "C" int gather_bf16_tile(int what, int a, int b) {
+  if (what == 0 || what == 1) {
+    int bm, wr;
+    switch (a) {
+      case 16: bm = WgTile<16, 16>::BMW, wr = WgTile<16, 16>::WR; break;
+      case 32: bm = WgTile<32, 16>::BMW, wr = WgTile<32, 16>::WR; break;
+      case 64: bm = WgTile<64, 16>::BMW, wr = WgTile<64, 16>::WR; break;
+      default:
+        if (a <= 0 || a % 128 != 0) return -1;
+        bm = WgTile<128, 16>::BMW, wr = WgTile<128, 16>::WR;
+    }
+    return what == 0 ? bm : wr;
+  }
+  if (what != 2) return -1;
+  switch (a) {
+    case 16: return dw_bf16_min_blocks<16>(b);
+    case 32: return dw_bf16_min_blocks<32>(b);
+    case 64: return dw_bf16_min_blocks<64>(b);
+    case 128: return dw_bf16_min_blocks<128>(b);
+    default: return -1;
+  }
 }

@@ -56,10 +56,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _GEMM_ARGS = [_P] * 5 + [_I] * 6
 _ROWS_ARGS = [_P] * 3 + [_I] + [_L] * 5 + [_I] * 2
 _DW_ARGS = [_P] * 6 + [_I] * 8
-DW_CHUNK = 32  # plan positions of one reduction step of the dW kernels
+DW_CHUNK = 32  # plan positions of one reduction step of the f32 dW kernel
+DW_BF16_CHUNK = 64  # ... of the bf16 one (one ring stage: four k16 steps)
 DW_MAX_CHUNKS = 256  # chunks of one share (the kernel's shared-memory list)
 _SMS = 132  # multiprocessors of an H100
 _DW_WAVES = 8  # a dW launch's blocks: this many times what the card holds at once
+_DW_BF16_WAVES = 4  # ... of the bf16 kernel, whose blocks each stream a longer share
 
 
 class LaunchCount:
@@ -91,10 +93,14 @@ def _cout_pad(cout: int) -> int:
     return -(-cout // 128) * 128
 
 
-def gemm_tile_rows(cout: int) -> tuple:
-    """(plan positions of a block, rows of a warp's group) of the kernel for
-    this Cout (csrc/gather.cu): 128-row blocks of 8 row groups of 16 below
-    64, of 4 groups of 32 from 64 on."""
+def gemm_tile_rows(cout: int, bf16: bool = False) -> tuple:
+    """(plan positions of a block, rows of a group that skips a tap
+    together) of the kernel for this Cout (csrc/gather.cu). f32: 128-row
+    blocks of 8 warps' groups of 16 below 64, of 4 groups of 32 from 64 on.
+    bf16: a warpgroup's 64 rows (wgmma's M), blocks of two warpgroups at
+    Cout 64 and of one otherwise (held to ``built_bf16_tile`` on the card)."""
+    if bf16:
+        return (128 if _cout_pad(cout) == 64 else 64), 64
     return 128, 32 if _cout_pad(cout) >= 64 else 16
 
 
@@ -161,13 +167,13 @@ def inverse_plan(plan: GatherPlan, n_rows: int) -> GatherPlan:
 
 
 @torch.no_grad()
-def gemm_walk(plan: GatherPlan, cout: int):
-    """The kernel's walk over a plan, for one column tile: (tap masks of
-    its blocks [B, T, K], of the warps' row groups [B, T * G, K]).
-    A block steps through the taps its rows hit; a row group stages and
+def gemm_walk(plan: GatherPlan, cout: int, bf16: bool = False):
+    """The walk of the f32 or the bf16 kernel over a plan, for one column
+    tile: (tap masks of its blocks [B, T, K], of their row groups [B, T * G,
+    K]). A block steps through the taps its rows hit; a row group stages and
     multiplies only the taps its own rows hit."""
     B, K, M = plan.rulebook.shape
-    bm, wr = gemm_tile_rows(cout)
+    bm, wr = gemm_tile_rows(cout, bf16)
     T = -(-M // bm)
     hit = F.pad(plan.rulebook >= 0, (0, T * bm - M))
     groups = hit.view(B, K, T * bm // wr, wr).any(-1).transpose(1, 2)
@@ -356,26 +362,43 @@ def _dw_blocks_per_sm(ti: int, to: int) -> int:
 
 def _dw_bf16_blocks_per_sm(ti: int, to: int) -> int:
     """Blocks of one tile shape of the bf16 dW kernel a multiprocessor holds
-    (csrc/gather.cu ``DwBf16Tile``): shared memory (four ring stages of
-    gathered bf16 features and g at pitches padded by 8) + the chunk list
-    and count + the 1 KB the card reserves; a warp per 16 rows of the tile,
-    within 2048 threads and 32 blocks."""
-    smem = 4 * DW_CHUNK * (ti + 8 + to + 8) * 2 + DW_MAX_CHUNKS * 8 + 16 + 1024
-    return max(1, min(2048 // (2 * ti), 32, 232448 // smem))
+    (csrc/gather.cu ``DwWgTile::MIN_BLOCKS``, its launch bound; the ring is
+    sized to fill the shared memory of that many): the larger of (ti, to)
+    is wgmma's M side in warpgroups of 64, the other its N side; a consumer
+    thread holds N / 2 sums and N / 2 products, and about 40 registers
+    more, within 1 to 4 blocks (held to ``built_bf16_tile`` on the card)."""
+    md, nd = (to, ti) if to > ti else (ti, to)
+    threads = 128 * ((2 if md > 64 else 1) + 1)
+    regs = -(-(nd + 40) // 8) * 8
+    return max(1, min(4, 65536 // (threads * regs)))
+
+
+def built_bf16_tile(what: int, a: int, b: int = 0) -> int:
+    """A tile constant of the bf16 kernels as ``csrc/gather.cu`` was built
+    (``gather_bf16_tile``; builds the library on first use, so it needs the
+    card's toolchain): 0, a K4 block's plan positions at Cout ``a``; 1, the
+    rows of it that skip a tap together; 2, the K4-dW blocks a
+    multiprocessor holds at the tile ``a`` x ``b``; -1 for a shape without a
+    tile. ``gemm_tile_rows(cout, True)`` and ``_dw_bf16_blocks_per_sm``
+    mirror these, and are held to them on the card."""
+    fn = _build.load("gather").gather_bf16_tile
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    return int(fn(what, a, b))
 
 
 def _dw_chunk_shares(B: int, M: int, K: int, Cin: int, Cout: int,
                      bf16: bool = False) -> tuple:
-    """(shares, chunks per share) of a dW launch: the B * ceil(M / 32)
-    chunks of plan positions cut into equal runs, so that shares x taps x
-    tiles is about ``_DW_WAVES`` times the blocks the card holds at once
-    (of the f32 or the bf16 kernel, by tile), each run at most
+    """(shares, chunks per share) of a dW launch: the B * ceil(M / chunk)
+    chunks of plan positions (``DW_CHUNK`` for f32, ``DW_BF16_CHUNK`` for
+    bf16) cut into equal runs, so that shares x taps x tiles is about
+    ``_DW_WAVES`` (f32) or ``_DW_BF16_WAVES`` (bf16) times the blocks the
+    card holds at once (of that kernel, by tile), each run at most
     ``DW_MAX_CHUNKS`` chunks."""
-    chunks = B * -(-M // DW_CHUNK)
+    chunks = B * -(-M // (DW_BF16_CHUNK if bf16 else DW_CHUNK))
     ti, to = _dw_tiles(Cin, Cout)
     tiles = -(-Cin // ti) * -(-Cout // to)
     per_sm = _dw_bf16_blocks_per_sm(ti, to) if bf16 else _dw_blocks_per_sm(ti, to)
-    blocks = _DW_WAVES * _SMS * per_sm
+    blocks = (_DW_BF16_WAVES if bf16 else _DW_WAVES) * _SMS * per_sm
     shares = max(1, min(chunks, -(-blocks // (K * tiles))))
     cps = min(-(-chunks // shares), DW_MAX_CHUNKS)
     return -(-chunks // cps), cps
@@ -417,7 +440,7 @@ def gather_dw(features: torch.Tensor, idx: torch.Tensor, hit: torch.Tensor,
     their type (the weight gradient of ``gather_gemm`` for an output
     gradient g). ``plan`` as for ``gather_gemm``. CPU tensors take the plain
     version; CUDA tensors launch the f32 kernel (3xTF32 on TF32 ``wgmma``,
-    f32 sums) or the bf16 one (bf16 ``mma.sync``, f32 sums, dW rounded once)
+    f32 sums) or the bf16 one (bf16 ``wgmma``, f32 sums, dW rounded once)
     or raise; Cin and Cout are zero-padded by ``_chan_pad`` where needed.
     ``gather_dw.launches`` and ``gather_dw_bf16.launches`` count launches
     (in a train step they come from ``gather_gemm``'s backward)."""

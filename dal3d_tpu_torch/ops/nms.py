@@ -1,5 +1,6 @@
 """Fixed-shape greedy NMS from a precomputed IoU matrix (port of
-``dal3d_tpu/ops/nms.py::greedy_nms_from_iou``)."""
+``dal3d_tpu/ops/nms.py::greedy_nms_from_iou``), and the top k in
+``jax.lax.top_k``'s order that picks the candidates around it."""
 from __future__ import annotations
 
 import torch
@@ -28,3 +29,12 @@ def greedy_nms_from_iou(iou: torch.Tensor, valid: torch.Tensor,
         keep, prev = valid & ~suppressed, keep
         it += 1
     return keep
+
+
+def top_k(x: torch.Tensor, k: int):
+    """Top k along the last dim with ``jax.lax.top_k``'s order: descending
+    values, the lower index first among equal ones (a stable sort;
+    ``torch.topk`` promises no order among ties, and the CPU and the card
+    break them differently)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]

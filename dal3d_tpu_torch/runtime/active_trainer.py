@@ -60,10 +60,21 @@ def estimator_inputs(bundle, batch: Dict, num_boxes: int = 64) -> Dict[str, torc
 
 def estimator_loss(estimator, points, points_valid, boxes, det_valid, target) -> torch.Tensor:
     """Step 4's loss: sum(w (pred - target)^2) / max(sum(w), 1), w =
-    det_valid."""
-    pred_iou = estimator(points, points_valid, boxes)
-    w = det_valid.to(pred_iou.dtype)
-    return (torch.square(pred_iou - target) * w).sum() / torch.clamp(w.sum(), min=1.0)
+    det_valid and the box finite.
+
+    A slot with w = 0 goes into the estimator as an all-zero box with
+    target 0, so that it adds exactly 0 to the loss and its gradient. A
+    detector far from converged decodes boxes whose sizes overflow ``exp``
+    in the slots without a detection; JAX's step weights their NaN
+    predictions and targets by 0, and NaN * 0 turned the loss, the gradient
+    and, through Adam, every weight of the estimator NaN for good. Where
+    every box is finite the loss and its gradient are JAX's."""
+    use = det_valid & torch.isfinite(boxes).all(-1)
+    zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
+    pred_iou = estimator(points, points_valid, torch.where(use[..., None], boxes, zero))
+    w = use.to(pred_iou.dtype)
+    return ((torch.square(pred_iou - torch.where(use, target, zero)) * w).sum()
+            / torch.clamp(w.sum(), min=1.0))
 
 
 def make_estimator_step(bundle, estimator, optimizer, num_boxes: int = 64):

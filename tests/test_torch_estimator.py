@@ -149,6 +149,51 @@ def test_estimator_weights_round_trip_through_npz(tmp_path):
         assert 0.5 < k.std() * np.sqrt(k.shape[0]) < 1.5 or k.size < 16
 
 
+@pytest.mark.parametrize("where", ["without_detection", "with_detection"])
+def test_estimator_loss_skips_non_finite_boxes(where):
+    """Boxes whose decoded sizes overflowed (inf, 1e17, 1e38: what a
+    diverged detector gave in the slots of an ActiveTrainer epoch) leave the
+    loss, the gradient and the weights after an Adam step finite: each such
+    slot adds 0 and the rest equal JAX's weighted mean over the finite
+    boxes. ``with_detection``: the overflowed box is a detection, and drops
+    out of the mean's count too."""
+    pts, valid, boxes = _pool_cloud(5)
+    pts[:, 3] = 0.5  # an intensity that leaves the output sigmoid unsaturated
+    det_valid = np.array([[True, True, False, True, False, True, True, False]])
+    bad = np.array([[False, False, True, False, True, False, False, True]])
+    if where == "with_detection":
+        bad[0, 5] = True
+    rng = np.random.RandomState(6)
+    target = rng.uniform(0, 1, (1, 8)).astype(np.float32)
+    broken = boxes[None].copy()
+    broken[bad, 3:6] = [7.8e-8, 1.27e17, np.inf]
+    broken[0, 7, 3:6] = [1e38, 1e38, 2.0]
+    target_b = np.where(bad, np.nan, target).astype(np.float32)
+
+    def run(bx, tg, loss_fn):
+        est = te.init_estimator_(te.Estimator(MAX_PTS, HIDDEN), torch.Generator().manual_seed(1))
+        opt = Adam(LR).init(est.named_parameters())
+        opt.zero_grad()
+        loss = loss_fn(est, t(pts[None]), t(valid[None]), t(bx), t(det_valid), t(tg))
+        loss.backward()
+        grads = torch.cat([p.grad.flatten() for p in est.parameters()])
+        opt.step()
+        return float(loss.detach()), grads, torch.cat([p.detach().flatten()
+                                                       for p in est.parameters()])
+
+    def jax_formula(est, p, v, bx, dv, tg):  # active_trainer.py's loss_fn in JAX
+        w = torch.from_numpy(det_valid & ~bad).float()
+        return (torch.square(est(p, v, bx) - tg) * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+    loss, grads, weights = run(broken, target_b, ta.estimator_loss)
+    ref_loss, ref_grads, ref_weights = run(boxes[None], target, jax_formula)
+    assert np.isfinite(loss) and torch.isfinite(grads).all() and torch.isfinite(weights).all()
+    assert loss == pytest.approx(ref_loss, rel=1e-6)
+    assert float((grads - ref_grads).abs().max()) <= 1e-6 * float(ref_grads.norm())
+    assert float(ref_grads.norm()) > 0
+    torch.testing.assert_close(weights, ref_weights, rtol=0, atol=1e-7)
+
+
 def _step_cfg():
     """The small config cut to its first two task groups, 48 detections a
     task after NMS (96 slots, of which the step takes 64)."""

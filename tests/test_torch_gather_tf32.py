@@ -356,20 +356,26 @@ DW_LAUNCHES = [(8, 16, 120000), (16, 16, 120000), (16, 32, 60000), (32, 32, 6000
                (12, 20, 2500), (64, 128, 32), (128, 200, 70000)]
 
 
-@pytest.mark.parametrize("Cin,Cout,M", DW_LAUNCHES)
-def test_dw_chunk_shares_cover_the_plan(Cin, Cout, M):
+@pytest.mark.parametrize(
+    "Cin,Cout,M,bf16", [(*c, False) for c in DW_LAUNCHES] + [(*c, True) for c in DW_LAUNCHES],
+    ids=[f"{a}-{b}-{c}" for a, b, c in DW_LAUNCHES] + [f"bf16-{a}-{b}-{c}" for a, b, c in DW_LAUNCHES])
+def test_dw_chunk_shares_cover_the_plan(Cin, Cout, M, bf16):
     """The shares a dW launch gets satisfy the C entry's check (every chunk
     in exactly one share, runs of at most DW_MAX_CHUNKS) and come near
-    the waves of blocks the tile's occupancy asks for."""
+    the waves of blocks the tile's occupancy asks for, for the f32 kernel
+    (32-position chunks) and the bf16 one (64)."""
+    chunk = tg.DW_BF16_CHUNK if bf16 else tg.DW_CHUNK
+    per_sm = tg._dw_bf16_blocks_per_sm if bf16 else tg._dw_blocks_per_sm
     for B, K in ((2, 27), (2, 3), (1, 1)):
-        chunks = B * -(-M // tg.DW_CHUNK)
-        shares, cps = tg._dw_chunk_shares(B, M, K, Cin, Cout)
+        chunks = B * -(-M // chunk)
+        shares, cps = tg._dw_chunk_shares(B, M, K, Cin, Cout, bf16)
         assert 0 < cps <= tg.DW_MAX_CHUNKS
         assert shares * cps >= chunks and (shares - 1) * cps < chunks
         ti, to = tg._dw_tiles(Cin, Cout)
         assert ti >= min(Cin, 64) and to >= min(Cout, 128)
         per_share = K * -(-Cin // ti) * -(-Cout // to)
-        want = tg._DW_WAVES * tg._SMS * tg._dw_blocks_per_sm(ti, to)
+        assert 1 <= per_sm(ti, to) <= 4 or not bf16
+        want = (tg._DW_BF16_WAVES if bf16 else tg._DW_WAVES) * tg._SMS * per_sm(ti, to)
         if cps < tg.DW_MAX_CHUNKS:
             assert shares * per_share <= want + per_share
         assert 2 * shares * per_share >= min(want, chunks * per_share)

@@ -560,6 +560,130 @@ def test_gather_gemm_bf16_kernel_l0_like_rulebook(cuda, Cout):  # noqa: F811
     assert torch.equal(got, tg.gather_gemm(feats, idx, hit, w))
 
 
+# the redesigned bf16 K4 and K4-dW (bf16 wgmma from swizzled shared memory):
+# the input gradients' (Cin, Cout), the forward's reversed, with the
+# transposed dW tiles' (Cout > Cin) among the forward's own
+BF16_DX_WIDTHS = [(32, 16), (64, 32), (128, 64)]
+
+
+def _bf16_rulebook(rng, B, N, K, M, hit_p):
+    idx = t(rng.randint(0, N, (B, K, M)).astype(np.int32))
+    hit = t(rng.rand(B, K, M) < hit_p)
+    return idx, hit
+
+
+@pytest.mark.parametrize("M", [1, 63, 65, 191, 1000])
+@pytest.mark.parametrize("Cin,Cout", [(16, 16), (32, 64), (128, 128)])
+def test_gather_gemm_bf16_kernel_ragged_rows(cuda, Cin, Cout, M):  # noqa: F811
+    """The bf16 K4 on M rows that fill no whole 64-row warpgroup tile (and
+    M = 1): within one bf16 ulp of scale of the plain version, bit-equal on
+    a repeat and on the sorted plan; its dW likewise."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    rng = np.random.RandomState(Cin + Cout + M)
+    B, N, K = 2, 700, 27
+    feats = t(rng.randn(B, N, Cin).astype(np.float32)).to(cuda, torch.bfloat16)
+    idx, hit = (x.to(cuda) for x in _bf16_rulebook(rng, B, N, K, M, 0.3))
+    w = t((rng.randn(K, Cin, Cout) * 0.1).astype(np.float32)).to(cuda, torch.bfloat16)
+    got = tg.gather_gemm(feats, idx, hit, w)
+    assert got.shape == (B, M, Cout)
+    assert _rel(got, tg.gather_gemm_plain(feats, idx, hit, w)) <= BF16_ULP
+    assert torch.equal(got, tg.gather_gemm(feats, idx, hit, w))
+    assert torch.equal(got, tg.gather_gemm(feats, idx, hit, w, tg.gather_plan(idx, hit)))
+    g = t(rng.randn(B, M, Cout).astype(np.float32)).to(cuda, torch.bfloat16)
+    dw = tg.gather_dw(feats, idx, hit, g)
+    assert _rel(dw, tg.gather_dw_plain(feats, idx, hit, g)) <= BF16_ULP
+    assert torch.equal(dw, tg.gather_dw(feats, idx, hit, g))
+
+
+@pytest.mark.parametrize("Cin,Cout", BF16_DX_WIDTHS)
+def test_gather_gemm_bf16_kernel_dx_widths(cuda, Cin, Cout):  # noqa: F811
+    """The input gradients' widths of the CBGS gather backbone (the strided
+    convs' dX: Cin > Cout) on random rows with 19 % hits, through the bf16
+    K4 and the bf16 K4-dW: within one bf16 ulp of scale, repeat bit-equal."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    rng = np.random.RandomState(Cin * 7 + Cout)
+    B, N, K, M = 2, 3000, 27, 2500
+    feats = t(rng.randn(B, N, Cin).astype(np.float32)).to(cuda, torch.bfloat16)
+    idx, hit = (x.to(cuda) for x in _bf16_rulebook(rng, B, N, K, M, 0.19))
+    w = t((rng.randn(K, Cin, Cout) * 0.1).astype(np.float32)).to(cuda, torch.bfloat16)
+    got = tg.gather_gemm(feats, idx, hit, w)
+    assert _rel(got, tg.gather_gemm_plain(feats, idx, hit, w)) <= BF16_ULP
+    assert torch.equal(got, tg.gather_gemm(feats, idx, hit, w))
+    g = t(rng.randn(B, M, Cout).astype(np.float32)).to(cuda, torch.bfloat16)
+    dw = tg.gather_dw(feats, idx, hit, g, tg.gather_plan(idx, hit))
+    assert _rel(dw, tg.gather_dw_plain(feats, idx, hit, g)) <= BF16_ULP
+    assert torch.equal(dw, tg.gather_dw(feats, idx, hit, g, tg.gather_plan(idx, hit)))
+
+
+@pytest.mark.parametrize("Cin,Cout", [(16, 16), (16, 32), (64, 64), (128, 128)])
+def test_gather_bf16_kernels_single_and_empty_taps(cuda, Cin, Cout):  # noqa: F811
+    """K = 27 taps of which tap 3 is hit by one row only and taps 0, 13 and
+    26 by none: the bf16 K4 within one bf16 ulp of scale (the rows that hit
+    nothing exactly 0), the bf16 K4-dW too, with exact zeros for the empty
+    taps and tap 3 equal to that one row's outer product, rounded once."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    rng = np.random.RandomState(Cin + 3 * Cout)
+    B, N, K, M = 1, 2000, 27, 1500
+    idx, hit = _bf16_rulebook(rng, B, N, K, M, 0.05)
+    hit[:, [0, 13, 26]] = False
+    hit[:, 3] = False
+    hit[0, 3, 777] = True
+    hit[:, :, 1200:] = False
+    idx, hit = idx.to(cuda), hit.to(cuda)
+    feats = t(rng.randn(B, N, Cin).astype(np.float32)).to(cuda, torch.bfloat16)
+    w = t((rng.randn(K, Cin, Cout) * 0.1).astype(np.float32)).to(cuda, torch.bfloat16)
+    for plan in (None, tg.gather_plan(idx, hit)):
+        got = tg.gather_gemm(feats, idx, hit, w, plan)
+        assert _rel(got, tg.gather_gemm_plain(feats, idx, hit, w)) <= BF16_ULP
+        assert float(got[:, 1200:].float().abs().max()) == 0.0
+        g = t(rng.randn(B, M, Cout).astype(np.float32)).to(cuda, torch.bfloat16)
+        dw = tg.gather_dw(feats, idx, hit, g, plan)
+        assert _rel(dw, tg.gather_dw_plain(feats, idx, hit, g)) <= BF16_ULP
+        assert float(dw[[0, 13, 26]].float().abs().max()) == 0.0
+        one = feats[0, idx[0, 3, 777].long()].float()[:, None] * g[0, 777].float()[None, :]
+        assert torch.equal(dw[3], one.to(torch.bfloat16))
+        assert torch.equal(dw, tg.gather_dw(feats, idx, hit, g, plan))
+
+
+@pytest.mark.parametrize("Cin,Cout", [(16, 16), (64, 64), (128, 128)])
+def test_gather_dw_bf16_kernel_longest_tap(cuda, Cin, Cout):  # noqa: F811
+    """The CBGS L0's longest reduction: the centre tap of a submanifold
+    conv hit by every one of 2 x 60000 positions, positive features and g
+    (a truncating chain would drift toward zero), on the sorted plan:
+    within one bf16 ulp of scale of the plain version, repeat bit-equal."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    rng = np.random.RandomState(Cin * 3 + Cout)
+    B, N, K, M = 2, 60000, 3, 60000
+    idx = t(rng.randint(0, N, (B, K, M)).astype(np.int32)).to(cuda)
+    hit = t(rng.rand(B, K, M) < 0.1).to(cuda)
+    hit[:, 1] = True
+    feats = t(rng.rand(B, N, Cin).astype(np.float32)).to(cuda, torch.bfloat16)
+    g = t(rng.rand(B, M, Cout).astype(np.float32)).to(cuda, torch.bfloat16)
+    plan = tg.gather_plan(idx, hit)
+    got = tg.gather_dw(feats, idx, hit, g, plan)
+    assert _rel(got, tg.gather_dw_plain(feats, idx, hit, g)) <= BF16_ULP
+    assert torch.equal(got, tg.gather_dw(feats, idx, hit, g, plan))
+
+
+def test_gather_bf16_tile_mirrors_match_the_build(cuda):  # noqa: F811
+    """The launch arithmetic's copies of the bf16 kernels' tile constants
+    (``gemm_tile_rows(cout, True)``, which ``gemm_walk`` walks, and
+    ``_dw_bf16_blocks_per_sm``, which sizes the dW shares) against the
+    constants the built kernels use, for every tile shape."""
+    from dal3d_tpu_torch.ops import gather as tg
+
+    for cout in (16, 32, 64, 128, 256):
+        assert tg.gemm_tile_rows(cout, True) == (tg.built_bf16_tile(0, cout),
+                                                 tg.built_bf16_tile(1, cout)), cout
+    for ti in (16, 32, 64, 128):
+        for to in (16, 32, 64, 128):
+            assert tg._dw_bf16_blocks_per_sm(ti, to) == tg.built_bf16_tile(2, ti, to), (ti, to)
+
+
 # --- the redesigned K7 (3xTF32 wgmma) and K2 (exact cull) --------------------
 
 def _l2_check(x, y):
@@ -700,7 +824,7 @@ def test_gather_dw_kernel_matches_plain(cuda, Cin, Cout):  # noqa: F811
 
 @pytest.mark.parametrize("Cin,Cout", DW_WIDTHS)
 def test_gather_dw_bf16_kernel_matches_plain(cuda, Cin, Cout):  # noqa: F811
-    """The bf16 K4-dW (bf16 mma.sync, f32 sums, dW rounded once) on the
+    """The bf16 K4-dW (bf16 wgmma, f32 sums, dW rounded once) on the
     random rows of the f32 test above, on both plans: bf16 dW within one
     bf16 ulp of the plain version's scale, the same bits on a repeat, a tap
     without a hit exact zeros, the launches on the bf16 counter."""

@@ -273,6 +273,43 @@ def test_predict_with_iou_preds_matches_jax(heads, iou_predict_refs, alpha):
                                       np.asarray(ref["label_preds"][b])[jv][jo])
 
 
+def test_predict_breaks_score_ties_as_jax(heads):
+    """Scores tied at the candidate cut, as a briefly trained model gives
+    them at score threshold 0 (logits that saturate the sigmoid to exactly
+    1 or 0 in f32, more tied anchors than ``nms_pre_max_size``):
+    ``multi_group_predict`` keeps JAX's candidates and output order slot for
+    slot (``lax.top_k``: the lower index first among equal values).
+    ``torch.topk`` promises no order among ties, and the CPU and the card
+    broke them differently, so the same checkpoint gave each its own
+    detections."""
+    import dataclasses
+
+    from dal3d_tpu.models.heads.mg_head import multi_group_predict as jax_predict
+    from dal3d_tpu_torch.models.heads.mg_head import multi_group_predict
+
+    h, jb, tb = heads, heads["jb"], heads["tb"]
+    rng = np.random.RandomState(17)
+    preds = []
+    for p in h["preds"]:
+        cls = np.where(rng.rand(*p["cls_preds"].shape) < 0.5, 40.0, -120.0).astype(np.float32)
+        preds.append({"box_preds": p["box_preds"], "cls_preds": cls})
+    cut = dict(score_threshold=0.0, nms_pre_max_size=40, nms_post_max_size=12)
+    jcfg = dataclasses.replace(jb.test_cfg, use_approx_topk=False, **cut)
+    ref = jax.device_get(jax.jit(lambda p: jax_predict(p, jb.task_anchors, jb.box_coder, jcfg))(
+        [{k: jnp.asarray(v) for k, v in p.items()} for p in preds]))
+    got = multi_group_predict([{k: t(v) for k, v in p.items()} for p in preds],
+                              tb.task_anchors, tb.box_coder,
+                              dataclasses.replace(tb.test_cfg, **cut))
+    valid = np.asarray(ref["det_valid"])
+    assert valid.sum() > 10
+    np.testing.assert_array_equal(got["det_valid"].numpy(), valid)
+    np.testing.assert_array_equal(got["scores"].numpy()[valid], np.asarray(ref["scores"])[valid])
+    np.testing.assert_array_equal(got["label_preds"].numpy()[valid],
+                                  np.asarray(ref["label_preds"])[valid])
+    np.testing.assert_allclose(got["box3d_lidar"].numpy()[valid],
+                               np.asarray(ref["box3d_lidar"])[valid], rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("kind", ["iou", "loss"])
 @pytest.mark.parametrize("train", [False, True])
 def test_iou_and_loss_heads_match_jax(kind, train):
