@@ -29,8 +29,10 @@ step, and the training CLI warm-started from the stage-1 run with a
 converted Swin), BEVFusion's other heads (map segmentation on the fused map,
 trained beside the detector; the CenterPoint head's decode and loss), and
 the CBGS model on the gather engine (predict, train step, the synthetic
-configs through the CLIs), and the CBGS backbone's other engines (brick,
-hybrid, dense, and the searchsorted plans).
+configs through the CLIs), the CBGS backbone's other engines (brick,
+hybrid, dense, and the searchsorted plans), and data parallelism over
+``torch.distributed`` ranks (a world of 1 on NCCL, a world of 2 gloo
+processes on the one card).
 Phases, each fatal on failure:
 
   1. versions of torch / CUDA / nvcc and the card (nvidia-smi);
@@ -131,12 +133,14 @@ Phases, each fatal on failure:
      host-fed ones, device profiles, maps against plain versions); PPAL and
      CALD rounds through the CLIs (ppal_pred_list, ppal_unc, active_select;
      cald_pred_list plain and --augment, cald_ent, active_select) on phase
-     15's set and checkpoint, then on a slice of the pool on the card and
-     with --cpu, the files compared; --torch_init at full width (a det3d
-     .pth of seeded weights -> convert_second -> dist_test and an epoch of
-     train, the loaded tensors equal to the written ones); the overfit twin
+     15's set and checkpoint; --torch_init at full width (a det3d .pth of
+     seeded weights -> convert_second -> dist_test and an epoch of train,
+     the loaded tensors equal to the written ones); the overfit twin
      (tests/test_torch_accuracy.py: 600 steps from raw points, mAP gates,
-     detections against the plain versions);
+     detections against the plain versions); the same PPAL / CALD CLIs on
+     the twin's trained checkpoint and its 2-frame scene written as a pool,
+     on the card and with --cpu: the files compared, at least 4 valid
+     detections in each plain list;
  17. the partial-label round through the port's CLIs (configs/cbgs_partial.py
      at full width on phase 15's set, a quarter of it seeded, score threshold
      0): ``train`` with the ActiveTrainer (a train step, then an estimator
@@ -147,7 +151,8 @@ Phases, each fatal on failure:
      capacity report's rows for the production caps; the estimator step from
      the trained checkpoint in f32 with the kernels against the same step on
      plain versions (det_valid and pool indices equal, targets and loss
-     within 1e-5); ``active_select --checkpoint`` with the EntropySelector and
+     within 1e-5), and held whole on the overfit twin's checkpoint and
+     scene; ``active_select --checkpoint`` with the EntropySelector and
      ``exclude_buffer`` (no frame of ``partial_01`` picked); a second
      ``train`` with ``active_flag`` set to the new budget key;
  18. BEVFusion lidar-only training (configs/bevfusion_lidar.py at full
@@ -213,7 +218,9 @@ Phases, each fatal on failure:
      caps (60000, 60000, 30000, 30000)) on phase 3's voxels: every K4 and
      K2 launch of a predict against its plain version, launch counters set
      to 0, a warm-up and 5 timed predicts (21 K4, 1 K2 each), the maps and
-     detections against plain versions, stage split, idle share; a train
+     detections against plain versions, stage split, idle share (no cuDNN
+     FFT kernel in the predict's profile: an earlier heuristic choice at
+     these shapes would serve it from PyTorch's plan cache); a train
      step's gradient against plain versions within twice its floor, every
      K4 (21 + 20 input gradients) and K4-dW (21) launch, a warm-up and 3
      timed steps, split; the capacity report empty, as JAX's; then
@@ -251,7 +258,24 @@ Phases, each fatal on failure:
      loose match against the plain versions' and the f32 model's, stage
      split, idle share; every bf16 K4 / dX / K4-dW launch of a train step
      within one ulp (K4-dW bit-equal on a repeat), the K4-dW launches
-     timed, a warm-up and 2 timed steps, split, peak memory, idle share.
+     timed, a warm-up and 2 timed steps, split, peak memory, idle share;
+ 24. data parallel (dal3d_tpu_torch/parallel) on the one card: a world of
+     1 on NCCL started by ``init_dist`` from torchrun's variables (phase
+     11's production train step bit-equal to the step with no group, an
+     epoch of ``train`` whose checkpoint loads with no group); a world of 2
+     gloo processes spawned on the card: the step with its backbone in f32
+     and 2 frames a rank against the no-group step on 4 (gradient, running
+     statistics and AdamW's update within twice their rounding floor, the
+     floor the largest gap of the same step with its features moved by one
+     f32 ulp, its frames reordered or cuDNN's heuristic convs; K1 78 and K3
+     21 launches a rank), the step's time and the gradient reduction's,
+     ``active_select`` on phase 7's pool and checkpoint (one sweep a frame)
+     with its files byte-equal to one process's, ``dist_test`` on that
+     pool at full width with cuDNN's choice pinned (its heuristic among
+     deterministic algorithms, in every process) and on the overfit twin (a
+     frame a rank), each with its detections equal as sets to one
+     process's, an epoch of ``train_bevfusion`` with phase 18's launches a
+     step.
 
 Kernel times are device times per call (``cuda_time_ms``: the launches
 queued behind a device-side sleep, so that the host's enqueue is not timed);
@@ -763,7 +787,7 @@ def main() -> None:
         print(f"small f32 train step, card vs CPU: {small_f32_train_parity(Config)}")
 
         # 11. the training CLI at full width -----------------------------------------
-        cli = training_run(tmp, dev)
+        cli, train_paths = training_run(tmp, dev)
 
         # 12-14. BEVFusion lidar-only predict at full width (K4, K5) ------------------
         counters = (bd.banded_conv, bd.banded_dw, tiou.iou_matrix, td.pairwise_l1,
@@ -771,16 +795,20 @@ def main() -> None:
                     tl.linear_sum_assignment, tg.gather_gemm_bf16, tg.gather_dw_bf16)
         gather = bevfusion_main_path(tmp, Config, counters, tg, bd)
 
+        # the overfit twin of phase 16 trains in a process of its own meanwhile
+        twin_proc = start_twin(tmp)
+
         # 15. two AL rounds through the CLIs: data, GT-AUG, train + val, eval -------
         loop_launches, loop = al_loop(tmp, dev, counters)
 
         # 16. raw points: device voxelizer, predicts, PPAL / CALD, torch_init, overfit
         raw = raw_points_phase(tmp, dev, Config, counters,
                                {"CBGS": ms_med, "BEVFusion": gather["predict_ms"]}, loop,
-                               bd, tiou, tg)
+                               bd, tiou, tg, twin_proc)
 
         # 17. the partial-label round: ActiveTrainer, exclude_buffer, round 2
-        partial = partial_phase(tmp, dev, loop, counters, bd, tiou)
+        twin = raw.pop("twin")
+        partial = partial_phase(tmp, dev, loop, counters, bd, tiou, twin)
 
         # 18. BEVFusion training: K4 dX, K4-dW, K5's backward, LSA, the step, the CLI
         bftrain = bevfusion_train_phase(tmp, Config, counters, loop, tg, tl)
@@ -799,6 +827,9 @@ def main() -> None:
 
         # 23. the gather and hybrid engines in bf16: K4 and K4-dW in bf16
         bf16 = bf16_engines_phase(Config, counters, tg, bd, tiou, cbgs_g.pop("f32_ref"))
+
+        # 24. data parallel on the one card: a world of 1 on NCCL, of 2 on gloo
+        dp = data_parallel_phase(tmp, train_paths, loop, twin, counters)
 
     # kernels line, card line, result -------------------------------------------
     kernels = [
@@ -887,6 +918,7 @@ def main() -> None:
             for path in ("predict", "train"):
                 k[f"launches_{eng}_{path}"] = engines[eng][f"launches_{path}"][k["name"]]
         k["launches_sorted_engine"] = engines["sorted"]["launches"][k["name"]]
+        k["launches_data_parallel"] = dp["launches"][k["name"]]
         for eng in ("gather", "hybrid"):
             for path in ("predict", "train"):
                 k[f"launches_bf16_{eng}_{path}"] = bf16[eng][f"launches_{path}"][k["name"]]
@@ -1904,8 +1936,9 @@ def small_f32_train_parity(Config, devices=("cpu", "cuda"), nudge=1e-7) -> str:
             f"{flips['nudged']} of {len(sides[ref_dev])} calls")
 
 
-def training_run(tmp: str, dev) -> dict:
-    """Phase 11. Returns the launches of each kernel over the first CLI run."""
+def training_run(tmp: str, dev) -> tuple:
+    """Phase 11. Returns the launches of each kernel over the first CLI run,
+    and the paths of its config and labeled set (for phase 24)."""
     from dal3d_tpu_torch.ops import banded as bd
     from dal3d_tpu_torch.ops import iou_matrix as tiou
     from dal3d_tpu_torch.solver.optim import OneCycleSchedule, build_optimizer
@@ -2062,7 +2095,7 @@ def training_run(tmp: str, dev) -> dict:
         print(f"  loader-fed steps, {'loader thread (prefetch=2)' if prefetch else 'batches made in line (prefetch=0)'}"
               f": median over {len(rec) - 2} iterations (2 left out): data wait {wait:.0f} ms + step "
               f"{ms:.0f} ms = {wait + ms:.0f} ms an iteration")
-    return launches
+    return launches, dict(cfg=cfg_path, info=info_path)
 
 
 def logged_intervals(work_dir: str, epoch: int, steps: int, interval: int) -> np.ndarray:
@@ -3073,7 +3106,9 @@ def al_loop(tmp: str, dev, counters) -> dict:
 # ---------------------------------------------------------------------------
 
 RAW_P = 300_000  # the configs' max_points: the loaders pad every cloud to it
-CPU_POOL = 2  # frames of the pool slice the CLIs run on the card and the CPU
+# valid detections each plain prediction list of the overfit twin's scene must
+# hold on the card and on the CPU (the scene has 2 + 3 cars; the twin finds 5)
+TWIN_MIN_DETS = 4
 
 
 def padded_points(clouds) -> tuple:
@@ -3209,15 +3244,9 @@ def raw_predicts(cfgs, counters, host_fed_ms, bd, tiou, tg) -> dict:
     return total
 
 
-def write_prepass_config(path: str, loop: dict, selector: str, info: str, buffer_file: str,
-                         base: str, f32: bool) -> None:
-    """The AL loop's production config (phase 15) with the PPAL or CALD
-    selector of configs/cbgs_ppal.py / cbgs_cald.py over the pool ``info``,
-    its files under ``base``, and the score threshold at 0: after one epoch
-    from random weights no box clears the config's 0.1 (ROADMAP C, open
-    check 1), and the pre-passes need detections. ``f32``: the backbone and
-    the host voxel features in f32 (the card-vs-CPU comparison: bf16
-    convolutions round differently on the two devices)."""
+def prepass_selector(selector: str, info: str, buffer_file: str, base: str) -> dict:
+    """The PPAL or CALD selector of configs/cbgs_ppal.py / cbgs_cald.py over
+    the pool ``info``, its files under ``base``."""
     sel = {"PPALSelector": dict(type="PPALSelector", delta=1.5,
                                 diff_file=os.path.join(base, "diff_category_average.json"),
                                 pred_store_file=os.path.join(base, "ppal_pred.npz")),
@@ -3225,21 +3254,30 @@ def write_prepass_config(path: str, loop: dict, selector: str, info: str, buffer
                                 sorted_idx_file=os.path.join(base, "cald_ent_sorted_idx.json"),
                                 jsdiv_file=os.path.join(base, "idx_to_jsdiv.pkl"))}[selector]
     sel.update(budget=LOOP_BUDGET, buffer_file=buffer_file, infos_origin=info)
-    extra = (f"selector = {sel!r}\ntest_cfg = copy.deepcopy(test_cfg)\n"
-             "test_cfg['score_threshold'] = 0.0\n")
-    if f32:
-        extra += ("model = copy.deepcopy(model)\nmodel['backbone']['dtype'] = 'float32'\n"
-                  "voxel_generator = dict(voxel_generator, bf16=False)\n")
-    write_loop_config(path, loop["root"], buffer_file, loop["work"], extra=extra)
+    return sel
 
 
-def prepass_round(tag: str, base: str, loop: dict, info: str, buffer0: dict, on_cpu: bool,
-                  seconds: dict, f32: bool = False) -> dict:
+def loop_prepass_config(loop: dict):
+    """The writer of the pre-pass configs on phase 15's set: the AL loop's
+    production config with the selector and the score threshold at 0 (after
+    one epoch from random weights no box clears the config's 0.1, and the
+    pre-passes need detections)."""
+    def write(path: str, sel: dict) -> None:
+        write_loop_config(path, loop["root"], sel["buffer_file"], loop["work"],
+                          extra=(f"selector = {sel!r}\ntest_cfg = copy.deepcopy(test_cfg)\n"
+                                 "test_cfg['score_threshold'] = 0.0\n"))
+
+    return write
+
+
+def prepass_round(tag: str, base: str, write_cfg, work: str, info: str, buffer0: dict,
+                  on_cpu: bool, seconds: dict) -> dict:
     """One PPAL round and one CALD round through the port's CLIs over the
-    pool ``info``, each from the buffer ``buffer0``: ppal_pred_list,
-    ppal_unc, active_select (PPALSelector); cald_pred_list plain and
-    --augment, cald_ent, active_select (CaldSelector). Returns the files'
-    contents."""
+    pool ``info`` with the checkpoint in ``work``, each from the buffer
+    ``buffer0``: ppal_pred_list, ppal_unc, active_select (PPALSelector);
+    cald_pred_list plain and --augment, cald_ent, active_select
+    (CaldSelector). ``write_cfg(path, selector)`` writes each config.
+    Returns the files' contents."""
     from dal3d_tpu_torch.tools import (active_select, cald_ent, cald_pred_list,
                                        ppal_pred_list, ppal_unc)
     from dal3d_tpu_torch.utils.fileio import dump, load
@@ -3265,22 +3303,22 @@ def prepass_round(tag: str, base: str, loop: dict, info: str, buffer0: dict, on_
             buffer_file = os.path.join(base, f"{selector}.json")
             dump(buffer0, buffer_file)
             cfg = os.path.join(base, f"{selector}.py")
-            write_prepass_config(cfg, loop, selector, info, buffer_file, base, f32)
+            write_cfg(cfg, prepass_selector(selector, info, buffer_file, base))
             if selector == "PPALSelector":
                 pl = os.path.join(base, "pred_list.pkl")
                 out["pred_list"] = cli("ppal_pred_list", ppal_pred_list.main,
-                                       [cfg, "--checkpoint", loop["work"], "--out", pl])
+                                       [cfg, "--checkpoint", work, "--out", pl])
                 out["weights"] = cli("ppal_unc", ppal_unc.main,
                                      [cfg, "--pred_list", pl,
                                       "--out", os.path.join(base, "diff_category_average.json")])
                 cli("active_select (PPAL)", active_select.main,
-                    [cfg, "--checkpoint", loop["work"], "--seed", "3407"])
+                    [cfg, "--checkpoint", work, "--seed", "3407"])
             else:
                 plain, aug = (os.path.join(base, n) for n in ("plain.pkl", "aug.pkl"))
                 out["cald_plain"] = cli("cald_pred_list", cald_pred_list.main,
-                                        [cfg, "--checkpoint", loop["work"], "--out", plain])
+                                        [cfg, "--checkpoint", work, "--out", plain])
                 out["cald_aug"] = cli("cald_pred_list --augment", cald_pred_list.main,
-                                      [cfg, "--checkpoint", loop["work"], "--out", aug,
+                                      [cfg, "--checkpoint", work, "--out", aug,
                                        "--augment"])
                 out["order"], out["jsdiv"] = cli(
                     "cald_ent", cald_ent.main,
@@ -3321,8 +3359,8 @@ def prepass_phase(tmp: str, dev, loop: dict, counters) -> dict:
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
-    card = prepass_round("card", os.path.join(base, "card"), loop, loop["info_train"], buffer0,
-                         False, seconds)
+    card = prepass_round("card", os.path.join(base, "card"), loop_prepass_config(loop),
+                         loop["work"], loop["info_train"], buffer0, False, seconds)
     phase_s = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
     n = len(pool)
@@ -3379,39 +3417,55 @@ def match_sets(card: dict, cpu: dict) -> tuple:
     return matched, n_a, n_b, box_gap, score_gap, unpaired
 
 
-def prepass_card_vs_cpu(tmp: str, loop: dict) -> None:
-    """The pre-pass CLIs on a CPU_POOL-frame slice of the pool, nothing
-    labeled, in f32, on the card and with --cpu: their files compared."""
-    from dal3d_tpu_torch.utils.fileio import dump, load
+def twin_prepass_config(work: str):
+    """The writer of the pre-pass configs on the overfit twin: its model,
+    grid and test settings (score threshold 0.3) over the scene's pool
+    (``tests/test_torch_accuracy.py::write_twin_config``)."""
+    import test_torch_accuracy as acc
 
-    base = os.path.join(tmp, "prepass")
-    sl = os.path.join(base, "slice.pkl")
-    dump(load(loop["info_train"])[:CPU_POOL], sl)
+    def write(path: str, sel: dict) -> None:
+        acc.write_twin_config(path, sel["infos_origin"], selector=sel, work_dir=work)
+
+    return write
+
+
+def prepass_card_vs_cpu(twin: dict) -> dict:
+    """The pre-pass CLIs on the overfit twin's trained checkpoint and its
+    2-frame scene (``overfit_phase``), nothing labeled, f32, on the card and
+    with --cpu: their files compared, and each side's plain prediction
+    lists holding at least TWIN_MIN_DETS valid detections, so that a run
+    that detects nothing cannot pass. Returns the seconds of each CLI."""
+    base = os.path.join(twin["root"], "prepass")
+    write_cfg = twin_prepass_config(twin["work"])
     seconds = {}
-    got = {side: prepass_round(side, os.path.join(base, side.replace(" ", "_")), loop, sl,
-                               {"0": []}, side == "cpu", seconds, f32=True)
-           for side in ("card slice", "cpu")}
-    a, b = got["card slice"], got["cpu"]
+    got = {side: prepass_round(side, os.path.join(base, side), write_cfg, twin["work"],
+                               twin["info"], {"0": []}, side == "cpu", seconds)
+           for side in ("card", "cpu")}
+    a, b = got["card"], got["cpu"]
     report, bad, unpaired = [], [], {}
     for k in ("pred_list", "cald_plain", "cald_aug"):
         matched, n_a, n_b, box_gap, score_gap, unpaired[k] = match_sets(a[k], b[k])
         if matched != n_a or n_a != n_b or not score_gap <= 1e-4:
             bad.append(k)
+        if k != "cald_aug" and not min(n_a, n_b) >= TWIN_MIN_DETS:
+            bad.append(f"{k} holds {n_a} (card) and {n_b} (CPU) valid detections, fewer than "
+                       f"{TWIN_MIN_DETS}")
         report.append(f"{k} {matched}/{n_a} matched (CPU {n_b}), box gap {box_gap:.1e}, score "
                       f"gap {score_gap:.1e}")
-    w_gap = max(abs(a["weights"][c] - b["weights"][c]) for c in a["weights"])
+    w_gap = max((abs(a["weights"][c] - b["weights"][c]) for c in a["weights"]), default=0.0)
     js_gap = max(abs(a["jsdiv"][i] - b["jsdiv"][i]) for i in a["jsdiv"])
     if set(a["weights"]) != set(b["weights"]) or not w_gap <= 1e-4:
         bad.append("ppal_unc")
     if a["order"] != b["order"] or not js_gap <= 1e-4:
         bad.append("cald_ent")
     bad += [sel for sel in ("PPALSelector", "CaldSelector") if a[sel] != b[sel]]
-    print(f"  the same CLIs on a {CPU_POOL}-frame slice (nothing labeled, f32), card vs --cpu: "
-          f"{'; '.join(report)} (tol: every detection paired within 1e-3 of max(1, |box|), "
-          f"scores within 1e-4); PPAL weights within "
-          f"{w_gap:.1e}, CALD ranking {a['order']} / {b['order']}, JS divergences within "
-          f"{js_gap:.1e} (tol 1e-4); buffers {a['PPALSelector']!r} / {b['PPALSelector']!r}, "
-          f"{a['CaldSelector']!r} / {b['CaldSelector']!r}; "
+    print(f"  the pre-pass CLIs on the overfit twin's checkpoint and 2-frame scene (nothing "
+          f"labeled, f32, score threshold 0.3), card vs --cpu: {'; '.join(report)} (tol: every "
+          f"detection paired within 1e-3 of max(1, |box|), scores within 1e-4, at least "
+          f"{TWIN_MIN_DETS} valid detections in each plain list); PPAL weights "
+          f"{a['weights']} within {w_gap:.1e}, CALD ranking {a['order']} / {b['order']}, JS "
+          f"divergences within {js_gap:.1e} (tol 1e-4); buffers {a['PPALSelector']!r} / "
+          f"{b['PPALSelector']!r}, {a['CaldSelector']!r} / {b['CaldSelector']!r}; "
           + "; ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
     for k in bad:
         if unpaired.get(k):
@@ -3420,7 +3474,8 @@ def prepass_card_vs_cpu(tmp: str, loop: dict) -> None:
                               + "[" + ", ".join(f"{x:.3e}" for x in u[4]) + "]"
                               for u in unpaired[k][:12]))
     if bad:
-        fail(f"pre-pass CLIs, card vs CPU: {bad} differ beyond their tolerances")
+        fail(f"pre-pass CLIs on the overfit twin, card vs CPU: {bad}")
+    return seconds
 
 
 def torch_init_phase(tmp: str, dev, loop: dict, counters) -> dict:
@@ -3497,20 +3552,79 @@ def torch_init_phase(tmp: str, dev, loop: dict, counters) -> dict:
     return launches
 
 
-def overfit_phase(bd, tiou, counters) -> tuple:
-    """tests/test_torch_accuracy.py's scene on the card: STEPS train steps
-    from raw points, the mAP gates, and the detections against the same
-    weights on the plain versions. Returns (launches, seconds)."""
+TWIN_TIMEOUT = 900  # seconds the main process waits for the twin's training
+
+
+def twin_worker(path: str) -> None:
+    """The overfit twin's training (``tests/test_torch_accuracy.py::overfit``)
+    on the card in a process of its own: its trained state, last logs,
+    kitti results, predict output, seconds and launches saved to ``path``.
+    It is host-bound (a tiny model), so it runs beside the main process's
+    phases 15-16 instead of after them."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
+    torch.set_num_threads(2)
     import test_torch_accuracy as acc
 
+    from dal3d_tpu_torch.ops import banded as bd
+    from dal3d_tpu_torch.ops import distance as td
+    from dal3d_tpu_torch.ops import gather as tg
+    from dal3d_tpu_torch.ops import iou_matrix as tiou
+    from dal3d_tpu_torch.ops import lsa as tl
+
+    counters = (bd.banded_conv, bd.banded_dw, tiou.iou_matrix, td.pairwise_l1,
+                td.pairwise_l2, tg.gather_gemm, tg.gather_rows, tg.gather_dw,
+                tl.linear_sum_assignment, tg.gather_gemm_bf16, tg.gather_dw_bf16)
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
-    logs, bundle, batch, out, res = acc.overfit("cuda")
+    logs, bundle, _, out, res = acc.overfit("cuda")
     torch.cuda.synchronize()
-    phase_s = time.perf_counter() - t0
-    launches = {c.__name__: c.launches for c in counters}
+    seconds = time.perf_counter() - t0
+    torch.save(dict(logs=logs, out=out, res=res, seconds=seconds,
+                    launches={c.__name__: c.launches for c in counters},
+                    state={k: v.cpu() for k, v in bundle.model.state_dict().items()}), path)
+
+
+def start_twin(tmp: str):
+    """Start ``twin_worker`` (spawned, daemonic: it ends with this process);
+    ``overfit_phase`` joins it."""
+    import multiprocessing
+
+    path = os.path.join(tmp, "twin_trained.pt")
+    proc = multiprocessing.get_context("spawn").Process(target=twin_worker, args=(path,),
+                                                        daemon=True)
+    proc.start()
+    return proc, path
+
+
+def overfit_phase(tmp: str, bd, tiou, counters, twin_proc) -> tuple:
+    """tests/test_torch_accuracy.py's scene on the card: STEPS train steps
+    from raw points (``twin_worker``, started by ``start_twin``; joined here),
+    the mAP gates, and the detections against the same weights on the plain
+    versions; then the trained checkpoint and the scene as a 2-frame pool
+    for the pre-pass CLIs. Returns (the twin's launches, its training's
+    seconds, the seconds this process waited for it, the twin: bundle,
+    batch, root, work, info)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_accuracy as acc
+
+    from dal3d_tpu_torch.runtime.checkpoint import save_checkpoint
+
+    proc, path = twin_proc
+    t0 = time.perf_counter()
+    proc.join(TWIN_TIMEOUT)
+    wait_s = time.perf_counter() - t0
+    if proc.is_alive():
+        proc.kill()
+        fail(f"the overfit twin's training outlived {TWIN_TIMEOUT} s")
+    if proc.exitcode != 0 or not os.path.isfile(path):
+        fail(f"the overfit twin's training process exited with {proc.exitcode}")
+    got = torch.load(path, weights_only=False)
+    logs, out, res, phase_s, launches = (got[k] for k in ("logs", "out", "res", "seconds",
+                                                          "launches"))
+    bundle = acc.make_bundle("cuda")
+    bundle.model.load_state_dict(got["state"])
+    _, batch = acc.scene_batch()
     if not (logs["loss"] < 0.05 and res["mAP_bev"] >= 0.5 and res["mAP_3d"] >= 0.3):
         fail(f"overfit twin: loss {logs['loss']:.4f} (< 0.05), {res} (mAP_bev >= 0.5, "
              "mAP_3d >= 0.3)")
@@ -3534,15 +3648,22 @@ def overfit_phase(bd, tiou, counters) -> tuple:
         fail(f"overfit twin vs plain versions: matched {matched} of {n_card}, score gap "
              f"{score_gap:.3e}")
     print(f"overfit twin (tests/test_torch_accuracy.py's scene, {acc.STEPS} steps from raw "
-          f"points on the card): {phase_s:.1f} s; loss {logs['loss']:.4f}; kitti AP40 {res}; "
+          f"points on the card, in a process of its own beside phases 15-16): {phase_s:.1f} s, "
+          f"of which this process waited {wait_s:.1f} s; loss {logs['loss']:.4f}; kitti AP40 "
+          f"{res}; "
           f"detections vs the same weights on plain versions: matched {matched} of {n_card} "
           f"(plain {n_plain}), match rate {matched / max(n_card, n_plain, 1):.4f}, gaps box "
           f"{box_gap:.2e} centre {ctr_gap:.2e} m score {score_gap:.2e} (tol 0.02); launches "
           f"{launches}")
-    return launches, phase_s
+    root = os.path.join(tmp, "twin")
+    twin = dict(bundle=bundle, batch=batch, root=root, work=os.path.join(root, "work"),
+                info=acc.write_scene_pool(root))
+    save_checkpoint(twin["work"], bundle.model, epoch=1)
+    return launches, phase_s, wait_s, twin
 
 
-def raw_points_phase(tmp: str, dev, Config, counters, host_fed_ms, loop, bd, tiou, tg) -> dict:
+def raw_points_phase(tmp: str, dev, Config, counters, host_fed_ms, loop, bd, tiou, tg,
+                     twin_proc) -> dict:
     """Phase 16. Returns each kernel's launches over the phase."""
     t_phase = time.perf_counter()
     cfgs = {k: Config.fromfile(os.path.join(ROOT, "configs", f)) for k, f in
@@ -3554,12 +3675,18 @@ def raw_points_phase(tmp: str, dev, Config, counters, host_fed_ms, loop, bd, tio
     parts = [raw_predicts(cfgs, counters, host_fed_ms, bd, tiou, tg),
              prepass_phase(tmp, dev, loop, counters),
              torch_init_phase(tmp, dev, loop, counters)]
-    over, over_s = overfit_phase(bd, tiou, counters)
+    over, over_s, wait_s, twin = overfit_phase(tmp, bd, tiou, counters, twin_proc)
     parts.append(over)
     total = {c.__name__: sum(p[c.__name__] for p in parts) for c in counters}
-    prepass_card_vs_cpu(tmp, loop)
-    print(f"phase 16 (raw points): {time.perf_counter() - t_phase:.1f} s; launches {total}")
-    return dict(launches=total, voxelizer=vox, overfit_s=over_s)
+    t0 = time.perf_counter()
+    prepass_card_vs_cpu(twin)
+    twin_s = time.perf_counter() - t0
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 16 (raw points): {phase_s:.1f} s, of which {wait_s:.1f} s waiting for the "
+          f"overfit twin's training ({over_s:.1f} s beside phases 15-16); launches {total} (the "
+          f"twin's counted in its process); the card-vs-CPU pre-pass check on the overfit twin "
+          f"took {twin_s:.1f} s")
+    return dict(launches=total, voxelizer=vox, overfit_s=over_s, twin=twin)
 
 
 # ---------------------------------------------------------------------------
@@ -3619,10 +3746,10 @@ def partial_dataset(cfg):
                                      "voxelize_host": loader_voxelize_cfg(cfg)})
 
 
-def estimator_card_vs_plain(cfg32, work: str, estimator, batch, bd, tiou) -> str:
-    """One estimator step's inputs and loss from the trained checkpoint in
-    f32 on the card, with the kernels and with each kernel swapped for its
-    plain version, held kernel by kernel:
+def estimator_card_vs_plain(bundle, estimator, batch, bd, tiou, hold_plain: bool = False) -> str:
+    """One estimator step's inputs and loss from a trained f32 detector
+    (``bundle``, on the card), with the kernels and with each kernel swapped
+    for its plain version, held kernel by kernel:
 
     - K1: the predict's head maps against those of K1's plain version,
       within HEAD_MAP_TOL of each map's scale;
@@ -3633,20 +3760,17 @@ def estimator_card_vs_plain(cfg32, work: str, estimator, batch, bd, tiou) -> str
       indices equal and the targets within 1e-5; the loss over all slots
       within 1e-5.
 
-    The step with both plain versions is reported beside it, not held to
-    the slot: this briefly trained detector decodes hundreds of boxes of
-    infinite or astronomic size (``exp`` of its box maps), and a gap of
-    1e-6 of scale in the maps flips NMS decisions among them (82 against
-    84 valid slots seen on one checkpoint)."""
+    The step with both plain versions is reported beside it, and held to
+    the slot only with ``hold_plain`` (the overfit twin, whose boxes hold
+    points and whose scores separate): phase 15's briefly trained detector
+    decodes hundreds of boxes of infinite or astronomic size (``exp`` of its
+    box maps), and a gap of 1e-6 of scale in the maps flips NMS decisions
+    among them (82 against 84 valid slots seen on one checkpoint)."""
     import copy
 
-    from dal3d_tpu_torch.models.builder import build_detector
     from dal3d_tpu_torch.models.detectors import estimator as te
     from dal3d_tpu_torch.runtime import active_trainer as ta
-    from dal3d_tpu_torch.runtime import checkpoint as ckpt
 
-    bundle = build_detector(cfg32, device="cuda")
-    ckpt.load_checkpoint(work, bundle.model)
     bundle.model.train()
     predict = ta.multi_group_predict
 
@@ -3730,16 +3854,22 @@ def estimator_card_vs_plain(cfg32, work: str, estimator, batch, bd, tiou) -> str
     ok, msg_k2 = compare(card, plain_k2)
     if not ok:
         fail(f"estimator step on K1's head maps, K2 vs its plain version: {msg_k2}")
+    ok, msg = compare(card, plain)
+    if hold_plain and not ok:
+        fail(f"estimator step, card vs both plain versions: {msg}")
     return (f"head maps K1 vs plain {map_gap:.2e} of scale (tol {HEAD_MAP_TOL:g}); on K1's maps, "
-            f"K2 vs plain: {msg_k2}; both plain versions (reported): {compare(card, plain)[1]}")
+            f"K2 vs plain: {msg_k2}; both plain versions ({'held' if hold_plain else 'reported'}):"
+            f" {msg}")
 
 
-def partial_phase(tmp: str, dev, loop: dict, counters, bd, tiou) -> dict:
+def partial_phase(tmp: str, dev, loop: dict, counters, bd, tiou, twin: dict) -> dict:
     """Phase 17: the partial-label round through the port's CLIs at full
     width. Returns each kernel's launches over the phase."""
     import re
 
     from dal3d_tpu_torch.data import DataLoader
+    from dal3d_tpu_torch.models.builder import build_detector
+    from dal3d_tpu_torch.runtime import checkpoint as ckpt
     from dal3d_tpu_torch.models.convert_flax import estimator_to_flat
     from dal3d_tpu_torch.runtime import active_trainer as ta
     from dal3d_tpu_torch.runtime.capacity import brick_capacity_report
@@ -3881,9 +4011,16 @@ def partial_phase(tmp: str, dev, loop: dict, counters, bd, tiou) -> dict:
     cfg32_path = os.path.join(base, "partial_f32.py")
     write_partial_config(cfg32_path, loop, base, work, extra=(
         "model = copy.deepcopy(model)\nmodel['backbone']['dtype'] = 'float32'\n"))
+    bundle32 = build_detector(Config.fromfile(cfg32_path), device="cuda")
+    ckpt.load_checkpoint(work, bundle32.model)
     print("  estimator step from the trained checkpoint in f32, card vs plain versions: "
-          + estimator_card_vs_plain(Config.fromfile(cfg32_path), work, tr.estimator, batch, bd,
-                                    tiou))
+          + estimator_card_vs_plain(bundle32, tr.estimator, batch, bd, tiou))
+    del bundle32
+    # and on the overfit twin's checkpoint and scene (phase 16), where the
+    # step's boxes hold points and its scores separate: held to the slot
+    print("  the estimator step on the overfit twin's checkpoint and scene, card vs plain "
+          "versions: " + estimator_card_vs_plain(twin["bundle"], tr.estimator, twin["batch"], bd,
+                                                 tiou, hold_plain=True))
     del tr
 
     # 4. selection on the trained checkpoint, never re-picking partial_01
@@ -5691,7 +5828,12 @@ def cbgs_gather_phase(tmp: str, Config, counters, tg, tiou) -> dict:
           f"plain versions: dense, embedding and 12 head maps within {map_err:.1e} of scale, "
           f"detections matched but {unmatched} of {sum(n_det)} (box err {box_err:.1e})")
     stage_split(bundle, batch, multi_group_predict, greedy_nms_from_iou, tiou)
-    device_profile(lambda: predict(batch), "CBGS gather predict", p_ms)
+    fft = sorted(n for n in device_profile(lambda: predict(batch), "CBGS gather predict", p_ms)
+                 if "fft" in n.lower())
+    if fft:
+        fail(f"CBGS gather predict ran cuDNN's FFT route ({fft[:2]}): a call outside the "
+             "autotuner chose these shapes' plans first, and PyTorch's plan cache served them")
+    print("  no cuDNN FFT kernel in the predict's profile (the autotuner chose its convs)")
 
     # one train step
     gtb, gtc = random_gt(cfg, np.random.RandomState(21), B, 8, 45.0)
@@ -6668,6 +6810,519 @@ def bf16_engines_phase(Config, counters, tg, bd, tiou, ref: dict) -> dict:
     print(f"phase 23 (the gather and hybrid engines in bf16): "
           f"{time.perf_counter() - t_phase:.1f} s")
     return dict(gather=gather, hybrid=hybrid)
+
+
+# ---------------------------------------------------------------------------
+# phase 24: data parallel on the one card (torch.distributed): a world of 1 on
+# NCCL, a world of 2 on gloo
+# ---------------------------------------------------------------------------
+DP_WORLD = 2  # ranks spawned on the one card
+DP_TIMED = 3  # timed steps and reductions a rank
+F32_NUDGE = 2.0 ** -23  # one f32 ulp: the rounding floor's perturbation of the features
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def f32_backbone(path: str):
+    """The config at ``path`` with its backbone in f32 (as phase 17's
+    ``cfg32``): the rounding floor of a step is then far below bf16's, so
+    that a gate at twice it can fail."""
+    from dal3d_tpu_torch.utils.config import Config
+
+    cfg = Config.fromfile(path)
+    cfg["model"] = dict(cfg["model"], backbone=dict(cfg["model"]["backbone"], dtype="float32"))
+    return cfg
+
+
+def pinned_convs():
+    """The port's steps on cuDNN's heuristic choice among deterministic
+    algorithms (TF32 off) in place of its autotuner, whose timings may pick
+    other plans in other processes: the same plans in every process.
+    PyTorch keys its plan cache by the deterministic flag too, so these
+    plans neither reuse nor replace the autotuned ones of the same shapes."""
+    from dal3d_tpu_torch.runtime import steps
+
+    return mock.patch.object(steps, "autotuned_convs", lambda: torch.backends.cudnn.flags(
+        enabled=True, benchmark=False, deterministic=True, allow_tf32=False))
+
+
+def dp_step(cfg, batch) -> dict:
+    """One train step of the production CBGS model with seeded weights (seed
+    0, as phase 11's repeated batch starts from) on ``batch``, on the card:
+    logs, the (reduced) gradients, the update and the state after it (on the
+    host)."""
+    from dal3d_tpu_torch.models.builder import build_detector
+    from dal3d_tpu_torch.runtime.steps import make_train_step
+    from dal3d_tpu_torch.solver.optim import OneCycleSchedule, build_optimizer
+
+    bundle = build_detector(cfg, seed=0)
+    before = {k: v.detach().cpu().clone() for k, v in bundle.model.state_dict().items()}
+    opt = build_optimizer(OneCycleSchedule(total_steps=200)).init(bundle.model.named_parameters())
+    step = make_train_step(bundle, opt)
+    logs = step(batch)
+    torch.cuda.synchronize()
+    state = {k: v.detach().cpu().clone() for k, v in bundle.model.state_dict().items()}
+    return dict(logs={k: float(v) for k, v in logs.items()},
+                grads={n: p.grad.detach().cpu().clone() for n, p in opt.params.items()},
+                update={n: state[n] - before[n] for n in opt.params},
+                stats={k: v for k, v in state.items() if "running" in k},
+                state=state, bundle=bundle, opt=opt, step=step)
+
+
+def permute_frames(batch: dict, order: list) -> dict:
+    """``batch`` with its frames in ``order``: every per-frame array, the
+    per-task lists element by element."""
+    def rows(v):
+        if isinstance(v, (np.ndarray, torch.Tensor)):
+            return v[order]
+        if isinstance(v, list):
+            return [rows(x) for x in v]
+        return v
+
+    return {k: rows(v) for k, v in batch.items()}
+
+
+def dp_reference(cfg32, batch: dict, count) -> tuple:
+    """The no-group f32 step on the global ``batch`` and its rounding floor
+    against the world's step: for the gradient, the running statistics and
+    AdamW's update, the largest gap that one of three perturbations of the
+    same step makes, each a freedom the world's ranks have: the features
+    moved by one f32 ulp; the frames in another order (the batch's sums in
+    another order, as the ranks' partial sums are); cuDNN's convs on its
+    heuristic choice in place of the autotuner's (the ranks autotune their
+    own plans at their own batch size). Returns (the step, the floors, the
+    gaps of each perturbation)."""
+    parts = ("grads", "stats", "update")
+    ref = {k: v for k, v in count(dp_step, cfg32, batch).items() if k in parts + ("logs",)}
+    torch.cuda.empty_cache()
+
+    def gaps(other: dict) -> dict:
+        torch.cuda.empty_cache()
+        return {p: dp_gap(ref[p], other[p]) for p in parts}
+
+    vf = torch.as_tensor(batch["voxel_features"])
+    noise = 1.0 + F32_NUDGE * torch.randn(vf.shape, generator=torch.Generator().manual_seed(24))
+    n = vf.shape[0]
+    by_kind = {}
+    # in f32: the loader ships bf16 features, which would round the nudge away
+    by_kind["one f32 ulp"] = gaps(count(dp_step, cfg32,
+                                        dict(batch, voxel_features=vf.float() * noise)))
+    by_kind["frames reordered"] = gaps(count(
+        dp_step, cfg32, permute_frames(batch, list(range(n // 2, n)) + list(range(n // 2)))))
+    with pinned_convs():
+        by_kind["cuDNN heuristic"] = gaps(count(dp_step, cfg32, batch))
+    torch.cuda.empty_cache()
+    floors = {p: max(g[p] for g in by_kind.values()) for p in parts}
+    return ref, floors, by_kind
+
+
+def same_bits(a: dict, b: dict) -> bool:
+    """Two steps' logs, gradients and states equal bit for bit."""
+    return (a["logs"] == b["logs"]
+            and all(torch.equal(a[p][k], b[p][k]) for p in ("grads", "state") for k in a[p]))
+
+
+def dp_rank(rank: int, world: int, job: dict) -> None:
+    """A rank of the world of ``world`` gloo processes on card 0: the
+    production CBGS step on its rows of phase 11's 4 frames (held to the
+    per-step launch counts), its timed steps and gradient reductions, then
+    active_select on phase 7's pool, dist_test on that pool (cuDNN's choice
+    pinned) and on the overfit twin's scene (a frame a rank) and an epoch
+    of train_bevfusion on phase 15's set.
+    Writes what it saw to ``job["out"]``-<rank>.pkl; a failure raises and
+    fails the run."""
+    import torch.distributed as dist
+
+    from dal3d_tpu_torch.ops import banded as bd
+    from dal3d_tpu_torch.ops import gather as tg
+    from dal3d_tpu_torch.ops import iou_matrix as tiou
+    from dal3d_tpu_torch.ops import lsa as tl
+    from dal3d_tpu_torch.parallel.dist import GROUP_TIMEOUT
+    from dal3d_tpu_torch.parallel.mesh import all_reduce_gradients, shard_batch
+    from dal3d_tpu_torch.tools import active_select, dist_test, train_bevfusion
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{job['rendezvous']}", rank=rank,
+                            world_size=world, timeout=GROUP_TIMEOUT)
+    counters = (bd.banded_conv, bd.banded_dw, tiou.iou_matrix, tg.gather_gemm, tg.gather_rows,
+                tg.gather_dw, tl.linear_sum_assignment)
+    out = {}
+    try:
+        batch = shard_batch(torch.load(job["batch"], weights_only=False), rank, world)
+        for c in counters:
+            c.launches = 0
+        r = dp_step(f32_backbone(job["cfg_train"]), batch)
+        out["launches_step"] = {c.__name__: c.launches for c in counters}
+        out.update({k: r[k] for k in ("logs", "grads", "update", "stats")})
+        step, opt = r["step"], r["opt"]
+        ms, red = [], []
+        for i in range(DP_TIMED + 1):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            if i:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        for _ in range(DP_TIMED):
+            dist.barrier()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            all_reduce_gradients(opt.params.values())
+            ev[1].record()
+            torch.cuda.synchronize()
+            red.append(((time.perf_counter() - t0) * 1e3, ev[0].elapsed_time(ev[1])))
+        out["step_ms"], out["reduce_ms"] = ms, red
+        out["grad_bytes"] = sum(p.numel() * 4 for p in opt.params.values())
+        del r, step, opt, batch
+        torch.cuda.empty_cache()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        active_select.main([job["cfg_select"], "--checkpoint", job["work_select"],
+                            "--seed", "3407"])
+        with pinned_convs():
+            dist_test.main([job["cfg_select"], "--checkpoint", job["work_select"], "--out",
+                            job["dets_pool"], "--work_dir", os.path.dirname(job["dets_pool"])])
+        dist_test.main([job["cfg_twin"], "--checkpoint", job["work_twin"], "--out", job["dets"],
+                        "--work_dir", os.path.dirname(job["dets"]), "--batch_size",
+                        str(world)])
+        torch.cuda.synchronize()
+        out["select_s"] = time.perf_counter() - t0
+        out["launches_select"] = {c.__name__: c.launches for c in counters}
+        torch.cuda.empty_cache()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        res = train_bevfusion.main([job["cfg_bev"], "--epochs", "1", "--budget", job["budget"]])
+        torch.cuda.synchronize()
+        out["bev_s"] = time.perf_counter() - t0
+        out["launches_bev"] = {c.__name__: c.launches for c in counters}
+        out["bev_steps"], out["bev_logs"] = res["optimizer"].count, res["logs"]
+    finally:
+        dist.destroy_process_group()
+    with open(f"{job['out']}-{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def dp_gap(ref: dict, got: dict) -> float:
+    """|got - ref| / |ref| over the tensors of ``ref``."""
+    return _grad_gap({k: v.float() for k, v in ref.items()}, {k: got[k].float() for k in ref})
+
+
+def data_parallel_phase(tmp: str, train_paths: dict, loop: dict, twin: dict, counters) -> dict:
+    """Phase 24. (a) A world of 1 on NCCL, started by ``init_dist`` from
+    torchrun's variables: phase 11's production train step bit-equal to the
+    step with no group, and ``train`` for an epoch whose checkpoint loads
+    with no group. (b) A world of DP_WORLD gloo processes on this one card
+    (NCCL refuses two ranks on one device): the step with its backbone in
+    f32 and 2 frames a rank against the no-group step on the 4 frames (the
+    gradient, the running statistics and AdamW's update within twice their
+    rounding floor, ``dp_reference``), K1 78 and K3 21 launches a rank;
+    active_select on phase 7's pool and checkpoint (one sweep a frame)
+    with its files byte-equal to the one-process run's; dist_test on that
+    pool at full width, 2 frames a rank as one process forwards them, with
+    cuDNN's choice pinned in both
+    (``pinned_convs``: phase 7's random weights decode thousands of
+    near-tied boxes, whose NMS a rounding gap between two processes'
+    autotuned choices flips), and on the overfit twin's checkpoint and
+    2-frame scene (a frame a rank), each with its detections equal as sets
+    to the one-process run's; an epoch of train_bevfusion on phase 15's set
+    with phase 18's launches a step and finite losses.
+    Returns the launches of each kernel over the phase."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from dal3d_tpu_torch.data import DataLoader, NuScenesDataset
+    from dal3d_tpu_torch.models.builder import build_detector, loader_voxelize_cfg
+    from dal3d_tpu_torch.parallel.dist import get_dist_info, init_dist
+    from dal3d_tpu_torch.runtime import checkpoint as ckpt
+    from dal3d_tpu_torch.tools import active_select, dist_test, train
+    from dal3d_tpu_torch.utils.config import Config
+    from dal3d_tpu_torch.utils.fileio import dump, load
+
+    t_phase = time.perf_counter()
+    base = os.path.join(tmp, "data_parallel")
+    os.makedirs(base)
+    launches = {c.__name__: 0 for c in counters}
+
+    def count(fn, *a):
+        for c in counters:
+            c.launches = 0
+        r = fn(*a)
+        torch.cuda.synchronize()
+        for c in counters:
+            launches[c.__name__] += c.launches
+        return r
+
+    # phase 11's labeled set through its train pipeline: 4 frames
+    cfg = Config.fromfile(train_paths["cfg"])
+    train_data = dict(cfg["data"]["train"])
+    dataset = NuScenesDataset(
+        info_path=train_paths["info"], root_path="", nsweeps=train_data.get("nsweeps", 10),
+        class_names=train_data.get("class_names"),
+        pipeline=[dict(s) for s in train_data.get("pipeline", [])],
+        tasks=[dict(t) for t in cfg["tasks"]], max_points=cfg.get("max_points", 300000),
+        voxelize_host=loader_voxelize_cfg(cfg))
+    np.random.seed(5)
+    batch4 = next(iter(DataLoader(dataset, 2 * DP_WORLD, shuffle=False, prefetch=0)))
+    batch4 = {k: v for k, v in batch4.items() if k != "metadata"}
+    batch_path = os.path.join(base, "batch4.pt")
+    torch.save(batch4, batch_path)
+    from dal3d_tpu_torch.parallel.mesh import shard_batch
+
+    batch2 = shard_batch(batch4, 0, DP_WORLD)
+
+    # (a) a world of 1 on NCCL ------------------------------------------------
+    ref_a = count(dp_step, cfg, batch2)
+    again = count(dp_step, cfg, batch2)
+    repeat_bits = same_bits(ref_a, again)
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(_free_port()))
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        if init_dist("nccl") != (0, 1) or not dist.is_initialized():
+            fail(f"init_dist from torchrun's variables: {get_dist_info()}, group "
+                 f"{dist.is_initialized()}")
+        backend = dist.get_backend()
+        one = count(dp_step, cfg, batch2)
+        world1_bits = same_bits(one, ref_a)
+        gaps = {p: dp_gap(ref_a[p], one[p]) for p in ("grads", "update", "stats")}
+        if repeat_bits and not world1_bits:
+            fail(f"a world of 1 ({backend}): the step differs from the step with no group, "
+                 f"which repeats bit for bit; gaps {gaps}")
+        if not repeat_bits and not all(v <= 2 * dp_gap(ref_a[p], again[p]) for p, v in
+                                       gaps.items()):
+            fail(f"a world of 1 ({backend}): gaps {gaps} beyond twice the no-group repeat's")
+        del one, again
+        work1 = os.path.join(base, "world1")
+        t0 = time.perf_counter()
+        tr = count(train.main, [train_paths["cfg"], "--work_dir", work1, "--epochs", "1",
+                                "--no_validate", "--seed", "0"])
+        w1_s = time.perf_counter() - t0
+        trained = {k: v.detach().cpu() for k, v in tr.bundle.model.state_dict().items()}
+        w1_steps = tr.step
+        del tr
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    fresh = build_detector(cfg, seed=7)
+    _, meta = ckpt.load_checkpoint(work1, fresh.model)
+    loaded = fresh.model.state_dict()
+    if (set(loaded) != set(trained) or any(k.startswith("module.") for k in loaded)
+            or not all(torch.equal(loaded[k].cpu(), v) for k, v in trained.items())):
+        fail("the world of 1's checkpoint does not load with no group into the trained state")
+    del fresh, ref_a
+    print(f"data parallel, a world of 1 ({backend}, init_dist from RANK / WORLD_SIZE / "
+          f"LOCAL_RANK / MASTER_ADDR / MASTER_PORT): phase 11's production step (B=2, bf16) "
+          f"bit-equal to the step with no group: {world1_bits} (the no-group step repeats bit "
+          f"for bit: {repeat_bits}; gaps {', '.join(f'{k} {v:.1e}' for k, v in gaps.items())}); "
+          f"train --epochs 1 in that world: {w1_steps} steps in {w1_s:.1f} s, its checkpoint "
+          f"(epoch {meta.get('epoch')}, no 'module.' prefix) loads with no group into the "
+          "trained state bit for bit")
+
+    # (b) a world of DP_WORLD on gloo -------------------------------------------
+    ref, floors, floors_by = dp_reference(f32_backbone(train_paths["cfg"]), batch4, count)
+
+    # phase 7's pool at one sweep a frame and the overfit twin's scene; a run
+    # directory each for one process and for the world
+    import test_torch_accuracy as acc
+
+    pool_info = os.path.join(tmp, "nusc", "infos_train_10sweeps_withvelo.pkl")
+    pool = load(pool_info)
+    runs = {}
+    for name in ("one", "world"):
+        d = os.path.join(base, name)
+        os.makedirs(d)
+        info = os.path.join(d, "infos.pkl")
+        dump(pool, info)
+        dump({"0": []}, os.path.join(d, "buffer.json"))
+        sel = dict(type="FeatureSelector", budget=POOL_BUDGET, infos_origin=info,
+                   buffer_file=os.path.join(d, "buffer.json"),
+                   pred_store_file=os.path.join(d, "pred.npz"), distance_type="l2",
+                   streaming=False)
+        path = os.path.join(d, "select.py")
+        write_config(path, sel, extra=(
+            "import copy\ndata = copy.deepcopy(data)\n"
+            f"data['val'].update(nsweeps=1, root_path='', info_path={info!r})\n"))
+        runs[name] = dict(dir=d, cfg=path, dets=os.path.join(d, "dets.pkl"),
+                          dets_pool=os.path.join(d, "pool", "dets.pkl"),
+                          twin=acc.write_twin_config(os.path.join(d, "twin.py"), twin["info"]))
+    work_select = os.path.join(tmp, "work")  # phase 7's checkpoint
+    t0 = time.perf_counter()
+    count(active_select.main, [runs["one"]["cfg"], "--checkpoint", work_select,
+                               "--seed", "3407"])
+    with pinned_convs():
+        count(dist_test.main, [runs["one"]["cfg"], "--checkpoint", work_select, "--out",
+                               runs["one"]["dets_pool"], "--work_dir",
+                               os.path.dirname(runs["one"]["dets_pool"])])
+    count(dist_test.main, [runs["one"]["twin"], "--checkpoint", twin["work"], "--out",
+                           runs["one"]["dets"], "--work_dir", runs["one"]["dir"]])
+    one_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    bev_cfg = os.path.join(base, "bevfusion.py")
+    write_bevfusion_cli_config(bev_cfg, loop, os.path.join(base, "bevfusion_work"))
+    job = dict(rendezvous=os.path.join(base, "rendezvous"), batch=batch_path,
+               cfg_train=train_paths["cfg"], cfg_select=runs["world"]["cfg"],
+               work_select=work_select, cfg_twin=runs["world"]["twin"], work_twin=twin["work"],
+               dets=runs["world"]["dets"], dets_pool=runs["world"]["dets_pool"], cfg_bev=bev_cfg,
+               budget=loop["budget"], out=os.path.join(base, "rank"))
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(dp_rank, args=(DP_WORLD, job), nprocs=DP_WORLD, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + 600
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+            if time.monotonic() >= deadline:
+                fail(f"the gloo world of {DP_WORLD} outlived 600 s")
+    except mp.ProcessRaisedException as e:
+        fail(f"a rank of the gloo world failed:\n{e}")
+    except mp.ProcessExitedException as e:
+        fail(f"a rank of the gloo world exited: {e}")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    world_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(f"{job['out']}-{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    for r in ranks:
+        for k in ("launches_step", "launches_select", "launches_bev"):
+            for name, n in r[k].items():
+                launches[name] += n
+
+    # the step
+    want = {c.__name__: 0 for c in counters if c.__name__ in ranks[0]["launches_step"]}
+    want.update(banded_conv=K1_PER_TRAIN_STEP, banded_dw=K3_PER_TRAIN_STEP)
+    for i, r in enumerate(ranks):
+        if r["launches_step"] != want:
+            fail(f"rank {i}'s step launched {r['launches_step']}, expected {want}")
+        gaps = {p: dp_gap(ref[p], r[p]) for p in ("grads", "stats", "update")}
+        tols = {p: max(STEP_TOL, 2 * floors[p]) for p in gaps}
+        if not max(tols.values()) < 0.5:  # an update left undone reads a gap of 1
+            fail(f"phase 24's step gates {tols} (floors {floors}) are too loose to fail")
+        log_gap = max(abs(r["logs"][k] - ref["logs"][k]) / max(abs(ref["logs"][k]), 1e-30)
+                      for k in ("loss", "loc_loss", "cls_loss", "grad_norm"))
+        if (not all(gaps[p] <= tols[p] for p in gaps) or not log_gap <= 1e-2
+                or r["logs"]["num_pos"] != ref["logs"]["num_pos"]):
+            fail(f"rank {i}'s step against the no-group step on the {2 * DP_WORLD} frames: gaps "
+                 f"{gaps} (tol {tols}; floors {floors}), logs {log_gap:.2e} (tol 1e-2), num_pos "
+                 f"{r['logs']['num_pos']} vs {ref['logs']['num_pos']}")
+    same_ranks = all(torch.equal(ranks[0]["update"][k], r["update"][k])
+                     for r in ranks[1:] for k in ranks[0]["update"])
+    if not same_ranks:
+        fail("the ranks' updates differ: the reduced gradients are not the same on every rank")
+    step_ms = [float(np.median(r["step_ms"])) for r in ranks]
+    red_wall = [float(np.median([x[0] for x in r["reduce_ms"]])) for r in ranks]
+    red_dev = [float(np.median([x[1] for x in r["reduce_ms"]])) for r in ranks]
+    print(f"data parallel, a world of {DP_WORLD} gloo processes on this one card (NCCL refuses "
+          f"two ranks on one device), spawned and joined in {world_s:.1f} s: phase 11's step "
+          f"with its backbone in f32 and 2 frames a rank against the no-group step on the "
+          f"{2 * DP_WORLD} frames (floor: the largest gap of "
+          + "; ".join(f"{k} {', '.join(f'{p} {v:.2e}' for p, v in g.items())}"
+                      for k, g in floors_by.items()) + "): "
+          + "; ".join(f"{p} gap {dp_gap(ref[p], ranks[0][p]):.2e} (floor {floors[p]:.2e})"
+                      for p in ("grads", "stats", "update"))
+          + f" (tol twice the floor, at least {STEP_TOL:g}); the ranks' updates bit-equal; "
+          f"launches a rank {ranks[0]['launches_step']}; step a rank {step_ms} ms (median of "
+          f"{DP_TIMED}), the gradient all-reduce ({ranks[0]['grad_bytes'] / 1e6:.1f} MB) "
+          f"{red_wall} ms on the host clock, {red_dev} ms between device events; two ranks "
+          "sharing one card and reducing through host memory say nothing of scaling")
+
+    # selection and evaluation
+    one, world = runs["one"], runs["world"]
+    same_files = {n: open(os.path.join(one["dir"], n), "rb").read()
+                  == open(os.path.join(world["dir"], n), "rb").read()
+                  for n in ("buffer.json", f"infos_{POOL_BUDGET}.pkl")}
+    if not all(same_files.values()):
+        fail(f"active_select in a world of {DP_WORLD}: files differ from one process's: "
+             f"{same_files}")
+    a, b = np.load(os.path.join(one["dir"], "pred.npz")), np.load(os.path.join(world["dir"],
+                                                                              "pred.npz"))
+    scores_bits = all(np.array_equal(a[k], b[k]) for k in a)
+    with open(one["dets"], "rb") as f:
+        dets_one = pickle.load(f)
+    with open(world["dets"], "rb") as f:
+        dets_world = pickle.load(f)
+    matched, n_a, n_b, box_gap, score_gap, _ = match_sets(dets_one, dets_world)
+    if (list(dets_one) != list(dets_world) or matched != n_a or n_a != n_b
+            or score_gap > 1e-4 or n_a < TWIN_MIN_DETS):
+        fail(f"dist_test on the overfit twin in a world of {DP_WORLD}: {matched} of {n_a} "
+             f"detections paired (world {n_b}; at least {TWIN_MIN_DETS}), score gap "
+             f"{score_gap:.2e}")
+    pool_dets = []
+    for r in (one, world):
+        with open(r["dets_pool"], "rb") as f:
+            pool_dets.append(pickle.load(f))
+    pool_bits = list(pool_dets[0]) == list(pool_dets[1]) and all(
+        np.array_equal(v, pool_dets[1][t][k]) for t, d in pool_dets[0].items()
+        for k, v in d.items())
+    p_matched, p_a, p_b, p_box, p_score, _ = match_sets(*pool_dets)
+    if (list(pool_dets[0]) != list(pool_dets[1]) or p_matched != p_a or p_a != p_b
+            or p_score > 1e-4 or p_a < len(pool)):
+        fail(f"dist_test on phase 7's pool in a world of {DP_WORLD}, cuDNN's choice pinned: "
+             f"{p_matched} of {p_a} detections paired (world {p_b}; at least {len(pool)}), "
+             f"score gap {p_score:.2e}")
+    n_pool_batches = -(-len(pool) // (2 * DP_WORLD))
+    want_sel = {c.__name__: 0 for c in counters if c.__name__ in ranks[0]["launches_select"]}
+    # the pool's global batches twice (active_select, dist_test), and the
+    # twin's one (a frame a rank)
+    want_sel.update(banded_conv=K1_PER_PREDICT * (2 * n_pool_batches + 1),
+                    iou_matrix=K2_PER_PREDICT * (2 * n_pool_batches + 1))
+    for i, r in enumerate(ranks):
+        if r["launches_select"] != want_sel:
+            fail(f"rank {i}'s active_select + dist_test launched {r['launches_select']}, "
+                 f"expected {want_sel}")
+    print(f"  active_select (FeatureSelector, L2 k-center, budget {POOL_BUDGET}) on phase 7's "
+          f"{len(pool)}-frame pool and checkpoint, one sweep a frame: buffer and subset "
+          f"byte-equal to one process's {same_files}; pool scores bit-equal {scores_bits} "
+          "(reported: cuDNN's autotuned choices may differ between processes); dist_test on "
+          f"that pool at full width, 2 frames a rank as one process forwards them, cuDNN's "
+          f"choice pinned in both: {p_matched} of {p_a} detections paired (world {p_b}; tol: "
+          f"within 1e-3 of max(1, |box|), scores within 1e-4, at least one a frame; box gap "
+          f"{p_box:.1e}, score gap {p_score:.1e}), bit-equal {pool_bits}; dist_test on "
+          f"the overfit twin's scene, a frame a rank against both frames in one process: "
+          f"{matched} of {n_a} detections paired (world {n_b}; tol: within 1e-3 of max(1, "
+          f"|box|), scores within 1e-4, at least {TWIN_MIN_DETS}; box gap {box_gap:.1e}, score "
+          f"gap {score_gap:.1e}); one process {one_s:.1f} s, a rank "
+          f"{ranks[0]['select_s']:.1f} s; launches a rank {ranks[0]['launches_select']} (2 "
+          f"frames of every global batch of {2 * DP_WORLD}, and the twin's frame)")
+
+    # BEVFusion training
+    per_step = dict(gather_gemm=K4_PER_BF_TRAIN_STEP, gather_dw=K4_DW_PER_BF_TRAIN_STEP,
+                    gather_rows=K5_PER_BF_TRAIN_STEP,
+                    linear_sum_assignment=LSA_PER_BF_TRAIN_STEP)
+    for i, r in enumerate(ranks):
+        n = r["bev_steps"]
+        want_bev = {k: 0 for k in r["launches_bev"]}
+        want_bev.update({k: v * n for k, v in per_step.items()})
+        if (n < 1 or r["launches_bev"] != want_bev
+                or not all(np.isfinite(v) for v in r["bev_logs"].values())):
+            fail(f"rank {i}'s train_bevfusion: {n} steps, launched {r['launches_bev']} (expected "
+                 f"{want_bev}), logs {r['bev_logs']}")
+    print(f"  train_bevfusion --epochs 1 --budget {loop['budget']} in the world: "
+          f"{ranks[0]['bev_steps']} steps of a global batch of "
+          f"{2 * DP_WORLD} in {ranks[0]['bev_s']:.1f} s; launches a rank "
+          f"{ranks[0]['launches_bev']} (phase 18's per step); logs {ranks[0]['bev_logs']}")
+    print(f"phase 24 (data parallel): {time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    return dict(launches=launches, step_ms=step_ms, reduce_ms=red_dev)
 
 
 if __name__ == "__main__":

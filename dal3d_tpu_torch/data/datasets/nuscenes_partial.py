@@ -27,6 +27,7 @@ from typing import Optional
 
 import numpy as np
 
+from ...parallel.dist import write_once
 from ...utils.fileio import dump, load
 from .nuscenes import NuScenesDataset
 
@@ -60,7 +61,8 @@ class NuScenesPartialDataset(NuScenesDataset):
                 num_sample = int(len(all_infos) * self._sample_ratio)
                 pool = num_sample if self._faithful_start else len(all_infos)
                 sample_ids = rng.sample(range(pool), num_sample)
-                dump({"partial_01": sample_ids}, self._active_buffer, indent=4)
+                write_once(lambda: dump({"partial_01": sample_ids}, self._active_buffer,
+                                        indent=4))
             all_infos = [all_infos[i] for i in sample_ids]
         else:
             sample_ids = load(self._active_buffer)[self._active_flag]

@@ -42,6 +42,12 @@ class DataLoader:
     Drops the last partial batch in train mode (fixed shapes); in test mode
     the final batch is padded by repeating the last example and marked with
     ``batch_valid``.
+
+    Rank ``rank`` of a world of ``world`` ranks (``parallel``): every rank
+    draws the same permutation and builds the same global batches of
+    ``batch_size`` frames (padded as above), then loads only its rows of
+    each, ``batch_size // world`` frames; the ranks' rows in rank order are
+    the global batch. ``batch_size`` must divide by ``world``.
     """
 
     def __init__(
@@ -53,9 +59,15 @@ class DataLoader:
         prefetch: int = 2,
         seed: Optional[int] = None,
         num_workers: int = 1,
+        rank: int = 0,
+        world: int = 1,
     ):
+        if batch_size % world:
+            raise ValueError(f"a global batch of {batch_size} frames does not split over "
+                             f"{world} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rank, self.world = rank, world
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.prefetch = prefetch
@@ -84,6 +96,9 @@ class DataLoader:
                     break
                 chunk = np.concatenate([chunk, np.full(self.batch_size - len(chunk), idx[-1])])
             batches.append(chunk)
+        if self.world > 1:
+            b = self.batch_size // self.world
+            batches = [chunk[self.rank * b:(self.rank + 1) * b] for chunk in batches]
         return batches
 
     def _produce(self, batches, q: queue.Queue):

@@ -36,6 +36,7 @@ from ...ops import gather as _gather
 from ...ops import lsa as _lsa
 from ...ops.nms import top_k
 from ...ops.rotated_iou import boxes_iou3d
+from ...parallel.dist import shared_normaliser
 from ..layers import BatchNorm2d, BatchNormLast
 from ..losses.losses import sigmoid_focal_loss
 from .gaussian import draw_gaussian_heatmap, gaussian_focal_loss, gaussian_radius
@@ -259,7 +260,13 @@ def transfusion_loss(preds: Dict[str, torch.Tensor], gt_boxes: torch.Tensor,
     their GT class, the others to background), the code-weighted L1 on the
     matched proposals' raw regression targets, and the gaussian focal
     heatmap loss. Returns loss, cls_loss, reg_loss, heatmap_loss and
-    num_matched."""
+    num_matched (this batch's).
+
+    The classification and regression losses are divided by the matched
+    count and the heatmap loss by the in-range GT count of the global batch:
+    in a world of several ranks each is the rank's sum over
+    ``parallel.dist.shared_normaliser``, so that the mean over the ranks is
+    the global batch's loss."""
     B, P = preds["center"].shape[:2]
     G = gt_boxes.shape[1]
     nc = preds["cls_logits"].shape[-1]
@@ -300,7 +307,7 @@ def transfusion_loss(preds: Dict[str, torch.Tensor], gt_boxes: torch.Tensor,
         assign = assign[:, :P]
     matched = assign >= 0
     n_matched = matched.sum()
-    norm = torch.clamp(n_matched, min=1).float()
+    norm = shared_normaliser(n_matched).float()  # the global batch's matches
     safe = torch.clamp(assign, min=0)
     tgt_boxes = torch.gather(gt_boxes, 1, safe[..., None].expand(B, P, gt_boxes.shape[-1]))
     tgt_cls = torch.gather(gt_classes.long(), 1, safe)
@@ -329,7 +336,7 @@ def transfusion_loss(preds: Dict[str, torch.Tensor], gt_boxes: torch.Tensor,
                          min=min_radius)
     inb = gt_valid & (gx >= 0) & (gx < Wh) & (gy >= 0) & (gy < Hh) & (w_cells > 0) & (l_cells > 0)
     target_hm = draw_gaussian_heatmap(torch.stack([gx, gy], -1), radius, gcls, inb, Hh, Wh, nc)
-    hm_loss = gaussian_focal_loss(hm, target_hm).sum() / torch.clamp(inb.sum(), min=1).float()
+    hm_loss = gaussian_focal_loss(hm, target_hm).sum() / shared_normaliser(inb.sum()).float()
 
     total = cls_weight * cls_loss + bbox_weight * reg_loss + heatmap_weight * hm_loss
     return {"loss": total, "cls_loss": cls_loss, "reg_loss": reg_loss, "heatmap_loss": hm_loss,

@@ -25,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import dense_sparse as ds
 from ..ops import sparse_backend as sp
 from ..ops import sparse_brick as spb
+from ..parallel.dist import all_reduce_sum, get_dist_info
 
 _STATS_FROZEN = [False]  # set while a checkpointed forward is recomputed
 
@@ -114,14 +115,28 @@ class BatchNorm2d(nn.Module):
     def _norm(self, x: torch.Tensor, dims: tuple, shape: tuple) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            mean = xf.mean(dim=dims)
-            var = torch.clamp(torch.square(xf).mean(dim=dims) - torch.square(mean), min=0.0)
+            mean, var = self._batch_stats(xf, dims)
             _update_running(self, mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
+
+    def _batch_stats(self, xf: torch.Tensor, dims: tuple):
+        """(E[x], max(0, E[x^2] - E[x]^2)) over ``dims``; in a world of
+        several ranks over the global batch: the sums of x and x^2 and the
+        count all-reduced in one differentiable collective."""
+        if get_dist_info()[1] == 1:
+            mean = xf.mean(dim=dims)
+            return mean, torch.clamp(torch.square(xf).mean(dim=dims) - torch.square(mean),
+                                     min=0.0)
+        C = self.weight.shape[0]
+        count = xf.new_full((1,), xf.numel() // C)
+        sums = all_reduce_sum(torch.cat([xf.sum(dim=dims), torch.square(xf).sum(dim=dims),
+                                         count]))
+        mean = sums[:C] / sums[-1]
+        return mean, torch.clamp(sums[C:2 * C] / sums[-1] - torch.square(mean), min=0.0)
 
 
 class Conv2dBN(nn.Module):

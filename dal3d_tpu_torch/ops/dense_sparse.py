@@ -31,6 +31,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.dist import all_reduce_sum
 from .sparse import SparseBatch, _triple
 
 
@@ -124,11 +125,15 @@ def sparse_conv_down_dense(x: torch.Tensor, occ: torch.Tensor, weights: torch.Te
 
 def masked_mean_var(x: torch.Tensor, occ: torch.Tensor):
     """Batch-norm statistics over the active cells only, in f32: (mean [C],
-    biased var [C]); the count is clamped to 1."""
+    biased var [C]); the count is clamped to 1. In a world of several ranks
+    the statistics are the global batch's, in the same two passes: the
+    masked sums and the count are all-reduced, then the squared deviations
+    from the global mean (``parallel.dist.all_reduce_sum``, differentiable)."""
     m = occ[..., None].float()
-    cnt = torch.clamp(m.sum(), min=1.0)
     xf = x.float()
     dims = tuple(range(x.ndim - 1))
-    mean = (xf * m).sum(dims) / cnt
-    var = (torch.square(xf - mean) * m).sum(dims) / cnt
+    sums = all_reduce_sum(torch.cat([(xf * m).sum(dims), m.sum().reshape(1)]))
+    cnt = torch.clamp(sums[-1], min=1.0)
+    mean = sums[:-1] / cnt
+    var = all_reduce_sum((torch.square(xf - mean) * m).sum(dims)) / cnt
     return mean, var

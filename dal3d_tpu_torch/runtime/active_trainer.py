@@ -8,7 +8,8 @@ estimator step on the same batch, in this order:
 
 1. the detector predicts in eval mode without gradients on the batch's raw
    points (voxelized on the device even when the batch carries host voxels,
-   as JAX's step calls the model on points); batch-norm running statistics
+   as JAX's step calls the model on points) with its convolutions
+   autotuned, as the predict step's are; batch-norm running statistics
    are not touched and the model's mode is restored;
 2. the first ``num_boxes`` detection slots and their ``det_valid``;
 3. targets: each box's best 3D IoU (``ops/rotated_iou_fast.py``) with the
@@ -24,7 +25,9 @@ import torch
 
 from ..models.heads.mg_head import multi_group_predict
 from ..ops.rotated_iou_fast import boxes_iou3d_fast
-from .steps import _to_device
+from ..parallel.dist import shared_normaliser
+from ..parallel.mesh import all_reduce_gradients, reduce_logs
+from .steps import _to_device, autotuned_convs
 from .trainer import Trainer
 
 
@@ -40,7 +43,12 @@ def estimator_inputs(bundle, batch: Dict, num_boxes: int = 64) -> Dict[str, torc
     was_training = model.training
     model.eval()
     try:
-        out = model(points=points, points_valid=points_valid)
+        # autotuned as in the predict step: PyTorch caches a conv's plan by its
+        # shapes, not by how it was chosen, so cuDNN's heuristic choice here (an
+        # FFT route for f32 at BEV-map sizes) would also serve every later
+        # autotuned call at these shapes
+        with autotuned_convs():
+            out = model(points=points, points_valid=points_valid)
         preds = multi_group_predict(out["preds"], bundle.task_anchors, bundle.box_coder,
                                     bundle.test_cfg)
     finally:
@@ -68,27 +76,33 @@ def estimator_loss(estimator, points, points_valid, boxes, det_valid, target) ->
     in the slots without a detection; JAX's step weights their NaN
     predictions and targets by 0, and NaN * 0 turned the loss, the gradient
     and, through Adam, every weight of the estimator NaN for good. Where
-    every box is finite the loss and its gradient are JAX's."""
+    every box is finite the loss and its gradient are JAX's. In a world of
+    several ranks the weight sum is the global batch's
+    (``parallel.dist.shared_normaliser``)."""
     use = det_valid & torch.isfinite(boxes).all(-1)
     zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
     pred_iou = estimator(points, points_valid, torch.where(use[..., None], boxes, zero))
     w = use.to(pred_iou.dtype)
     return ((torch.square(pred_iou - torch.where(use, target, zero)) * w).sum()
-            / torch.clamp(w.sum(), min=1.0))
+            / shared_normaliser(w.sum(), 1.0))
 
 
 def make_estimator_step(bundle, estimator, optimizer, num_boxes: int = 64):
     """The estimator step of a ``models.builder.DetectorBundle``, an
     ``Estimator`` on the same device and a ``solver.optim.Adam`` bound to
-    its parameters: batch -> {"estimator_loss": 0-d tensor}."""
+    its parameters: batch -> {"estimator_loss": 0-d tensor}. In a world of
+    several ranks a rank predicts and trains on its rows, the gradients are
+    averaged over the ranks before the update and the loss is the global
+    batch's."""
 
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
         inputs = estimator_inputs(bundle, batch, num_boxes)
         optimizer.zero_grad()
         loss = estimator_loss(estimator, **inputs)
         loss.backward()
+        all_reduce_gradients(optimizer.params.values())
         optimizer.step()
-        return {"estimator_loss": loss.detach()}
+        return reduce_logs({"estimator_loss": loss.detach()})
 
     return step
 

@@ -32,6 +32,8 @@ from ..models.bevfusion.segm import bev_segmentation_loss
 from ..models.bevfusion.swin import DropPath
 from ..models.bevfusion.transfusion import Dropout, transfusion_decode, transfusion_loss
 from ..ops.resize import resize_bilinear
+from ..parallel.dist import get_dist_info
+from ..parallel.mesh import all_reduce_gradients, reduce_logs
 from .steps import _full_f32, _to_device, autotuned_convs, model_inputs
 
 CAMERA_KEYS = ("images", "depth_images") + CAMERA_TRANSFORMS
@@ -66,8 +68,11 @@ def random_modules(model):
 def dropout_generator(device, step: int) -> torch.Generator:
     """The generator of a train step's dropout masks: seeded from (key 0,
     step), as JAX's ``fold_in(PRNGKey(0), step)``, so that a resumed run
-    draws the masks of the step it resumes at."""
-    return torch.Generator(device=device).manual_seed(step)
+    draws the masks of the step it resumes at. In a world of W ranks rank r
+    seeds ``step W + r``, so that the ranks' rows draw masks of their own
+    (the step itself in a world of 1)."""
+    rank, world = get_dist_info()
+    return torch.Generator(device=device).manual_seed(step * world + rank)
 
 
 def _transfusion_only(model) -> None:
@@ -104,6 +109,13 @@ def make_bevfusion_train_step(bundle, optimizer, seg_loss_weight: float = 1.0
     ``seg_loss`` (0 without map targets), ``num_matched`` and ``grad_norm``
     (before the clip).
 
+    In a world of several ranks the batch is the rank's rows of the global
+    batch: the norms take the global batch's statistics, the TransFusion
+    loss its matched and GT counts, the gradients are averaged over the
+    ranks before the clip, and the logs are the global batch's
+    (``num_matched`` summed). The map-segmentation loss, a mean over equal
+    rows, needs no change.
+
     f32 throughout (TF32 off for cuDNN and matmuls), with cuDNN's autotuner
     on for the forward and the backward (``autotuned_convs``)."""
     _transfusion_only(bundle.model)
@@ -129,11 +141,12 @@ def make_bevfusion_train_step(bundle, optimizer, seg_loss_weight: float = 1.0
                 seg = seg_loss_of(preds, batch, dev)
                 logs["loss"] = logs["loss"] + seg_loss_weight * seg
             logs["loss"].backward()
+        all_reduce_gradients(optimizer.params.values())
         grad_norm = optimizer.step()
         out = {k: logs[k].detach() for k in ("loss", "cls_loss", "reg_loss", "heatmap_loss",
                                               "num_matched")}
-        out.update(seg_loss=seg.detach(), grad_norm=grad_norm)
-        return out
+        out = reduce_logs({**out, "seg_loss": seg.detach()}, sums=("num_matched",))
+        return {**out, "grad_norm": grad_norm}
 
     return train_step
 

@@ -11,8 +11,13 @@ runs a detection-quality number to check.
 Where the port differs from the JAX module: the batches feed the predict
 step their host voxels, or their raw points when the config sets
 ``voxelize_host = False`` (the port builds its sparse plans on the device,
-so there are no host plan keys), and the batch size is the config's
-``samples_per_gpu`` on one card (multi-GPU is ROADMAP A11).
+so there are no host plan keys).
+
+In a world of several ranks (``parallel``, ``torchrun``) the batch is the
+global one, ``samples_per_gpu`` x the world unless ``--batch_size`` names
+it: each rank loads and predicts its rows, every rank gathers the global
+batch's detections (``parallel.mesh.sharded_eval_predict``), and rank 0
+writes ``--out`` and evaluates while the others wait.
 """
 from __future__ import annotations
 
@@ -32,7 +37,11 @@ def predict_dataset(
 ) -> Dict[str, dict]:
     """Run the predict step over a loader; returns token -> detections (host
     arrays). The padded repeats of a test-mode loader's last batch are
-    dropped by token."""
+    dropped by token. In a world of several ranks the loader gives the
+    rank's rows, ``predict`` the global batch's detections
+    (``parallel.mesh.data_parallel_predict``), and the frames' metadata are
+    gathered beside them."""
+    from ..parallel.dist import all_gather_objects
     from .steps import predict_feed
 
     detections: Dict[str, dict] = {}
@@ -40,13 +49,14 @@ def predict_dataset(
     for batch in loader:
         out = predict(predict_feed(batch))
         out = {k: out[k].cpu().numpy() for k in DET_KEYS}
-        for i, md in enumerate(batch["metadata"]):
+        metadata = [md for part in all_gather_objects(batch["metadata"]) for md in part]
+        for i, md in enumerate(metadata):
             token = md.get("token", str(n_done))
             if token in detections:
                 continue  # padded repeat at the tail
             detections[token] = {k: out[k][i] for k in DET_KEYS}
             n_done += 1
-        if logger is not None and log_every and n_done % log_every < len(batch["metadata"]):
+        if logger is not None and log_every and n_done % log_every < len(metadata):
             logger.info(f"scored {n_done} frames")
     return detections
 
@@ -90,12 +100,28 @@ def evaluate_dataset(
     logger: Optional[logging.Logger] = None,
     testset: bool = False,
     device=None,
+    out: Optional[str] = None,
+    log_every: int = 0,
 ) -> Dict:
-    """Predict + both metric paths (the in-training val phase)."""
-    detections = predict_dataset(predict, loader, logger)
-    result = dataset.evaluation(detections, output_dir=output_dir, testset=testset)
-    if not testset:
-        result = _with_kitti_style(result, dataset, detections, device)
+    """Predict (the raw detections pickled to ``out`` when given) + both
+    metric paths: the in-training val phase and the test CLIs. In a world
+    of several ranks every rank predicts its rows, rank 0 writes and
+    evaluates and returns the result, and the others return None once it is
+    done."""
+    from ..parallel.dist import get_dist_info, synchronize
+
+    detections = predict_dataset(predict, loader, logger, log_every)
+    result = None
+    if get_dist_info()[0] == 0:
+        if out:
+            with open(out, "wb") as f:
+                pickle.dump(detections, f)
+            if logger is not None:
+                logger.info(f"raw detections -> {out}")
+        result = dataset.evaluation(detections, output_dir=output_dir, testset=testset)
+        if not testset:
+            result = _with_kitti_style(result, dataset, detections, device)
+    synchronize()
     return result
 
 
@@ -125,15 +151,20 @@ def run_eval_cli(args) -> Dict:
     batch_size, testset, cpu. Runs on the CUDA card (raises without one)
     unless ``args.cpu``. The weights come from ``--torch_init`` (an npz of a
     det3d checkpoint written by ``tools/convert_second.py``) when it is given,
-    else from ``--checkpoint``, as in JAX's CLI."""
+    else from ``--checkpoint``, as in JAX's CLI. Under ``torchrun`` each rank
+    joins the group (``nccl``, one rank a card; ``gloo`` with ``--cpu``),
+    scores its rows of every global batch, and rank 0 writes ``--out``,
+    evaluates and returns the result (None on the other ranks)."""
     from ..data import DataLoader
     from ..device import resolve_device
     from ..models.builder import build_detector, eval_test_cfg
+    from ..parallel.dist import init_dist
+    from ..parallel.mesh import global_batch_size, sharded_eval_predict
     from ..utils.config import Config
     from ..utils.log import get_root_logger
     from . import checkpoint as ckpt
-    from .steps import make_predict_step
 
+    rank, world = init_dist("gloo" if args.cpu else "nccl")
     device = resolve_device("cpu" if args.cpu else None)  # raises here without a GPU
     torch_init = getattr(args, "torch_init", None)
     if not (torch_init or args.checkpoint):
@@ -146,8 +177,9 @@ def run_eval_cli(args) -> Dict:
     cfg["test_cfg"] = eval_test_cfg(cfg, logger)
     bundle = build_detector(cfg, device=device)
     dataset = build_val_dataset(cfg)
-    batch_size = args.batch_size or cfg["data"].get("samples_per_gpu", 2)
-    loader = DataLoader(dataset, batch_size, shuffle=False, drop_last=False)
+    batch_size = global_batch_size(args.batch_size, cfg, world)
+    loader = DataLoader(dataset, batch_size, shuffle=False, drop_last=False, rank=rank,
+                        world=world)
     if torch_init:
         from ..models.convert_second import apply_torch_init
 
@@ -157,17 +189,9 @@ def run_eval_cli(args) -> Dict:
         _, meta = ckpt.load_checkpoint(args.checkpoint, bundle.model)
         logger.info(f"loaded checkpoint epoch {meta.get('epoch')}")
 
-    detections = predict_dataset(
-        make_predict_step(bundle), loader, logger=logger,
-        log_every=max(len(dataset) // 10, 1),
-    )
-    if args.out:
-        with open(args.out, "wb") as f:
-            pickle.dump(detections, f)
-        logger.info(f"raw detections -> {args.out}")
-
-    result = dataset.evaluation(detections, output_dir=work_dir, testset=args.testset)
-    if not args.testset:
-        result = _with_kitti_style(result, dataset, detections, device)
+    predict = sharded_eval_predict(bundle, logger)
+    result = evaluate_dataset(predict, dataset, loader, work_dir, logger=logger,
+                              testset=args.testset, device=device, out=args.out,
+                              log_every=max(len(dataset) // 10, 1))
     logger.info(f"evaluation: {result}")
     return result

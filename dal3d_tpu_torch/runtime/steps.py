@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..models.heads.mg_head import multi_group_loss, multi_group_predict
+from ..parallel.mesh import all_reduce_gradients, reduce_logs
 
 
 def _to_device(x, device, dtype=None):
@@ -58,7 +59,11 @@ def autotuned_convs():
     BEV-map sizes is an FFT algorithm, several times slower (325 of a 403 ms
     BEVFusion predict, 400 of a 483 ms f32 CBGS predict on an H100 in
     ``chip_smoke.py``); the autotuner times the candidates on the first call
-    of each shape and keeps the fastest."""
+    of each shape and keeps the fastest. Every forward of the models' 2D
+    convs runs under it: PyTorch keys its cache of conv plans by shapes,
+    dtype, layout and the deterministic and TF32 flags, not by the
+    autotuner's flag, so a first call at a shape outside it would leave
+    the heuristic's plan to every later call there."""
     return torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=False,
                                       allow_tf32=False)
 
@@ -79,7 +84,14 @@ def make_train_step(bundle, optimizer) -> Callable[[Dict], Dict[str, torch.Tenso
     multi-group loss, back-propagates, and lets the optimizer clip and update.
     It returns 0-d tensors ``loss``, ``grad_norm`` (before the clip),
     ``num_pos``, ``loc_loss`` and ``cls_loss`` (summed over the tasks).
-    The forward and backward run under ``autotuned_convs``."""
+    The forward and backward run under ``autotuned_convs``.
+
+    In a world of several ranks (``parallel``) the batch is the rank's rows
+    of the global batch: the norms take the global batch's statistics, the
+    gradients are averaged over the ranks before the clip, and the logs are
+    the global batch's (``num_pos`` summed). The loss needs no other change:
+    it is normalised per frame and divided by the rows, so the mean over the
+    ranks is the global batch's."""
     _full_f32()
     model, dev = bundle.model, bundle.device
 
@@ -96,14 +108,15 @@ def make_train_step(bundle, optimizer) -> Callable[[Dict], Dict[str, torch.Tenso
             logs = multi_group_loss(out["preds"], labels, targets, bundle.num_classes,
                                     bundle.loss_cfg)
             logs["loss"].backward()
+        all_reduce_gradients(optimizer.params.values())
         grad_norm = optimizer.step()
-        return {
+        out = reduce_logs({
             "loss": logs["loss"].detach(),
-            "grad_norm": grad_norm,
             "num_pos": sum(logs["num_pos"]),
             "loc_loss": sum(x.detach() for x in logs["loc_loss"]),
             "cls_loss": sum(x.detach() for x in logs["cls_loss"]),
-        }
+        }, sums=("num_pos",))
+        return {**out, "grad_norm": grad_norm}
 
     return train_step
 

@@ -8,6 +8,11 @@ checkpointing, iteration timing, resume, and the val phases of the workflow
 (a ``val_fn`` every ``val_interval`` epochs and after the last).
 ``after_train_step`` is the hook a subclass runs after each train step
 (``runtime/active_trainer.py``: the estimator step).
+
+In a world of several ranks (``parallel``) every rank runs the loop on its
+rows of each global batch; rank 0 alone writes the log lines, tensorboard,
+the capacity report and the checkpoints, and every rank waits at a barrier
+after a checkpoint. ``resume`` and ``load_from`` load on every rank.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
 
+from ..parallel.dist import get_dist_info, synchronize
 from ..solver.optim import one_cycle_lr
 from . import checkpoint as ckpt
 from .steps import make_predict_step, make_train_step
@@ -75,8 +81,15 @@ class Trainer:
         self.logger.info(f"initialized model: {n_params/1e6:.2f}M params")
 
     def save(self):
-        return ckpt.save_checkpoint(self.work_dir, self.bundle.model, self.epoch,
-                                    meta={"global_step": self.step}, optimizer=self.optimizer)
+        """The epoch's checkpoint, written by rank 0; every rank then waits
+        for it. Returns its path (None on the other ranks)."""
+        path = None
+        if get_dist_info()[0] == 0:
+            path = ckpt.save_checkpoint(self.work_dir, self.bundle.model, self.epoch,
+                                        meta={"global_step": self.step},
+                                        optimizer=self.optimizer)
+        synchronize()
+        return path
 
     def resume(self, epoch: Optional[int] = None, work_dir: Optional[str] = None):
         """Resume from ``work_dir`` (defaults to the trainer's own)."""
@@ -94,11 +107,12 @@ class Trainer:
     # ------------------------------------------------------------------
     def train_epoch(self, loader: Iterable[Dict[str, Any]]):
         buf = LogBuffer()
+        primary = get_dist_info()[0] == 0
         t_data = time.perf_counter()
         for i, batch in enumerate(loader):
             data_time = time.perf_counter() - t_data
             batch = {k: v for k, v in batch.items() if k != "metadata"}
-            if not self._capacity_checked:
+            if primary and not self._capacity_checked:
                 # one-shot: a saturated brick level drops voxels silently
                 self._capacity_checked = True
                 from .capacity import log_capacity_report
@@ -110,7 +124,7 @@ class Trainer:
             logs = self.after_train_step(batch, logs)
             iter_time = time.perf_counter() - t_data
             buf.update({**logs, "data_time": data_time, "time": iter_time})
-            if (i + 1) % self.log_interval == 0:
+            if primary and (i + 1) % self.log_interval == 0:
                 avg = buf.average(self.log_interval)
                 self.tb.log(avg, self.step)
                 lr = float(self.lr_fn(self.step)) if self.lr_fn else float("nan")

@@ -14,11 +14,16 @@ On top of the reference contract this base carries the scoring hooks: a
 det_valid}`` (the predict step) + dataloader, with npz caching of the pool
 scoring pass, and the k-center helpers, which run on ``device``
 (``None`` means the CUDA card and raises without one).
+
+In a world of several ranks (``parallel``) the loader gives each rank its
+rows and the score_fn gives back the global batch's outputs
+(``parallel.mesh.data_parallel_predict``), so every rank holds the whole
+pool's scores and runs the same selection; rank 0 alone writes the buffer,
+the subset and the caches.
 """
 from __future__ import annotations
 
 import collections
-import functools
 import logging
 import os
 import random
@@ -30,19 +35,9 @@ import torch
 from ..device import resolve_device
 from ..ops.distance import pairwise_l1, pairwise_l2
 from ..ops.kcenter import kcenter_features, kcenter_matrix
+from ..parallel.dist import master_only, write_once
 from ..utils.fileio import dump, load
 from .registry import SELECTORS
-
-
-def master_only(func):
-    """Run on rank 0 only (a local check: the port is single-process until
-    its multi-GPU slice)."""
-    @functools.wraps(func)
-    def wrapper(*args, **kwargs):
-        if int(os.environ.get("RANK", "0")) == 0:
-            return func(*args, **kwargs)
-
-    return wrapper
 
 
 @SELECTORS.register_module
@@ -194,7 +189,7 @@ class BaseSelector:
         result = {k: np.concatenate(parts[k])[:n] for k in keys}
         if cache_path:
             os.makedirs(os.path.dirname(os.path.abspath(cache_path)), exist_ok=True)
-            np.savez(cache_path, **result)
+            write_once(lambda: np.savez(cache_path, **result))
             self.logger.info(f"saved pool scoring to {cache_path}")
         return result
 

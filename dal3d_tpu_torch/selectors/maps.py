@@ -28,6 +28,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.distance import pairwise_l1, pairwise_l2
+from ..parallel.dist import write_once
 
 
 def spatial_dijkstra_map(
@@ -47,7 +48,7 @@ def spatial_dijkstra_map(
     dist = sparse.csgraph.shortest_path(sparse_distances, directed=False, method="D")
     if cache_file:
         os.makedirs(os.path.dirname(os.path.abspath(cache_file)), exist_ok=True)
-        np.save(cache_file, dist)
+        write_once(lambda: np.save(cache_file, dist))
     return dist
 
 
@@ -103,7 +104,7 @@ def feature_map(features: np.ndarray, metric: str = "l2_ref",
     d = d.cpu().numpy()
     if cache_file:
         os.makedirs(os.path.dirname(os.path.abspath(cache_file)), exist_ok=True)
-        np.save(cache_file, d)
+        write_once(lambda: np.save(cache_file, d))
     return d
 
 

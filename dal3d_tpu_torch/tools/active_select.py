@@ -13,6 +13,12 @@ Flow and arguments of the JAX package's ``tools/active_select.py``:
 
 It runs on the CUDA card; ``--cpu`` is the only way onto the CPU (every
 kernel wrapper then takes its plain PyTorch version).
+
+Under ``torchrun --nproc_per_node N`` the ranks join one group (``nccl``,
+one rank a card; ``gloo`` with ``--cpu``) and shard the pool scoring: each
+rank loads and predicts its rows of every global batch (``samples_per_gpu``
+x N frames unless ``--batch_size`` names it), every rank gathers the whole
+pool's scores and runs the same selection, and rank 0 writes the files.
 """
 import argparse
 import os
@@ -53,11 +59,15 @@ def init_sample_dataset(buffer_file: str):
 def build_pool_scoring(cfg, sel_cfg, device, checkpoint, batch_size=None, logger=None):
     """(score_fn, dataloader) of a model-based selector: the pool dataset in
     test mode over ``infos_origin``, and the predict step of the detector
-    with the checkpoint's weights."""
+    with the checkpoint's weights, sharded over the ranks of a world
+    (``parallel.mesh.sharded_eval_predict``; the loader gives the rank's
+    rows of each global batch of ``batch_size`` frames)."""
     from ..data import DataLoader, NuScenesDataset
     from ..models.builder import build_detector, loader_voxelize_cfg
+    from ..parallel.dist import get_dist_info
+    from ..parallel.mesh import global_batch_size, sharded_eval_predict
     from ..runtime import checkpoint as ckpt
-    from ..runtime.steps import make_predict_step, predict_feed
+    from ..runtime.steps import predict_feed
 
     bundle = build_detector(cfg, device=device)
     # pool dataset: val pipeline, TRAIN pool infos
@@ -73,17 +83,19 @@ def build_pool_scoring(cfg, sel_cfg, device, checkpoint, batch_size=None, logger
         voxelize_host=loader_voxelize_cfg(cfg),
         test_mode=True,
     )
-    batch_size = batch_size or cfg["data"].get("samples_per_gpu", 2)
+    rank, world = get_dist_info()
+    batch_size = global_batch_size(batch_size, cfg, world)
     # one loader thread, as the JAX CLI: the sweep order of a frame is drawn
     # from numpy's global generator, so frames must be prepared in order for
     # a seed to give the same pool scores
-    loader = DataLoader(dataset, batch_size, shuffle=False, drop_last=False)
+    loader = DataLoader(dataset, batch_size, shuffle=False, drop_last=False, rank=rank,
+                        world=world)
     if not checkpoint:
         raise ValueError("model-based selector needs --checkpoint")
     _, meta = ckpt.load_checkpoint(checkpoint, bundle.model)
     if logger is not None:
         logger.info(f"loaded checkpoint epoch {meta.get('epoch')}")
-    predict = make_predict_step(bundle)
+    predict = sharded_eval_predict(bundle, logger, what="pool scoring")
 
     def score_fn(batch):
         return predict(predict_feed(batch))
@@ -93,10 +105,11 @@ def build_pool_scoring(cfg, sel_cfg, device, checkpoint, batch_size=None, logger
 
 def main(argv=None):
     args = parse_args(argv)
-    device = "cpu" if args.cpu else None
     from ..device import resolve_device
+    from ..parallel.dist import init_dist, synchronize, write_once
 
-    device = resolve_device(device)  # raises here, before any work, without a GPU
+    init_dist("gloo" if args.cpu else "nccl")
+    device = resolve_device("cpu" if args.cpu else None)  # raises here without a GPU
     random.seed(args.seed)
     np.random.seed(args.seed)
 
@@ -106,7 +119,7 @@ def main(argv=None):
 
     buffer_file = sel_cfg["buffer_file"]
     if not os.path.exists(buffer_file):
-        init_sample_dataset(buffer_file)
+        write_once(lambda: init_sample_dataset(buffer_file))
         logger.info(f"initialized empty AL buffer at {buffer_file}; run round 0 training first")
         return
 
@@ -133,7 +146,8 @@ def main(argv=None):
                                    device=device)
     )
     selector.select_samples()
-    selector.dump_file()
+    selector.dump_file()  # rank 0
+    synchronize()
     logger.info("selection complete")
 
 

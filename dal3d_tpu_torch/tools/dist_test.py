@@ -4,11 +4,14 @@
 
     python -m dal3d_tpu_torch.tools.dist_test CONFIG --checkpoint WORK_DIR [--out dets.pkl]
 
-One card, one process: the body is ``tools/test.py``'s
-(``runtime/evaluation.py::run_eval_cli``); frames sharded over several GPUs
-wait for ROADMAP A11. It runs on the CUDA card; ``--cpu`` is the only way
-onto the CPU. Beyond the JAX CLI's flags it takes ``tools/test.py``'s
-``--torch_init`` (then ``--checkpoint`` may be left out).
+The body is ``tools/test.py``'s (``runtime/evaluation.py::run_eval_cli``).
+Under ``torchrun --nproc_per_node N`` the frames of every global batch are
+sharded over the N ranks (one a card), every rank gathers the detections,
+and rank 0 writes ``--out`` and evaluates; without a launcher it runs on
+one card. It runs on the CUDA card; ``--cpu`` is the only way onto the CPU
+(with ``torchrun``, ranks on the CPU in a ``gloo`` group). Beyond the JAX
+CLI's flags it takes ``tools/test.py``'s ``--torch_init`` (then
+``--checkpoint`` may be left out).
 """
 import argparse
 

@@ -28,7 +28,15 @@ CLIs train on different augmentations of the same resampled frames (dataset,
 pipeline and loader themselves give equal batches after equal draws).
 
 It runs on the CUDA card; ``--cpu`` is the only way onto the CPU (every
-kernel wrapper then takes its plain PyTorch version).
+kernel wrapper then takes its plain PyTorch version). Under ``torchrun
+--nproc_per_node N`` it trains data parallel over N ranks (``nccl``, one
+rank a card; ``gloo`` with ``--cpu``), as JAX's CLI trains over its
+devices: the global batch is ``samples_per_gpu`` x N unless
+``--batch_size`` names it (it must divide by N), ``lr_max`` is multiplied
+by N, each rank trains on its rows of every global batch with the norms'
+statistics, the gradients and the logs taken over the global batch
+(``parallel``), and rank 0 writes the logs, checkpoints and
+``estimator.npz``.
 
 ``--torch_init NPZ`` starts from the weights of a det3d checkpoint converted
 by ``python -m dal3d_tpu_torch.tools.convert_second``; ``--resume_from`` and
@@ -45,7 +53,8 @@ partial-label dataset takes the config's top-level ``active_buffer``,
 (with ``active_flag = "start"`` it writes the seed buffer ``partial_01``).
 
 Not ported yet, refused with the ROADMAP item it waits for: ``--n_model >
-1`` (A11), and the KITTI and Lyft datasets (A9.g, raised by the factory).
+1`` (A11.b, JAX's model axis), and the KITTI and Lyft datasets (A9.g,
+raised by the factory).
 """
 import argparse
 import os
@@ -77,8 +86,8 @@ def parse_args(argv=None):
 
 def _refuse_unported(args) -> None:
     if args.n_model != 1:
-        raise NotImplementedError("--n_model > 1: the device mesh is not ported yet "
-                                  "(ROADMAP A11)")
+        raise NotImplementedError("--n_model > 1: the mesh's model axis (the BEV maps split "
+                                  "over cards) is not ported yet (ROADMAP A11.b)")
 
 
 _PARTIAL_KNOBS = ("active_buffer", "active_flag", "sample_ratio", "label_fraction",
@@ -93,10 +102,14 @@ def _budget_path(path: str, budget: str) -> str:
 def main(argv=None):
     args = parse_args(argv)
     from ..device import resolve_device
+    from ..parallel.dist import init_dist, same_numpy_draws, write_once
+    from ..parallel.mesh import global_batch_size
 
-    device = resolve_device("cpu" if args.cpu else None)  # raises here without a GPU
     _refuse_unported(args)
+    rank, world = init_dist("gloo" if args.cpu else "nccl")
+    device = resolve_device("cpu" if args.cpu else None)  # raises here without a GPU
     cfg = Config.fromfile(args.config)
+    batch_size = global_batch_size(args.batch_size, cfg, world)
 
     from ..data import DataLoader
     from ..data.dataset_factory import build_dataset
@@ -111,7 +124,7 @@ def main(argv=None):
     work_dir = cfg["work_dir"]
     os.makedirs(work_dir, exist_ok=True)
     logger = get_root_logger(os.path.join(work_dir, "train.log"), cfg.get("log_level", "INFO"))
-    logger.info(f"device: {device}")
+    logger.info(f"device: {device}" + (f", rank {rank} of {world}" if world > 1 else ""))
 
     # AL budget path rewriting: the infos, and the GT-AUG database of the
     # Preprocess stages the train pipeline builds
@@ -134,27 +147,29 @@ def main(argv=None):
         for k in _PARTIAL_KNOBS:  # the partial-label knobs live at the top level
             if cfg.get(k) is not None:
                 train_data.setdefault(k, cfg[k])
-    dataset = build_dataset(
-        train_data,
-        dataset_type=dataset_type,
-        info_path=train_data["info_path"],
-        root_path=train_data.get("root_path", ""),
-        nsweeps=train_data.get("nsweeps", 10),
-        class_names=train_data.get("class_names"),
-        pipeline=[dict(s) for s in train_data.get("pipeline", [])],
-        tasks=[dict(t) for t in cfg["tasks"]],
-        max_points=cfg.get("max_points", 300000),
-        voxelize_host=loader_voxelize_cfg(cfg),
-    )
+    with same_numpy_draws():  # every rank resamples the same frames
+        dataset = build_dataset(
+            train_data,
+            dataset_type=dataset_type,
+            info_path=train_data["info_path"],
+            root_path=train_data.get("root_path", ""),
+            nsweeps=train_data.get("nsweeps", 10),
+            class_names=train_data.get("class_names"),
+            pipeline=[dict(s) for s in train_data.get("pipeline", [])],
+            tasks=[dict(t) for t in cfg["tasks"]],
+            max_points=cfg.get("max_points", 300000),
+            voxelize_host=loader_voxelize_cfg(cfg),
+        )
     logger.info(f"dataset: {len(dataset)} frames after CBGS resampling")
 
-    batch_size = args.batch_size or cfg["data"].get("samples_per_gpu", 2)
     total_epochs = args.epochs or cfg.get("total_epochs", 20)
     steps_per_epoch = max(len(dataset) // batch_size, 1)
+    if world > 1:
+        logger.info(f"{world} ranks: global batch {batch_size}, lr_max x {world}")
 
     lr_cfg = cfg.get("lr_config", {}) or {}
     one_cycle = OneCycleSchedule(
-        lr_max=lr_cfg.get("lr_max", 0.002),
+        lr_max=lr_cfg.get("lr_max", 0.002) * world,
         moms=tuple(lr_cfg.get("moms", (0.95, 0.85))),
         div_factor=lr_cfg.get("div_factor", 10.0),
         pct_start=lr_cfg.get("pct_start", 0.4),
@@ -192,7 +207,8 @@ def main(argv=None):
         trainer = Trainer(bundle, optimizer, work_dir, **trainer_kw)
 
     def loader_fn(epoch):
-        return DataLoader(dataset, batch_size, shuffle=True, seed=epoch)
+        return DataLoader(dataset, batch_size, shuffle=True, seed=epoch, rank=rank,
+                          world=world)
 
     trainer.init_state()
     if est_cfg:
@@ -214,15 +230,17 @@ def main(argv=None):
     val_fn = val_interval = None
     workflow = cfg.get("workflow")
     if not args.no_validate and workflow and any(w[0] == "val" for w in workflow):
+        from ..parallel.mesh import data_parallel_predict
         from ..runtime.evaluation import build_val_dataset, evaluate_dataset
 
         val_interval = next((int(n) for phase, n in workflow if phase == "train"), None)
         val_dataset = build_val_dataset(cfg)
 
         def val_fn(trainer):
-            loader = DataLoader(val_dataset, batch_size, shuffle=False, drop_last=False)
-            result = evaluate_dataset(trainer.predict_step, val_dataset, loader, work_dir,
-                                      logger=logger, device=device)
+            loader = DataLoader(val_dataset, batch_size, shuffle=False, drop_last=False,
+                                rank=rank, world=world)
+            result = evaluate_dataset(data_parallel_predict(trainer.predict_step), val_dataset,
+                                      loader, work_dir, logger=logger, device=device)
             logger.info(f"val epoch {trainer.epoch}: {result}")
             return result
 
@@ -232,7 +250,7 @@ def main(argv=None):
         from ..models.convert_flax import estimator_to_flat
 
         est_path = os.path.join(work_dir, "estimator.npz")
-        np.savez(est_path, **estimator_to_flat(trainer.estimator))
+        write_once(lambda: np.savez(est_path, **estimator_to_flat(trainer.estimator)))
         logger.info(f"saved estimator params -> {est_path}")
     logger.info("training done")
     return trainer

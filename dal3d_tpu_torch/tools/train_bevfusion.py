@@ -39,8 +39,17 @@ kernel wrapper then takes its plain PyTorch version). A config with
 segmentation head beside the detector on its pipeline's
 ``LoadBEVSegmentation`` targets (``gt_masks_bev``, kept in the batch), and
 logs ``seg``. Not ported yet, refused with the ROADMAP item it waits for:
-``--n_model > 1`` (A11). A ``head="centerpoint"`` config is refused by the
-train step: JAX's CLI has no CenterPoint path (ROADMAP C.4).
+``--n_model > 1`` (A11.b, JAX's model axis). A ``head="centerpoint"``
+config is refused by the train step: JAX's CLI has no CenterPoint path
+(ROADMAP C.4).
+
+Under ``torchrun --nproc_per_node N`` it trains data parallel over N ranks
+(``nccl``, one rank a card; ``gloo`` with ``--cpu``): the global batch is
+``samples_per_gpu`` x N unless ``--batch_size`` names it (it must divide by
+N; JAX's CLI multiplies a given ``--batch_size`` by its devices too), the
+learning rate is the config's (as in JAX), each rank trains on its rows of
+every global batch (``parallel``), and rank 0 writes the log and the
+checkpoints.
 """
 import argparse
 import os
@@ -94,12 +103,15 @@ def fusion_batch(batch, tasks) -> dict:
 def main(argv=None):
     args = parse_args(argv)
     from ..device import resolve_device
+    from ..parallel.dist import init_dist, same_numpy_draws, synchronize
+    from ..parallel.mesh import global_batch_size
+    from .train import _refuse_unported
 
+    _refuse_unported(args)
+    rank, world = init_dist("gloo" if args.cpu else "nccl")
     device = resolve_device("cpu" if args.cpu else None)  # raises here without a GPU
-    if args.n_model != 1:
-        raise NotImplementedError("--n_model > 1: the device mesh is not ported yet "
-                                  "(ROADMAP A11)")
     cfg = Config.fromfile(args.config)
+    batch_size = global_batch_size(args.batch_size, cfg, world)
 
     from ..data import DataLoader
     from ..data.dataset_factory import build_dataset
@@ -121,13 +133,13 @@ def main(argv=None):
         logger.info(f"AL budget {args.budget}: training on {train_data['info_path']}")
     train_data.pop("type", None)
     tasks = [dict(t) for t in cfg["tasks"]]
-    dataset = build_dataset(
-        train_data, dataset_type=cfg.get("dataset_type", "NuScenesDataset"),
-        info_path=train_data["info_path"], root_path=train_data.get("root_path", ""),
-        nsweeps=train_data.get("nsweeps", 10), class_names=train_data.get("class_names"),
-        pipeline=[dict(s) for s in train_data.get("pipeline", [])], tasks=tasks,
-        max_points=cfg.get("max_points", 300000), voxelize_host=loader_voxelize_cfg(cfg))
-    batch_size = args.batch_size or cfg["data"].get("samples_per_gpu", 2)
+    with same_numpy_draws():  # every rank resamples the same frames
+        dataset = build_dataset(
+            train_data, dataset_type=cfg.get("dataset_type", "NuScenesDataset"),
+            info_path=train_data["info_path"], root_path=train_data.get("root_path", ""),
+            nsweeps=train_data.get("nsweeps", 10), class_names=train_data.get("class_names"),
+            pipeline=[dict(s) for s in train_data.get("pipeline", [])], tasks=tasks,
+            max_points=cfg.get("max_points", 300000), voxelize_host=loader_voxelize_cfg(cfg))
     total_epochs = args.epochs or cfg.get("total_epochs", 20)
     steps = max(len(dataset) // batch_size, 1) * total_epochs
     optimizer = bevfusion_optimizer(cfg, bundle, steps)
@@ -161,17 +173,20 @@ def main(argv=None):
     interval = (cfg.get("log_config", {}) or {}).get("interval", 5)
     logs = {}
     for epoch in range(start, total_epochs):
-        for i, batch in enumerate(DataLoader(dataset, batch_size, shuffle=True, seed=epoch)):
+        for i, batch in enumerate(DataLoader(dataset, batch_size, shuffle=True, seed=epoch,
+                                             rank=rank, world=world)):
             logs = step(fusion_batch(batch, tasks))
-            if (i + 1) % interval == 0:
+            if rank == 0 and (i + 1) % interval == 0:
                 lg = {k: float(v) for k, v in logs.items()}
                 logger.info(
                     f"Epoch [{epoch + 1}][{i + 1}] loss {lg['loss']:.4f} (cls "
                     f"{lg['cls_loss']:.3f} reg {lg['reg_loss']:.3f} hm {lg['heatmap_loss']:.3f} "
                     f"seg {lg['seg_loss']:.3f}) matched {int(lg['num_matched'])} grad_norm "
                     f"{lg['grad_norm']:.2f}")
-        ckpt.save_checkpoint(work_dir, bundle.model, epoch + 1,
-                             meta={"global_step": optimizer.count}, optimizer=optimizer)
+        if rank == 0:
+            ckpt.save_checkpoint(work_dir, bundle.model, epoch + 1,
+                                 meta={"global_step": optimizer.count}, optimizer=optimizer)
+        synchronize()
         logger.info(f"saved epoch {epoch + 1}")
     logger.info("training done")
     return {"bundle": bundle, "optimizer": optimizer,

@@ -1,10 +1,14 @@
-"""Root logger setup (own copy of ``dal3d_tpu/utils/log.py``; single
-process, so the file handler is always attached, also when an earlier call
-in the same process set the logger up without it or with another file)."""
+"""Root logger setup (own copy of ``dal3d_tpu/utils/log.py``). Rank 0 of a
+process group, or a process without one, logs to the stream and to the
+file, which is attached also when an earlier call in the same process set
+the logger up without it or with another file; the other ranks log errors
+only, to the stream."""
 from __future__ import annotations
 
 import logging
 import os
+
+from ..parallel.dist import get_dist_info
 
 
 def get_root_logger(log_file: str | None = None, log_level: int | str = logging.INFO) -> logging.Logger:
@@ -18,6 +22,9 @@ def get_root_logger(log_file: str | None = None, log_level: int | str = logging.
         logger.addHandler(sh)
         logger.setLevel(log_level)
         logger.propagate = False
+    if get_dist_info()[0] != 0:
+        logger.setLevel(logging.ERROR)
+        return logger
     if log_file is not None:
         path = os.path.abspath(log_file)
         for h in [h for h in logger.handlers if isinstance(h, logging.FileHandler)]:

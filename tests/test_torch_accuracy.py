@@ -143,6 +143,82 @@ def overfit(device, steps: int = STEPS):
     return {k: float(v) for k, v in logs.items()}, bundle, batch, out, res
 
 
+# the twin through the port's CLIs: the scene as a 2-frame pool (one lidar
+# file a frame, no sweeps) and the twin's model as a config
+TWIN_PIPELINE = [dict(type="LoadPointCloudFromFile", dataset="NuScenesDataset"),
+                 dict(type="LoadPointCloudAnnotations", with_bbox=True),
+                 dict(type="Preprocess", cfg=dict(mode="val", shuffle_points=False)),
+                 dict(type="ReformatFixedShape")]
+
+
+def write_scene_pool(root: str) -> str:
+    """The scene's two frames in the nuScenes infos schema under ``root``:
+    each frame's valid points as a lidar file (x, y, z, 0, 0), no sweeps, its
+    GT boxes. A config with ``nsweeps=1`` and raw points
+    (``twin_config``) loads exactly ``scene_batch``'s points. Returns the
+    infos path."""
+    import os
+    import pickle
+
+    frames, _ = scene_batch()
+    lidar_dir = os.path.join(root, "samples", "LIDAR_TOP")
+    os.makedirs(lidar_dir, exist_ok=True)
+    infos = []
+    for b, (pts, valid, gt, cls) in enumerate(frames):
+        token = f"twin{b}"
+        path = os.path.join(lidar_dir, f"{token}.pcd.bin")
+        pts[valid].astype(np.float32).tofile(path)
+        boxes = gt[cls > 0]
+        infos.append({
+            "lidar_path": path, "token": token, "sweeps": [],
+            "cam_front_path": os.path.join(
+                root, "samples", "CAM_FRONT",
+                f"n008-2018-01-01-00-00-00-0400__CAM_FRONT__{1531883530412470 + b}.jpg"),
+            "ref_from_car": np.eye(4), "car_from_global": np.eye(4),
+            "timestamp": 1531883530.412470 + b * 0.5, "gt_boxes": boxes,
+            "gt_boxes_velocity": np.zeros((len(boxes), 3), np.float32),
+            "gt_names": np.asarray(["car"] * len(boxes)),
+            "gt_boxes_token": np.asarray([f"{token}_gt{i}" for i in range(len(boxes))])})
+    info_path = os.path.join(root, "infos_train_twin.pkl")
+    with open(info_path, "wb") as f:
+        pickle.dump(infos, f)
+    return info_path
+
+
+def twin_config(info_path: str) -> dict:
+    """``make_bundle``'s model, grid, anchors and test settings as a config
+    of the port's builders (``build_detector`` builds the same module
+    names and shapes), fed raw points from ``write_scene_pool``'s pool."""
+    return dict(
+        tasks=TASKS, target_assigner=dict(anchor_generators=GENS),
+        box_coder=dict(type="ground_box3d_coder", n_dim=9, linear_dim=False,
+                       encode_angle_vector=True),
+        model=dict(type="FPNVoxelNet", reader=dict(num_input_features=5),
+                   backbone=dict(impl="banded", dtype="float32", brick_widths=(8, 8, 8, 4, 4),
+                                 banded_caps=(1024, 1024, 512, 256, 256)),
+                   neck=dict(ds_num_filters=(32, 64), us_num_filters=(32, 32))),
+        voxel_generator=dict(range=list(VCFG.point_cloud_range),
+                             voxel_size=list(VCFG.voxel_size),
+                             max_points_in_voxel=VCFG.max_points_in_voxel,
+                             max_voxel_num=VCFG.max_voxel_num),
+        voxelize_host=False,
+        test_cfg=dict(nms=dict(nms_pre_max_size=32, nms_post_max_size=8),
+                      score_threshold=0.3),
+        max_points=2600,
+        data=dict(samples_per_gpu=2, val=dict(
+            type="NuScenesDataset", root_path="", info_path=info_path, nsweeps=1,
+            class_names=["car"], test_mode=True, pipeline=TWIN_PIPELINE)))
+
+
+def write_twin_config(path: str, info_path: str, **extra) -> str:
+    """``twin_config`` as a config file, with ``extra`` top-level keys (a
+    selector, a work_dir)."""
+    with open(path, "w") as f:
+        for k, v in {**twin_config(info_path), **extra}.items():
+            f.write(f"{k} = {v!r}\n")
+    return path
+
+
 def test_overfit_reaches_detection_map():
     device = "cuda" if torch.cuda.is_available() else "cpu"
     logs, _, _, _, res = overfit(device)

@@ -1434,3 +1434,67 @@ def test_engine_predict_on_card_matches_cpu(cuda, impl):  # noqa: F811
             assert torch.allclose(gs[go], cs_[co], rtol=1e-4, atol=1e-5)
             assert torch.allclose(out["cuda"]["box3d_lidar"][b][gv][go],
                                   out["cpu"]["box3d_lidar"][b][cv][co], rtol=1e-4, atol=1e-4)
+
+
+def test_data_parallel_step_on_card(cuda, tmp_path, monkeypatch):  # noqa: F811
+    """The small CBGS train step (banded engine, f32) on the card: (a) in a
+    world of 1 on NCCL started by ``init_dist`` from torchrun's variables,
+    bit-equal to the step with no group where the no-group step repeats bit
+    for bit (else within twice the repeat's gap); (b) in a world of 2 gloo
+    processes on this card, each rank on 2 rows of a 4-frame batch, against
+    the no-group step on the 4 frames within twice the gap one ulp on the
+    voxel features opens (tests/torch_dist_worker.py::check_step_floor: on
+    the card rounding alone moves this step's gradient by percents, as
+    phase 10 of chip_smoke.py shows; a world of 2 with one frame a rank
+    strayed 1.6e-2 of the norm from the CPU's step while the no-group card
+    step stayed within 2.8e-5, at a one-ulp floor of 2e-5)."""
+    import socket
+
+    import torch.distributed as dist
+
+    import torch_dist_worker as w
+    from dal3d_tpu_torch.parallel.dist import init_dist
+
+    ref = w.cbgs_step(0, 1, "banded", device="cuda")
+    again = w.cbgs_step(0, 1, "banded", device="cuda")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                     MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    try:
+        assert init_dist("nccl") == (0, 1) and dist.get_backend() == "nccl"
+        one = w.cbgs_step(0, 1, "banded", device="cuda")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if w.same_step(ref, again):
+        assert w.same_step(one, ref)
+    else:
+        for n, g in ref["grads"].items():
+            assert np.abs(one["grads"][n] - g).max() <= 2 * np.abs(again["grads"][n] - g).max()
+    ref4 = w.cbgs_step(0, 1, "banded", device="cuda", frames=4)
+    nudged = w.cbgs_step(0, 1, "banded", device="cuda", frames=4, nudge=1e-7)
+    ranks = w.join_world(w.start_world(2, str(tmp_path / "world"), [
+        ("step", "cbgs_step", {"impl": "banded", "device": "cuda", "frames": 4})]), timeout=300)
+    for r in ranks:
+        print(w.check_step_floor(w.result(r, "step"), ref4, nudged))
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two or more cards")
+def test_data_parallel_step_over_cards(cuda, tmp_path):  # noqa: F811
+    """The small CBGS train step in an NCCL world of one rank a card (up to
+    4), each rank on its rows of a 4-frame batch, against one process on
+    the 4 frames, within tests/torch_dist_worker.py::check_step_floor's
+    tolerances."""
+    import torch_dist_worker as w
+
+    n = min(4, torch.cuda.device_count())
+    ref = w.cbgs_step(0, 1, "banded", device="cuda", frames=4)
+    nudged = w.cbgs_step(0, 1, "banded", device="cuda", frames=4, nudge=1e-7)
+    ranks = w.join_world(w.start_world(n, str(tmp_path / "world"), [
+        ("step", "cbgs_step", {"impl": "banded", "device": "cuda", "frames": 4})],
+        backend="nccl"), timeout=300)
+    for r in ranks:
+        print(w.check_step_floor(w.result(r, "step"), ref, nudged))
