@@ -30,9 +30,10 @@ converted Swin), BEVFusion's other heads (map segmentation on the fused map,
 trained beside the detector; the CenterPoint head's decode and loss), and
 the CBGS model on the gather engine (predict, train step, the synthetic
 configs through the CLIs), the CBGS backbone's other engines (brick,
-hybrid, dense, and the searchsorted plans), and data parallelism over
+hybrid, dense, and the searchsorted plans), data parallelism over
 ``torch.distributed`` ranks (a world of 1 on NCCL, a world of 2 gloo
-processes on the one card).
+processes on the one card), and the FPS and FLOP tools, the Lyft and KITTI
+sets through the training CLI and their evaluations, and PointPillars.
 Phases, each fatal on failure:
 
   1. versions of torch / CUDA / nvcc and the card (nvidia-smi);
@@ -275,14 +276,34 @@ Phases, each fatal on failure:
      deterministic algorithms, in every process) and on the overfit twin (a
      frame a rank), each with its detections equal as sets to one
      process's, an epoch of ``train_bevfusion`` with phase 18's launches a
-     step.
+     step;
+ 25. the tools, the other datasets and PointPillars: ``tools/benchmark.py``
+     (the predict FPS harness) on configs/cbgs_spatial_temporal.py with its
+     defaults, in this process (one predict's K1 / K2 launches held against
+     their plain versions, then the counters set to 0 around its 3 + 20
+     predicts: 42 K1 and 1 K2 each; its ms/iter, scans/s and device ms, the
+     FLOPs of its forward from ``utils/flops.py`` split dense / sparse, its
+     sparse convs' hits equal to the same forward's on the CPU, and the
+     TFLOP/s on the device time); ``tools/get_flops.py`` on that config
+     and on configs/bevfusion_lidar.py, on the card and with ``--cpu``
+     (parameters, hits and FLOPs equal); ``train`` on 4 of phase 15's frames
+     as a Lyft set (configs/cbgs_synthetic.py typed LYFT, six extra stages
+     after Preprocess; its K4 / K4-dW launches held against their plain
+     versions) and as a KITTI set (``make_synthetic_kitti``: 4 point
+     features, camera-frame labels), two iterations each, then each set's
+     ``evaluation`` of the trained checkpoint's detections and of oracle
+     detections, the IoUs on the card and on the CPU giving the same
+     metrics, with their launches; PointPillars at the reference's widths
+     (0.2 m pillars over +-51.2 m, PFN (64,), RPN (3, 5, 5)) on phase 3's
+     clouds, card against CPU with TF32 off (1e-4 of scale), its device ms
+     and peak memory.
 
 Kernel times are device times per call (``cuda_time_ms``: the launches
 queued behind a device-side sleep, so that the host's enqueue is not timed);
 host microseconds per call are printed apart where they matter (K1, K5, the
-gather-GEMM's plans). Prints the whole run's seconds, a ``kernels`` JSON
-line, the nvidia-smi line, and as its last line
-``{"ok": true, "device": {...}}``. Exits nonzero, printing no result, when no
+gather-GEMM's plans). Prints each phase's seconds as it ends, the whole
+run's seconds, a ``kernels`` JSON line, the nvidia-smi line, and as its last
+line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result, when no
 GPU is present or the port cannot be imported.
 """
 from __future__ import annotations
@@ -570,6 +591,14 @@ class Capture:
 
 def main() -> None:
     t_start = time.perf_counter()
+    t_last = [t_start]
+
+    def clock(phases: str) -> None:
+        """The seconds of the phases just run, and of the whole run so far."""
+        now = time.perf_counter()
+        print(f"[phase {phases}: {now - t_last[0]:.1f} s; whole run {now - t_start:.1f} s]",
+              flush=True)
+        t_last[0] = now
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     try:
@@ -620,6 +649,8 @@ def main() -> None:
     print(f"model: {sum(p.numel() for p in bundle.model.parameters())} parameters, "
           f"backbone {bundle.model.backbone.l0.stem.dtype}, caps {bundle.model.backbone.caps}, "
           f"widths {bundle.model.backbone.widths}")
+
+    clock("1-2")
 
     # 3. every launch of one predict against the plain version ---------------
     with Capture(bd, "banded_conv") as k1, Capture(tiou, "iou_matrix") as k2:
@@ -728,9 +759,13 @@ def main() -> None:
           f"{k2_syn_all:.4f} ms; pairs {checks}; on a 40 m grid of the same boxes (only the "
           f"diagonal survives) {k2_grid_ms:.4f} ms")
 
+    clock("3")
+
     # 4. small f32 predict: card (kernels) vs CPU (plain versions) -------------
     small = small_f32_parity(Config, build_detector, make_predict_step)
     print(f"small f32 predict, card vs CPU: {small}")
+
+    clock("4")
 
     # 5. the main path ----------------------------------------------------------
     bd.banded_conv.launches = 0
@@ -770,24 +805,38 @@ def main() -> None:
     stage_split(bundle, batch, multi_group_predict, greedy_nms_from_iou, tiou)
     device_profile(lambda: predict(batch), "predict", ms_med)
 
+    clock("5")
+
     # 6. distance kernels against their plain versions ---------------------------
     dist = distance_kernels_check(dev)
+
+    clock("6")
 
     # 7. one selection round at full width, through the CLI ------------------------
     with tempfile.TemporaryDirectory(prefix="dal3d_smoke_") as tmp:
         round_launches = selection_round(tmp, dev)
 
+        clock("7")
+
         # 8. selection at nuScenes-train size ---------------------------------------
         train_launches, train_maps = train_size_selection(tmp, dev)
+
+        clock("8")
 
         # 9. the weight-gradient kernel and the banded backward ----------------------
         k3 = weight_gradient_check(cfg, vf, vc, vv, dev)
 
+        clock("9")
+
         # 10. small f32 train step: card (kernels) vs CPU (plain versions) -----------
         print(f"small f32 train step, card vs CPU: {small_f32_train_parity(Config)}")
 
+        clock("10")
+
         # 11. the training CLI at full width -----------------------------------------
         cli, train_paths = training_run(tmp, dev)
+
+        clock("11")
 
         # 12-14. BEVFusion lidar-only predict at full width (K4, K5) ------------------
         counters = (bd.banded_conv, bd.banded_dw, tiou.iou_matrix, td.pairwise_l1,
@@ -795,41 +844,66 @@ def main() -> None:
                     tl.linear_sum_assignment, tg.gather_gemm_bf16, tg.gather_dw_bf16)
         gather = bevfusion_main_path(tmp, Config, counters, tg, bd)
 
+        clock("12-14")
+
         # the overfit twin of phase 16 trains in a process of its own meanwhile
         twin_proc = start_twin(tmp)
 
         # 15. two AL rounds through the CLIs: data, GT-AUG, train + val, eval -------
         loop_launches, loop = al_loop(tmp, dev, counters)
 
+        clock("15")
+
         # 16. raw points: device voxelizer, predicts, PPAL / CALD, torch_init, overfit
         raw = raw_points_phase(tmp, dev, Config, counters,
                                {"CBGS": ms_med, "BEVFusion": gather["predict_ms"]}, loop,
                                bd, tiou, tg, twin_proc)
 
+        clock("16")
+
         # 17. the partial-label round: ActiveTrainer, exclude_buffer, round 2
         twin = raw.pop("twin")
         partial = partial_phase(tmp, dev, loop, counters, bd, tiou, twin)
 
+        clock("17")
+
         # 18. BEVFusion training: K4 dX, K4-dW, K5's backward, LSA, the step, the CLI
         bftrain = bevfusion_train_phase(tmp, Config, counters, loop, tg, tl)
+
+        clock("18")
 
         # 19. BEVFusion stage 2 (camera + lidar): predict, train step, the CLI
         stage2 = camera_lidar_phase(tmp, Config, counters, tg, tl, bftrain["work_dir"])
 
+        clock("19")
+
         # 20. BEVFusion's map segmentation and CenterPoint heads, the map-seg CLI
         heads = other_heads_phase(tmp, Config, counters, tg, tl)
+
+        clock("20")
 
         # 21. the CBGS backbone on the gather engine: predict, train step, the CLIs
         cbgs_g = cbgs_gather_phase(tmp, Config, counters, tg, tiou)
 
+        clock("21")
+
         # 22. the brick, hybrid, dense and searchsorted engines; a hybrid CLI round
         engines = engines_phase(tmp, Config, counters, tg, bd, tiou)
+
+        clock("22")
 
         # 23. the gather and hybrid engines in bf16: K4 and K4-dW in bf16
         bf16 = bf16_engines_phase(Config, counters, tg, bd, tiou, cbgs_g.pop("f32_ref"))
 
+        clock("23")
+
         # 24. data parallel on the one card: a world of 1 on NCCL, of 2 on gloo
         dp = data_parallel_phase(tmp, train_paths, loop, twin, counters)
+        clock("24")
+
+        # 25. the FPS and FLOP tools, the KITTI and Lyft sets, PointPillars
+        tools = tools_datasets_pillars_phase(tmp, loop, counters, smi_line)
+        clock("25")
 
     # kernels line, card line, result -------------------------------------------
     kernels = [
@@ -919,6 +993,11 @@ def main() -> None:
                 k[f"launches_{eng}_{path}"] = engines[eng][f"launches_{path}"][k["name"]]
         k["launches_sorted_engine"] = engines["sorted"]["launches"][k["name"]]
         k["launches_data_parallel"] = dp["launches"][k["name"]]
+        k["launches_fps_harness"] = tools["fps"]["launches"][k["name"]]
+        for tag in ("Lyft", "KITTI"):
+            k[f"launches_{tag.lower()}_train"] = tools["sets"][tag]["launches_train"][k["name"]]
+            k[f"launches_{tag.lower()}_predict"] = tools["sets"][tag]["launches_predict"][
+                k["name"]]
         for eng in ("gather", "hybrid"):
             for path in ("predict", "train"):
                 k[f"launches_bf16_{eng}_{path}"] = bf16[eng][f"launches_{path}"][k["name"]]
@@ -7323,6 +7402,329 @@ def data_parallel_phase(tmp: str, train_paths: dict, loop: dict, twin: dict, cou
           f"{ranks[0]['launches_bev']} (phase 18's per step); logs {ranks[0]['bev_logs']}")
     print(f"phase 24 (data parallel): {time.perf_counter() - t_phase:.1f} s; launches {launches}")
     return dict(launches=launches, step_ms=step_ms, reduce_ms=red_dev)
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the FPS and FLOP tools, the KITTI and Lyft datasets, PointPillars
+# ---------------------------------------------------------------------------
+FPS_ITERS, FPS_WARMUP = 20, 3  # tools/benchmark.py's defaults (B=2, 250000 points)
+SET_FRAMES = 4  # phase 15's frames a dataset of (c) trains on: 2 iterations at B=2
+PILLARS_RANGE = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
+PILLARS_VOXEL = (0.2, 0.2, 8.0)  # 512 x 512 pillars
+PILLARS_MAX = 60000  # det3d's nuScenes PointPillars test-time pillar cap
+PILLARS_TOL = 1e-4  # of scale: the f32 maps card vs CPU, TF32 off, as phase 4's maps
+
+
+def fps_harness(counters, smi_line: str) -> dict:
+    """(a) ``tools/benchmark.py`` on the production config with its
+    defaults, in this process: one predict's K1 / K2 launches held against
+    their plain versions first, then the counters set to 0 around the
+    harness's 23 predicts (42 K1 and 1 K2 each); then the FLOPs of one of
+    those predicts' forwards (``utils/flops.py``), each sparse conv's hits
+    equal to those of the same forward on the CPU, and the TFLOP/s on the
+    harness's device time."""
+    from dal3d_tpu_torch.models.builder import build_detector
+    from dal3d_tpu_torch.ops import banded as bd
+    from dal3d_tpu_torch.ops import iou_matrix as tiou
+    from dal3d_tpu_torch.tools import benchmark
+    from dal3d_tpu_torch.utils.config import Config
+    from dal3d_tpu_torch.utils.flops import count_forward_flops
+
+    cfg_path = os.path.join(ROOT, "configs", "cbgs_spatial_temporal.py")
+    with Capture(bd, "banded_conv") as k1, Capture(tiou, "iou_matrix") as k2:
+        benchmark.main([cfg_path, "--warmup", "0", "--iters", "1"])
+    if (len(k1.calls), len(k2.calls)) != (K1_PER_PREDICT, K2_PER_PREDICT):
+        fail(f"the harness's predict launched K1 {len(k1.calls)}x, K2 {len(k2.calls)}x")
+    held = {**hold_banded("FPS harness predict", k1.calls),
+            "iou_matrix": hold_launches("FPS harness predict", k2=k2.calls)["iou_matrix"]}
+    del k1, k2
+    for c in counters:
+        c.launches = 0
+    res = benchmark.main([cfg_path, "--iters", str(FPS_ITERS), "--warmup", str(FPS_WARMUP)])
+    runs = FPS_ITERS + FPS_WARMUP
+    launches = main_path_launches(counters, "FPS harness", runs,
+                                  dict(banded_conv=K1_PER_PREDICT, iou_matrix=K2_PER_PREDICT))
+    bundle = build_detector(Config.fromfile(cfg_path), seed=0)
+    pts = torch.from_numpy(benchmark.benchmark_clouds(B, 250_000))
+    valid = torch.ones(pts.shape[:2], dtype=torch.bool)
+    count = count_forward_flops(bundle.model, dict(points=pts.cuda(), points_valid=valid.cuda()))
+    tflops = count.total / (res["device_ms"] * 1e-3) / 1e12
+    # the same forward on the CPU (plain versions), same weights and clouds:
+    # every sparse conv's hits integer-equal to the card's
+    t_cpu = time.perf_counter()
+    cpu_model = build_detector(Config.fromfile(cfg_path), device="cpu", seed=0).model
+    cpu_model.load_state_dict(bundle.model.state_dict())
+    cpu = count_forward_flops(cpu_model, dict(points=pts, points_valid=valid))
+    if cpu.sparse_convs != count.sparse_convs or cpu.dense != count.dense:
+        bad = [(c, g) for c, g in zip(count.sparse_convs, cpu.sparse_convs) if c != g]
+        fail(f"harness forward's FLOP count: card != CPU (dense {count.dense} vs {cpu.dense}; "
+             f"{len(count.sparse_convs)} vs {len(cpu.sparse_convs)} sparse convs, first "
+             f"differing (card, CPU): {bad[:2]})")
+    print(f"  the harness forward's count on the CPU: the {len(cpu.sparse_convs)} sparse convs' "
+          f"{cpu.hits} hits and the dense FLOPs equal the card's "
+          f"({time.perf_counter() - t_cpu:.1f} s)")
+    del cpu_model
+    print(f"  FPS harness (configs/cbgs_spatial_temporal.py, B={B}, 250000 points, "
+          f"{FPS_WARMUP} + {FPS_ITERS} predicts): {res['ms_per_iter']:.2f} ms/iter, "
+          f"{res['scans_per_s']:.3f} scans/s, device {res['device_ms']:.3f} ms a predict; "
+          f"launches {launches['banded_conv']} K1, {launches['iou_matrix']} K2 "
+          f"({K1_PER_PREDICT} and {K2_PER_PREDICT} a predict) | {smi_line}")
+    print(f"  FLOPs of one harness forward: {count.total / 1e9:.3f} GFLOP (dense "
+          f"{count.dense / 1e9:.3f}, sparse {count.sparse / 1e9:.3f} on {count.hits} hits; by "
+          "stage " + ", ".join(f"{k} {sum(v) / 1e9:.3f}" for k, v in count.stages.items())
+          + f") -> {tflops:.3f} TFLOP/s on the {res['device_ms']:.3f} ms device time")
+    return dict(res, launches=launches, held=held, flops=count.total, dense=count.dense,
+                sparse=count.sparse, tflops=tflops)
+
+
+def flops_card_vs_cpu() -> dict:
+    """(b) ``tools/get_flops.py`` on the production CBGS config and on
+    BEVFusion lidar-only, on the card and with ``--cpu``: parameters, hits
+    and FLOPs equal."""
+    from dal3d_tpu_torch.tools import get_flops
+
+    out = {}
+    for name in ("cbgs_spatial_temporal.py", "bevfusion_lidar.py"):
+        path = os.path.join(ROOT, "configs", name)
+        t0 = time.perf_counter()
+        card = get_flops.main([path])
+        t1 = time.perf_counter()
+        cpu = get_flops.main([path, "--cpu"])
+        for k in ("params", "flops", "dense", "sparse", "hits", "sparse_convs"):
+            if card[k] != cpu[k]:
+                fail(f"get_flops {name}: {k} on the card {card[k]} != --cpu {cpu[k]}")
+        out[name] = card
+        print(f"  get_flops {name}: {card['params']} parameters, {card['flops'] / 1e9:.3f} "
+              f"GFLOP, {card['hits']} hits; the card's count equal to --cpu's ({t1 - t0:.1f} s "
+              f"on the card, {time.perf_counter() - t1:.1f} s with --cpu)")
+    return out
+
+
+def write_set_config(path: str, dataset_type: str, info: str, work_dir: str,
+                     extra: str = "") -> None:
+    """configs/cbgs_synthetic.py (the gather engine, f32) on ``info`` as a
+    ``dataset_type`` set, classes of its CBGS resampling ``car`` alone."""
+    with open(path, "w") as f:
+        f.write(f"import copy, sys\nsys.path.insert(0, {os.path.join(ROOT, 'configs')!r})\n"
+                "from cbgs_synthetic import *  # noqa: F401,F403\n"
+                "data = copy.deepcopy(data)\nmodel = copy.deepcopy(model)\n"
+                f"dataset_type = {dataset_type!r}\n"
+                f"data['train'].update(type={dataset_type!r}, info_path={info!r}, root_path='', "
+                "class_names=['car'])\n"
+                f"data['val'].update(type={dataset_type!r}, info_path={info!r}, root_path='')\n"
+                f"work_dir = {work_dir!r}\n" + extra)
+
+
+def set_detections(cfg_path: str, counters) -> tuple:
+    """The trained checkpoint's detections on the config's set in test mode,
+    fed by the factory's dataset and the loader; and oracle detections (the
+    GT boxes of the dataset's classes, moved about 0.1 m in x and y, random
+    scores). Returns (dataset, detections, oracle detections, launches)."""
+    from dal3d_tpu_torch.data import DataLoader
+    from dal3d_tpu_torch.data.dataset_factory import build_dataset
+    from dal3d_tpu_torch.data.datasets.kitti import camera_to_lidar_boxes
+    from dal3d_tpu_torch.models.builder import build_detector, loader_voxelize_cfg
+    from dal3d_tpu_torch.runtime import checkpoint as ckpt
+    from dal3d_tpu_torch.runtime.evaluation import predict_dataset
+    from dal3d_tpu_torch.runtime.steps import make_predict_step
+    from dal3d_tpu_torch.utils.config import Config
+
+    cfg = Config.fromfile(cfg_path)
+    val = dict(cfg["data"]["val"])
+    ds = build_dataset(val, dataset_type=cfg["dataset_type"], info_path=val["info_path"],
+                       pipeline=[dict(s) for s in val["pipeline"]],
+                       tasks=[dict(t) for t in cfg["tasks"]], test_mode=True,
+                       max_points=cfg.get("max_points", 300000),
+                       voxelize_host=loader_voxelize_cfg(cfg), nsweeps=val.get("nsweeps", 1))
+    bundle = build_detector(cfg)
+    ckpt.load_checkpoint(cfg["work_dir"], bundle.model)
+    for c in counters:
+        c.launches = 0
+    dets = predict_dataset(make_predict_step(bundle), DataLoader(ds, B, shuffle=False,
+                                                                  drop_last=False))
+    launches = {c.__name__: c.launches for c in counters}
+    rng = np.random.RandomState(9)
+    names = list(ds.class_names)
+    oracle = {}
+    for token, det in dets.items():
+        d = {k: v.copy() for k, v in det.items()}
+        d["det_valid"][:] = False
+        oracle[token] = d
+    for info in ds.infos:
+        if "annos" in info:  # KITTI: the labels in the lidar frame
+            sub = {k: np.asarray(v)[np.asarray(info["annos"]["name"]) != "DontCare"]
+                   for k, v in info["annos"].items()}
+            boxes, gnames, token = (camera_to_lidar_boxes(sub, info["calib"]), sub["name"],
+                                    str(info["image_idx"]))
+        else:
+            boxes, gnames, token = (np.asarray(info["gt_boxes"]), np.asarray(info["gt_names"]),
+                                    info["token"])
+        keep = [j for j, nm in enumerate(gnames) if nm in names][:oracle[token]["scores"].size]
+        d = oracle[token]
+        n = len(keep)
+        d["box3d_lidar"][:n] = boxes[keep] + rng.normal(0, 0.1, (n, 9)) * [1, 1, 0, 0, 0, 0,
+                                                                              0, 0, 0]
+        d["label_preds"][:n] = [names.index(gnames[j]) for j in keep]
+        d["scores"][:n] = rng.uniform(0.2, 1.0, n)
+        d["det_valid"][:n] = True
+    return ds, dets, oracle, launches
+
+
+def datasets_through_train(tmp: str, loop: dict, counters) -> dict:
+    """(c) the ``train`` CLI on two set types of phase 15's frames: Lyft
+    (LyftDataset with six extra stages after Preprocess) and KITTI (the
+    frames written as KITTI by ``make_synthetic_kitti``, 4 point features);
+    two iterations each, the K4 / K4-dW launches of one Lyft run held against
+    their plain versions; each set's ``evaluation`` on the trained
+    checkpoint's detections and on oracle detections with the IoUs on the
+    card and on the CPU: the same metrics."""
+    from dal3d_tpu_torch.data.datasets.synthetic import make_synthetic_kitti
+    from dal3d_tpu_torch.ops import gather as tg
+    from dal3d_tpu_torch.tools import train
+    from dal3d_tpu_torch.utils.fileio import dump, load
+
+    base = os.path.join(tmp, "sets")
+    os.makedirs(base)
+    frames = [i for i in load(loop["info_train"]) if "car" in list(i["gt_names"])][:SET_FRAMES]
+    if len(frames) < SET_FRAMES:
+        fail(f"phase 15's set has {len(frames)} frames with a car; {SET_FRAMES} needed")
+    nusc = os.path.join(base, "frames.pkl")
+    dump(frames, nusc)
+    kitti = make_synthetic_kitti(nusc, os.path.join(base, "kitti"))
+    extra_lyft = (
+        "_r = [-8.0, -8.0, -3.0, 8.0, 8.0, 1.0]\n"
+        "data['train']['pipeline'] = train_pipeline[:3] + [\n"
+        "    dict(type='GlobalRotScaleTrans', rot_lim=(-0.3925, 0.3925)),\n"
+        "    dict(type='RandomFlip3D'), dict(type='PointsRangeFilter', point_cloud_range=_r),\n"
+        "    dict(type='ObjectRangeFilter', point_cloud_range=_r),\n"
+        "    dict(type='ObjectNameFilter', classes=class_names),\n"
+        "    dict(type='PointShuffle')] + train_pipeline[3:]\n")
+    extra_kitti = ("model['reader']['num_input_features'] = 4\n"
+                   "model['backbone']['num_input_features'] = 4\n")
+    out = {}
+    for tag, dtype, info, extra in (("Lyft", "LYFT", nusc, extra_lyft),
+                                    ("KITTI", "KITTI", kitti, extra_kitti)):
+        cfg_path = os.path.join(base, f"{tag.lower()}.py")
+        work = os.path.join(base, f"work_{tag.lower()}")
+        write_set_config(cfg_path, dtype, info, work, extra)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        with Capture(tg, "_launch_gemm") as k4, Capture(tg, "_launch_dw") as dw:
+            trainer = train.main([cfg_path, "--epochs", "1", "--no_validate", "--seed", "0"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        steps = trainer.step
+        del trainer
+        l_train = main_path_launches(counters, f"{tag} train CLI", steps,
+                                     dict(gather_gemm=K4_PER_PREDICT + 20,
+                                          gather_dw=K4_PER_PREDICT))
+        if tag == "Lyft":  # the comparison's launches come after the count
+            held = hold_launches("Lyft train CLI", k4.calls, dw.calls)
+        del k4, dw
+        if steps != SET_FRAMES // B:
+            fail(f"{tag} train CLI ran {steps} steps; {SET_FRAMES // B} expected")
+        t0 = time.perf_counter()
+        ds, dets, oracle, l_pred = set_detections(cfg_path, counters)
+        pred_s = time.perf_counter() - t0
+        batches = -(-len(ds) // B)
+        want = {c.__name__: 0 for c in counters}
+        want.update(gather_gemm=K4_PER_PREDICT * batches, iou_matrix=K2_PER_PREDICT * batches)
+        if l_pred != want:
+            fail(f"{tag} predicts launched {l_pred}; expected {want}")
+        metrics = {}
+        for which, d in (("checkpoint", dets), ("oracle", oracle)):
+            t0 = time.perf_counter()
+            card = ds.evaluation(d, output_dir=work, device="cuda")["results"]
+            t1 = time.perf_counter()
+            cpu = ds.evaluation(d, output_dir=work, device="cpu")["results"]
+            if json.dumps(card, sort_keys=True) != json.dumps(cpu, sort_keys=True):
+                fail(f"{tag} evaluation of the {which} detections: card {card} != CPU {cpu}")
+            metrics[which] = (card, t1 - t0)
+        head = "lyft_score" if tag == "Lyft" else "mAP_bev"
+        if not metrics["oracle"][0][head] > 0.0:
+            fail(f"{tag} evaluation of oracle detections: {metrics['oracle'][0]}")
+        n_det = sum(int(v["det_valid"].sum()) for v in dets.values())
+        print(f"  {tag} ({dtype}, {len(ds)} frames of phase 15's set): train {steps} steps in "
+              f"{train_s:.1f} s, launches {l_train}; the checkpoint's predict "
+              f"{pred_s:.1f} s ({n_det} detections), launches {l_pred}; evaluation card = CPU: "
+              f"checkpoint {head} {metrics['checkpoint'][0][head]:.4f}, oracle "
+              f"{metrics['oracle'][0][head]:.4f} ({metrics['oracle'][1]:.2f} s on the card)")
+        out[tag] = dict(launches_train=l_train, launches_predict=l_pred, metrics=metrics)
+    out["held"] = held
+    return out
+
+
+def point_pillars_check() -> dict:
+    """(d) PointPillars at the reference's widths (PFN (64,), RPN layers (3,
+    5, 5), filters (64, 128, 256) / (128, 128, 128), 0.2 m pillars over
+    +-51.2 m, the production task groups) on phase 3's clouds, B=2, seeded
+    weights: the card's forward against the CPU's (TF32 off), device ms and
+    peak memory."""
+    from dal3d_tpu_torch.models.builder import init_random_
+    from dal3d_tpu_torch.models.detectors.point_pillars import PointPillars
+    from dal3d_tpu_torch.models.readers.pillar_encoder import pillarize
+    from dal3d_tpu_torch.ops.voxelize import VoxelConfig
+
+    vcfg = VoxelConfig(PILLARS_RANGE, PILLARS_VOXEL, 20, PILLARS_MAX)
+    model = init_random_(PointPillars(vcfg, num_classes=(1, 2, 2, 1, 2, 2), num_input_features=5),
+                         torch.Generator().manual_seed(0)).eval()
+    clouds = cbgs_clouds(0)
+    P = max(len(c) for c in clouds)
+    pts = np.zeros((B, P, 5), np.float32)
+    valid = np.zeros((B, P), bool)
+    for b, c in enumerate(clouds):
+        pts[b, :len(c)], valid[b, :len(c)] = c, True
+    out = {}
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cuda", "cpu"):
+            m = model.to(dev)
+            p, v = torch.from_numpy(pts).to(dev), torch.from_numpy(valid).to(dev)
+            with torch.inference_mode():
+                out[dev] = (m(p, v), [x.cpu() for x in pillarize(p, v, vcfg)])
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    ms = cuda_time_ms(lambda: m(p, v), 5)
+                    peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    if not all(torch.equal(a, b) for a, b in zip(*(out[d][1] for d in ("cuda", "cpu")))):
+        fail("PointPillars: the card's pillars differ from the CPU's")
+    gaps = {}
+    for k in ("neck_feat", "embedding"):
+        a, b = out["cuda"][0][k].cpu(), out["cpu"][0][k]
+        gaps[k] = float((a - b).abs().max() / b.abs().max())
+    for t, (a, b) in enumerate(zip(out["cuda"][0]["preds"], out["cpu"][0]["preds"])):
+        for k in ("box_preds", "cls_preds"):
+            gaps[f"{k}{t}"] = float((a[k].cpu() - b[k]).abs().max() / b[k].abs().max())
+    worst = max(gaps.values())
+    if not worst <= PILLARS_TOL:
+        fail(f"PointPillars card vs CPU: {worst:.2e} of scale > {PILLARS_TOL}: {gaps}")
+    n_pillars = [int(x) for x in out["cpu"][1][3].sum(1)]
+    print(f"  PointPillars (512 x 512 pillars, cap {PILLARS_MAX}: {n_pillars} used; "
+          f"{sum(p.numel() for p in model.parameters())} parameters), B={B} on phase 3's "
+          f"clouds: card vs CPU (TF32 off) within {worst:.2e} of scale (tol {PILLARS_TOL}); "
+          f"forward {ms:.3f} ms on the device, peak {peak:.2f} GB")
+    return dict(ms=ms, peak_gb=peak, gap=worst)
+
+
+def tools_datasets_pillars_phase(tmp: str, loop: dict, counters, smi_line: str) -> dict:
+    """Phase 25: the FPS harness (a), get_flops card vs CPU (b), the Lyft and
+    KITTI sets through ``train`` and their evaluations (c), PointPillars at
+    the reference's widths (d)."""
+    t_phase = time.perf_counter()
+    fps = fps_harness(counters, smi_line)
+    stamp(t_phase, "(a) the FPS harness")
+    flops = flops_card_vs_cpu()
+    stamp(t_phase, "(b) get_flops, card vs --cpu")
+    sets = datasets_through_train(tmp, loop, counters)
+    stamp(t_phase, "(c) Lyft and KITTI through train, their evaluations")
+    pillars = point_pillars_check()
+    print(f"phase 25 (tools, datasets, PointPillars): {time.perf_counter() - t_phase:.1f} s")
+    return dict(fps=fps, flops=flops, sets=sets, pillars=pillars)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,13 @@
 """Dataset factory (port of ``dal3d_tpu/data/dataset_factory.py``): a config's
-``dataset_type``, as a short factory key ("NUSC", "NUSC_PART") or a class
-name, -> the port's dataset class. KITTI and Lyft are not ported yet and
-raise with their ROADMAP item; unknown names raise ``KeyError`` as in JAX."""
+``dataset_type``, as a short factory key ("NUSC", "NUSC_PART", "KITTI",
+"LYFT") or a class name, -> the port's dataset class; unknown names raise
+``KeyError`` as in JAX."""
 from __future__ import annotations
-
-_UNPORTED = ("KITTI", "KittiDataset", "LYFT", "LyftDataset")
 
 
 def get_dataset_cls(name: str):
+    from .datasets.kitti import KittiDataset
+    from .datasets.lyft import LyftDataset
     from .datasets.nuscenes import NuScenesDataset
     from .datasets.nuscenes_partial import NuScenesPartialDataset
 
@@ -16,13 +16,15 @@ def get_dataset_cls(name: str):
         "NuScenesDataset": NuScenesDataset,
         "NUSC_PART": NuScenesPartialDataset,
         "NuScenesPartialDataset": NuScenesPartialDataset,
+        "KITTI": KittiDataset,
+        "KittiDataset": KittiDataset,
+        "LYFT": LyftDataset,
+        "LyftDataset": LyftDataset,
     }
-    if name in _UNPORTED:
-        raise NotImplementedError(f"dataset_type {name!r} is not ported yet (ROADMAP A9.g)")
     try:
         return table[name]
     except KeyError:
-        raise KeyError(f"unknown dataset_type {name!r}; known: {sorted((*table, *_UNPORTED))}")
+        raise KeyError(f"unknown dataset_type {name!r}; known: {sorted(table)}")
 
 
 def build_dataset(cfg, dataset_type: str | None = None, **common):

@@ -17,10 +17,19 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ...utils.fileio import dump
-from ..pipelines import camera
+from ..pipelines import camera, transforms_extra
 from ..pipelines.bev_seg import LoadBEVSegmentation
 from ..pipelines.loading import LoadPointCloudAnnotations, LoadPointCloudFromFile
 from ..pipelines.preprocess import Preprocess, ReformatFixedShape
+
+# the stages of transforms_extra under their config names (the reference's
+# PhotoMetricDistortionMultiViewImage is ImageDistort)
+EXTRA_STAGES = {name: name for name in (
+    "FrameDropout", "PointSample", "BackgroundPointsFilter", "VoxelBasedPointSampler",
+    "ImagePad", "ImageDistort", "GlobalRotScaleTrans", "RandomFlip3D", "ObjectPaste",
+    "ObjectNoise", "PointShuffle", "ObjectRangeFilter", "PointsRangeFilter",
+    "ObjectNameFilter")}
+EXTRA_STAGES["PhotoMetricDistortionMultiViewImage"] = "ImageDistort"
 
 
 def build_pipeline(pipeline_cfgs: List[dict], tasks=None, max_points=300000,
@@ -56,6 +65,9 @@ def build_pipeline(pipeline_cfgs: List[dict], tasks=None, max_points=300000,
             stages.append(camera.ReformatCamera(**cfg))
         elif t == "LoadBEVSegmentation":
             stages.append(LoadBEVSegmentation(**cfg))
+        elif t in EXTRA_STAGES:
+            cfg.pop("is_train", None)  # train / val picked from res["mode"]
+            stages.append(getattr(transforms_extra, EXTRA_STAGES[t])(**cfg))
         else:
             raise KeyError(f"unknown pipeline stage {t}")
     # val-mode sweep-read cap: when every stage between the lidar load and the
@@ -66,8 +78,8 @@ def build_pipeline(pipeline_cfgs: List[dict], tasks=None, max_points=300000,
     # the cap.
     _order_preserving = (LoadPointCloudFromFile, LoadPointCloudAnnotations,
                          ReformatFixedShape, camera.LoadMultiViewImages, camera.ImageAug3D,
-                         camera.GridMask, camera.ImageNormalize, camera.ReformatCamera,
-                         LoadBEVSegmentation)
+                         camera.GridMask, camera.ImageNormalize, transforms_extra.ImagePad,
+                         camera.ReformatCamera, LoadBEVSegmentation)
     safe = all(
         isinstance(s, _order_preserving)
         or (isinstance(s, Preprocess) and not s.shuffle_points)
@@ -198,10 +210,12 @@ class NuScenesDataset:
             )
         return nusc_annos
 
-    def evaluation(self, detections: Dict[str, dict], output_dir: str = ".", testset=False):
+    def evaluation(self, detections: Dict[str, dict], output_dir: str = ".", testset=False,
+                   device=None):
         """Write ``<output_dir>/results_nusc.json``; run the official devkit
         when it is importable, else report the file alone (as the JAX
-        package does)."""
+        package does). ``device`` is the IoUs' device of the datasets that
+        compute IoUs (KITTI, Lyft); the devkit runs on the host."""
         nusc_annos = self.convert_detections_to_nusc(detections)
         res_path = os.path.join(output_dir, "results_nusc.json")
         dump(nusc_annos, res_path)

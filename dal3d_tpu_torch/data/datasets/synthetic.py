@@ -160,3 +160,54 @@ def make_synthetic_nuscenes(
     with open(info_path, "wb") as f:
         pickle.dump(infos, f)
     return info_path
+
+
+# a fixed KITTI-like calibration: camera x = -lidar y, camera y = -lidar z,
+# camera z = lidar x, the camera 0.27 m behind and 0.08 m below the lidar
+KITTI_CALIB = {
+    "R0_rect": np.eye(4),
+    "Tr_velo_to_cam": np.array([[0.0, -1.0, 0.0, 0.0], [0.0, 0.0, -1.0, -0.08],
+                                [1.0, 0.0, 0.0, -0.27], [0.0, 0.0, 0.0, 1.0]]),
+    "P2": np.array([[721.5, 0.0, 609.6, 44.9], [0.0, 721.5, 172.9, 0.2],
+                    [0.0, 0.0, 1.0, 0.003], [0.0, 0.0, 0.0, 1.0]]),
+}
+
+
+def make_synthetic_kitti(nusc_info_path: str, root: str) -> str:
+    """The scenes of a nuScenes-schema set (``make_synthetic_nuscenes``,
+    ``create_data synthetic_data_prep``) as a KITTI set: 4-feature velodyne
+    files of the keyframes' points, and infos with the KITTI calibration and
+    camera-frame labels (location, dimensions (l, h, w), rotation_y =
+    -yaw - pi/2; every box easy: a 50 px tall image box, not truncated or
+    occluded), plus one ``DontCare`` label a frame. The inverse of
+    ``kitti.py::camera_to_lidar_boxes``. Returns the written infos pkl path."""
+    calib = {k: np.asarray(v, np.float64) for k, v in KITTI_CALIB.items()}
+    with open(nusc_info_path, "rb") as f:
+        nusc = pickle.load(f)
+    vel_dir = os.path.join(root, "training", "velodyne")
+    os.makedirs(vel_dir, exist_ok=True)
+    to_cam = calib["R0_rect"] @ calib["Tr_velo_to_cam"]
+    infos = []
+    for i, info in enumerate(nusc):
+        pts = np.fromfile(info["lidar_path"], dtype=np.float32).reshape(-1, 5)[:, :4]
+        path = os.path.join(vel_dir, f"{i:06d}.bin")
+        np.ascontiguousarray(pts).tofile(path)
+        boxes = np.asarray(info["gt_boxes"], np.float64).reshape(-1, 9)
+        n = len(boxes)
+        loc = (np.hstack([boxes[:, :3], np.ones((n, 1))]) @ to_cam.T)[:, :3]
+        names = list(np.asarray(info["gt_names"])) + ["DontCare"]
+        annos = {
+            "name": np.asarray(names),
+            "truncated": np.zeros(n + 1),
+            "occluded": np.zeros(n + 1, np.int64),
+            "alpha": np.zeros(n + 1),
+            "bbox": np.tile([100.0, 100.0, 160.0, 150.0], (n + 1, 1)),
+            "dimensions": np.vstack([boxes[:, [4, 5, 3]], [[1.0, 1.0, 1.0]]]),
+            "location": np.vstack([loc, [[0.0, -1000.0, 0.0]]]),
+            "rotation_y": np.append(-boxes[:, 8] - np.pi / 2, 0.0),
+        }
+        infos.append({"image_idx": i, "velodyne_path": path, "calib": calib, "annos": annos})
+    info_path = os.path.join(root, "kitti_infos_train.pkl")
+    with open(info_path, "wb") as f:
+        pickle.dump(infos, f)
+    return info_path

@@ -3,10 +3,10 @@
 
 The inverse of ``dal3d_tpu/models/convert_second.py`` (which maps det3d
 torch checkpoints onto the flax trees): it takes the ``{"params",
-"batch_stats"}`` trees of an ``FPNVoxelNet`` (any backbone engine), or
-of a ``BEVFusion``, as nested dicts of numpy arrays and returns the matching
-``state_dict`` of ``models/detectors/voxelnet.py::FPNVoxelNet`` or
-``models/bevfusion/bevfusion.py::BEVFusion``.
+"batch_stats"}`` trees of an ``FPNVoxelNet`` (any backbone engine), of a
+``BEVFusion``, of a ``PointPillars`` or of an ``FPN``, as nested dicts of
+numpy arrays and returns the matching ``state_dict`` of the port's module
+of that name.
 
 Layouts:
   - sparse conv kernels [K, Cin, Cout] (z-major taps) carry over unchanged;
@@ -66,6 +66,42 @@ def _block(params, stats, src: str, dst: str, out: dict) -> None:
         _bn(params, stats, f"{src}/MaskedBatchNorm_{j}", f"{dst}.bn{j + 1}", out)
 
 
+def _rpn(params, stats, rp: str, neck, dst: str, out: dict) -> None:
+    """A flax RPN at ``rp`` -> the port's RPN ``neck`` at ``dst``. flax
+    numbers Conv / ConvTranspose / BatchNorm2d in traversal order: each
+    block's convs, then that block's upsample branch."""
+    n = {"Conv": 0, "ConvTranspose": 0, "BatchNorm2d": 0}
+
+    def take(kind: str) -> str:
+        name = f"{rp}/{kind}_{n[kind]}"
+        n[kind] += 1
+        return name
+
+    for b, block in enumerate(neck.blocks):
+        for j in range(len(block)):
+            out[f"{dst}.blocks.{b}.{j}.weight"] = _conv2d(params[take("Conv") + "/kernel"])
+            _bn(params, stats, take("BatchNorm2d") + "/BatchNorm_0",
+                f"{dst}.blocks.{b}.{j}.bn", out)
+        d = b - neck.upsample_start
+        if d >= 0:
+            if neck.deblocks[d].transpose:
+                w = _conv_transpose2d(params[take("ConvTranspose") + "/kernel"])
+            else:
+                w = _conv2d(params[take("Conv") + "/kernel"])
+            out[f"{dst}.deblocks.{d}.weight"] = w
+            _bn(params, stats, take("BatchNorm2d") + "/BatchNorm_0",
+                f"{dst}.deblocks.{d}.bn", out)
+
+
+def _mg_head(params, hd: str, head, dst: str, out: dict) -> None:
+    """A flax MultiGroupHead at ``hd`` -> the port's at ``dst``: the 1x1
+    (box, cls) conv pair of each task, numbered Conv_{2t}, Conv_{2t+1}."""
+    for t in range(len(head.tasks)):
+        for conv, k in (("conv_box", 2 * t), ("conv_cls", 2 * t + 1)):
+            out[f"{dst}.tasks.{t}.{conv}.weight"] = _conv2d(params[f"{hd}/Conv_{k}/kernel"])
+            out[f"{dst}.tasks.{t}.{conv}.bias"] = params[f"{hd}/Conv_{k}/bias"]
+
+
 def flax_to_state_dict(variables: dict, model) -> Dict[str, torch.Tensor]:
     """{"params", "batch_stats"} of a flax FPNVoxelNet -> state_dict of the
     port's ``model`` (an FPNVoxelNet; its neck gives the RPN layout). The
@@ -94,38 +130,8 @@ def flax_to_state_dict(variables: dict, model) -> Dict[str, torch.Tensor]:
         out[f"{dst}.down.weight"] = params[f"{src}/SparseConvDown_0/kernel"]
         _bn(params, stats, f"{src}/MaskedBatchNorm_0", f"{dst}.down_bn", out)
 
-    # flax numbers Conv / ConvTranspose / BatchNorm2d in traversal order:
-    # each block's convs, then that block's upsample branch
-    rp = "RPN_0"
-    n = {"Conv": 0, "ConvTranspose": 0, "BatchNorm2d": 0}
-
-    def take(kind: str) -> str:
-        name = f"{rp}/{kind}_{n[kind]}"
-        n[kind] += 1
-        return name
-
-    neck = model.neck
-    for b, block in enumerate(neck.blocks):
-        for j in range(len(block)):
-            out[f"neck.blocks.{b}.{j}.weight"] = _conv2d(params[take("Conv") + "/kernel"])
-            _bn(params, stats, take("BatchNorm2d") + "/BatchNorm_0",
-                f"neck.blocks.{b}.{j}.bn", out)
-        d = b - neck.upsample_start
-        if d >= 0:
-            if neck.deblocks[d].transpose:
-                w = _conv_transpose2d(params[take("ConvTranspose") + "/kernel"])
-            else:
-                w = _conv2d(params[take("Conv") + "/kernel"])
-            out[f"neck.deblocks.{d}.weight"] = w
-            _bn(params, stats, take("BatchNorm2d") + "/BatchNorm_0",
-                f"neck.deblocks.{d}.bn", out)
-
-    hd = "MultiGroupHead_0"
-    for t in range(len(model.head.tasks)):
-        for conv, k in (("conv_box", 2 * t), ("conv_cls", 2 * t + 1)):
-            out[f"head.tasks.{t}.{conv}.weight"] = _conv2d(params[f"{hd}/Conv_{k}/kernel"])
-            out[f"head.tasks.{t}.{conv}.bias"] = params[f"{hd}/Conv_{k}/bias"]
-
+    _rpn(params, stats, "RPN_0", model.neck, "neck", out)
+    _mg_head(params, "MultiGroupHead_0", model.head, "head", out)
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
 
 
@@ -392,11 +398,7 @@ def mg_head_flax_to_state_dict(variables: dict, head) -> Dict[str, torch.Tensor]
     params = _flatten(variables["params"])
     stats = _flatten(variables.get("batch_stats", {}))
     out: Dict[str, np.ndarray] = {}
-    hd = "MultiGroupHead_0"
-    for t in range(len(head.head.tasks)):
-        for conv, k in (("conv_box", 2 * t), ("conv_cls", 2 * t + 1)):
-            out[f"head.tasks.{t}.{conv}.weight"] = _conv2d(params[f"{hd}/Conv_{k}/kernel"])
-            out[f"head.tasks.{t}.{conv}.bias"] = params[f"{hd}/Conv_{k}/bias"]
+    _mg_head(params, "MultiGroupHead_0", head.head, "head", out)
     branch = "iou" if hasattr(head, "iou") else "loss"
     for t in range(len(getattr(head, branch))):
         for j in (0, 1):
@@ -434,3 +436,34 @@ def estimator_to_flat(est) -> Dict[str, np.ndarray]:
         out[f"{flax_name}/bias"] = sd[f"{port}.bias"]
         out[f"{flax_name}/kernel"] = np.ascontiguousarray(sd[f"{port}.weight"].T)
     return out
+
+
+def point_pillars_flax_to_state_dict(variables: dict, model) -> Dict[str, torch.Tensor]:
+    """{"params", "batch_stats"} of a flax ``PointPillars`` -> state_dict of
+    the port's ``models/detectors/point_pillars.py::PointPillars``: the PFN's
+    ``Dense_<i>`` kernels [in, out] and ``MaskedBatchNorm_<i>``, then the RPN
+    and the head as in ``flax_to_state_dict``."""
+    params = _flatten(variables["params"])
+    stats = _flatten(variables.get("batch_stats", {}))
+    out: Dict[str, np.ndarray] = {}
+    pf = "PillarFeatureNet_0"
+    for i in range(len(model.pfn.linears)):
+        out[f"pfn.linears.{i}.weight"] = params[f"{pf}/Dense_{i}/kernel"].T
+        _bn(params, stats, f"{pf}/MaskedBatchNorm_{i}", f"pfn.norms.{i}", out)
+    _rpn(params, stats, "RPN_0", model.neck, "neck", out)
+    _mg_head(params, "MultiGroupHead_0", model.head, "head", out)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def fpn_flax_to_state_dict(params: dict, fpn) -> Dict[str, torch.Tensor]:
+    """The params of a flax ``FPN`` initialised alone -> state_dict of the
+    port's ``models/necks/fpn.py::FPN``: flax numbers the n lateral convs
+    Conv_0..n-1, then the n output convs Conv_n..2n-1."""
+    flat = _flatten(params)
+    out: Dict[str, np.ndarray] = {}
+    n = len(fpn.lateral)
+    for i in range(2 * n):
+        dst = f"lateral.{i}" if i < n else f"out.{i - n}"
+        out[f"{dst}.weight"] = _conv2d(flat[f"Conv_{i}/kernel"])
+        out[f"{dst}.bias"] = flat[f"Conv_{i}/bias"]
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}

@@ -55,6 +55,13 @@ class SparseBatch:
     def valid(self) -> torch.Tensor:
         return self.lin < self.sentinel
 
+    def active_sites(self) -> torch.Tensor:
+        """[N, 4] int64 (b, z, y, x) of the valid rows."""
+        _, H, W = self.shape
+        b, n = torch.nonzero(self.valid, as_tuple=True)
+        lin = self.lin[b, n].long()
+        return torch.stack([b, lin // (H * W), lin // W % H, lin % W], 1)
+
     def replace(self, **kw) -> "SparseBatch":
         return dataclasses.replace(self, **kw)
 

@@ -75,6 +75,15 @@ class BrickBatch:
         B, Mb, _ = self.features.shape
         return self.features.reshape(B, Mb, self.bw, self.channels)
 
+    def active_sites(self) -> torch.Tensor:
+        """[N, 4] int64 (b, z, y, x) of the active voxels."""
+        _, H, _ = self.shape
+        Wb = self.wb
+        b, m, s = torch.nonzero(self.vmask & (self.brick_lin < self.num_cells)[..., None],
+                                as_tuple=True)
+        cell = self.brick_lin[b, m].long()
+        return torch.stack([b, cell // (H * Wb), cell // Wb % H, cell % Wb * self.bw + s], 1)
+
     def replace(self, **kw) -> "BrickBatch":
         return dataclasses.replace(self, **kw)
 

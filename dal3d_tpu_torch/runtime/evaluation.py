@@ -118,7 +118,8 @@ def evaluate_dataset(
                 pickle.dump(detections, f)
             if logger is not None:
                 logger.info(f"raw detections -> {out}")
-        result = dataset.evaluation(detections, output_dir=output_dir, testset=testset)
+        result = dataset.evaluation(detections, output_dir=output_dir, testset=testset,
+                                    device=device)
         if not testset:
             result = _with_kitti_style(result, dataset, detections, device)
     synchronize()

@@ -53,8 +53,7 @@ partial-label dataset takes the config's top-level ``active_buffer``,
 (with ``active_flag = "start"`` it writes the seed buffer ``partial_01``).
 
 Not ported yet, refused with the ROADMAP item it waits for: ``--n_model >
-1`` (A11.b, JAX's model axis), and the KITTI and Lyft datasets (A9.g,
-raised by the factory).
+1`` (A11.b, JAX's model axis).
 """
 import argparse
 import os

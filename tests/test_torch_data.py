@@ -161,10 +161,10 @@ def test_train_mode_is_not_ported(pool):
     (tests/test_torch_gt_aug.py holds the sampler against JAX's); the camera
     stages build in the config's order (tests/test_torch_camera_pipeline.py
     holds them against JAX's), the map-segmentation targets build
-    (tests/test_torch_bev_seg.py holds them against JAX's), and a stage the
-    port does not have yet (``transforms_extra``'s, ROADMAP A9.g) still
-    raises. The train-mode dataset and Preprocess themselves are ported
-    (tests/test_torch_train_data.py)."""
+    (tests/test_torch_bev_seg.py holds them against JAX's), the extra
+    stages build (tests/test_torch_transforms_extra.py holds them against
+    JAX's), and a stage no package has raises. The train-mode dataset and
+    Preprocess themselves are ported (tests/test_torch_train_data.py)."""
     train = dict(mode="train", class_names=["car"])
     db = pool.replace(".pkl", "_dbinfos.pkl")
     dump({"car": [{"name": "car", "num_points_in_gt": 9, "difficulty": 0}]}, db)
@@ -186,8 +186,10 @@ def test_train_mode_is_not_ported(pool):
     seg = build_pipeline([dict(type="LoadBEVSegmentation", xbound=(-8, 8, 0.5),
                                 ybound=(-8, 8, 0.5))], tasks=TASKS)
     assert type(seg[0]).__name__ == "LoadBEVSegmentation" and seg[0].canvas == (32, 32)
-    with pytest.raises(KeyError):
-        build_pipeline([dict(type="PointShuffle")], tasks=TASKS)
+    assert type(build_pipeline([dict(type="PointShuffle")], tasks=TASKS)[0]).__name__ == \
+        "PointShuffle"
+    with pytest.raises(KeyError, match="unknown pipeline stage"):
+        build_pipeline([dict(type="PointShuffle3D")], tasks=TASKS)
 
 
 def test_voxelize_cfg_has_no_host_plans():

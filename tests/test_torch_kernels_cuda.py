@@ -1498,3 +1498,66 @@ def test_data_parallel_step_over_cards(cuda, tmp_path):  # noqa: F811
         backend="nccl"), timeout=300)
     for r in ranks:
         print(w.check_step_floor(w.result(r, "step"), ref, nudged))
+
+
+def test_fps_harness_counts_its_launches_on_card(cuda, tmp_path, capsys):  # noqa: F811
+    """``tools/benchmark.py`` on the card (the small banded config, bf16):
+    42 K1 and 1 K2 a predict, warm-up and timed ones alike, JAX's line and
+    the device line; ``get_flops`` gives the same count on the card as with
+    ``--cpu``."""
+    from dal3d_tpu_torch.tools import benchmark, get_flops
+
+    path = tmp_path / "small.py"
+    cfg = dict(small_cfg("bfloat16"), max_points=3000)
+    path.write_text("".join(f"{k} = {v!r}\n" for k, v in cfg.items()))
+    n1, n2 = tbd.banded_conv.launches, tiou.iou_matrix.launches
+    res = benchmark.main([str(path), "--points", "3000", "--iters", "3", "--warmup", "1"])
+    assert res["predicts"] == 4 and res["device_ms"] > 0
+    assert tbd.banded_conv.launches - n1 == 42 * 4 and tiou.iou_matrix.launches - n2 == 4
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-2].startswith("batch 2: ") and lines[-1].startswith("device: median ")
+    card, cpu = get_flops.main([str(path)]), get_flops.main([str(path), "--cpu"])
+    for k in ("params", "flops", "hits", "sparse_convs"):
+        assert card[k] == cpu[k], k
+
+
+def test_point_pillars_on_card_matches_cpu(cuda):  # noqa: F811
+    """PointPillars at the width of JAX's test (16 m at 0.5 m, PFN (64,),
+    RPN (1, 1, 1)) on the card with TF32 off against its CPU forward on the
+    same weights: every map within 1e-4 of scale (f32), the pillars equal."""
+    from dal3d_tpu_torch.models.builder import init_random_
+    from dal3d_tpu_torch.models.detectors.point_pillars import PointPillars
+    from dal3d_tpu_torch.models.readers.pillar_encoder import pillarize
+    from dal3d_tpu_torch.ops.voxelize import VoxelConfig
+
+    vcfg = VoxelConfig((-8.0, -8.0, -3.0, 8.0, 8.0, 1.0), (0.5, 0.5, 4.0), 20, 500)
+    model = init_random_(PointPillars(vcfg, num_classes=(1, 2), num_input_features=5,
+                                      rpn_layer_nums=(1, 1, 1), rpn_ds_filters=(16, 32, 64),
+                                      rpn_us_filters=(16, 16, 16)),
+                         torch.Generator().manual_seed(3)).eval()
+    rng = np.random.RandomState(0)
+    pts = np.zeros((2, 1024, 5), np.float32)
+    pts[..., :2] = rng.uniform(-7.9, 7.9, (2, 1024, 2))
+    pts[..., 2] = rng.uniform(-2.9, 0.9, (2, 1024))
+    valid = np.ones((2, 1024), bool)
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            m = model.to(dev)
+            with torch.inference_mode():
+                p, v = torch.from_numpy(pts).to(dev), torch.from_numpy(valid).to(dev)
+                out[dev] = (m(p, v), [x.cpu() for x in pillarize(p, v, vcfg)])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert torch.equal(a, b)
+
+    def gap(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    assert gap(out["cuda"][0]["neck_feat"], out["cpu"][0]["neck_feat"]) <= 1e-4
+    for t_gpu, t_cpu in zip(out["cuda"][0]["preds"], out["cpu"][0]["preds"]):
+        for k in ("box_preds", "cls_preds"):
+            assert gap(t_gpu[k], t_cpu[k]) <= 1e-4

@@ -6,8 +6,8 @@ CLIs, on the CPU.
   redrawn), a named flag, no buffer, ``faithful_start`` and
   ``label_fraction`` give the same frame list after the CBGS resample, the
   same kept boxes and a byte-equal buffer JSON;
-- ``data/dataset_factory.py``: the names JAX maps, KITTI and Lyft refused
-  with their ROADMAP item, unknown names a ``KeyError``;
+- ``data/dataset_factory.py``: the names JAX maps, KITTI and Lyft among
+  them, unknown names a ``KeyError``;
 - ``python -m dal3d_tpu_torch.tools.train`` on ``configs/cbgs_partial_synthetic.py``
   over a set made by the port's ``create_data``: it writes the seed buffer
   ``partial_01``, the checkpoint and ``estimator.npz`` (JAX's names and
@@ -29,6 +29,8 @@ import torch
 
 from dal3d_tpu.data.datasets.nuscenes_partial import NuScenesPartialDataset as JaxPartial
 from dal3d_tpu_torch.data.dataset_factory import build_dataset, get_dataset_cls
+from dal3d_tpu_torch.data.datasets.kitti import KittiDataset
+from dal3d_tpu_torch.data.datasets.lyft import LyftDataset
 from dal3d_tpu_torch.data.datasets.nuscenes import NuScenesDataset
 from dal3d_tpu_torch.data.datasets.nuscenes_partial import NuScenesPartialDataset
 from dal3d_tpu_torch.data.datasets.synthetic import DEFAULT_CLASSES, make_synthetic_nuscenes
@@ -107,9 +109,10 @@ def test_dataset_factory(pool):
         assert get_dataset_cls(name) is NuScenesDataset
     for name in ("NUSC_PART", "NuScenesPartialDataset"):
         assert get_dataset_cls(name) is NuScenesPartialDataset
-    for name in ("KITTI", "KittiDataset", "LYFT", "LyftDataset"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9.g"):
-            get_dataset_cls(name)
+    for name in ("KITTI", "KittiDataset"):
+        assert get_dataset_cls(name) is KittiDataset
+    for name in ("LYFT", "LyftDataset"):
+        assert get_dataset_cls(name) is LyftDataset
     with pytest.raises(KeyError, match="unknown dataset_type"):
         get_dataset_cls("Waymo")
     ds = build_dataset(dict(type="NUSC_PART", info_path=info, ann_file=info,

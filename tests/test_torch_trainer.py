@@ -137,21 +137,49 @@ def test_cli_without_cpu_flag_needs_a_gpu(labeled, monkeypatch):
 @pytest.mark.parametrize("case,item", [
     ("n_model", "A11"), ("kitti_dataset", "A9.g"), ("lyft_dataset", "A9.g")])
 def test_unported_options_raise_with_their_roadmap_item(labeled, case, item):
-    """What the CLI still refuses (estimator configs and the partial-label
-    dataset run since the estimator slice: tests/test_torch_partial.py)."""
+    """What the CLI still refuses: ``--n_model > 1`` (the estimator configs
+    and the partial-label dataset run since the estimator slice:
+    tests/test_torch_partial.py). The KITTI and Lyft datasets, refused
+    until their slice (ROADMAP A9.g), now train a step: two frames of the
+    labeled set, as a KITTI set (``make_synthetic_kitti``: 4-feature
+    points, fed raw as JAX's KITTI loader feeds them) and under
+    ``dataset_type = "LYFT"`` (the CBGS resampling over cars keeps the two
+    frames)."""
     root, info = labeled
     work = str(root / f"work_{case}")
     args, over = ["--cpu", "--no_validate"], {}
+    frames = [i for i in load(info) if "car" in list(i["gt_names"])][:2]
+    two = str(root / f"two_{case}.pkl")
+    dump(frames, two)
     if case == "n_model":
         args += ["--n_model", "2"]
     elif case == "kitti_dataset":
+        from dal3d_tpu_torch.data.datasets.synthetic import make_synthetic_kitti
+
+        kitti = make_synthetic_kitti(two, str(root / "kitti"))
         over = dict(dataset_type="KittiDataset")
     elif case == "lyft_dataset":
         over = dict(dataset_type="LYFT")
-    cfg = _write_cfg(root / f"cfg_{case}.py", info, work, **over)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        train.main([cfg, "--work_dir", work] + args)
-    assert not os.path.exists(os.path.join(work, "checkpoints"))
+    cfg = _write_cfg(root / f"cfg_{case}.py", kitti if case == "kitti_dataset" else two,
+                     work, **over)
+    if case == "n_model":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            train.main([cfg, "--work_dir", work] + args)
+        assert not os.path.exists(os.path.join(work, "checkpoints"))
+        return
+    if case == "kitti_dataset":
+        with open(cfg, "a") as f:  # 4 point features; Preprocess reads the KITTI labels
+            f.write("model['reader']['num_input_features'] = 4\n"
+                    "model['backbone']['num_input_features'] = 4\n"
+                    "data['train']['class_names'] = ['car']\n")
+    else:
+        with open(cfg, "a") as f:
+            f.write("data['train']['class_names'] = ['car']\n")
+    trainer = train.main([cfg, "--work_dir", work, "--epochs", "1"] + args)
+    assert trainer.step == 1
+    assert os.path.exists(os.path.join(work, "checkpoints", "epoch_1.pth"))
+    log = open(os.path.join(work, "train.log")).read()
+    assert "dataset: 2 frames" in log
 
 
 @pytest.mark.parametrize("case", ["val_workflow", "db_sampler", "torch_init"])
