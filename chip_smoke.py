@@ -33,7 +33,9 @@ configs through the CLIs), the CBGS backbone's other engines (brick,
 hybrid, dense, and the searchsorted plans), data parallelism over
 ``torch.distributed`` ranks (a world of 1 on NCCL, a world of 2 gloo
 processes on the one card), and the FPS and FLOP tools, the Lyft and KITTI
-sets through the training CLI and their evaluations, and PointPillars.
+sets through the training CLI and their evaluations, and PointPillars, and
+the point ops, ``rotate_nms`` and the Green's IoU, the align aggregation,
+the image backbones and the visualisation tools.
 Phases, each fatal on failure:
 
   1. versions of torch / CUDA / nvcc and the card (nvidia-smi);
@@ -296,7 +298,32 @@ Phases, each fatal on failure:
      metrics, with their launches; PointPillars at the reference's widths
      (0.2 m pillars over +-51.2 m, PFN (64,), RPN (3, 5, 5)) on phase 3's
      clouds, card against CPU with TF32 off (1e-4 of scale), its device ms
-     and peak memory.
+     and peak memory; the harness predict's exact top k (the candidate
+     prefilter's sorts, each timed on its own inputs) as a share of the
+     predict's device time and of its decode + IoU + NMS stage;
+ 26. the point ops, ``rotate_nms``, the align aggregation, the image
+     backbones and the visualisation tools: FPS to 4096 centres of 16384
+     points of phase 3's first cloud, ``ball_query`` (0.8 m, 32), ``knn``
+     (16) and ``three_nn`` + ``three_interpolate`` (C = 128) back to the
+     points (3 K7 launches at C = 3, counted and held against the plain
+     version; device ms of each call; card against CPU on 512 queries: FPS
+     equal, the neighbours equal except on rows within the Gram form's
+     rounding bound, whose count is printed); ``rotate_nms`` on the 12
+     candidate sets of phase 3's predict (12 K2 launches, counted; the kept
+     indices equal to K2's plain twin's; the Green's matrix card vs CPU
+     within 1e-5, and as a record its gap to K2's, with the exact IoU of
+     the pair furthest apart); ``AlignFeatureAggregation``
+     (512 channels, neighbor 9) on the production RPN's output, card vs CPU
+     within 1e-4 of scale, device ms and peak memory; ResNet-18, SENet and
+     SSDVGG at full width on 6 x 3 x 256 x 704 (device ms, peak memory;
+     card vs CPU on one view at 128 x 352 within 1e-4 of scale);
+     ``lidar_visualize``'s ``frame_records`` with ``--checkpoint`` on phase
+     15's set and checkpoint, 2 frames on the card (42 K1 and 1 K2 a
+     predict, counted) and with ``--cpu`` (the head maps within 5e-2 of
+     scale, as phase 15 holds them, and the kept boxes paired as sets),
+     ``cam_vis``'s ``frame_views`` on phase 19's camera set with the boxes
+     projected into every camera, ``analyze_logs cal_train_time`` on phase
+     11's log; the render CLIs where matplotlib imports (it prints which).
 
 Kernel times are device times per call (``cuda_time_ms``: the launches
 queued behind a device-side sleep, so that the host's enqueue is not timed);
@@ -905,6 +932,11 @@ def main() -> None:
         tools = tools_datasets_pillars_phase(tmp, loop, counters, smi_line)
         clock("25")
 
+        # 26. the point ops, rotate_nms, the align aggregation, the image
+        # backbones, the visualisation tools
+        extra = ops_models_vis_phase(tmp, loop, counters, bundle, predict, batch)
+        clock("26")
+
     # kernels line, card line, result -------------------------------------------
     kernels = [
         dict(name="banded_conv", route="cuda", source="dal3d_tpu_torch/ops/csrc/banded_conv.cu",
@@ -1001,6 +1033,9 @@ def main() -> None:
         for eng in ("gather", "hybrid"):
             for path in ("predict", "train"):
                 k[f"launches_bf16_{eng}_{path}"] = bf16[eng][f"launches_{path}"][k["name"]]
+        k["launches_pointnet"] = extra["points"]["launches"][k["name"]]
+        k["launches_rotate_nms"] = extra["nms"]["launches"][k["name"]]
+        k["launches_visualize"] = extra["vis"]["launches"][k["name"]]
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
@@ -7430,8 +7465,11 @@ def fps_harness(counters, smi_line: str) -> dict:
     from dal3d_tpu_torch.utils.config import Config
     from dal3d_tpu_torch.utils.flops import count_forward_flops
 
+    from dal3d_tpu_torch.runtime import steps
+
     cfg_path = os.path.join(ROOT, "configs", "cbgs_spatial_temporal.py")
-    with Capture(bd, "banded_conv") as k1, Capture(tiou, "iou_matrix") as k2:
+    with Capture(bd, "banded_conv") as k1, Capture(tiou, "iou_matrix") as k2, \
+            Capture(steps, "multi_group_predict") as mgp:
         benchmark.main([cfg_path, "--warmup", "0", "--iters", "1"])
     if (len(k1.calls), len(k2.calls)) != (K1_PER_PREDICT, K2_PER_PREDICT):
         fail(f"the harness's predict launched K1 {len(k1.calls)}x, K2 {len(k2.calls)}x")
@@ -7444,6 +7482,8 @@ def fps_harness(counters, smi_line: str) -> dict:
     runs = FPS_ITERS + FPS_WARMUP
     launches = main_path_launches(counters, "FPS harness", runs,
                                   dict(banded_conv=K1_PER_PREDICT, iou_matrix=K2_PER_PREDICT))
+    topk = topk_share(mgp.calls[0], res["device_ms"], smi_line)
+    del mgp
     bundle = build_detector(Config.fromfile(cfg_path), seed=0)
     pts = torch.from_numpy(benchmark.benchmark_clouds(B, 250_000))
     valid = torch.ones(pts.shape[:2], dtype=torch.bool)
@@ -7474,7 +7514,35 @@ def fps_harness(counters, smi_line: str) -> dict:
           "stage " + ", ".join(f"{k} {sum(v) / 1e9:.3f}" for k, v in count.stages.items())
           + f") -> {tflops:.3f} TFLOP/s on the {res['device_ms']:.3f} ms device time")
     return dict(res, launches=launches, held=held, flops=count.total, dense=count.dense,
-                sparse=count.sparse, tflops=tflops)
+                sparse=count.sparse, tflops=tflops, topk=topk)
+
+
+def topk_share(call, predict_ms: float, smi_line: str) -> dict:
+    """The exact top k's device time in a harness predict (ROADMAP A9.i):
+    ``multi_group_predict`` on one predict's head maps (its "decode + IoU +
+    NMS" stage), its candidate prefilter's ``top_k`` calls captured and
+    each timed on its own inputs; their sum as a share of the harness's
+    device ms a predict and of the stage's."""
+    from dal3d_tpu_torch.models.heads import mg_head as mgh
+    from dal3d_tpu_torch.ops.nms import top_k
+
+    preds, anchors, coder, tcfg = call[:4]
+    with Capture(mgh, "top_k") as tk:
+        mgh.multi_group_predict(preds, anchors, coder, tcfg)
+    pre = [(x, k) for x, k in tk.calls if k == tcfg.nms_pre_max_size]
+    if len(pre) != len(preds):
+        fail(f"top-k share: {len(pre)} prefilter calls for {len(preds)} task groups")
+    topk_ms = sum(cuda_time_ms(lambda x=x, k=k: top_k(x, k), 5) for x, k in pre)
+    stage_ms = cuda_time_ms(lambda: mgh.multi_group_predict(preds, anchors, coder, tcfg), 5)
+    print(f"  the exact top k of the candidate prefilter ({len(pre)} calls, "
+          f"{tuple(pre[0][0].shape)} -> {pre[0][1]} each; what JAX's use_approx_topk computes "
+          f"off the TPU, as XLA's approx_max_k): {topk_ms:.3f} ms "
+          f"on the device, {topk_ms / predict_ms:.4f} of the harness's {predict_ms:.3f} ms a "
+          f"predict and {topk_ms / stage_ms:.4f} of the decode + IoU + NMS stage's "
+          f"{stage_ms:.3f} ms (device time between events, the stage's host syncs inside) | "
+          f"{smi_line}")
+    return dict(ms=topk_ms, stage_ms=stage_ms, share_predict=topk_ms / predict_ms,
+                share_stage=topk_ms / stage_ms)
 
 
 def flops_card_vs_cpu() -> dict:
@@ -7725,6 +7793,417 @@ def tools_datasets_pillars_phase(tmp: str, loop: dict, counters, smi_line: str) 
     pillars = point_pillars_check()
     print(f"phase 25 (tools, datasets, PointPillars): {time.perf_counter() - t_phase:.1f} s")
     return dict(fps=fps, flops=flops, sets=sets, pillars=pillars)
+
+
+
+# ---------------------------------------------------------------------------
+# phase 26: the point ops, rotate_nms and the Green's IoU, the align
+# aggregation, the image backbones, the visualisation tools
+# ---------------------------------------------------------------------------
+PN_POINTS, PN_CENTRES = 16384, 4096  # one PointNet++ SA / FP pair on a lidar frame
+PN_RADIUS, PN_NSAMPLE, PN_K, PN_C = 0.8, 32, 16, 128
+PN_HOLD = 512  # queries held card against CPU
+# the Gram form's rounding bound in squared distance, over |q|^2 + |p|^2
+GRAM_ULPS = 4 * 2.0 ** -23
+AFA_NEIGHBOR = 9
+IMG_VIEWS, IMG_HW, IMG_HOLD_HW = 6, (256, 704), (128, 352)
+IMG_TOL = 1e-4  # of scale: f32 maps card vs CPU, TF32 off
+VIS_FRAMES = 2
+VIS_MAP_TOL = 5e-2  # of scale: the bf16 head maps card vs CPU, as phase 15 holds them
+LONG_BOX_M = 1000.0  # boxes this long leave the f32 IoU routes' 1e-4 m band to rounding
+
+
+def gram_bound(q: np.ndarray, p: np.ndarray) -> np.ndarray:
+    """4 ulps of |q|^2 + |p|^2 for every (query, point) pair [M, N]."""
+    return GRAM_ULPS * ((q.astype(np.float64) ** 2).sum(1)[:, None]
+                        + (p.astype(np.float64) ** 2).sum(1)[None, :])
+
+
+def neighbours_held(tag: str, card_idx, cpu_idx, q: np.ndarray, p: np.ndarray, k: int) -> str:
+    """knn-style indices [M, k] card against CPU: the sets equal on every
+    row whose k-th and (k+1)-th plain squared distances lie further apart
+    than the Gram bound, the order too where every gap among the first k+1
+    does. Fatal otherwise; returns the counts."""
+    d2 = (q.astype(np.float64)[:, None, :] - p.astype(np.float64)[None]) ** 2
+    d2 = d2.sum(-1)
+    order = np.argsort(d2, axis=1, kind="stable")[:, :k + 1]
+    ds = np.take_along_axis(d2, order, 1)
+    bound = np.take_along_axis(gram_bound(q, p), order, 1)
+    gaps = np.diff(ds, axis=1) > np.maximum(bound[:, 1:], bound[:, :-1])
+    set_rows, order_rows = gaps[:, k - 1], gaps.all(1)
+    a, b = np.asarray(card_idx), np.asarray(cpu_idx)
+    same_set = (np.sort(a, 1) == np.sort(b, 1)).all(1)
+    same_order = (a == b).all(1)
+    if not same_set[set_rows].all() or not same_order[order_rows].all():
+        fail(f"{tag}: card vs CPU on {len(a)} queries: {int((~same_set[set_rows]).sum())} held "
+             f"rows differ as sets, {int((~same_order[order_rows]).sum())} in order")
+    return (f"{tag}: equal as sets on {int(set_rows.sum())} of {len(a)} rows (excepted: "
+            f"{int((~set_rows).sum())} whose k-th and (k+1)-th distances lie within the Gram "
+            f"bound; {int((~same_set).sum())} of all rows differ), in order on "
+            f"{int(order_rows.sum())} (excepted {int((~order_rows).sum())}; "
+            f"{int((~same_order).sum())} of all rows differ)")
+
+
+def point_ops_check(counters) -> dict:
+    """(a) FPS to 4096 centres of 16384 points of phase 3's first cloud,
+    ``ball_query`` (0.8 m, 32), ``knn`` (16) and ``three_nn`` +
+    ``three_interpolate`` (C = 128) back to the points: their K7 launches
+    counted (one each: the 3xTF32 matrix kernel at C = 3) and held against
+    the plain version; device ms of each call; card against CPU on 512
+    queries (FPS equal; the neighbours with the Gram-bound exceptions)."""
+    from dal3d_tpu_torch.ops import distance as td
+    from dal3d_tpu_torch.ops import pointnet as pn
+
+    cloud = cbgs_clouds(0)[0]
+    rng = np.random.RandomState(26)
+    pts = cloud[rng.choice(len(cloud), PN_POINTS, replace=False), :3].copy()
+    feats_np = rng.normal(0, 1, (PN_CENTRES, PN_C)).astype(np.float32)
+    P, feats = torch.from_numpy(pts).cuda(), torch.from_numpy(feats_np).cuda()
+    for c in counters:
+        c.launches = 0
+    with Capture(td, "pairwise_l2") as k7:
+        fps = pn.furthest_point_sample(P, PN_CENTRES)
+        centres = P[fps]
+        bq_idx, bq_has = pn.ball_query(centres, P, PN_RADIUS, PN_NSAMPLE)
+        kd, ki = pn.knn(centres, P, PN_K)
+        nd, ni = pn.three_nn(P, centres)
+        interp = pn.three_interpolate(feats, ni, nd)
+        torch.cuda.synchronize()
+    launches = main_path_launches(counters, "point ops", 1, dict(pairwise_l2=3))
+    errs = [distance_error("pairwise_l2", td.pairwise_l2, td.pairwise_l2_plain, x, y,
+                           "point ops (C = 3)") for x, y in k7.calls]
+    if len(errs) != 3 or not all(x.shape[1] == 3 and x.shape[0] > td._ROW_MAX_N
+                                 for x, _ in k7.calls):
+        fail(f"point ops: K7 calls {[(tuple(x.shape), tuple(y.shape)) for x, y in k7.calls]}")
+    if (not bool(torch.isfinite(interp).all()) or interp.shape != (PN_POINTS, PN_C)
+            or len(set(fps.tolist())) != PN_CENTRES):
+        fail("point ops: FPS repeats a point or the interpolation is not finite")
+    ms = dict(fps=cuda_time_ms(lambda: pn.furthest_point_sample(P, PN_CENTRES), 2),
+              ball_query=cuda_time_ms(lambda: pn.ball_query(centres, P, PN_RADIUS, PN_NSAMPLE), 3),
+              knn=cuda_time_ms(lambda: pn.knn(centres, P, PN_K), 3),
+              three_nn=cuda_time_ms(lambda: pn.three_nn(P, centres), 3),
+              three_interpolate=cuda_time_ms(lambda: pn.three_interpolate(feats, ni, nd), 3),
+              pairwise_l2=[cuda_time_ms(lambda: td.pairwise_l2(x, y), 3) for x, y in k7.calls])
+
+    # card against CPU
+    Pc = P.cpu()
+    fps_cpu = pn.furthest_point_sample(Pc, PN_CENTRES)
+    if not torch.equal(fps_cpu, fps.cpu()):
+        first = int((fps_cpu != fps.cpu()).nonzero()[0, 0])
+        fail(f"FPS card vs CPU: the indices differ from sample {first} on")
+    cen = centres[:PN_HOLD].cpu()
+    q_np, c_np = cen.numpy(), centres.cpu().numpy()
+    bi, bh = pn.ball_query(cen, Pc, PN_RADIUS, PN_NSAMPLE)
+    d2 = ((q_np.astype(np.float64)[:, None] - pts.astype(np.float64)[None]) ** 2).sum(-1)
+    near = (np.abs(d2 - PN_RADIUS ** 2) <= gram_bound(q_np, pts)).any(1)
+    same = ((bi == bq_idx[:PN_HOLD].cpu()).all(1) & (bh == bq_has[:PN_HOLD].cpu())).numpy()
+    if not same[~near].all():
+        fail(f"ball_query card vs CPU: {int((~same[~near]).sum())} of {int((~near).sum())} held "
+             "rows differ")
+    bq_line = (f"ball_query: indices and has equal on {int((~near).sum())} of {PN_HOLD} rows "
+               f"(excepted: {int(near.sum())} with a point within the Gram bound of the radius; "
+               f"{int((~same).sum())} of all rows differ); queries with a hit "
+               f"{float(bq_has.float().mean()):.3f}")
+    kn_line = neighbours_held("knn (k 16)", ki[:PN_HOLD].cpu(), pn.knn(cen, Pc, PN_K)[1],
+                              q_np, pts, PN_K)
+    nq = P[:PN_HOLD].cpu()
+    nd_c, ni_c = pn.three_nn(nq, centres.cpu())
+    nn_line = neighbours_held("three_nn", ni[:PN_HOLD].cpu(), ni_c, nq.numpy(), c_np, 3)
+    far = (nd_c[:, 0] > 0.1).numpy() & (ni[:PN_HOLD].cpu() == ni_c).all(1).numpy()
+    ip_c = pn.three_interpolate(feats.cpu(), ni_c, nd_c)
+    ip_gap = float((interp[:PN_HOLD].cpu() - ip_c)[far].abs().max() / ip_c.abs().max())
+    print(f"  point ops ({PN_POINTS} points of phase 3's first cloud, {PN_CENTRES} FPS centres): "
+          f"launches {launches}; each K7 launch (C = 3, the 3xTF32 matrix kernel) held against "
+          f"its plain version: " + ", ".join(f"{e:.2e} (tol {t:.2e})" for e, t in errs)
+          + "; device ms " + ", ".join(
+              f"{k} {v:.3f}" if not isinstance(v, list) else f"{k} "
+              + "/".join(f"{x:.3f}" for x in v) for k, v in ms.items()))
+    print(f"  card vs CPU on {PN_HOLD} queries: FPS's {PN_CENTRES} indices equal; {bq_line}; "
+          f"{kn_line}; {nn_line}; three_interpolate on the {int(far.sum())} rows with equal "
+          f"neighbours and the nearest over 0.1 m: {ip_gap:.2e} of scale")
+    return dict(launches=launches, ms=ms, l2_err=max(e for e, _ in errs))
+
+
+def rotate_nms_check(counters, predict, batch) -> dict:
+    """(b) ``rotate_nms`` on the 12 candidate sets of phase 3's predict (the
+    head's 1000 candidates of each task and frame, ranked as it ranks them):
+    the kept indices through K2 (12 launches, counted) equal to those through
+    K2's plain twin on the card; the Green's matrix on the card within 1e-5
+    of the same function on the CPU on the set with the most candidates;
+    beside it, a record: the Green's IoUs against K2's on every set."""
+    from dal3d_tpu_torch.models.heads import mg_head as mgh
+    from dal3d_tpu_torch.ops import iou_matrix as tiou
+    from dal3d_tpu_torch.ops.nms import rotate_nms
+    from dal3d_tpu_torch.ops.rotated_iou_fast import (rotated_iou_matrix_fast,
+                                                      rotated_iou_matrix_greens)
+
+    with Capture(mgh, "rotated_iou_matrix_batched") as cap_iou, \
+            Capture(mgh, "greedy_nms_from_iou") as cap_nms:
+        predict(batch)
+    bev, valid = cap_iou.calls[0][0], cap_nms.calls[0][1]
+    G, N = valid.shape
+    scores = torch.arange(N, 0, -1, dtype=torch.float32, device=bev.device)  # the head's rank
+
+    def on(name, fn, g):
+        """rotate_nms of set g with the ``iou_matrix`` module's ``name`` swapped for fn."""
+        orig = getattr(tiou, name)
+        setattr(tiou, name, fn)
+        try:
+            return rotate_nms(bev[g], scores, valid[g])
+        finally:
+            setattr(tiou, name, orig)
+
+    def greens_batched(a, b):
+        return rotated_iou_matrix_greens(a[0], b[0])[None]
+
+    for c in counters:
+        c.launches = 0
+    kept = [rotate_nms(bev[g], scores, valid[g]) for g in range(G)]
+    torch.cuda.synchronize()
+    launches = main_path_launches(counters, "rotate_nms", G, dict(iou_matrix=1))
+    plain = [on("iou_matrix", tiou.iou_matrix_plain, g) for g in range(G)]
+    for g in range(G):
+        if not (torch.equal(kept[g][0], plain[g][0]) and torch.equal(kept[g][1], plain[g][1])):
+            fail(f"rotate_nms set {g}: K2's kept indices differ from the plain twin's")
+    ms = cuda_time_ms(lambda: rotate_nms(bev[0], scores, valid[0]), 5)
+    gaps, over, pairs, same_keep, worst, short_gap, n_long = 0.0, 0, 0, 0, "", 0.0, 0
+    for g in range(G):
+        v = valid[g]
+        one = bev[g][None].contiguous()
+        k2 = tiou.iou_matrix(tiou._pack_rowdat(one), tiou._pack_rowdat(one))[0]
+        gr = rotated_iou_matrix_greens(bev[g], bev[g])
+        d = torch.where(v[:, None] & v[None, :], (gr - k2).abs(), torch.zeros_like(gr))
+        if float(d.max()) > gaps:
+            i, j = divmod(int(d.argmax()), N)
+            pair = bev[g, [i, j]].cpu().double()
+            exact = float(rotated_iou_matrix_fast(pair, pair)[0, 1])  # f64, on the CPU
+            worst = (f"set {g}, boxes {bev[g, i].tolist()} and {bev[g, j].tolist()}: Green's "
+                     f"{float(gr[i, j]):.4f}, K2 {float(k2[i, j]):.4f}, the exact IoU (the "
+                     f"sorting engine in f64 on the CPU) {exact:.6f}")
+        # the f32 routes' _EPS band (1e-4 m) drowns in the rounding of a
+        # km-long edge; the gap over the pairs of shorter boxes apart
+        short = v & (bev[g, :, 2:4].abs().amax(1) < LONG_BOX_M)
+        n_long += int((v & ~short).sum())
+        short_gap = max(short_gap, float(torch.where(short[:, None] & short[None, :], d,
+                                                     torch.zeros_like(d)).max()))
+        gaps, over, pairs = (max(gaps, float(d.max())), over + int((d > 1e-5).sum()),
+                             pairs + int(v.sum()) ** 2)
+        gk = on("rotated_iou_matrix_batched", greens_batched, g)
+        same_keep += int(torch.equal(gk[0], kept[g][0]) and torch.equal(gk[1], kept[g][1]))
+    g = int(valid.sum(1).argmax())
+    v = valid[g].cpu()
+    card = rotated_iou_matrix_greens(bev[g], bev[g]).cpu()[v][:, v]
+    cpu = rotated_iou_matrix_greens(bev[g].cpu(), bev[g].cpu())[v][:, v]
+    g_err = float((card - cpu).abs().max())
+    if not g_err <= 1e-5:
+        fail(f"Green's IoU card vs CPU on set {g}: {g_err:.3e} > 1e-5")
+    print(f"  rotate_nms on phase 3's {G} candidate sets ({int(valid.sum())} valid of {G * N}): "
+          f"launches {launches}; kept indices through K2 equal to the plain twin's on every "
+          f"set ({sum(int(k[1].sum()) for k in kept)} kept); {ms:.3f} ms a set on the device; "
+          f"the Green's matrix card vs CPU on set {g} ({int(v.sum())} valid): {g_err:.2e} "
+          f"(tol 1e-5); record: the Green's IoUs against K2's on the valid pairs of every set: "
+          f"largest gap {gaps:.2e} ({worst}), {over} of {pairs} pairs differ by more than "
+          f"1e-5; without the {n_long} valid boxes at least {LONG_BOX_M:g} m long, largest "
+          f"gap {short_gap:.2e}; the Green's route keeps K2's indices on {same_keep} of {G} sets")
+    return dict(launches=launches, ms=ms, greens_err=g_err, greens_k2_gap=gaps,
+                greens_k2_over=over, greens_k2_short_gap=short_gap)
+
+
+def align_aggregation_check(bundle, predict, batch) -> dict:
+    """(c) ``AlignFeatureAggregation`` (num_channel the RPN output's 512,
+    neighbor 9) on the production RPN's output of phase 3's batch (each frame aligned to the
+    other), seeded weights: device ms and peak memory; card against CPU
+    within 1e-4 of scale."""
+    from dal3d_tpu_torch.models.builder import init_random_
+    from dal3d_tpu_torch.ops.align_aggregation import AlignFeatureAggregation
+
+    grabbed = []
+    hook = bundle.model.neck.register_forward_hook(lambda m, i, o: grabbed.append(o))
+    try:
+        predict(batch)
+    finally:
+        hook.remove()
+    x = grabbed[0].permute(0, 3, 1, 2).contiguous().float()  # NHWC -> [B, 512, 128, 128]
+    xs, xc = x, x.flip(0).contiguous()
+    afa = init_random_(AlignFeatureAggregation(x.shape[1], AFA_NEIGHBOR),
+                       torch.Generator().manual_seed(26)).eval()
+    out = {}
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for dev in ("cuda", "cpu"):
+            m = afa.to(dev)
+            a, b = xs.to(dev), xc.to(dev)
+            out[dev] = m(a, b).cpu()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                ms = cuda_time_ms(lambda: m(a, b), 3)
+                peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    gap = float((out["cuda"] - out["cpu"]).abs().max() / out["cpu"].abs().max())
+    if not gap <= 1e-4 or not bool(torch.isfinite(out["cuda"]).all()):
+        fail(f"AlignFeatureAggregation card vs CPU: {gap:.2e} of scale > 1e-4")
+    print(f"  AlignFeatureAggregation ({x.shape[1]} channels, neighbor {AFA_NEIGHBOR}) on the "
+          f"RPN output {tuple(x.shape)}: {ms:.3f} ms on the device, {peak:.2f} GB above its "
+          f"inputs at the peak; card vs CPU {gap:.2e} of scale (tol 1e-4)")
+    return dict(ms=ms, peak_gb=peak, gap=gap)
+
+
+def image_backbones_check() -> dict:
+    """(d) ResNet-18, SENet and SSDVGG at full width, seeded weights, eval
+    mode, under ``autotuned_convs`` as the steps run every model: each
+    forward on 6 x 3 x 256 x 704 timed on the device with its peak memory
+    above what was allocated before it (its first call apart: cuDNN's
+    autotuner); card against CPU on one view at 3 x 128 x 352, every map
+    within 1e-4 of scale."""
+    from dal3d_tpu_torch.models.backbones.image import SENet, SSDVGG, ResNet
+    from dal3d_tpu_torch.models.builder import init_random_
+    from dal3d_tpu_torch.runtime.steps import autotuned_convs
+
+    rng = np.random.RandomState(26)
+    x = torch.from_numpy(rng.normal(0, 1, (IMG_VIEWS, 3) + IMG_HW).astype(np.float32)).cuda()
+    one = torch.from_numpy(rng.normal(0, 1, (1, 3) + IMG_HOLD_HW).astype(np.float32))
+    out = {}
+    for name, cls in (("ResNet-18", ResNet), ("SENet", SENet), ("SSDVGG", SSDVGG)):
+        m = init_random_(cls(), torch.Generator().manual_seed(26)).eval().cuda()
+        with torch.inference_mode(), autotuned_convs():
+            t0 = time.perf_counter()
+            m(x)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = cuda_time_ms(lambda: m(x), 3)
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            card = [y.cpu() for y in m(one.cuda())]
+            cpu = m.cpu()(one)
+        gaps = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(card, cpu)]
+        if not max(gaps) <= IMG_TOL:
+            fail(f"{name} card vs CPU: {gaps} of scale > {IMG_TOL}")
+        out[name] = dict(ms=ms, peak_gb=peak, gap=max(gaps))
+        print(f"  {name}: forward on {IMG_VIEWS} x 3 x {IMG_HW[0]} x {IMG_HW[1]} {ms:.3f} ms on "
+              f"the device (first call {first:.1f} s), {peak:.2f} GB above what was held "
+              f"before it at the peak; maps "
+              f"{[tuple(y.shape) for y in cpu]} card vs CPU at 1 x 3 x {IMG_HOLD_HW[0]} x "
+              f"{IMG_HOLD_HW[1]} within {max(gaps):.2e} of scale (tol {IMG_TOL})")
+        del m
+    return out
+
+
+def visualization_check(tmp: str, loop: dict, counters) -> dict:
+    """(e) ``lidar_visualize``'s per-frame computation (``frame_records``)
+    with ``--checkpoint`` on phase 15's val set and checkpoint (full-width
+    CBGS), 2 frames on the card (42 K1 and 1 K2 a predict, counted) and with
+    ``--cpu``: every head map of each predict within 5e-2 of its scale, as
+    phase 15 holds the bf16 maps against the plain versions, and the kept
+    boxes paired as post-NMS sets, whatever their number; ``cam_vis``'s
+    (``frame_views``) on 2 frames of phase 19's camera set and the boxes'
+    projection into every camera; ``analyze_logs cal_train_time`` on phase
+    11's log. The render CLIs run where matplotlib imports."""
+    import importlib.util
+
+    from dal3d_tpu_torch.runtime import steps
+    from dal3d_tpu_torch.tools import analyze_logs, cam_vis, lidar_visualize
+    from dal3d_tpu_torch.utils.config import Config
+    from dal3d_tpu_torch.visualization.vis3d import project_boxes_to_image
+
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    cfg = Config.fromfile(loop["cfg_path"])
+    args = lidar_visualize.parse_args([loop["cfg_path"], "--checkpoint", loop["work"], "--num",
+                                       str(VIS_FRAMES), "--score_thresh", "0.0"])
+    recs, maps = {}, {}
+    for dev in ("cuda", "cpu"):
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        np.random.seed(LOOP_SEED)
+        with Capture(steps, "multi_group_predict") as heads:  # the predict's head maps
+            recs[dev] = lidar_visualize.frame_records(cfg, args, torch.device(dev))
+        secs = time.perf_counter() - t0
+        maps[dev] = [[h[k].float().cpu() for h in call[0] for k in ("box_preds", "cls_preds")]
+                     for call in heads.calls]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = main_path_launches(counters, "lidar_visualize --checkpoint", VIS_FRAMES,
+                                          dict(banded_conv=K1_PER_PREDICT,
+                                               iou_matrix=K2_PER_PREDICT))
+            card_s = secs
+    frames = {}
+    for dev, rs in recs.items():
+        frames[dev] = {r["token"]: dict(box3d_lidar=r["pred_boxes"],
+                                        scores=np.ones(len(r["pred_boxes"]), np.float32),
+                                        label_preds=np.zeros(len(r["pred_boxes"]), np.int64),
+                                        det_valid=np.ones(len(r["pred_boxes"]), bool))
+                       for r in rs}
+    same_pts = all(np.array_equal(a["points"], b["points"]) for a, b in zip(*recs.values()))
+    if len(maps["cuda"]) != VIS_FRAMES or len(maps["cpu"]) != VIS_FRAMES:
+        fail(f"lidar_visualize frame_records: {len(maps['cuda'])} predicts on the card, "
+             f"{len(maps['cpu'])} with --cpu; expected {VIS_FRAMES}")
+    map_gap = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                  for ca, cb in zip(maps["cuda"], maps["cpu"]) for a, b in zip(ca, cb))
+    if not same_pts or not map_gap <= VIS_MAP_TOL:
+        fail(f"lidar_visualize frame_records card vs --cpu: points equal {same_pts}, head maps "
+             f"{map_gap:.2e} of scale (tol {VIS_MAP_TOL:g})")
+    # the kept boxes beside the maps: a briefly trained checkpoint may keep
+    # none in range, so the sets must pair, whatever their number
+    matched, n_card, n_cpu, box_gap, ctr_gap, _ = match_loop_dets(frames["cuda"], frames["cpu"])
+    if len(recs["cuda"]) != VIS_FRAMES or n_card != n_cpu or matched != n_card:
+        fail(f"lidar_visualize frame_records card vs --cpu: matched {matched} of {n_card} kept "
+             f"boxes (CPU {n_cpu})")
+    print(f"  lidar_visualize --checkpoint (phase 15's set and checkpoint, full-width CBGS): "
+          f"{VIS_FRAMES} frames' points equal; card vs --cpu: the {len(maps['cpu'][0])} head "
+          f"maps of each predict within {map_gap:.2e} of scale (tol {VIS_MAP_TOL:g}), the kept "
+          f"boxes {matched} of {n_card} paired (CPU {n_cpu}; same centre within 0.1 m), "
+          f"largest box gap {box_gap:.2e}, centre {ctr_gap:.2e} m; launches {launches} "
+          f"({card_s:.1f} s on the card, {secs:.1f} s with --cpu)")
+    stage2_cfg = os.path.join(tmp, "stage2_cli", "bevfusion_cl.py")
+    views = cam_vis.frame_views(Config.fromfile(stage2_cfg),
+                                cam_vis.parse_args([stage2_cfg, "--num", str(VIS_FRAMES)]))
+    n_front, n_boxes = 0, 0
+    for v in views:
+        for c in range(v["images"].shape[0]):
+            if v["gt_boxes"] is None or not len(v["gt_boxes"]):
+                continue
+            uv, front = project_boxes_to_image(v["gt_boxes"], v["intrinsics"][c], v["rots"][c],
+                                               v["trans"][c])
+            if not np.isfinite(uv).all():
+                fail("cam_vis: a projected corner is not finite")
+            n_front += int(front.all(1).sum())
+            n_boxes += len(front)
+    rows = analyze_logs.main(["cal_train_time", os.path.join(tmp, "work_train", "train.log")])
+    if len(views) != VIS_FRAMES or not rows or not all(r["time"] > 0 for r in rows):
+        fail(f"cam_vis frames {len(views)}, analyze_logs rows {len(rows)}")
+    rendered = "no render CLI (matplotlib is not installed here)"
+    if has_mpl:  # the CLIs themselves, figures and all
+        lidar_visualize.main([loop["cfg_path"], "--checkpoint", loop["work"], "--num", "1",
+                              "--out_dir", os.path.join(tmp, "vis")])
+        cam_vis.main([stage2_cfg, "--num", "1", "--out_dir", os.path.join(tmp, "cam_vis")])
+        analyze_logs.main(["plot_curve", os.path.join(tmp, "work_train", "train.log"), "--out",
+                           os.path.join(tmp, "curve.png")])
+        rendered = "the render CLIs ran (lidar_visualize, cam_vis, analyze_logs plot_curve)"
+    print(f"  cam_vis frame_views on {len(views)} frames of phase 19's camera set: "
+          f"{views[0]['images'].shape} images a frame, {n_boxes} box-camera pairs projected "
+          f"({n_front} wholly in front); analyze_logs cal_train_time on phase 11's log: "
+          f"{len(rows)} interval rows; {rendered}")
+    return dict(launches=launches, rendered=has_mpl, map_gap=map_gap)
+
+
+def ops_models_vis_phase(tmp: str, loop: dict, counters, bundle, predict, batch) -> dict:
+    """Phase 26: the point ops (a), rotate_nms and the Green's IoU (b), the
+    align aggregation (c), the image backbones (d), the visualisation tools
+    (e)."""
+    t_phase = time.perf_counter()
+    points = point_ops_check(counters)
+    stamp(t_phase, "(a) the point ops")
+    nms = rotate_nms_check(counters, predict, batch)
+    stamp(t_phase, "(b) rotate_nms, the Green's IoU")
+    afa = align_aggregation_check(bundle, predict, batch)
+    stamp(t_phase, "(c) AlignFeatureAggregation")
+    images = image_backbones_check()
+    stamp(t_phase, "(d) the image backbones")
+    vis = visualization_check(tmp, loop, counters)
+    print(f"phase 26 (point ops, rotate_nms, align aggregation, image backbones, "
+          f"visualisation): {time.perf_counter() - t_phase:.1f} s")
+    return dict(points=points, nms=nms, afa=afa, images=images, vis=vis)
 
 
 if __name__ == "__main__":

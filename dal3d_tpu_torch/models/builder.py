@@ -301,17 +301,16 @@ def bevfusion_optimizer(cfg, bundle, total_steps: int):
 
 def eval_test_cfg(cfg, logger=None) -> dict:
     """The metric evaluation's test_cfg (JAX's ``eval_test_cfg``): the exact
-    top-k prefilter, so that a reported mAP is reproducible. The port's head
-    always takes the exact top-k (``heads/mg_head.py::multi_group_predict``),
-    so a config that asks for the approximate one is refused rather than
-    quietly given the exact one."""
+    top-k prefilter unless the config asks for the approximate one, so that a
+    reported mAP is reproducible. The log names the flag as JAX's does; the
+    port's head takes the exact stable top k under either
+    (``heads/mg_head.py::multi_group_predict``), which is what XLA's
+    ``approx_max_k`` computes off the TPU."""
     tcfg = dict(cfg.get("test_cfg", {}) or {})
     nms = dict(tcfg.get("nms", {}))
     nms.setdefault("use_approx_topk", False)
-    if nms["use_approx_topk"]:
-        raise NotImplementedError("test_cfg.nms.use_approx_topk=True: the approximate top-k "
-                                  "prefilter is not ported yet (ROADMAP A9.i)")
     tcfg["nms"] = nms
     if logger is not None:
-        logger.info("top-k prefilter: exact")
+        logger.info(f"top-k prefilter: {'approx' if nms['use_approx_topk'] else 'exact'} "
+                    "(the approximate top-k is exact off the TPU, as XLA's approx_max_k)")
     return tcfg

@@ -4,7 +4,8 @@
 The inverse of ``dal3d_tpu/models/convert_second.py`` (which maps det3d
 torch checkpoints onto the flax trees): it takes the ``{"params",
 "batch_stats"}`` trees of an ``FPNVoxelNet`` (any backbone engine), of a
-``BEVFusion``, of a ``PointPillars`` or of an ``FPN``, as nested dicts of
+``BEVFusion``, of a ``PointPillars``, of an ``FPN``, of an image backbone
+or of an ``AlignFeatureAggregation``, as nested dicts of
 numpy arrays and returns the matching ``state_dict`` of the port's module
 of that name.
 
@@ -467,3 +468,59 @@ def fpn_flax_to_state_dict(params: dict, fpn) -> Dict[str, torch.Tensor]:
         out[f"{dst}.weight"] = _conv2d(flat[f"Conv_{i}/kernel"])
         out[f"{dst}.bias"] = flat[f"Conv_{i}/bias"]
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def image_backbone_flax_to_state_dict(variables: dict, model) -> Dict[str, torch.Tensor]:
+    """{"params", "batch_stats"} of a flax ``ResNet`` / ``SENet`` / ``SSDVGG``
+    (``dal3d_tpu/models/backbones/image.py``) -> state_dict of the port's
+    module of that name (``models/backbones/image.py``). flax names a
+    block's submodules in the order its ``__call__`` makes them: ``Conv_0``,
+    ``BatchNorm2d_0``, ``Conv_1``, ``BatchNorm2d_1``, the SE block's
+    ``Dense_0`` and ``Dense_1``, and the projection ``Conv_2`` /
+    ``BatchNorm2d_2``; the blocks ``_BasicBlock_<i>`` count across the
+    stages. SSDVGG's convs are ``Conv_0``.. in order, fc6 and fc7 last."""
+    params = _flatten(variables["params"])
+    stats = _flatten(variables.get("batch_stats", {}))
+    out: Dict[str, np.ndarray] = {}
+
+    def bn(src, dst):
+        _bn(params, stats, f"{src}/BatchNorm_0", dst, out)
+
+    def conv(src, dst):
+        out[f"{dst}.weight"] = _conv2d(params[f"{src}/kernel"])
+        if f"{src}/bias" in params:
+            out[f"{dst}.bias"] = params[f"{src}/bias"]
+
+    if hasattr(model, "fc6"):  # SSDVGG
+        convs = [f"stages.{i}.{j}" for i, s in enumerate(model.stages) for j in range(len(s))]
+        for n, dst in enumerate(convs + ["fc6", "fc7"]):
+            conv(f"Conv_{n}", dst)
+    else:
+        conv("Conv_0", "stem")
+        bn("BatchNorm2d_0", "stem_bn")
+        blocks = [f"stages.{i}.{j}" for i, s in enumerate(model.stages) for j in range(len(s))]
+        for n, dst in enumerate(blocks):
+            src = f"_BasicBlock_{n}"
+            for k in (0, 1):
+                conv(f"{src}/Conv_{k}", f"{dst}.conv{k + 1}")
+                bn(f"{src}/BatchNorm2d_{k}", f"{dst}.bn{k + 1}")
+            if f"{src}/Dense_0/kernel" in params:
+                _dense(params, f"{src}/Dense_0", f"{dst}.se.0", out)
+                _dense(params, f"{src}/Dense_1", f"{dst}.se.2", out)
+            if f"{src}/Conv_2/kernel" in params:
+                conv(f"{src}/Conv_2", f"{dst}.proj.0")
+                bn(f"{src}/BatchNorm2d_2", f"{dst}.proj.1")
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def align_aggregation_flax_to_state_dict(params: dict) -> Dict[str, torch.Tensor]:
+    """The params of a flax ``AlignFeatureAggregation``
+    (``dal3d_tpu/ops/align_aggregation.py``) -> state_dict of the port's
+    (``ops/align_aggregation.py``): ``embed_keyframe``, ``embed_current``
+    and ``agg_conv1``-``3``, kernel and bias each."""
+    flat = _flatten(params)
+    out: Dict[str, np.ndarray] = {}
+    for name in ("embed_keyframe", "embed_current", "agg_conv1", "agg_conv2", "agg_conv3"):
+        out[f"{name}.weight"] = _conv2d(flat[f"{name}/kernel"])
+        out[f"{name}.bias"] = flat[f"{name}/bias"]
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}

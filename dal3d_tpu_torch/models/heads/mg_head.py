@@ -119,8 +119,8 @@ def multi_group_predict(preds: List[Dict[str, torch.Tensor]],
                         cfg: TestConfig = TestConfig(),
                         iou_rescore_alpha: float = 0.0) -> Dict[str, torch.Tensor]:
     """Fixed-shape batched decode + NMS: per task, score threshold, exact
-    top-k candidates (JAX's ``use_approx_topk=False`` branch, with
-    ``lax.top_k``'s order among equal scores) and decode;
+    top-k candidates (``lax.top_k``'s order among equal scores: what JAX
+    computes off the TPU under either ``use_approx_topk``) and decode;
     then one batched rotated-IoU matrix and greedy NMS over all (task, batch)
     sets; merge with label offsets.
 

@@ -16,8 +16,13 @@ The intersection of two rotated rectangles, elementwise over every pair:
 
 The intersection is bounded by the smaller area (volume), as in JAX: a
 degenerate pair (coincident edges) can over-count it. No Pallas kernel in
-JAX; the Green's-theorem variant of the JAX module is not ported (ROADMAP
-A9.e).
+JAX.
+
+``rotated_iou_matrix_greens`` is the module's other engine, JAX's
+Green's-theorem one: the intersection's area is half the sum of cross(u, v)
+over its boundary segments, which are each box's edges Cyrus-Beck-clipped to
+the other box; no sort. It is called by name (JAX's ``rotate_nms`` takes
+it); the port's NMS takes K2 and its plain twin (``ops/iou_matrix.py``).
 
 Boxes: BEV [x, y, w, l, yaw] for the matrix, [x, y, z, w, l, h, ..., yaw]
 (z at the bottom face) for the 3D IoU; corners as ``core.box_ops.corners_2d``.
@@ -154,4 +159,105 @@ def boxes_iou3d_fast(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor
     vol2 = torch.abs(boxes2[:, 3] * boxes2[:, 4] * boxes2[:, 5])
     inter = torch.minimum(inter, torch.minimum(vol1[:, None], vol2[None, :]))
     union = vol1[:, None] + vol2[None, :] - inter
+    return torch.where(union > 0, inter / union, torch.zeros_like(union))
+
+
+_EPS = 1e-4  # meters: the Green's engine's parallel / on-boundary band (lidar scale)
+
+
+def _right_normals(e: torch.Tensor) -> torch.Tensor:
+    """Unit right-hand normals (ey, -ex) / |e| of edges e [..., 2]: inward on
+    ``corners_2d``'s clockwise rings. Computed in f64 and rounded once to
+    e's dtype: the card's f32 ``sqrt`` is not the CPU's in the last bit."""
+    ed = e.double()
+    elen = torch.sqrt(torch.clamp((ed * ed).sum(-1), min=1e-20))
+    return (torch.stack([ed[..., 1], -ed[..., 0]], dim=-1) / elen[..., None]).to(e.dtype)
+
+
+def _clip_sum(p0, d, num, den) -> torch.Tensor:
+    """Σ cross(u, v) of the edges p0 + t d clipped by the planes whose signed
+    distances are ``num`` and projections ``den`` ([..., 4 edges, ..., 4
+    planes] with the planes last), the edge axis summed: JAX's Cyrus-Beck
+    step with its ``_EPS`` classification and the half weight of a segment
+    on the clip boundary. p0, d broadcast against ``num[..., 0]`` with a
+    trailing xy axis."""
+    parallel = den.abs() < _EPS
+    t_at = -num / torch.where(parallel, torch.ones_like(den), den)
+    is_entry = den > 0  # moving inward
+    zero, one = torch.zeros_like(t_at), torch.ones_like(t_at)
+    t_lo = torch.where(is_entry & ~parallel, t_at, zero).amax(-1)
+    t_hi = torch.where(~is_entry & ~parallel, t_at, one).amin(-1)
+    on_boundary = (parallel & (num.abs() <= _EPS)).any(-1)
+    killed = (parallel & (num < -_EPS)).any(-1)
+    weight = torch.where(on_boundary, 0.5, 1.0).to(t_lo.dtype)
+    t_lo, t_hi = torch.clamp(t_lo, 0.0, 1.0), torch.clamp(t_hi, 0.0, 1.0)
+    ok = (t_hi > t_lo) & ~killed
+    u = p0 + t_lo[..., None] * d
+    v = p0 + t_hi[..., None] * d
+    cr = u[..., 0] * v[..., 1] - v[..., 0] * u[..., 1]
+    return torch.where(ok, cr, torch.zeros_like(cr)) * weight
+
+
+def _pair_intersection_area_greens(c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
+    """Green's-theorem intersection area of c1, c2 [..., 4, 2] (broadcast):
+    0.5 |Σ cross(u, v)| over A's edges clipped to B and B's clipped to A.
+    A segment on the other box's boundary counts half, so coincident edges
+    sum to one traversal and edge-only contact cancels to zero area."""
+    c1, c2 = torch.broadcast_tensors(c1, c2)
+
+    def contrib(edges_from, clip_to):
+        p0 = edges_from  # [..., 4, 2]
+        d = torch.roll(edges_from, -1, dims=-2) - p0
+        a = clip_to[..., None, :, :]  # [..., 1, 4, 2] clip edges
+        n = _right_normals(torch.roll(clip_to, -1, dims=-2) - clip_to)[..., None, :, :]
+        num = (n * (p0[..., :, None, :] - a)).sum(-1)  # [..., 4 edges, 4 planes]
+        den = (n * d[..., :, None, :]).sum(-1)
+        return _clip_sum(p0, d, num, den).sum(-1)
+
+    return 0.5 * torch.abs(contrib(c1, c2) + contrib(c2, c1))
+
+
+def _clip_planes(c: torch.Tensor):
+    """Clip planes of clockwise corner rings [M, 4, 2]: inward unit normals
+    n [M, 4, 2] and offsets a.n [M, 4], once per box rather than per pair."""
+    n = _right_normals(torch.roll(c, -1, dims=-2) - c)
+    return n, (n * c).sum(-1)
+
+
+def _matrix_contrib(cf: torch.Tensor, n: torch.Tensor, an: torch.Tensor) -> torch.Tensor:
+    """Σ cross(u, v) of ``cf``'s edges [N, 4, 2] clipped to every box of
+    planes (n [M, 4, 2], an [M, 4]) -> [N, M]. The plane dots are written
+    out in f32 (JAX's contraction at HIGHEST precision; no TF32)."""
+    p0 = cf
+    d = torch.roll(cf, -1, dims=-2) - p0
+
+    def dots(x):  # [N, 4, 2] . [M, 4, 2] -> [N, 4e, M, 4p]
+        return (x[:, :, None, None, 0] * n[None, None, :, :, 0]
+                + x[:, :, None, None, 1] * n[None, None, :, :, 1])
+
+    num = dots(p0) - an[None, None]
+    den = dots(d)
+    return _clip_sum(p0[:, :, None], d[:, :, None], num, den).sum(1)
+
+
+def rotated_iou_matrix_greens(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Rotated BEV IoU matrix [N, M] of boxes [N, 5] and [M, 5] (x, y, w, l,
+    yaw) by the Green's-theorem engine, plain PyTorch on the boxes' device.
+
+    The corners and the planes' unit normals are computed in f64 and
+    rounded once to f32, so that they do not depend on the device's f32
+    sin, cos and sqrt (the card's and the CPU's differ in the last bit, and
+    one ulp of a corner moves an IoU of near-coincident candidate boxes by
+    up to 5e-4); the rest is JAX's f32 arithmetic."""
+    c1, c2 = corners_2d(boxes1.double()).float(), corners_2d(boxes2.double()).float()
+    n1, an1 = _clip_planes(c1)
+    n2, an2 = _clip_planes(c2)
+    inter = 0.5 * torch.abs(_matrix_contrib(c1, n2, an2) + _matrix_contrib(c2, n1, an1).T)
+    area1 = torch.abs(boxes1[:, 2] * boxes1[:, 3])
+    area2 = torch.abs(boxes2[:, 2] * boxes2[:, 3])
+    # physical bound, as JAX's: a coincident edge whose |num| lands just past
+    # _EPS can count a duplicate's area twice; the clamp also floors the
+    # union at the larger area
+    inter = torch.minimum(inter, torch.minimum(area1[:, None], area2[None, :]))
+    union = area1[:, None] + area2[None, :] - inter
     return torch.where(union > 0, inter / union, torch.zeros_like(union))

@@ -10,8 +10,10 @@ package's evaluation of the same detections:
   ``results_nusc.json`` equal to JAX's conversion of the same detections,
   and ``test`` gives the same result;
 - ``--torch_init`` gives both CLIs the result of the checkpoint whose
-  weights it holds; an approximate top-k is refused with its ROADMAP item;
-  without ``--cpu`` the CLIs need a GPU."""
+  weights it holds; a config that asks for the approximate top-k runs
+  through both CLIs and gives the exact top-k's detections (what JAX's
+  approximate branch computes off the TPU); without ``--cpu`` the CLIs need
+  a GPU."""
 import json
 import os
 import pickle
@@ -149,7 +151,20 @@ def test_test_cli_gives_the_dist_test_result(evalset, cli_run):
         result, results={"nusc": result["results"]["nusc"].replace("work_dist", "work_test")})
 
 
-def test_torch_init_gives_the_checkpoint_result(evalset):
+@pytest.fixture(scope="module")
+def seeded_run(evalset):
+    """``dist_test`` on the checkpoint with numpy's global generator seeded
+    (the sweep draw of a frame uses it): (result, detections)."""
+    root, _, cfg, ckpt = evalset
+    np.random.seed(0)
+    ref_out = str(root / "work_ti_ref.pkl")
+    result = dist_test.main([cfg, "--checkpoint", ckpt, "--work_dir", str(root / "work_ti_ref"),
+                             "--out", ref_out, "--cpu"])
+    with open(ref_out, "rb") as f:
+        return result, pickle.load(f)
+
+
+def test_torch_init_gives_the_checkpoint_result(evalset, seeded_run):
     """``--torch_init`` (refused before the port's det3d loader): the
     checkpoint's weights written as a det3d npz give both CLIs the
     checkpoint's result, and win over a ``--checkpoint`` given beside them."""
@@ -158,12 +173,7 @@ def test_torch_init_gives_the_checkpoint_result(evalset):
     from dal3d_tpu_torch.runtime.checkpoint import load_checkpoint
 
     root, _, cfg, ckpt = evalset
-    np.random.seed(0)  # the sweep draw of a frame uses numpy's global generator
-    ref_out = str(root / "work_ti_ref.pkl")
-    result = dist_test.main([cfg, "--checkpoint", ckpt, "--work_dir", str(root / "work_ti_ref"),
-                             "--out", ref_out, "--cpu"])
-    with open(ref_out, "rb") as f:
-        dets = pickle.load(f)
+    result, dets = seeded_run
     model = build_detector(Config.fromfile(cfg), device="cpu").model
     load_checkpoint(ckpt, model)
     npz = str(root / "det3d.npz")
@@ -191,11 +201,40 @@ def test_unported_options_are_refused(evalset, monkeypatch):
     root, _, cfg, ckpt = evalset
     with pytest.raises(SystemExit, match="one of --checkpoint / --torch_init"):
         test_cli.main([cfg, "--cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A9.i"):
-        eval_test_cfg({"test_cfg": {"nms": {"use_approx_topk": True}}})
+    assert eval_test_cfg({"test_cfg": {"nms": {"use_approx_topk": True}}})["nms"][
+        "use_approx_topk"] is True  # accepted since the port's A9.i
     assert eval_test_cfg({"test_cfg": {"nms": {}}})["nms"]["use_approx_topk"] is False
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for cli in (test_cli, dist_test):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main([cfg, "--checkpoint", ckpt, "--work_dir", str(root / "gpu")])
     assert not os.path.exists(root / "gpu")
+
+
+def test_approx_topk_config_runs_through_test_and_dist_test(evalset, seeded_run):
+    """``test_cfg.nms.use_approx_topk = True``: ``dist_test`` and ``test``
+    run, log JAX's word for the flag, and give the exact top-k's
+    detections (XLA's approx_max_k is the exact top k off the TPU;
+    tests/test_torch_losses.py holds the predict against JAX's approximate
+    branch)."""
+    root, _, cfg, ckpt = evalset
+    approx = str(root / "cfg_approx.py")
+    with open(cfg) as f, open(approx, "w") as g:
+        g.write(f.read() + "test_cfg = dict(test_cfg, nms=dict(test_cfg['nms'], "
+                "use_approx_topk=True))\n")
+    assert Config.fromfile(approx)["test_cfg"]["nms"]["use_approx_topk"] is True
+    runs = {"exact": seeded_run[1]}
+    assert "top-k prefilter: exact" in open(root / "work_ti_ref" / "test.log").read()
+    for tag, cli in (("approx", dist_test), ("approx_test", test_cli)):
+        work, out = str(root / f"work_{tag}"), str(root / f"{tag}.pkl")
+        np.random.seed(0)  # the sweep draw of a frame uses numpy's global generator
+        cli.main([approx, "--checkpoint", ckpt, "--work_dir", work, "--out", out, "--cpu"])
+        with open(out, "rb") as f:
+            runs[tag] = pickle.load(f)
+        assert "top-k prefilter: approx" in open(os.path.join(work, "test.log")).read()
+    assert sum(int(d["det_valid"].sum()) for d in runs["exact"].values()) > 0
+    for tag in ("approx", "approx_test"):
+        assert list(runs[tag]) == list(runs["exact"])
+        for token, d in runs["exact"].items():
+            for k, v in d.items():
+                np.testing.assert_array_equal(runs[tag][token][k], v, err_msg=k)

@@ -94,6 +94,87 @@ def test_coincident_edge_values():
     np.testing.assert_allclose(got.numpy(), [0.0, 1.0 / 3.0, 0.5, 0.0], atol=1e-3)
 
 
+def _long_duplicates(lo, hi, n=128):
+    """Thin boxes (0.1-3 m wide) from lo to hi m long, each twice (n a
+    multiple of 128, as the Pallas kernel wants)."""
+    rng = np.random.RandomState(0)
+    b = np.zeros((n, 5), np.float32)
+    b[:, :2] = rng.uniform(-80, 80, (n, 2))
+    b[:, 2] = rng.uniform(0.1, 3.0, n)
+    b[:, 3] = np.exp(rng.uniform(np.log(lo), np.log(hi), n))
+    b[:, 4] = rng.uniform(-np.pi, np.pi, n)
+    b[n // 2:] = b[:n // 2]
+    return b
+
+
+@pytest.mark.parametrize("lengths", [(20.0, 1000.0), (2000.0, 8000.0)])
+def test_long_duplicates(lengths):
+    """The kernel's arithmetic on duplicates of long thin boxes, against
+    the exact IoU (the sorting engine in f64). Up to a km, JAX's kernel and
+    the port agree with each other and with the exact IoU within 5e-4 (the
+    Green's sum cancels cross terms of up to 1e6 m^2 in f32). From 2 km on,
+    the f32 rounding of an edge's projection on its twin's normal (|d| x
+    2^-24, over 1e-4 m) leaves the 1e-4 m parallel / on-boundary band, so a
+    duplicate's IoU (exactly 1) falls to 1/3 or below in JAX's kernel and in
+    the port alike, each on its own pairs: JAX's arithmetic, kept."""
+    from dal3d_tpu_torch.ops.rotated_iou_fast import rotated_iou_matrix_fast
+
+    b = _long_duplicates(*lengths)
+    rows_j = _pack_rowdat(jnp.asarray(b[None]))
+    ref = np.asarray(_iou_pallas(rows_j, jnp.swapaxes(rows_j, 1, 2), interpret=True))[0]
+    got = tiou.iou_matrix_plain(*(tiou._pack_rowdat(t(b[None])),) * 2)[0].numpy()
+    exact = rotated_iou_matrix_fast(t(b).double(), t(b).double()).numpy()
+    i = np.arange(len(b) // 2)
+    np.testing.assert_allclose(exact[i, i + len(i)], 1.0, atol=1e-9)
+    for m in (ref, got):
+        assert m.min() >= 0.0 and m.max() <= 1.0 + 1e-4
+        if lengths[1] <= 1000.0:
+            np.testing.assert_allclose(m, exact, atol=5e-4)
+        else:
+            assert np.abs(m[i, i + len(i)] - 1.0).max() > 0.5
+    if lengths[1] <= 1000.0:
+        np.testing.assert_allclose(got, ref, atol=5e-4)
+
+
+def test_self_iou_of_km_long_predict_candidates():
+    """The 44 boxes of 1.0-7.2 km among the head's candidates of one
+    full-width predict with untrained weights
+    (``tests/fixtures/predict_candidates.npz``, set 0), each against
+    itself (exactly 1): the f32 routes each lose a few, on boxes of their
+    own. JAX's kernel 3 under 0.99 (down to 0.579), JAX's Green's matrix 2
+    (0.333), the port's K2 arithmetic 1 (0.333); the port's Green's matrix,
+    its corners rounded from f64, keeps every one at 0.9985 or more."""
+    import os
+
+    from dal3d_tpu_torch.ops.rotated_iou_fast import (rotated_iou_matrix_fast,
+                                                      rotated_iou_matrix_greens as t_greens)
+
+    b = np.load(os.path.join(os.path.dirname(__file__), "fixtures",
+                             "predict_candidates.npz"))["bev"][0]
+    b = b[np.abs(b[:, 2:4]).max(1) >= 1000.0]
+    assert len(b) == 44
+    pad = np.zeros((128, 5), np.float32)
+    pad[:len(b)] = b
+    rows_j = _pack_rowdat(jnp.asarray(pad[None]))
+    diag = {
+        "exact": rotated_iou_matrix_fast(t(b).double(), t(b).double()).numpy(),
+        "jax_kernel": np.asarray(_iou_pallas(rows_j, jnp.swapaxes(rows_j, 1, 2),
+                                             interpret=True))[0][:len(b), :len(b)],
+        "jax_greens": np.asarray(rotated_iou_matrix_greens(jnp.asarray(b), jnp.asarray(b))),
+        "k2": tiou.iou_matrix_plain(*(tiou._pack_rowdat(t(b[None])),) * 2)[0].numpy(),
+        "port_greens": t_greens(t(b), t(b)).numpy(),
+    }
+    diag = {k: np.diagonal(m) for k, m in diag.items()}
+    np.testing.assert_allclose(diag["exact"], 1.0, atol=1e-9)
+    lost = {k: int((d < 0.99).sum()) for k, d in diag.items()}
+    assert lost == dict(exact=0, jax_kernel=3, jax_greens=2, k2=1, port_greens=0), lost
+    assert diag["port_greens"].min() >= 0.9985
+    for k, low in (("jax_kernel", 0.58), ("jax_greens", 0.34), ("k2", 0.34)):
+        assert diag[k].min() < low, (k, diag[k].min())
+    # each route loses boxes of its own
+    assert not np.array_equal(diag["k2"] < 0.99, diag["jax_kernel"] < 0.99)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_greedy_nms_keep_masks_equal(seed):
     rng = np.random.RandomState(seed)

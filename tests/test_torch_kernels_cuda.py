@@ -751,11 +751,16 @@ def _iou_boxes(kind, rng, G=3, N=400):
     elif kind == "zero_padded":  # the NMS pads its candidate slots with zeros
         b[..., :2] = rng.uniform(-50, 50, (G, N, 2))
         b[:, N // 2:] = 0.0
+    elif kind == "long_duplicates":  # thin boxes 20 m to 8 km long, each twice
+        b[..., :2] = rng.uniform(-80, 80, (G, N, 2))
+        b[..., 2] = rng.uniform(0.1, 3.0, (G, N))
+        b[..., 3] = np.exp(rng.uniform(np.log(20.0), np.log(8000.0), (G, N)))
+        b[:, N // 2:2 * (N // 2)] = b[:, :N // 2]
     return b
 
 
 @pytest.mark.parametrize("kind", ["spread", "clustered", "all_culled", "all_surviving",
-                                  "zero_padded"])
+                                  "zero_padded", "long_duplicates"])
 def test_iou_kernel_cull_is_exact(cuda, kind):  # noqa: F811
     """Bit-equal to the plain version (max error 0), on rows is cols as the
     NMS calls it (the mirrored route), on a copy of the rows and on two
@@ -1561,3 +1566,132 @@ def test_point_pillars_on_card_matches_cpu(cuda):  # noqa: F811
     for t_gpu, t_cpu in zip(out["cuda"][0]["preds"], out["cpu"][0]["preds"]):
         for k in ("box_preds", "cls_preds"):
             assert gap(t_gpu[k], t_cpu[k]) <= 1e-4
+
+
+def _gram_held(q, p, k):
+    """Rows of a knn [M, k] whose k-th and (k+1)-th squared distances lie
+    further apart than the Gram form's rounding bound (4 ulps of |q|^2 +
+    |p|^2), and rows where every gap among the first k+1 does."""
+    qd, pd = q.double(), p.double()
+    d2 = ((qd[:, None] - pd[None]) ** 2).sum(-1)
+    ds, order = d2.sort(dim=1, stable=True)
+    bound = 4 * 2.0 ** -23 * ((qd * qd).sum(1)[:, None] + (pd * pd).sum(1)[order])
+    gaps = ds[:, 1:k + 1] - ds[:, :k] > torch.maximum(bound[:, 1:k + 1], bound[:, :k])
+    return gaps[:, k - 1], gaps.all(1)
+
+
+@pytest.mark.parametrize("M", [5, 300])
+def test_pointnet_ops_on_card_match_cpu(cuda, M):  # noqa: F811
+    """K7 at C = 3 (the row kernel at 5 queries, the 3xTF32 matrix kernel at
+    300) against its plain version; knn, three_nn and ball_query on the card
+    against the CPU on lidar-scale points (held rows: no near-tie within
+    the Gram bound); FPS equal; one K7 launch a call."""
+    from dal3d_tpu_torch.ops import pointnet as pn
+
+    rng = np.random.RandomState(M)
+    p = torch.from_numpy(rng.uniform(-40, 40, (4000, 3)).astype(np.float32))
+    q = p[rng.choice(4000, M, replace=False)] + torch.from_numpy(
+        rng.normal(0, 0.5, (M, 3)).astype(np.float32))
+    pc, qc = p.to(cuda), q.to(cuda)
+    got = tdist.pairwise_l2(qc, pc, squared=True).cpu()
+    ref = tdist.pairwise_l2_plain(q, p, squared=True)
+    scale = (q * q).sum(1)[:, None] + (p * p).sum(1)[None, :]
+    assert float(((got - ref).abs() / scale).max()) <= 2e-6
+    n = tdist.pairwise_l2.launches
+    ki = pn.knn(qc, pc, 8)[1].cpu()
+    assert tdist.pairwise_l2.launches == n + 1
+    set_rows, order_rows = _gram_held(q, p, 8)
+    want = pn.knn(q, p, 8)[1]
+    assert (ki.sort(1)[0] == want.sort(1)[0]).all(1)[set_rows].all()
+    assert (ki == want).all(1)[order_rows].all() and int(order_rows.sum()) > M // 2
+    ni = pn.three_nn(qc, pc)[1].cpu()
+    assert (ni == pn.three_nn(q, p)[1]).all(1)[_gram_held(q, p, 3)[1]].all()
+    bi, bh = pn.ball_query(qc, pc, 3.0, 16)
+    wi, wh = pn.ball_query(q, p, 3.0, 16)
+    d2 = ((q.double()[:, None] - p.double()[None]) ** 2).sum(-1)
+    bound = 4 * 2.0 ** -23 * ((q.double() ** 2).sum(1)[:, None] + (p.double() ** 2).sum(1))
+    held = ~((d2 - 9.0).abs() <= bound).any(1)
+    assert ((bi.cpu() == wi).all(1) & (bh.cpu() == wh))[held].all() and bool(wh.any())
+    assert torch.equal(pn.furthest_point_sample(pc, 256).cpu(), pn.furthest_point_sample(p, 256))
+
+
+def test_rotate_nms_on_card_matches_plain(cuda, monkeypatch):  # noqa: F811
+    """``rotate_nms`` through K2 on the card keeps the indices of its plain
+    twin (on the card and on the CPU); the Green's matrix on the card within
+    1e-5 of the same function on the CPU; one K2 launch a call."""
+    from dal3d_tpu_torch.ops.nms import rotate_nms
+    from dal3d_tpu_torch.ops.rotated_iou_fast import rotated_iou_matrix_greens
+
+    rng = np.random.RandomState(4)
+    n = 600
+    b = np.zeros((n, 5), np.float32)
+    b[:, :2] = rng.uniform(-30, 30, (40, 2))[rng.randint(0, 40, n)] + rng.normal(0, 0.8, (n, 2))
+    b[:, 2:4] = rng.uniform(0.5, 5.0, (n, 2))
+    b[:, 4] = rng.uniform(-np.pi, np.pi, n)
+    b[100:110] = b[:10]  # duplicates
+    s = rng.uniform(0, 1, n).astype(np.float32)
+    v = rng.uniform(0, 1, n) > 0.1
+    bc, sc, vc = (torch.from_numpy(x).to(cuda) for x in (b, s, v))
+
+    k0 = tiou.iou_matrix.launches
+    ki, kk = rotate_nms(bc, sc, vc, pre_max_size=500)
+    assert tiou.iou_matrix.launches == k0 + 1
+    got = [rotate_nms(*(torch.from_numpy(x) for x in (b, s, v)), pre_max_size=500)]
+    with monkeypatch.context() as m:
+        m.setattr(tiou, "iou_matrix", tiou.iou_matrix_plain)  # the twin on the card
+        got.append(rotate_nms(bc, sc, vc, pre_max_size=500))
+    for gi, gk in got:
+        assert torch.equal(gi.cpu(), ki.cpu()) and torch.equal(gk.cpu(), kk.cpu())
+    assert int(kk.sum()) > 0
+    card = rotated_iou_matrix_greens(bc, bc).cpu()
+    cpu = rotated_iou_matrix_greens(torch.from_numpy(b), torch.from_numpy(b))
+    assert float((card - cpu).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["resnet", "senet", "ssdvgg"])
+@pytest.mark.parametrize("train", [False, True])
+def test_image_backbone_on_card_matches_cpu(cuda, name, train):  # noqa: F811
+    """The image backbones at narrow widths on the card against the CPU on
+    the same seeded weights, eval and train mode (and the updated running
+    statistics): within 1e-4 of scale, TF32 off."""
+    import copy
+
+    from dal3d_tpu_torch.models.backbones.image import SENet, SSDVGG, ResNet
+    from dal3d_tpu_torch.models.builder import init_random_
+    from dal3d_tpu_torch.runtime.steps import autotuned_convs
+
+    cls, kw = {"resnet": (ResNet, dict(stage_blocks=(2, 1, 1, 1), channels=(16, 24, 32, 32))),
+               "senet": (SENet, dict(stage_blocks=(1, 2, 1, 1), channels=(32, 32, 48, 64))),
+               "ssdvgg": (SSDVGG, dict(depths=(1, 1, 2, 2, 1),
+                                       channels=(8, 8, 16, 16, 16)))}[name]
+    model = init_random_(cls(**kw), torch.Generator().manual_seed(7)).train(train)
+    x = torch.from_numpy(np.random.RandomState(8).normal(0, 1, (2, 3, 72, 88)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev)
+        with torch.no_grad(), autotuned_convs():
+            out[dev] = ([y.cpu() for y in m(x.to(dev))],
+                        {k: v.cpu() for k, v in m.state_dict().items()})
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        assert a.shape == b.shape and float((a - b).abs().max() / b.abs().max()) <= 1e-4
+    for k, v in out["cpu"][1].items():
+        assert float((out["cuda"][1][k] - v).abs().max()) <= 1e-4 * max(1.0, float(v.abs().max()))
+
+
+def test_align_aggregation_on_card_matches_cpu(cuda):  # noqa: F811
+    """``AlignFeatureAggregation`` (64 channels, neighbor 9) and its two ops
+    on the card against the CPU: within 1e-4 of scale (TF32 off)."""
+    from dal3d_tpu_torch.models.builder import init_random_
+    from dal3d_tpu_torch.ops import align_aggregation as ta
+
+    rng = np.random.RandomState(9)
+    fs, fc = (torch.from_numpy(rng.normal(0, 1, (2, 64, 40, 36)).astype(np.float32))
+              for _ in range(2))
+    m = init_random_(ta.AlignFeatureAggregation(64, 9), torch.Generator().manual_seed(9)).eval()
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        cpu = m(fs, fc)
+        card = m.to(cuda)(fs.to(cuda), fc.to(cuda)).cpu()
+        corr = ta.local_correlation(fs.to(cuda), fc.to(cuda), 9).cpu()
+    assert float((card - cpu).abs().max() / cpu.abs().max()) <= 1e-4
+    want = ta.local_correlation(fs, fc, 9)
+    assert float((corr - want).abs().max() / want.abs().max()) <= 1e-5

@@ -310,6 +310,46 @@ def test_predict_breaks_score_ties_as_jax(heads):
                                np.asarray(ref["box3d_lidar"])[valid], rtol=1e-5, atol=1e-5)
 
 
+def test_predict_equals_jax_on_the_approximate_top_k(heads):
+    """``use_approx_topk=True`` with more anchors than 4 x nms_pre_max_size,
+    so that JAX takes ``jax.lax.approx_max_k``: on the CPU XLA lowers it to
+    the exact top k, and the port's ``multi_group_predict`` (the exact
+    stable top k under either flag) gives JAX's detections slot for slot,
+    on the random head maps and on maps whose scores tie at the cut."""
+    import dataclasses
+
+    from dal3d_tpu.models.heads.mg_head import multi_group_predict as jax_predict
+    from dal3d_tpu_torch.models.heads.mg_head import multi_group_predict
+
+    h, jb, tb = heads, heads["jb"], heads["tb"]
+    rng = np.random.RandomState(23)
+    cases = {"random": [{k: p[k] for k in ("box_preds", "cls_preds")} for p in h["preds"]],
+             "ties": [{"box_preds": p["box_preds"],
+                       "cls_preds": np.where(rng.rand(*p["cls_preds"].shape) < 0.5, 40.0,
+                                             -120.0).astype(np.float32)} for p in h["preds"]]}
+    cut = dict(score_threshold=0.0, nms_pre_max_size=24, nms_post_max_size=10)
+    jcfg = dataclasses.replace(jb.test_cfg, use_approx_topk=True, **cut)
+    assert all(ta.anchors.shape[0] > 4 * cut["nms_pre_max_size"] for ta in tb.task_anchors)
+    refs = jax.device_get(jax.jit(lambda c: {k: jax_predict(v, jb.task_anchors, jb.box_coder,
+                                                            jcfg) for k, v in c.items()})(
+        {k: [{n: jnp.asarray(x) for n, x in p.items()} for p in v] for k, v in cases.items()}))
+    tcfg = dataclasses.replace(tb.test_cfg, **cut)  # the port's head: no flag, the exact top k
+    for name, preds in cases.items():
+        ref = refs[name]
+        got = multi_group_predict([{k: t(v) for k, v in p.items()} for p in preds],
+                                  tb.task_anchors, tb.box_coder, tcfg)
+        valid = np.asarray(ref["det_valid"])
+        assert valid.sum() > 10, name
+        np.testing.assert_array_equal(got["det_valid"].numpy(), valid, err_msg=name)
+        np.testing.assert_array_equal(got["label_preds"].numpy()[valid],
+                                      np.asarray(ref["label_preds"])[valid], err_msg=name)
+        np.testing.assert_allclose(got["scores"].numpy()[valid], np.asarray(ref["scores"])[valid],
+                                   rtol=1e-6, atol=0, err_msg=name)
+        np.testing.assert_allclose(got["box3d_lidar"].numpy()[valid],
+                                   np.asarray(ref["box3d_lidar"])[valid], rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize("kind", ["iou", "loss"])
 @pytest.mark.parametrize("train", [False, True])
 def test_iou_and_loss_heads_match_jax(kind, train):

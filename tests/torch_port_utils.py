@@ -8,6 +8,13 @@ import numpy as np
 import pytest
 import torch
 
+# The lane runs several pytest workers side by side, and every worker imports
+# this module when it collects the files. PyTorch's default of one intra-op
+# thread a core makes the workers' OpenMP threads spin against each other:
+# six copies of tests/test_torch_iou_cull.py side by side on 8 cores took
+# 482 s with 8 threads each, 17 s with 2.
+torch.set_num_threads(2)
+
 
 @pytest.fixture
 def cuda():
